@@ -19,15 +19,28 @@ Phases, each printing one JSON line:
    chain computing the same function, and the least time the card could
    take (``bound_ms``);
 5. ``e2e`` (zh, then en): 1024 self-retrieval queries (sampled as bench.py
-   samples them), batch 64, top 10, through ``FusedQueryEngine``:
-   queries/s, Recall@10, both kernels' launch counts on that run (reset
-   just before it), a reference check of 8 queries against the port's plain
-   CPU path on the same index, and one ``search_hits`` call.
+   samples them), batch 64, top 10, through ``FusedQueryEngine`` (map
+   mode): queries/s, Recall@10, the kernels' launch counts on that run
+   (reset just before it), a reference check of 8 queries against the
+   port's plain CPU path on the same index, and one ``search_hits`` call;
+6. ``large``: the large-corpus mode at the JAX repo's 1M-doc scale point
+   (``legalrag_tpu_torch.scale``: N 1,048,576, V 65,536, d 768 bf16,
+   64 x 128 int8 doc tokens, B 64, 32 term slots, 16 query tokens): the
+   index synthesized on the card (timed); the CSR BM25 kernel against its
+   plain version on the same card tensors, with timings as in 4; back-to-back
+   batches through ``fused_hybrid_topk`` with the CSR triple (ms per batch,
+   queries/s, profiler breakdown, launch counts); one batch with the bf16
+   dense map against the float32 map; the 1M-doc index copied to the CPU,
+   whose plain path must give the first batch's top-10 for 8 queries (the
+   two-pass dense selection); and the same check on a 65,536-doc index
+   synthesized on the card (the one-pass selection).
 
-Then the ``{"kernels": [...]}`` summary line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. Any failed check raises: the script then
-exits non-zero and prints no result. Without a CUDA device it exits 2 at
-once. It imports nothing of jax and nothing of the JAX package.
+Each path checks its own kernels: every kernel of the path launched once
+per batch, every other kernel not at all. Then the ``{"kernels": [...]}``
+summary line, the nvidia-smi line, and last ``{"ok": true, "device":
+{...}}``. Any failed check raises: the script then exits non-zero and prints
+no result. Without a CUDA device it exits 2 at once. It imports nothing of
+jax and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -43,14 +56,25 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from legalrag_tpu_torch import kernels
+from legalrag_tpu_torch import kernels, scale
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.convert import bundle_from_arrays
 from legalrag_tpu_torch.corpus import parse_auto
 from legalrag_tpu_torch.index.bundle import IndexBundle
 from legalrag_tpu_torch.models.hash_encoder import project_norm
+from legalrag_tpu_torch.ops.bm25_sparse import (
+    bm25_sparse_map,
+    bm25_sparse_scores,
+    bm25_sparse_scores_plain,
+)
 from legalrag_tpu_torch.ops.maxsim import maxsim_full, maxsim_full_plain
-from legalrag_tpu_torch.ops.topk import dense_topk, dense_topk_fused_plain
+from legalrag_tpu_torch.ops.topk import (
+    NEG_INF,
+    TWO_PASS_MIN_N,
+    dense_topk,
+    dense_topk_fused_plain,
+    stable_topk,
+)
 from legalrag_tpu_torch.retrieval.engine import FusedQueryEngine
 from legalrag_tpu_torch.tokenize import tokenizers
 
@@ -60,6 +84,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 F32_FLOP_PER_S = 67e12      # float32 outside the tensor cores
 TIE = 1e-6                  # scores closer than this may swap order
+# the JAX repo's 1M-doc scale point (scripts/bench_scale.py --n-docs 1048576)
+LARGE = dict(n_docs=1 << 20, vocab=65536, dim=768, doc_len=64, token_dim=128)
+LARGE_BATCHES = 8           # back-to-back query batches of 64
+REF_DOCS = 65536            # the CPU reference's index
+# the kernels each path must launch once per batch (and no other)
+PATH_KERNELS = {"map": ("score_select", "maxsim"), "large": ("bm25_sparse",)}
 
 
 def emit(obj) -> None:
@@ -325,9 +355,18 @@ def cpu_reference(bundle, queries, got_s, got_r):
     return ties_only(ws, wr, got_s, got_r, 1e-5)
 
 
-def profile_execute(engine, prepared):
-    """torch.profiler over the execute of every prepared batch: device time
-    by kernel, the card's busy time and its idle share of the window."""
+def check_launches(path: str, launches, batches: int) -> None:
+    """The path's kernels launched once per batch, the others not at all."""
+    for name in kernels.KERNELS:
+        want = batches if name in PATH_KERNELS[path] else 0
+        check(launches[name] == want,
+              f"{path}: {name} launched {launches[name]} times for "
+              f"{batches} batches (want {want})")
+
+
+def profile_device(run, batches: int):
+    """torch.profiler over ``run()`` (the execute of every batch): device
+    time by kernel, the card's busy time and its idle share of the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -335,8 +374,7 @@ def profile_execute(engine, prepared):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for p in prepared:
-            engine.execute(p)
+        run()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
 
@@ -348,7 +386,7 @@ def profile_execute(engine, prepared):
                         and e.self_device_time_total > 0),
                        key=lambda t: -t[1])
     busy_ms = sum(t[1] for t in by_kernel)
-    return {"batches": len(prepared), "window_ms": window_ms,
+    return {"batches": batches, "window_ms": window_ms,
             "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / window_ms if busy_ms else None,
             "top": [[k[:70], ms, n] for k, ms, n in by_kernel[:8]]}
@@ -369,10 +407,7 @@ def phase_e2e(lang, bundle):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = kernels.launch_counts()
-    for name in kernels.KERNELS:
-        check(launches[name] == len(batches),
-              f"{lang}: {name} launched {launches[name]} times for "
-              f"{len(batches)} batches")
+    check_launches("map", launches, len(batches))
 
     scores = np.concatenate([r[0] for r in results])
     rows = np.concatenate([r[1] for r in results])
@@ -394,7 +429,8 @@ def phase_e2e(lang, bundle):
         ms.append((a, b))
     torch.cuda.synchronize()
     execute_ms = statistics.median(a.elapsed_time(b) for a, b in ms)
-    profile = profile_execute(engine, prepared)
+    profile = profile_device(lambda: [engine.execute(p) for p in prepared],
+                             len(prepared))
 
     swaps = cpu_reference(bundle, batches[0][:8], scores[:8], rows[:8])
     hits = engine.search_hits(batches[0][:2], TOP_K)
@@ -417,6 +453,208 @@ def phase_e2e(lang, bundle):
                                else "char+bigram fallback")
     emit(res)
     return res
+
+
+# ------------------------------------------------------- large-corpus mode
+
+def check_bm25_kernel(index, q, params):
+    """Kernel 4 (CSR BM25) against its plain version on the same card
+    tensors, at the scale point's shapes, with timings and the bound."""
+    ids, counts = q.term_ids, q.term_counts
+    offsets, post_docs, post_w = index.postings
+    n, (b, n_slots) = index.n, ids.shape
+    per_term = params.max_postings // n_slots
+    args = (ids, counts, offsets, post_docs, post_w, n, per_term)
+    k_s, k_t = bm25_sparse_map(*args)
+    p_s, p_t = bm25_sparse_scores_plain(*args)
+    check(torch.equal(k_t, p_t), "bm25_sparse: touched masks differ")
+    err = (k_s - p_s).abs().max().item()
+    # float32 sums in atomic order against the slot-by-slot order
+    check(torch.allclose(k_s, p_s, rtol=1e-5, atol=1e-5),
+          f"bm25_sparse scores differ by {err}")
+    eff_k = params.eff_k
+    ws, wi = stable_topk(torch.where(p_t.bool(), p_s, NEG_INF), eff_k)
+    gs, gi = stable_topk(torch.where(k_t.bool(), k_s, NEG_INF), eff_k)
+    swaps = ties_only(ws.cpu().numpy(), wi.cpu().numpy(), gs.cpu().numpy(),
+                      gi.cpu().numpy(), 1e-5)
+    # no cap: the Pallas kernel's function (bm25_sparse_scores)
+    full = bm25_sparse_scores(ids, counts, offsets, post_docs, post_w, n)
+    full_plain = bm25_sparse_scores_plain(ids, counts, offsets, post_docs,
+                                          post_w, n)[0]
+    check(torch.allclose(full, full_plain, rtol=1e-5, atol=1e-5),
+          "bm25_sparse uncapped scores differ")
+
+    # library: one sparse product, the transposed [N, V] CSR impact built
+    # once (outside the timing) times the dense [V, B] query counts
+    v = offsets.shape[0] - 1
+    nnz = int(offsets[-1])
+    sizes = (offsets[1:] - offsets[:-1]).long()
+    term = torch.repeat_interleave(torch.arange(v, device=post_w.device),
+                                   sizes)
+    impact_t = torch.sparse_coo_tensor(
+        torch.stack([post_docs[:nnz].long(), term]), post_w[:nnz],
+        (n, v)).coalesce().to_sparse_csr()
+    qtf_t = torch.zeros((v, b), dtype=torch.float32, device=post_w.device)
+    qtf_t.index_put_((ids.long().T.reshape(-1),
+                      torch.arange(b, device=ids.device).repeat(n_slots)),
+                     counts.float().T.reshape(-1), accumulate=True)
+    lib = torch.sparse.mm(impact_t, qtf_t)
+    lib_err = (lib.T - full).abs().max().item()
+    check(torch.allclose(lib.T, full, rtol=1e-4, atol=1e-4),
+          f"torch.sparse.mm disagrees with the kernel by {lib_err}")
+
+    # bound: both outputs written once, each counted slot's ids, count and
+    # two offsets read once, its capped postings (doc id + weight) once
+    live = counts > 0
+    span = (offsets[ids.long() + 1] - offsets[ids.long()]).long()
+    gathered = int(torch.where(live, span.clamp(max=per_term), 0).sum())
+    n_bytes = b * n * 5 + ids.numel() * 8 + int(live.sum()) * 8 + gathered * 8
+    bms, by = bound(n_bytes, 2 * gathered, F32_FLOP_PER_S)
+    return {
+        "name": "bm25_sparse", "route": "cuda",
+        "source": "legalrag_tpu_torch/csrc/bm25_sparse.cu",
+        "replaces": "legalrag_tpu/ops/bm25_sparse.py:120",
+        "shapes": {"B": b, "L": n_slots, "n_docs_pad": n, "V": v,
+                   "nnz": nnz, "per_term": per_term,
+                   "gathered_postings": gathered},
+        "max_abs_err": err, "tolerance": 1e-5, "touched_equal": True,
+        "top_list_tie_swaps": swaps, "library_max_abs_err": lib_err,
+        "ms": cuda_ms(lambda: bm25_sparse_map(*args)),
+        "plain_ms": cuda_ms(lambda: bm25_sparse_scores_plain(*args)),
+        "library_ms": cuda_ms(lambda: torch.sparse.mm(impact_t, qtf_t)),
+        "library": "torch.sparse.mm (CSR [N, V] x dense [V, B])",
+        "bound_ms": bms, "bound_by": by}
+
+
+def check_large_out(out, n: int, b: int) -> None:
+    rows, packed = out["rows"], out["packed"]
+    check(tuple(rows.shape) == (b, TOP_K), f"large rows {tuple(rows.shape)}")
+    check(tuple(packed.shape) == (b, TOP_K, 6), "large packed shape")
+    check(bool(torch.isfinite(packed).all()), "large: non-finite packed")
+    check(bool(((rows >= 0) & (rows < n)).all()), "large: row out of range")
+    check(bool((packed[..., 0].diff(dim=1) <= 1e-6).all()),
+          "large: fused scores not descending")
+
+
+def cpu_reference_large(idx, q, got, params, queries: int = 8):
+    """The card's index copied to the CPU, where the plain versions must
+    give the card's top-10 (``got``) for the first queries of ``q``, except
+    near-ties. From ``TWO_PASS_MIN_N`` docs on, both sides select the dense
+    list by the block-max two-pass route."""
+    cpu_idx = scale.ScaleIndex(idx.emb.cpu(),
+                               tuple(t.cpu() for t in idx.postings),
+                               idx.doc_tok.cpu(), idx.doc_mask.cpu(), idx.n)
+    cpu_q = scale.ScaleQueries(*(getattr(q, f)[:queries].cpu() for f in (
+        "qvec", "term_ids", "term_counts", "q_tok", "q_mask")))
+    want = scale.run_hybrid(cpu_idx, cpu_q, params)
+    got_s = got["packed"][:queries, :, 0].cpu().numpy()
+    want_s = want["packed"][:, :, 0].numpy()
+    check(np.allclose(got_s, want_s, atol=1e-4),
+          f"large fused scores vs CPU reference at {idx.n} docs")
+    swaps = ties_only(want_s, want["rows"].numpy(), got_s,
+                      got["rows"][:queries].cpu().numpy(), 1e-5)
+    return {"n_docs": idx.n, "queries": queries,
+            "two_pass": idx.n >= TWO_PASS_MIN_N, "tie_swaps": swaps,
+            "max_abs_err": float(np.abs(got_s - want_s).max())}
+
+
+def small_cpu_reference(params):
+    """The same check on a REF_DOCS-doc index synthesized on the card,
+    below ``TWO_PASS_MIN_N``: the one-pass dense selection."""
+    idx = scale.synthesize_index(**dict(LARGE, n_docs=REF_DOCS),
+                                 device="cuda")
+    q = scale.synthesize_queries(idx, LARGE["vocab"], BATCH, seed=99)
+    got = scale.run_hybrid(idx, q, params)
+    check_large_out(got, idx.n, BATCH)
+    return cpu_reference_large(idx, q, got, params)
+
+
+def phase_large():
+    """The large-corpus mode at the 1M-doc scale point (module docstring)."""
+    t0 = time.perf_counter()
+    index = scale.synthesize_index(**LARGE, device="cuda")
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    emit({"phase": "large_index", "seconds": synth_s, **LARGE,
+          "bytes": index.nbytes, "nnz": int(index.postings[0][-1]),
+          "device_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    batches = [scale.synthesize_queries(index, LARGE["vocab"], BATCH,
+                                        seed=1 + i)
+               for i in range(LARGE_BATCHES)]
+    params = scale.scale_params()
+    kres = check_bm25_kernel(index, batches[0], params)
+    emit({"phase": "kernels", **kres})
+
+    def run_all():
+        return [scale.run_hybrid(index, q, params) for q in batches]
+
+    scale.run_hybrid(index, batches[0], params)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = run_all()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check_launches("large", launches, len(batches))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for out in outs:
+        check_large_out(out, index.n, BATCH)
+
+    ms = []
+    for q in batches:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        scale.run_hybrid(index, q, params)
+        b.record()
+        ms.append((a, b))
+    torch.cuda.synchronize()
+    batch_ms = statistics.median(a.elapsed_time(b) for a, b in ms)
+    profile = profile_device(run_all, len(batches))
+
+    # the bf16 dense map against the float32 map, one batch
+    b16 = scale.run_hybrid(index, batches[0],
+                           scale.scale_params(dense_map_bf16=True))
+    check_large_out(b16, index.n, BATCH)
+    rf, rb = outs[0]["rows"].cpu().numpy(), b16["rows"].cpu().numpy()
+    pf, pb = outs[0]["packed"].cpu().numpy(), b16["packed"].cpu().numpy()
+    overlap = [len(set(rf[r].tolist()) & set(rb[r].tolist())) / TOP_K
+               for r in range(BATCH)]
+    dense_diff = 0.0
+    for r in range(BATCH):
+        for doc in set(rf[r].tolist()) & set(rb[r].tolist()):
+            i, j = list(rf[r]).index(doc), list(rb[r]).index(doc)
+            dense_diff = max(dense_diff, abs(pf[r, i, 1] - pb[r, j, 1]))
+    check(dense_diff <= 1e-5, f"bf16 map: rescored dense differs by "
+                              f"{dense_diff}")
+    # the JAX test's bar (>= 9/10 shared, same top-1), per query: every
+    # query keeps its top-1, at most 4 of 64 fall below 9/10
+    near = sum(o >= 0.9 for o in overlap)
+    same_top1 = int((rf[:, 0] == rb[:, 0]).sum())
+    check(near >= BATCH - 4 and same_top1 == BATCH,
+          f"bf16 map: {near} of {BATCH} queries share >= 9/10, "
+          f"{same_top1} the top-1")
+    # the main path's first batch, on the CPU: the two-pass route
+    ref_1m = cpu_reference_large(index, batches[0], outs[0], params)
+    del outs, b16
+    ref = small_cpu_reference(params)
+    res = {"phase": "large", "n_docs": index.n, "batch": BATCH,
+           "batches": len(batches), "top_k": TOP_K,
+           "ms_per_batch": batch_ms, "qps": BATCH * len(batches) / seconds,
+           "seconds": seconds, "peak_device_gb": peak_gb,
+           "launches": launches, "profile": profile,
+           "bf16_map": {"mean_top10_overlap": statistics.mean(overlap),
+                        "min_top10_overlap": min(overlap),
+                        "queries_9_of_10": near, "same_top1": same_top1,
+                        "queries": BATCH,
+                        "dense_component_max_diff": float(dense_diff)},
+           "cpu_reference": ref, "cpu_reference_1m": ref_1m}
+    emit(res)
+    del index
+    torch.cuda.empty_cache()
+    return kres, res
 
 
 def main() -> int:
@@ -455,13 +693,17 @@ def main() -> int:
     kres = phase_kernels(bundles["zh"], zh_queries)
 
     e2e = {lang: phase_e2e(lang, bundles[lang]) for lang in ("zh", "en")}
+    del bundles
+    kres["bm25_sparse"], large = phase_large()
+    runs = {"map": list(e2e.values()), "large": [large]}
     summary = []
     for name, k in kres.items():
+        path = next(p for p, names in PATH_KERNELS.items() if name in names)
         summary.append({
             key: k[key] for key in ("name", "route", "source", "replaces",
                                     "max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}
-            | {"launches": sum(e["launches"][name] for e in e2e.values())})
+            | {"launches": sum(e["launches"][name] for e in runs[path])})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -38,14 +38,15 @@ class PathsConfig:
 @dataclass
 class EngineConfig:
     # storage dtype of the dense / token embedding matrices on the device
-    # ("bfloat16" | "float32"; the int8 and nbit4 stores are not ported yet)
+    # ("bfloat16" | "float32"; the int8 dense store is not ported yet)
     dtype: str = "bfloat16"
     # index capacity is rounded up to a multiple of this
     capacity_round: int = 1024
     # late interaction
     late_doc_maxlen: int = 220
     late_dim: int = 128
-    # token-store storage: "" = engine dtype
+    # token-store storage: "" = engine dtype, or "int8" (the nbit4 store is
+    # not ported yet)
     token_dtype: str = ""
     # query tokens kept per query (BM25 term ids and late-interaction tokens)
     max_query_tokens: int = 64

@@ -35,7 +35,7 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "legalrag_tpu_torch"
-SOURCES = ("score_select.cu", "maxsim.cu")
+SOURCES = ("score_select.cu", "maxsim.cu", "bm25_sparse.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,9 +45,10 @@ _SIGNATURES = {
     "score_select": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "score_select_tile": [],
     "maxsim": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "bm25_sparse": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P],
 }
 # kernels counted by launch(): name -> the C entry that launches it
-KERNELS = ("score_select", "maxsim")
+KERNELS = ("score_select", "maxsim", "bm25_sparse")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

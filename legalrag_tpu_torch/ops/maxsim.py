@@ -1,4 +1,4 @@
-"""Late-interaction MaxSim (port of ``legalrag_tpu/ops/maxsim.py:69-132``).
+"""Late-interaction MaxSim (port of ``legalrag_tpu/ops/maxsim.py:25-132``).
 
     score(q, d) = sum over valid query tokens i of max over valid doc tokens j of q_i . d_j
 
@@ -8,7 +8,13 @@ negative, as in the JAX ``maxsim_full`` and its Pallas kernels.
 ``maxsim_full`` is the full-corpus [B, N] map of the late channel. On a CUDA
 tensor it launches the hand-written kernel ``csrc/maxsim.cu`` (which
 replaces the Pallas ``maxsim_scores_pallas`` / ``maxsim_scores_pallas2``);
-on a CPU tensor it runs the plain version ``maxsim_full_plain``.
+on a CPU tensor it runs the plain version ``maxsim_full_plain``. Neither
+takes an int8 store yet (the kernel has no in-kernel dequant).
+
+``maxsim_candidates`` scores per-query candidate lists [B, C] (the
+large-corpus mode's late channel): a batched gather and einsum, as XLA
+computes it in JAX. It takes bf16, f32 and int8 stores (int8 holds
+``round(v * 127)`` of unit vectors and is widened as ``x * (1 / 127)``).
 """
 
 from __future__ import annotations
@@ -17,18 +23,37 @@ import torch
 
 from legalrag_tpu_torch import kernels
 
+INT8_SCALE = 127.0
+
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_DT = (32, 64, 128)
 _SMEM_LIMIT = 232448 - 2048  # per-block opt-in limit less the static arrays
 
 
 def _dequant(x: torch.Tensor) -> torch.Tensor:
-    """Token tile -> float32 for the product. bf16 and f32 stores only; the
-    int8 and nbit4 stores of the JAX package are not ported yet."""
+    """Token tile -> float32 for the product: bf16 and f32 widen exactly,
+    int8 rescales by 1/127. The nbit4 store is not ported yet."""
+    if x.dtype == torch.int8:
+        return x.float() * (1.0 / INT8_SCALE)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"token store dtype {x.dtype} is not "
-                                  "ported (bf16/f32 only)")
+                                  "ported (bf16/f32/int8 only)")
     return x.float()
+
+
+def maxsim_candidates(doc_tok: torch.Tensor, doc_mask: torch.Tensor,
+                      q_tok: torch.Tensor, q_mask: torch.Tensor,
+                      cand: torch.Tensor) -> torch.Tensor:
+    """MaxSim of per-query candidate lists: doc_tok [N, L, dt], doc_mask
+    [N, L] bool, q_tok [B, Lq, dt], q_mask [B, Lq] bool, cand [B, C] row
+    ids -> [B, C] float32."""
+    docs = _dequant(doc_tok[cand])                     # [B, C, L, dt]
+    sim = torch.einsum("bqd,bcld->bcql", _dequant(q_tok), docs)
+    sim = sim.masked_fill(~doc_mask[cand][:, :, None, :], float("-inf"))
+    best = sim.amax(dim=-1)                            # [B, C, Lq]
+    best = torch.where(q_mask[:, None, :], best, 0.0)
+    best = torch.where(torch.isfinite(best), best, 0.0)  # empty docs
+    return best.sum(dim=-1)
 
 
 def maxsim_full_plain(doc_tok: torch.Tensor, doc_mask: torch.Tensor,
@@ -56,7 +81,11 @@ def maxsim_full_plain(doc_tok: torch.Tensor, doc_mask: torch.Tensor,
 
 def maxsim_full(doc_tok: torch.Tensor, doc_mask: torch.Tensor,
                 q_tok: torch.Tensor, q_mask: torch.Tensor) -> torch.Tensor:
-    """Exact full-corpus MaxSim -> [B, N] float32."""
+    """Exact full-corpus MaxSim -> [B, N] float32 (bf16/f32 stores)."""
+    if doc_tok.dtype == torch.int8:
+        raise NotImplementedError("full-corpus MaxSim over an int8 token "
+                                  "store is not ported (no in-kernel "
+                                  "dequant); use late_candidates > 0")
     if doc_tok.device.type == "cpu":
         return maxsim_full_plain(doc_tok, doc_mask, q_tok, q_mask)
     return _maxsim_kernel(doc_tok, doc_mask, q_tok, q_mask)

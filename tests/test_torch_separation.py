@@ -39,8 +39,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
 def test_module_list_covers_the_slice():
     for name in ("legalrag_tpu_torch.ops.topk", "legalrag_tpu_torch.ops.maxsim",
                  "legalrag_tpu_torch.ops.fused_query",
+                 "legalrag_tpu_torch.ops.bm25_sparse",
                  "legalrag_tpu_torch.index.bundle",
-                 "legalrag_tpu_torch.kernels", "legalrag_tpu_torch.convert"):
+                 "legalrag_tpu_torch.kernels", "legalrag_tpu_torch.convert",
+                 "legalrag_tpu_torch.scale"):
         assert name in PORT_MODULES
 
 
@@ -69,6 +71,7 @@ def test_cpu_tensor_takes_plain_version_and_never_builds_kernels(monkeypatch):
     """A CPU tensor runs the plain version; the kernel library is never
     built or loaded for it."""
     from legalrag_tpu_torch import kernels
+    from legalrag_tpu_torch.ops.bm25_sparse import bm25_sparse_scores
     from legalrag_tpu_torch.ops.maxsim import maxsim_full
     from legalrag_tpu_torch.ops.topk import dense_topk
 
@@ -86,4 +89,11 @@ def test_cpu_tensor_takes_plain_version_and_never_builds_kernels(monkeypatch):
                       torch.randn(2, 4, 8, generator=g),
                       torch.ones(2, 4, dtype=torch.bool))
     assert out.shape == (2, 5)
+    offsets = torch.tensor([0, 2, 3], dtype=torch.int32)
+    bm = bm25_sparse_scores(torch.tensor([[0, 1]], dtype=torch.int32),
+                            torch.tensor([[1, 2]], dtype=torch.int32),
+                            offsets, torch.tensor([1, 3, 0, 0],
+                                                  dtype=torch.int32),
+                            torch.tensor([0.5, 0.25, 2.0, 0.0]), 4, chunk=4)
+    assert bm.tolist() == [[4.0, 0.5, 0.0, 0.25]]
     assert kernels.launch_counts() == before
