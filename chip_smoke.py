@@ -6,9 +6,12 @@ Phases, each printing one JSON line:
 
 1. ``device``: the card's name, count, and ``nvidia-smi``'s name and power limit;
 2. ``build``: compiles the hand-written kernels (``legalrag_tpu_torch/csrc``)
-   with nvcc for sm_90a, timed; then ``kernel_edge_cases`` holds each kernel
-   against its plain version on small synthetic inputs that the main path
-   does not give it (float32, ragged tiles, empty docs, ...);
+   with nvcc for sm_90a, timed, with the registers per kernel and the
+   tensor-core (HMMA) and FMA instruction counts of the score+select
+   instances' SASS; then ``kernel_edge_cases`` holds each kernel against its
+   plain version on inputs that the main path does not give it (float32,
+   ragged tiles, k above the tile and k = N, 512 tiles, bf16 rounding
+   midpoints, empty docs, ...);
 3. ``index``: builds the zh (Civil Code) and en (UCC) bundles from
    ``data/raw`` on the card, at full width (d=768, sketch 16384, token_dim
    128, doc_maxlen 220);
@@ -17,7 +20,9 @@ Phases, each printing one JSON line:
    with the tolerance stated, plus timings (CUDA events, median of 25 after
    warm-up) of the kernel, the plain version and one PyTorch library call
    chain computing the same function, and the least time the card could
-   take (``bound_ms``);
+   take (``bound_ms``); for kernel 1 also the C entry alone and the device
+   operations one ``dense_topk`` call issues (at most the ticket memset and
+   the kernel);
 5. ``e2e`` (zh, then en): 1024 self-retrieval queries (sampled as bench.py
    samples them), batch 64, top 10, through ``FusedQueryEngine`` (map
    mode): queries/s, Recall@10, the kernels' launch counts on that run
@@ -174,22 +179,78 @@ def ties_only(want_s, want_i, got_s, got_i, tol: float) -> int:
     return len(diff)
 
 
-def check_edge_cases(dev) -> dict:
-    """Both kernels against their plain versions off the main path's
-    shapes: float32 stores, N not a multiple of the tile, k above the tile,
-    valid_n < N, token_dim 64, token masks that are not a prefix, an empty
-    doc and negative similarities."""
-    g = torch.Generator().manual_seed(1)
-    emb = torch.randn(1000, 64, generator=g)
-    emb = (emb / emb.norm(dim=1, keepdim=True)).to(dev)
-    q = torch.randn(5, 64, generator=g).to(dev)
-    s, i = dense_topk(emb, q, 900, 200)
-    ps, pi = dense_topk_fused_plain(emb, q, 900, 200)
-    err1 = (s - ps).abs().max().item()
-    check(err1 <= 1e-4, f"score_select f32 edge case differs by {err1}")
+def check_dense_topk(emb, q, valid_n: int, k: int, what: str):
+    """``dense_topk`` (the kernel) against ``dense_topk_fused_plain`` on the
+    same card tensors: scores within 1e-4, rows equal but for near-ties,
+    the masked tail (rows >= valid_n, all -1e30) in exact row order."""
+    s, i = dense_topk(emb, q, valid_n, k)
+    ps, pi = dense_topk_fused_plain(emb, q, valid_n, k)
+    check(s.shape == ps.shape and i.dtype == torch.int64,
+          f"score_select {what}: {tuple(s.shape)} {i.dtype}")
+    err = (s - ps).abs().max().item()
+    check(err <= 1e-4, f"score_select {what} differs by {err}")
     swaps = ties_only(ps.cpu().numpy(), pi.cpu().numpy(), s.cpu().numpy(),
                       i.cpu().numpy(), TIE)
+    tail = ps <= NEG_INF
+    check(torch.equal(i[tail], pi[tail]),
+          f"score_select {what}: masked rows out of row order")
+    return s, i, {"max_abs_err": err, "tie_swaps": swaps}
 
+
+def unit_rows(g, n: int, d: int, dev, dtype=torch.float32):
+    x = torch.randn(n, d, generator=g)
+    return (x / x.norm(dim=1, keepdim=True)).to(dev).to(dtype)
+
+
+def check_score_select_edges(dev) -> dict:
+    """Kernel 1 off the main path's shapes: both stores on both merges
+    (k <= TILE folds the tile lists, k > TILE merges by list heads), N not
+    a multiple of the tile, valid_n < N, k = N, 512 tiles, and queries that
+    sit on bf16 rounding midpoints and signed zeros."""
+    g = torch.Generator().manual_seed(1)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        emb = unit_rows(g, 1000, 64, dev, dtype)
+        q = torch.randn(5, 64, generator=g).to(dev)
+        name = str(dtype).removeprefix("torch.")
+        for k in (64, 200, 1000):
+            out[f"{name}_n1000_k{k}"] = check_dense_topk(
+                emb, q, 900, k, f"{name} N 1000 k {k}")[2]
+
+    # 512 tiles: the fold walks 512 lists; the head merge's lanes loop
+    # over 16 tiles each
+    emb = unit_rows(g, 65536, 768, dev, torch.bfloat16)
+    q = torch.randn(64, 768, generator=g).to(dev)
+    for k in (64, 200):
+        out[f"bf16_n65536_k{k}"] = check_dense_topk(
+            emb, q, 65000, k, f"bf16 N 65536 k {k}")[2]
+
+    # rows 0..63 are unit basis rows, so their score is bf16(q[:, row])
+    # exactly; the first four query entries are midpoints between bf16
+    # values, which round to the even neighbour
+    emb = unit_rows(g, 300, 64, dev)
+    emb[:64] = torch.eye(64, device=dev)
+    emb = emb.to(torch.bfloat16)
+    q = 0.1 * torch.randn(3, 64, generator=g).to(dev)
+    q[:, :4] = torch.tensor([1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8),
+                             0.5 + 2 ** -9], device=dev)
+    want = q.to(torch.bfloat16).float()
+    for k in (10, 300):
+        s, i, res = check_dense_topk(emb, q, 300, k, f"bf16 midpoints k {k}")
+        basis = i < 64
+        check(torch.equal(s[basis], want.gather(1, i.clamp(max=63))[basis]),
+              "score_select: the query is not rounded to nearest even")
+        out[f"bf16_midpoints_k{k}"] = res
+    return out
+
+
+def check_edge_cases(dev) -> dict:
+    """Both kernels against their plain versions off the main path's
+    shapes (kernel 1: ``check_score_select_edges``); MaxSim at token_dim
+    64, token masks that are not a prefix, an empty doc and negative
+    similarities."""
+    res = {"score_select": check_score_select_edges(dev)}
+    g = torch.Generator().manual_seed(1)
     tok = torch.randn(300, 40, 64, generator=g).to(dev)
     dmask = (torch.rand(300, 40, generator=g) > 0.6).to(dev)
     dmask[7] = False                                   # empty doc
@@ -208,8 +269,42 @@ def check_edge_cases(dev) -> dict:
                           q_tok.abs(), q_mask)
     check(bool((got_neg[:, dmask[:, 0]] < 0).all()),
           "maxsim: negative best matches must stay negative")
-    return {"score_select_max_abs_err": err1, "score_select_tie_swaps": swaps,
-            "maxsim_max_abs_err": err2}
+    return res | {"maxsim_max_abs_err": err2}
+
+
+def device_ops(fn) -> list:
+    """Names of the device operations (kernels, memsets, copies) that one
+    call of ``fn`` issues, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def sass_counts(lib_path: str) -> dict:
+    """Per score_select kernel instance, the count of tensor-core (HMMA)
+    and float32 FMA (FFMA) instructions in its SASS (cuobjdump)."""
+    cuobjdump = Path(kernels._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", lib_path],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "score_select_kernel" in m.group(1) else None
+            if name:
+                counts[name] = {"HMMA": 0, "FFMA": 0}
+        elif name:
+            for op in ("HMMA", "FFMA"):
+                counts[name][op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
 
 
 # ------------------------------------------------------------------ phases
@@ -247,21 +342,28 @@ def phase_kernels(zh, queries):
         sc = torch.matmul(q.to(emb.dtype), emb.T).float()
         return torch.topk(sc.masked_fill(~mask_col, -1e30), eff_k)
 
-    tile = kernels.lib().score_select_tile()
-    kp = min(eff_k, tile)
-    tiles = -(-emb.shape[0] // tile)
-    qc = q.to(emb.dtype).contiguous()
-    o_s = torch.empty((tiles, b, kp), dtype=torch.float32, device=dev)
-    o_i = torch.empty((tiles, b, kp), dtype=torch.int32, device=dev)
+    lib = kernels.lib()
+    tile, qb = lib.score_select_tile(), lib.score_select_queries()
+    n = emb.shape[0]
+    scratch = torch.empty(lib.score_select_scratch_bytes(b, n, eff_k),
+                          dtype=torch.uint8, device=dev)
+    o_s = torch.empty((b, eff_k), dtype=torch.float32, device=dev)
+    o_i = torch.empty((b, eff_k), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    raw = kernels.lib().score_select
     dtype_id = {torch.float32: 0, torch.bfloat16: 1}[emb.dtype]
 
-    def kernel_only():
-        check(raw(qc.data_ptr(), emb.data_ptr(), dtype_id, b, emb.shape[0], d,
-                  valid_n, kp, o_s.data_ptr(), o_i.data_ptr(), stream) == 0,
+    def kernel_only():   # the C entry alone: ticket memset + kernel
+        check(lib.score_select(q.data_ptr(), emb.data_ptr(), dtype_id, b, n,
+                               d, valid_n, eff_k, scratch.data_ptr(),
+                               o_s.data_ptr(), o_i.data_ptr(), stream) == 0,
               "score_select launch")
 
+    kernel_only()
+    check(torch.equal(o_s, s) and torch.equal(o_i, i),
+          "score_select: the C entry and dense_topk disagree")
+    ops = device_ops(lambda: dense_topk(emb, q, valid_n, eff_k))
+    check(1 <= len(ops) <= 2 and any("score_select" in o for o in ops),
+          f"one dense_topk call issued {ops}")
     bms, by = bound(valid_n * d * emb.element_size() + b * d * 4
                     + b * eff_k * 12,
                     2 * b * valid_n * d, BF16_FLOP_PER_S)
@@ -269,10 +371,12 @@ def phase_kernels(zh, queries):
         "name": "score_select", "route": "cuda",
         "source": "legalrag_tpu_torch/csrc/score_select.cu",
         "replaces": "legalrag_tpu/ops/topk.py:328",
-        "shapes": {"B": b, "N": emb.shape[0], "valid_n": valid_n, "d": d,
-                   "k": eff_k, "dtype": str(emb.dtype)},
+        "shapes": {"B": b, "N": n, "valid_n": valid_n, "d": d,
+                   "k": eff_k, "dtype": str(emb.dtype), "TILE": tile,
+                   "QB": qb, "grid": [-(-n // tile), -(-b // qb)]},
         "max_abs_err": err1, "ids_equal": bool(torch.equal(i, pi)),
         "tie_swaps": swaps, "tolerance": 1e-4,
+        "device_ops_per_call": ops,
         "ms": cuda_ms(lambda: dense_topk(emb, q, valid_n, eff_k)),
         "kernel_only_ms": cuda_ms(kernel_only),
         "plain_ms": cuda_ms(lambda: dense_topk_fused_plain(emb, q, valid_n,
@@ -670,8 +774,10 @@ def main() -> int:
     built = kernels.build(force=True)
     regs = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
                       built["ptxas"], re.S)
+    sass = sass_counts(built["path"])
     emit({"phase": "build", "seconds": built["seconds"],
-          "registers": {name[-60:]: int(n) for name, n in regs}})
+          "registers": {name[-60:]: int(n) for name, n in regs},
+          "score_select_sass": sass})
     kernels.lib()
     emit({"phase": "kernel_edge_cases",
           **check_edge_cases(torch.device("cuda"))})

@@ -1,66 +1,129 @@
-// Fused dense score + tile-local top-kp select.
+// Fused dense score + select + merge: the dense channel's masked top-k in
+// one launch.
 //
 // Replaces the Pallas kernel legalrag_tpu/ops/topk.py:_score_select_kernel
-// (entry dense_topk_pallas). It computes, for every tile of TILE corpus
-// rows and every query:
-//   score[b, r] = sum_c float(q[b, c]) * float(emb[r, c])   (float32 sums)
-//   score[b, r] = -1e30 for rows r >= valid_n (never read)
-// and writes the tile's top-kp (score desc, global row asc) to
-// out_s/out_i [tiles, B, kp]. Unlike the Pallas kernel, which marks a taken
-// row with -1e30 and so can pick it again once only masked rows are left,
-// a taken row is never picked twice: the tile-local lists hold distinct
-// rows, and the merge outside (a stable sort over [B, tiles * kp] in
-// ops/topk.py) gives exactly lax.top_k of the full masked score map, which
-// is what the JAX engine selects (ops/fused_query.py:135 + :56).
+// (entry dense_topk_pallas, pl.pallas_call at :328) and the lax.top_k merge
+// of its tile lists after it. For queries q [B, d] float32 and a store
+// emb [N, d] (bf16 or float32) it computes
+//   score[b, r] = sum_c float(cast(q[b, c])) * float(emb[r, c])  (f32 sums)
+// with cast() the rounding of the query to the store dtype (nearest even,
+// as torch's .to(bfloat16)) and rows r >= valid_n scored -1e30, and writes
+// the top k of each query's masked row: scores [B, k] float32 and rows
+// [B, k] int64, in lax.top_k's order (score desc in float total order, so
+// -0.0 below +0.0; ties to the lower row; rows >= N never appear).
 //
-// What bounds it on an H100: at the main path's zh shapes (B=64, N=2048,
-// d=768, bf16) it must read 3.15 MB of embeddings (about 0.94 us at
-// 3.35 TB/s) for 0.2 GFLOP (0.2 us of bf16 tensor-core time): memory bound,
-// and at this size launch latency dominates. The design reads each
-// embedding row once per query chunk of QB queries, with 16-byte loads, and
-// keeps the [QB, TILE] score tile in shared memory, so nothing of the
-// [B, N] score map reaches device memory. Products run on the CUDA cores in
-// float32; a wgmma version is later work.
+// Design.
+// - One block per (tile of TILE rows, chunk of QB queries). The [QB, TILE]
+//   score tile stays in shared memory: nothing of the [B, N] map reaches
+//   device memory.
+// - Every candidate is one 64-bit key, the score's float32 bits in total
+//   order above the reversed row (the keys of ops/topk.py:stable_topk), so
+//   the larger key is the better candidate and no two keys tie. Rows >= N
+//   get key 0, below every real key.
+// - Tile select: each warp sorts one query's TILE keys with a bitonic
+//   network (TILE / 32 keys a lane, __shfl_xor_sync across lanes) and
+//   writes the first kp = min(k, TILE) to scratch lists [tiles, B, kp].
+// - Merge in the same launch: each block fences its lists and draws a
+//   ticket of its query chunk (atomicAdd); the block that draws the last
+//   one merges the chunk's lists, reading them with ld.global.cg (past L1,
+//   which is not coherent across SMs). For k <= TILE a warp folds the lists
+//   into a running top list in registers: the elementwise max of the list
+//   and the next list reversed is bitonic and holds their top, and a
+//   bitonic merge sorts it. For k > TILE (kp = TILE: every list holds its
+//   whole tile) a warp merges by list heads, one lane per tile (lanes loop
+//   over tiles past 32), k rounds of a warp max.
+// - The tickets are zeroed by a memset on the launch's stream in the C
+//   entry, so two streams never share a counter.
+//
+// What bounds it on an H100: at the main path's zh shapes (B 64, N 2048
+// rows of which 1260 valid, d 768, bf16, k 64) it must read 1.94 MB of
+// valid rows and 0.2 MB of queries: 0.65 us at 3.35 TB/s, against 0.16 us
+// of bf16 tensor-core time. A launch alone takes several microseconds, so
+// the design keeps the whole function, merge included, in one launch.
 
-#include <limits.h>
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
+typedef unsigned long long u64;
+
 constexpr int TILE = 128;            // corpus rows per block
-constexpr int QB = 8;                // queries per block, one warp each in the select
-constexpr int THREADS = 256;         // 8 warps
-constexpr int PER_LANE = TILE / 32;  // candidates each lane holds in the select
+constexpr int QB = 16;               // queries per block
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int PER_LANE = TILE / 32;  // keys each lane holds in the select
+constexpr int QPW = QB / WARPS;      // queries per warp in select and merge
 constexpr float NEG_INF = -1e30f;    // the JAX package's NEG_INF
+constexpr int MAX_D = 2048;          // the wrappers' limit on d
+
+__device__ __forceinline__ u64 kmax(u64 a, u64 b) { return a > b ? a : b; }
+__device__ __forceinline__ u64 kmin(u64 a, u64 b) { return a < b ? a : b; }
+
+// Float bits made two's-complement (b ^ ((b >> 31) & 0x7FFFFFFF)) and
+// offset to unsigned, above 0xFFFFFFFF - row.
+__device__ __forceinline__ u64 make_key(float s, int row) {
+  const unsigned b = __float_as_uint(s);
+  const unsigned ord = b ^ ((unsigned)((int)b >> 31) & 0x7FFFFFFFu);
+  return ((u64)(ord ^ 0x80000000u) << 32) | (0xFFFFFFFFu - (unsigned)row);
+}
+
+__device__ __forceinline__ float key_score(u64 key) {
+  const unsigned ord = (unsigned)(key >> 32) ^ 0x80000000u;
+  return __uint_as_float(ord ^ ((unsigned)((int)ord >> 31) & 0x7FFFFFFFu));
+}
+
+__device__ __forceinline__ long long key_row(u64 key) {
+  return (long long)(0xFFFFFFFFu - (unsigned)key);
+}
+
+// A load that reads L2, never a stale L1 line: another SM wrote the lists.
+__device__ __forceinline__ u64 load_cg(const u64* p) {
+  u64 v;
+  asm volatile("ld.global.cg.u64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float round_q(float x, const float*) { return x; }
+__device__ __forceinline__ float round_q(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// ------------------------------------------------------------------ scores
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-score_select_kernel(const T* __restrict__ q, const T* __restrict__ emb, int B,
-                    int N, int d, int valid_n, int kp,
-                    float* __restrict__ out_s, int* __restrict__ out_i) {
-  extern __shared__ float smem[];
-  float* qs = smem;            // [QB][d] this block's queries, widened
-  float* sc = smem + QB * d;   // [QB][TILE] the score tile
-  const int tile = blockIdx.x;
-  const int q0 = blockIdx.y * QB;
-  const int nq = min(QB, B - q0);
+constexpr size_t smem_bytes(int d) {
+  return (size_t)QB * TILE * sizeof(float) + (size_t)QB * d * sizeof(float);
+}
+
+// sc[i][r] = score of query q0 + i with row row0 + r (rows outside
+// [0, min(valid_n, N)) are left 0 and masked by the select). CUDA cores,
+// float32: qs holds the block's queries rounded to T and widened.
+template <typename T>
+__device__ __forceinline__ void block_scores(const float* __restrict__ q,
+                                             const T* __restrict__ emb, int B,
+                                             int N, int d, int valid_n, int q0,
+                                             int row0, unsigned char* qmem,
+                                             float* sc) {
+  float* qs = reinterpret_cast<float*>(qmem);  // [QB][d]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row0 = tile * TILE;
-
-  for (int e = threadIdx.x * 8; e < QB * d; e += THREADS * 8) {
-    const int qi = e / d;  // d % 8 == 0: a run of 8 stays in one query
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (qi < nq) lrt::load8(q + (size_t)(q0 + qi) * d + (e - qi * d), f);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) qs[e + j] = f[j];
+  for (int e = threadIdx.x * 4; e < QB * d; e += THREADS * 4) {
+    const int qi = e / d;  // d % 8 == 0: a run of 4 stays in one query
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + qi < B)
+      v = *reinterpret_cast<const float4*>(q + (size_t)(q0 + qi) * d + (e - qi * d));
+    v.x = round_q(v.x, emb);
+    v.y = round_q(v.y, emb);
+    v.z = round_q(v.z, emb);
+    v.w = round_q(v.w, emb);
+    *reinterpret_cast<float4*>(qs + e) = v;
   }
   __syncthreads();
 
-  // scores: warp w takes rows w, w + 8, ...; its lanes split d in runs of 8
-  for (int r = warp; r < TILE; r += THREADS / 32) {
+  // warp w takes rows w, w + 8, ...; its lanes split d in runs of 8
+  for (int r = warp; r < TILE; r += WARPS) {
     const int row = row0 + r;
     float acc[QB];
 #pragma unroll
@@ -88,67 +151,253 @@ score_select_kernel(const T* __restrict__ q, const T* __restrict__ emb, int B,
       for (int i = 0; i < QB; ++i) acc[i] = lrt::warp_sum(acc[i]);
     }
     if (lane == 0) {
-      // rows past N do not exist (-inf: never selected); rows in
-      // [valid_n, N) are capacity padding, masked like the JAX kernel's
-      const float fill = row < N ? NEG_INF : -INFINITY;
 #pragma unroll
-      for (int i = 0; i < QB; ++i)
-        sc[i * TILE + r] = (row < valid_n && row < N) ? acc[i] : fill;
+      for (int i = 0; i < QB; ++i) sc[i * TILE + r] = acc[i];
     }
   }
   __syncthreads();
+}
 
-  // select: warp w owns query q0 + w; lane holds rows lane + 32 t
-  if (warp >= nq) return;
-  float v[PER_LANE];
-  unsigned taken = 0;
+// ------------------------------------------------------------------ select
+
+// Bitonic sort, descending, of TILE keys; key t of a lane is element
+// lane * PER_LANE + t.
+__device__ __forceinline__ void sort_desc(u64 (&key)[PER_LANE], int lane) {
 #pragma unroll
-  for (int t = 0; t < PER_LANE; ++t) {
-    const int r = lane + 32 * t;
-    v[t] = sc[warp * TILE + r];
-    if (row0 + r >= N) taken |= 1u << t;
-  }
-  const size_t out_base = ((size_t)tile * B + (q0 + warp)) * kp;
-  for (int j = 0; j < kp; ++j) {
-    float bv = -INFINITY;
-    int br = INT_MAX;
+  for (int size = 2; size <= TILE; size <<= 1) {
 #pragma unroll
-    for (int t = 0; t < PER_LANE; ++t) {
-      const int r = row0 + lane + 32 * t;
-      if (!(taken >> t & 1u) && (v[t] > bv || (v[t] == bv && r < br))) {
-        bv = v[t];
-        br = r;
+    for (int s = size >> 1; s > 0; s >>= 1) {
+#pragma unroll
+      for (int t = 0; t < PER_LANE; ++t) {
+        const int i = lane * PER_LANE + t;
+        const bool desc = (i & size) == 0;
+        if (s < PER_LANE) {  // partner t ^ s in the same lane
+          if (t & s) continue;
+          const int u = t | s;
+          const u64 hi = kmax(key[t], key[u]);
+          const u64 lo = kmin(key[t], key[u]);
+          key[t] = desc ? hi : lo;
+          key[u] = desc ? lo : hi;
+        } else {             // partner lane ^ (s / PER_LANE), same t
+          const u64 other = __shfl_xor_sync(0xffffffffu, key[t], s / PER_LANE);
+          key[t] = (((i & s) == 0) == desc) ? kmax(key[t], other)
+                                            : kmin(key[t], other);
+        }
       }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int orow = __shfl_xor_sync(0xffffffffu, br, o);
-      if (ov > bv || (ov == bv && orow < br)) {
-        bv = ov;
-        br = orow;
-      }
-    }
-    if (br != INT_MAX && ((br - row0) & 31) == lane) taken |= 1u << ((br - row0) >> 5);
-    if (lane == 0) {
-      out_s[out_base + j] = bv;
-      out_i[out_base + j] = br == INT_MAX ? 0 : br;
     }
   }
 }
 
+// One query's tile: keys from the score row, sorted, the first kp stored.
+__device__ __forceinline__ void tile_select(const float* sc_row, int row0,
+                                            int N, int valid_n, int kp,
+                                            u64* list, int lane) {
+  const float4 v = reinterpret_cast<const float4*>(sc_row)[lane];
+  const float s[PER_LANE] = {v.x, v.y, v.z, v.w};
+  u64 key[PER_LANE];
+#pragma unroll
+  for (int t = 0; t < PER_LANE; ++t) {
+    const int row = row0 + lane * PER_LANE + t;
+    key[t] = row < N ? make_key(row < valid_n ? s[t] : NEG_INF, row) : 0ull;
+  }
+  sort_desc(key, lane);
+#pragma unroll
+  for (int t = 0; t < PER_LANE; ++t) {
+    const int i = lane * PER_LANE + t;
+    if (i < kp) list[i] = key[t];
+  }
+}
+
+// ------------------------------------------------------------------- merge
+
+// Sorts a bitonic sequence of 32 * E keys descending; key t of a lane is
+// element t * 32 + lane.
+template <int E>
+__device__ __forceinline__ void merge_desc(u64 (&m)[E], int lane) {
+#pragma unroll
+  for (int s = 16 * E; s >= 32; s >>= 1) {
+#pragma unroll
+    for (int t = 0; t < E; ++t) {
+      const int st = s / 32;
+      if (t & st) continue;
+      const u64 hi = kmax(m[t], m[t | st]);
+      const u64 lo = kmin(m[t], m[t | st]);
+      m[t] = hi;
+      m[t | st] = lo;
+    }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+#pragma unroll
+    for (int t = 0; t < E; ++t) {
+      const u64 other = __shfl_xor_sync(0xffffffffu, m[t], s);
+      m[t] = (lane & s) ? kmin(m[t], other) : kmax(m[t], other);
+    }
+  }
+}
+
+__device__ __forceinline__ void store_out(u64 key, size_t at, float* out_s,
+                                          long long* out_i) {
+  out_s[at] = key_score(key);
+  out_i[at] = key_row(key);
+}
+
+// k <= TILE (kp == k): fold the tiles' lists of query q, 32 * E >= kp.
+template <int E>
+__device__ void merge_fold(const u64* __restrict__ lists, int q, int B,
+                           int tiles, int kp, int k, float* out_s,
+                           long long* out_i, int lane) {
+  constexpr int KPP = 32 * E;
+  const size_t stride = (size_t)B * kp;  // from one tile's lists to the next
+  const u64* L = lists + (size_t)q * kp;
+  u64 r[E], c[E];
+#pragma unroll
+  for (int t = 0; t < E; ++t) {
+    const int i = t * 32 + lane;
+    r[t] = i < kp ? load_cg(L + i) : 0ull;
+  }
+  auto fetch_reversed = [&](int j) {
+#pragma unroll
+    for (int t = 0; t < E; ++t) {
+      const int idx = KPP - 1 - (t * 32 + lane);
+      c[t] = idx < kp ? load_cg(L + j * stride + idx) : 0ull;
+    }
+  };
+  if (tiles > 1) fetch_reversed(1);
+  for (int j = 1; j < tiles; ++j) {
+#pragma unroll
+    for (int t = 0; t < E; ++t) r[t] = kmax(r[t], c[t]);
+    if (j + 1 < tiles) fetch_reversed(j + 1);  // in flight during the merge
+    merge_desc<E>(r, lane);
+  }
+#pragma unroll
+  for (int t = 0; t < E; ++t) {
+    const int i = t * 32 + lane;
+    if (i < k) store_out(r[t], (size_t)q * k + i, out_s, out_i);
+  }
+}
+
+// k > TILE (kp == TILE): merge by list heads. Lane l owns tiles l, l + 32,
+// ...; pos (this query's [tiles] read positions) is touched only by the
+// owning lane.
+__device__ void merge_heads(const u64* __restrict__ lists,
+                            unsigned* __restrict__ pos, int q, int B,
+                            int tiles, int kp, int k, float* out_s,
+                            long long* out_i, int lane) {
+  const size_t stride = (size_t)B * kp;
+  const u64* L = lists + (size_t)q * kp;
+  unsigned* P = pos + (size_t)q * tiles;
+  u64 best = 0;
+  int bt = 0;
+  for (int t = lane; t < tiles; t += 32) {
+    P[t] = 0;
+    const u64 h = load_cg(L + t * stride);
+    if (h > best) { best = h; bt = t; }
+  }
+  for (int r = 0; r < k; ++r) {
+    u64 m = best;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = kmax(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (m != 0 && best == m) {  // keys are distinct: one lane wins
+      store_out(m, (size_t)q * k + r, out_s, out_i);
+      P[bt] += 1;
+      best = 0;
+      for (int t = lane; t < tiles; t += 32) {
+        const unsigned p = P[t];
+        const u64 h = p < (unsigned)kp ? load_cg(L + t * stride + p) : 0ull;
+        if (h > best) { best = h; bt = t; }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ kernel
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+score_select_kernel(const float* __restrict__ q, const T* __restrict__ emb,
+                    int B, int N, int d, int valid_n, int k,
+                    u64* __restrict__ lists, int* __restrict__ tickets,
+                    unsigned* __restrict__ pos, float* __restrict__ out_s,
+                    long long* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int is_last;
+  float* sc = reinterpret_cast<float*>(smem);  // [QB][TILE]
+  const int tile = blockIdx.x;
+  const int tiles = gridDim.x;
+  const int q0 = blockIdx.y * QB;
+  const int row0 = tile * TILE;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int kp = min(k, TILE);
+
+  block_scores(q, emb, B, N, d, valid_n, q0, row0,
+               smem + QB * TILE * sizeof(float), sc);
+
+#pragma unroll
+  for (int j = 0; j < QPW; ++j) {
+    const int qi = warp + j * WARPS;
+    if (q0 + qi < B)
+      tile_select(sc + qi * TILE, row0, N, valid_n, kp,
+                  lists + ((size_t)tile * B + q0 + qi) * kp, lane);
+  }
+
+  // the chunk's last block to finish its lists merges them all
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(tickets + blockIdx.y, 1) == tiles - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  for (int j = 0; j < QPW; ++j) {
+    const int qq = q0 + warp + j * WARPS;
+    if (qq >= B) break;
+    if (k > TILE)
+      merge_heads(lists, pos, qq, B, tiles, kp, k, out_s, out_i, lane);
+    else if (kp <= 32)
+      merge_fold<1>(lists, qq, B, tiles, kp, k, out_s, out_i, lane);
+    else if (kp <= 64)
+      merge_fold<2>(lists, qq, B, tiles, kp, k, out_s, out_i, lane);
+    else
+      merge_fold<4>(lists, qq, B, tiles, kp, k, out_s, out_i, lane);
+  }
+}
+
+// Scratch: lists [tiles, B, kp] u64, then tickets [chunks] int32, then (k >
+// TILE only) read positions [B, tiles] u32.
+struct Layout {
+  int tiles, chunks, kp;
+  size_t lists_bytes, tickets_bytes, pos_bytes;
+  Layout(int B, int N, int k)
+      : tiles((N + TILE - 1) / TILE), chunks((B + QB - 1) / QB),
+        kp(k < TILE ? k : TILE),
+        lists_bytes((size_t)tiles * B * kp * sizeof(u64)),
+        tickets_bytes((size_t)chunks * sizeof(int)),
+        pos_bytes(k > TILE ? (size_t)B * tiles * sizeof(unsigned) : 0) {}
+};
+
 template <typename T>
 int launch(const void* q, const void* emb, int B, int N, int d, int valid_n,
-           int kp, void* out_s, void* out_i, cudaStream_t stream) {
-  const size_t smem = (size_t)(QB * d + QB * TILE) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(score_select_kernel<T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  const dim3 grid((N + TILE - 1) / TILE, (B + QB - 1) / QB);
-  score_select_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(emb), B, N, d, valid_n,
-      kp, static_cast<float*>(out_s), static_cast<int*>(out_i));
+           int k, void* scratch, void* out_s, void* out_i,
+           cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      score_select_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<T>(MAX_D));
+  if (attr != cudaSuccess) return (int)attr;
+  const Layout lay(B, N, k);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  int* tickets = reinterpret_cast<int*>(base + lay.lists_bytes);
+  cudaError_t err = cudaMemsetAsync(tickets, 0, lay.tickets_bytes, stream);
+  if (err != cudaSuccess) return (int)err;
+  score_select_kernel<T><<<dim3(lay.tiles, lay.chunks), THREADS,
+                           smem_bytes<T>(d), stream>>>(
+      static_cast<const float*>(q), static_cast<const T*>(emb), B, N, d,
+      valid_n, k, reinterpret_cast<u64*>(base), tickets,
+      reinterpret_cast<unsigned*>(base + lay.lists_bytes + lay.tickets_bytes),
+      static_cast<float*>(out_s), static_cast<long long*>(out_i));
   return (int)cudaGetLastError();
 }
 
@@ -156,20 +405,32 @@ int launch(const void* q, const void* emb, int B, int N, int d, int valid_n,
 
 extern "C" {
 
-// Rows per tile, so the wrapper can size [tiles, B, kp].
+// Rows per tile and queries per block (the grid is [tiles, chunks]).
 int score_select_tile() { return TILE; }
+int score_select_queries() { return QB; }
 
-// q [B, d] and emb [N, d] of one dtype (lrt::DType), row-major, d % 8 == 0,
-// 16-byte aligned; 1 <= kp <= TILE. out_s float32 / out_i int32
-// [ceil(N / TILE), B, kp]. Returns cudaGetLastError() after the launch.
+// Bytes of scratch score_select needs for these sizes.
+long long score_select_scratch_bytes(int B, int N, int k) {
+  const Layout lay(B, N, k);
+  return (long long)(lay.lists_bytes + lay.tickets_bytes + lay.pos_bytes);
+}
+
+// q [B, d] float32, emb [N, d] of dtype (lrt::DType), both row-major and
+// 16-byte aligned, d % 8 == 0, d <= 2048; 1 <= k <= N; scratch of
+// score_select_scratch_bytes(B, N, k). Writes out_s float32 and out_i int64
+// [B, k]. Zeroes the tickets and launches on `stream`; returns the first
+// CUDA error (0 if none).
 int score_select(const void* q, const void* emb, int dtype, int B, int N,
-                 int d, int valid_n, int kp, void* out_s, void* out_i,
-                 void* stream) {
+                 int d, int valid_n, int k, void* scratch, void* out_s,
+                 void* out_i, void* stream) {
+  if (B < 1 || N < 1 || k < 1 || k > N || d % 8 || d > MAX_D)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == lrt::kBF16)
-    return launch<__nv_bfloat16>(q, emb, B, N, d, valid_n, kp, out_s, out_i, s);
+    return launch<__nv_bfloat16>(q, emb, B, N, d, valid_n, k, scratch, out_s,
+                                 out_i, s);
   if (dtype == lrt::kF32)
-    return launch<float>(q, emb, B, N, d, valid_n, kp, out_s, out_i, s);
+    return launch<float>(q, emb, B, N, d, valid_n, k, scratch, out_s, out_i, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -42,11 +42,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C signatures of the entry points (csrc/*.cu, extern "C")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "score_select": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "score_select": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "score_select_tile": [],
+    "score_select_queries": [],
+    "score_select_scratch_bytes": [_I, _I, _I],
     "maxsim": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "bm25_sparse": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P],
 }
+# entries that return something other than an int
+_RESTYPES = {"score_select_scratch_bytes": ctypes.c_longlong}
 # kernels counted by launch(): name -> the C entry that launches it
 KERNELS = ("score_select", "maxsim", "bm25_sparse")
 
@@ -131,7 +135,7 @@ def lib() -> ctypes.CDLL:
             for name, args in _SIGNATURES.items():
                 fn = getattr(cdll, name)
                 fn.argtypes = args
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = cdll
         return _lib
 

@@ -9,9 +9,9 @@
   that never tie.
 - ``dense_topk``: the dense channel's masked top-k. On a CUDA tensor it
   launches the hand-written score+select kernel (``csrc/score_select.cu``,
-  which replaces the Pallas ``_score_select_kernel``) and merges its
-  tile-local lists with ``stable_topk``; on a CPU tensor it runs the plain
-  version ``dense_topk_fused_plain``, which computes the same function.
+  which replaces the Pallas ``_score_select_kernel`` and the merge of its
+  tile lists, in one launch); on a CPU tensor it runs the plain version
+  ``dense_topk_fused_plain``, which computes the same function.
 - ``topk_2pass``, ``topk_large``, ``topk_2pass_masked``,
   ``dense_topk_2pass``: the block-max two-pass selection of the
   large-corpus mode, step by step as in JAX (where XLA computes them), with
@@ -118,31 +118,38 @@ def dense_topk(emb: torch.Tensor, q: torch.Tensor, valid_n: int, k: int
 
 def _score_select(emb: torch.Tensor, q: torch.Tensor, valid_n: int, k: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel (after a memset of its tickets): the query
+    is rounded to the store dtype inside it, and it writes the merged
+    [B, k] scores and int64 rows."""
     if emb.device.type != "cuda" or q.device != emb.device:
         raise ValueError(f"score_select needs emb and q on one CUDA device, "
                          f"got {emb.device} and {q.device}")
-    if emb.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"score_select takes bf16/f32 stores, got {emb.dtype}")
+    if emb.dtype not in _KERNEL_DTYPES or q.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"score_select takes bf16/f32 stores and queries, "
+                        f"got {emb.dtype} and {q.dtype}")
     if emb.ndim != 2 or q.ndim != 2 or q.shape[1] != emb.shape[1]:
         raise ValueError(f"shapes emb {tuple(emb.shape)} q {tuple(q.shape)}")
     n, d = emb.shape
     b = q.shape[0]
-    if d % 8 or d > 4096:
-        raise ValueError(f"score_select needs d % 8 == 0 and d <= 4096, got {d}")
+    if d % 8 or d > 2048 or not (n and b and k):
+        raise ValueError(f"score_select needs d % 8 == 0, d <= 2048 and "
+                         f"non-empty inputs, got N {n}, d {d}, B {b}, k {k}")
     if not emb.is_contiguous():
         raise ValueError("score_select needs a contiguous store")
-    tile = kernels.lib().score_select_tile()
     k = min(k, n)
-    kp = min(k, tile)
-    tiles = -(-n // tile)
-    qc = q.to(emb.dtype).contiguous()
-    out_s = torch.empty((tiles, b, kp), dtype=torch.float32, device=emb.device)
-    out_i = torch.empty((tiles, b, kp), dtype=torch.int32, device=emb.device)
-    kernels.launch("score_select", qc.data_ptr(), emb.data_ptr(),
-                   _KERNEL_DTYPES[emb.dtype], b, n, d, int(valid_n), kp,
-                   out_s.data_ptr(), out_i.data_ptr(),
+    qf = q.float().contiguous()     # no copy for the float32 queries
+    if emb.data_ptr() % 16 or qf.data_ptr() % 16:
+        raise ValueError("score_select needs 16-byte aligned emb and q")
+    lib = kernels.lib()
+    scratch = torch.empty(lib.score_select_scratch_bytes(b, n, k),
+                          dtype=torch.uint8, device=emb.device)
+    out_s = torch.empty((b, k), dtype=torch.float32, device=emb.device)
+    out_i = torch.empty((b, k), dtype=torch.int64, device=emb.device)
+    kernels.launch("score_select", qf.data_ptr(), emb.data_ptr(),
+                   _KERNEL_DTYPES[emb.dtype], b, n, d, int(valid_n), k,
+                   scratch.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
                    torch.cuda.current_stream(emb.device).cuda_stream)
-    return _merge_tiles(out_s, out_i, k)
+    return out_s, out_i
 
 
 # ---------------------------------------------------------------------------
