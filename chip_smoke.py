@@ -470,7 +470,8 @@ def check_launches(path: str, launches, batches: int) -> None:
 
 def profile_device(run, batches: int):
     """torch.profiler over ``run()`` (the execute of every batch): device
-    time by kernel, the card's busy time and its idle share of the window."""
+    time by kernel (the port's own kernels by name), the card's busy time
+    and its idle share of the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -490,9 +491,12 @@ def profile_device(run, batches: int):
                         and e.self_device_time_total > 0),
                        key=lambda t: -t[1])
     busy_ms = sum(t[1] for t in by_kernel)
+    mine = {name: sum(ms for k, ms, _n in by_kernel if f"{name}_" in k)
+            for name in kernels.KERNELS}
     return {"batches": batches, "window_ms": window_ms,
             "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / window_ms if busy_ms else None,
+            "kernels_device_ms": mine,
             "top": [[k[:70], ms, n] for k, ms, n in by_kernel[:8]]}
 
 
@@ -775,6 +779,10 @@ def main() -> int:
     regs = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
                       built["ptxas"], re.S)
     sass = sass_counts(built["path"])
+    for name, ops in sass.items():   # bf16 on the tensor cores, f32 on FMA
+        on_tc = "bfloat16" in name
+        check(bool(ops["HMMA"]) == on_tc and (on_tc or ops["FFMA"] > 0),
+              f"score_select SASS {name}: {ops}")
     emit({"phase": "build", "seconds": built["seconds"],
           "registers": {name[-60:]: int(n) for name, n in regs},
           "score_select_sass": sass})

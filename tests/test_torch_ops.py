@@ -96,6 +96,63 @@ def test_dense_topk_plain_ragged_tiles(n, tile):
     np.testing.assert_array_equal(s.numpy(), s_ref.numpy())
 
 
+def _grid_inputs(rng, n, d, b):
+    """Store entries in {-8..8} / 16 and queries on the bf16 grid with
+    magnitudes in [1/16, 1): every product is a multiple of 2^-15 and every
+    sum of 64 stays below 2^20 of those, so the scores are exact in float32
+    in any summation order (and tie often)."""
+    emb = rng.integers(-8, 9, (n, d)).astype(np.float32) / 16
+    mag = 2.0 ** rng.uniform(-4, 0, (b, d))
+    q = np.array(_bf16((np.where(rng.random((b, d)) < 0.5, -1, 1) * mag)
+                       .astype(np.float32)))
+    return emb, q
+
+
+@pytest.mark.parametrize("case,store", [
+    ("k_gt_tile_ragged", "bfloat16"), ("k_gt_tile_ragged", "float32"),
+    ("k_eq_n", "bfloat16"), ("k_eq_n", "float32"),
+    ("q_rounds_to_bf16", "bfloat16")])
+def test_dense_topk_matches_xla_at_the_kernel_cases(case, store):
+    """``dense_topk`` (the plain version on the CPU; the card holds the
+    kernel to it) against ``dense_topk_xla`` at the default tile (128), on
+    the shapes the kernel is checked at on the card: k above the tile with
+    N ragged and valid_n < N, k = N, and float32 queries that bf16 rounds
+    (midpoints included). Exact sums, so scores and rows are equal."""
+    rng = np.random.default_rng(["k_gt_tile_ragged", "k_eq_n",
+                                 "q_rounds_to_bf16"].index(case))
+    n, valid_n, k = {"k_gt_tile_ragged": (1000, 900, 200),
+                     "k_eq_n": (300, 250, 300),
+                     "q_rounds_to_bf16": (1000, 1000, 64)}[case]
+    emb, q = _grid_inputs(rng, n, 64, 5)
+    if case == "q_rounds_to_bf16":
+        # off the grid by less than half a bf16 ulp, and four midpoints
+        # between bf16 values (to even: the first and last down, the middle
+        # two away from zero)
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(q))) - 7)
+        q = (q + rng.uniform(-0.45, 0.45, q.shape) * ulp).astype(np.float32)
+        q[:, :4] = [0.5 + 2 ** -9, 0.5 + 3 * 2 ** -9, -(0.25 + 3 * 2 ** -10),
+                    0.125 + 2 ** -11]
+        assert not np.array_equal(_bf16(q), q)
+    jdt, tdt = {"bfloat16": (jnp.bfloat16, torch.bfloat16),
+                "float32": (jnp.float32, torch.float32)}[store]
+    s_j, i_j = dense_topk_xla(jnp.asarray(emb, jdt), jnp.asarray(q),
+                              jnp.int32(valid_n), k)
+    s_t, i_t = dense_topk(torch.from_numpy(emb).to(tdt), torch.from_numpy(q),
+                          valid_n, k)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    assert i_t.dtype == torch.int64 and s_t.dtype == torch.float32
+    if valid_n < k:
+        assert (s_t[:, valid_n:] == -1e30).all()
+        assert (i_t[:, valid_n:] == torch.arange(valid_n, n)).all()
+    if case == "q_rounds_to_bf16":
+        # the unrounded query ranks the rows otherwise
+        exact = q.astype(np.float64) @ emb.T.astype(np.float64)
+        order = np.lexsort((np.arange(n)[None].repeat(5, 0), -exact))[:, :k]
+        assert not np.array_equal(order, i_t.numpy())
+        assert s_t[:, 0].tolist() != exact.max(axis=1).tolist()
+
+
 def test_dense_scores_casts_q_to_store_dtype():
     rng = np.random.default_rng(4)
     emb, q = _unit(rng, 50, 32), _unit(rng, 3, 32)
