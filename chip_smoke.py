@@ -204,21 +204,25 @@ def unit_rows(g, n: int, d: int, dev, dtype=torch.float32):
 
 def check_score_select_edges(dev) -> dict:
     """Kernel 1 off the main path's shapes: both stores on both merges
-    (k <= TILE folds the tile lists, k > TILE merges by list heads), N not
-    a multiple of the tile, valid_n < N, k = N, 512 tiles, and queries that
-    sit on bf16 rounding midpoints and signed zeros."""
+    (k <= TILE: the tree over the tile lists; k > TILE: the last block
+    merges by list heads), N not a multiple of the tile, valid_n < N, k = N,
+    one tile, 512 tiles, and queries on bf16 rounding midpoints."""
     g = torch.Generator().manual_seed(1)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        emb = unit_rows(g, 1000, 64, dev, dtype)
-        q = torch.randn(5, 64, generator=g).to(dev)
         name = str(dtype).removeprefix("torch.")
-        for k in (64, 200, 1000):
-            out[f"{name}_n1000_k{k}"] = check_dense_topk(
-                emb, q, 900, k, f"{name} N 1000 k {k}")[2]
+        # 8 tiles with each merge width (k 64, 100) and k > TILE (200, N);
+        # 5 tiles (a node without a sibling) at k 20; one tile (no merge)
+        for n, valid_n, ks in ((1000, 900, (64, 100, 200, 1000)),
+                               (600, 550, (20,)), (100, 90, (10, 100))):
+            emb = unit_rows(g, n, 64, dev, dtype)
+            q = torch.randn(5, 64, generator=g).to(dev)
+            for k in ks:
+                out[f"{name}_n{n}_k{k}"] = check_dense_topk(
+                    emb, q, valid_n, k, f"{name} N {n} k {k}")[2]
 
-    # 512 tiles: the fold walks 512 lists; the head merge's lanes loop
-    # over 16 tiles each
+    # 512 tiles: a 9-level merge tree; the head merge's lanes loop over 16
+    # tiles each
     emb = unit_rows(g, 65536, 768, dev, torch.bfloat16)
     q = torch.randn(64, 768, generator=g).to(dev)
     for k in (64, 200):
