@@ -72,24 +72,15 @@ def stable_topk(scores: torch.Tensor, k: int
     return torch.gather(scores, -1, idx), idx
 
 
-def _merge_tiles(cand_s: torch.Tensor, cand_i: torch.Tensor, k: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[tiles, B, kp] tile-local lists -> [B, k]. Tiles are in row order and
-    each list in (score desc, row asc) order, so ``stable_topk`` over the
-    concatenation breaks ties by the lower row."""
-    tiles, b, kp = cand_s.shape
-    cs = cand_s.permute(1, 0, 2).reshape(b, tiles * kp)
-    ci = cand_i.permute(1, 0, 2).reshape(b, tiles * kp)
-    top_s, pos = stable_topk(cs, k)
-    return top_s, torch.gather(ci, 1, pos).long()
-
-
 def dense_topk_fused_plain(emb: torch.Tensor, q: torch.Tensor, valid_n: int,
                            k: int, tile: int = SCORE_SELECT_TILE
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the score+select kernel: float32 matmul of
     the widened operands, rows >= valid_n set to NEG_INF, the top-kp of each
-    ``tile`` rows, then the merge. Equals ``stable_topk`` of the masked map."""
+    ``tile`` rows, then the merge of the tile lists. Equals ``stable_topk``
+    of the masked map: the lists are in row order and each in (score desc,
+    row asc) order, so ``stable_topk`` over their concatenation breaks ties
+    by the lower row."""
     n = emb.shape[0]
     k = min(k, n)
     kp = min(k, tile)
@@ -104,7 +95,8 @@ def dense_topk_fused_plain(emb: torch.Tensor, q: torch.Tensor, valid_n: int,
         scores = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
     s, i = stable_topk(scores.reshape(b, tiles, tile), kp)
     rows = i + (torch.arange(tiles, device=emb.device) * tile)[None, :, None]
-    return _merge_tiles(s.permute(1, 0, 2), rows.permute(1, 0, 2), k)
+    top_s, pos = stable_topk(s.reshape(b, tiles * kp), k)
+    return top_s, torch.gather(rows.reshape(b, tiles * kp), 1, pos)
 
 
 def dense_topk(emb: torch.Tensor, q: torch.Tensor, valid_n: int, k: int
