@@ -783,6 +783,7 @@ def main() -> int:
     regs = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
                       built["ptxas"], re.S)
     sass = sass_counts(built["path"])
+    check(len(sass) == 2, f"score_select instances in the SASS: {list(sass)}")
     for name, ops in sass.items():   # bf16 on the tensor cores, f32 on FMA
         on_tc = "bfloat16" in name
         check(bool(ops["HMMA"]) == on_tc and (on_tc or ops["FFMA"] > 0),
