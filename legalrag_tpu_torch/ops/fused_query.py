@@ -13,7 +13,9 @@ Map mode (``impact`` a dense [V, N] matrix), in order:
 4. BM25 as one [B, V] x [V, N] float32 matmul;
 5. the late channel: the full-corpus MaxSim map from the MaxSim kernel
    (``ops.maxsim``), or, with ``late_candidates > 0``, MaxSim of the
-   top-``late_candidates`` dense rows scattered into a NEG_INF map;
+   top-``late_candidates`` dense rows scattered into a NEG_INF map (the
+   rows from step 3's list, or from ``TWO_PASS_MIN_N`` columns on, as JAX
+   takes them there, by ``topk_large`` over the masked dense map);
 6. per channel: top-eff_k, 1-based ranks, weighted RRF ``w / (rrf_k + rank)``
    and weighted min-max over the channel's valid candidates;
 7. ``alpha * minmax(rrf_total) + (1 - alpha) * sum of weighted min-max``
@@ -180,7 +182,13 @@ def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor]
              channel_components(bm25_s, eff_k, params.w_bm25, params.rrf_k)]
     late_s = None
     if late_c:
-        cand = d_i[:, :late_c]
+        if n >= topk_ops.TWO_PASS_MIN_N:
+            # JAX's topk_large takes the block-max route at this width; its
+            # ties at the cut do not always fall to the lower row
+            cand = topk_ops.topk_large(mask_invalid(dense_scores(emb, qvec)),
+                                       late_c)[1]
+        else:
+            cand = d_i[:, :late_c]
         late_s = torch.full((cand.shape[0], n), NEG_INF, dtype=torch.float32,
                             device=emb.device)
         late_s.scatter_(1, cand, maxsim_candidates(doc_tok, doc_mask, q_tok,

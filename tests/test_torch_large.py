@@ -543,6 +543,53 @@ def test_map_mode_late_candidates_matches_jax(large_setup):
                                atol=1e-4, rtol=0)
 
 
+def test_map_mode_late_candidates_at_the_two_pass_width_match_jax(monkeypatch):
+    """Map mode with late candidates on the block-max route: rows 100
+    (block 0) and 700 (block 1) tie exactly at the candidate cut, and block
+    1 holds the best row, so the two-pass selection gives the tie to row
+    700, not to the lower row."""
+    rng = np.random.default_rng(11)
+    n, d, v, l_doc, dt, b, lq = 1024, 16, 64, 4, 8, 2, 3
+    # quarter steps: every dot product is exact in float32, in any order
+    emb = rng.integers(-2, 3, (n, d)).astype(np.float32) * 0.0625
+    qvec = np.zeros((b, d), np.float32)
+    qvec[:, 0] = [1.0, 0.5]
+    emb[:, 0] = np.clip(emb[:, 0], -0.125, 0.125)
+    emb[600, 0], emb[[100, 700], 0] = 2.0, 1.0    # best row, then the tie
+    impact = (rng.random((v, n)) * (rng.random((v, n)) > 0.9)).astype(np.float32)
+    ids = rng.integers(0, v, (b, 5)).astype(np.int32)
+    tmask = np.ones((b, 5), bool)
+    tok = rng.standard_normal((n, l_doc, dt)).astype(np.float32)
+    tok[[100, 700]] *= 4                          # the tied rows' late scores win
+    dmask = rng.random((n, l_doc)) > 0.3
+    dmask[:, 0] = True
+    q_tok = rng.standard_normal((b, lq, dt)).astype(np.float32)
+    q_tok[..., 0] = np.abs(q_tok[..., 0]) + 1
+    tok[[100, 700], :, 0] = np.abs(tok[[100, 700], :, 0])
+    q_mask = np.ones((b, lq), bool)
+    params = dict(BASE, eff_k=8, final_k=5, late_candidates=2)
+    monkeypatch.setattr(jtopk, "TWO_PASS_MIN_N", 512)
+    monkeypatch.setattr(ttopk, "TWO_PASS_MIN_N", 512)
+    jax.clear_caches()
+    try:
+        want = jfq.fused_hybrid_topk(
+            jnp.asarray(emb), jnp.asarray(impact), jnp.asarray(tok),
+            jnp.asarray(dmask), jnp.asarray(qvec),
+            (jnp.asarray(ids), jnp.asarray(tmask)), jnp.asarray(q_tok),
+            jnp.asarray(q_mask), jnp.int32(n), jfq.FusedParams(**params))
+        got = tfq.fused_hybrid_topk(
+            t(emb), t(impact), t(tok), t(dmask), t(qvec), (t(ids), t(tmask)),
+            t(q_tok), t(q_mask), n, tfq.FusedParams(**params))
+    finally:
+        monkeypatch.undo()
+        jax.clear_caches()
+    want_rows = np.asarray(want["rows"])
+    assert 700 in want_rows[0] and want_rows[0].tolist().index(700) < 2
+    np.testing.assert_array_equal(got["rows"].numpy(), want_rows)
+    np.testing.assert_allclose(got["packed"].numpy(), np.asarray(want["packed"]),
+                               atol=1e-4, rtol=0)
+
+
 def test_convert_carries_int8_tokens_and_checks_postings(large_setup):
     jb, tb = large_setup[0], large_setup[1]
     quant = JaxTokenIndex(128, 64, dtype="int8")._quantize(
