@@ -212,6 +212,44 @@ def test_maxsim_plain_matches_xla_bf16_and_chunking():
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("b,lq,l_doc,dt", [
+    (3, 9, 13, 32), (2, 64, 13, 64), (2, 9, 220, 128), (1, 64, 220, 128),
+    (2, 64, 220, 64), (1, 9, 220, 32)])
+def test_maxsim_full_matches_jax_at_the_kernel_edge_shapes(b, lq, l_doc, dt):
+    """``maxsim_full`` in bf16 (the plain version on the CPU; the card holds
+    the kernel to it) against JAX's ``maxsim_full`` and the Pallas
+    ``maxsim_scores_pallas2`` at the shapes the bf16 kernel is checked at:
+    every token_dim it takes, L 220 and ragged, Lq below one m16 tile and
+    a whole query of 64, B 1; an empty doc, a doc with one valid token, a
+    doc with all L valid, and masks that are not a prefix."""
+    rng = np.random.default_rng(lq * 1000 + l_doc + dt + b)
+    n = 16
+    doc_tok = _bf16(_unit(rng, n, l_doc, dt))
+    doc_mask = rng.random((n, l_doc)) > 0.4
+    doc_mask[3] = False                                  # empty doc
+    doc_mask[4] = np.arange(l_doc) == l_doc // 2         # one valid token
+    doc_mask[5] = True                                   # all L valid
+    doc_mask[6] = np.arange(l_doc) % 3 == 1              # not a prefix
+    q_tok = _bf16(_unit(rng, b, lq, dt))
+    q_mask = rng.random((b, lq)) > 0.3
+    q_mask[:, 0] = True
+    q_mask[0, 1::2] = False                              # not a prefix
+    want = np.asarray(jax_maxsim_full(
+        jnp.asarray(doc_tok, jnp.bfloat16), jnp.asarray(doc_mask),
+        jnp.asarray(q_tok, jnp.bfloat16), jnp.asarray(q_mask), tile_n=8))
+    want_p2 = np.asarray(maxsim_scores_pallas2(
+        jnp.asarray(doc_tok), jnp.asarray(doc_mask), jnp.asarray(q_tok),
+        jnp.asarray(q_mask), tile_t=8, interpret=True))
+    got = maxsim_full(torch.tensor(doc_tok).to(torch.bfloat16),
+                      torch.from_numpy(doc_mask),
+                      torch.tensor(q_tok).to(torch.bfloat16),
+                      torch.from_numpy(q_mask))
+    assert got.shape == (b, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want_p2, rtol=1e-5, atol=1e-5)
+    assert (got[:, 3] == 0).all()
+
+
 def test_maxsim_negative_similarities_preserved():
     doc_tok = -np.ones((8, 2, 4), np.float32) / 2.0
     doc_mask = np.ones((8, 2), bool)
