@@ -248,12 +248,77 @@ def check_score_select_edges(dev) -> dict:
     return out
 
 
+def maxsim_edge_inputs(g, n, b, lq, l_doc, dt, dev, dtype=torch.bfloat16):
+    """Unit token vectors and random masks, with an empty doc (3), a doc
+    with one valid token (4), one with all L valid (5) and one whose valid
+    tokens are not a prefix (6) where N reaches them, and query masks that
+    are not a prefix."""
+    tok = unit_rows(g, n * l_doc, dt, dev, dtype).reshape(n, l_doc, dt)
+    dmask = torch.rand(n, l_doc, generator=g) > 0.4
+    special = {3: torch.zeros(l_doc, dtype=torch.bool),
+               4: torch.arange(l_doc) == l_doc // 2,
+               5: torch.ones(l_doc, dtype=torch.bool),
+               6: torch.arange(l_doc) % 3 == 1}
+    for row, m in special.items():
+        if row < n:
+            dmask[row] = m
+    if n == 1:
+        dmask[0] = special[6]
+    q_tok = unit_rows(g, b * lq, dt, dev, dtype).reshape(b, lq, dt)
+    q_mask = torch.rand(b, lq, generator=g) > 0.3
+    q_mask[:, 0] = True
+    q_mask[0, 1::2] = False
+    return tok, dmask.to(dev), q_tok, q_mask.to(dev)
+
+
+# (N, B, Lq, L, dt) of the bf16 MaxSim edge cases: every token_dim, L 220,
+# ragged (13) and long (400, 512), Lq below one m16 tile (9), one query's
+# 64 slots, two and three slot groups (100, 150), B 1 and B not a multiple
+# of a block's queries (9), N = 1 and N not a multiple of the doc slices
+MAXSIM_EDGES = ((1000, 3, 9, 13, 32), (1000, 2, 64, 13, 64),
+                (1000, 2, 9, 220, 128), (1000, 1, 64, 220, 128),
+                (1000, 2, 64, 220, 64), (1000, 1, 9, 220, 32),
+                (1, 5, 64, 220, 128), (777, 9, 100, 220, 128),
+                (300, 9, 150, 13, 64), (300, 2, 64, 400, 128),
+                (300, 2, 64, 512, 32))
+
+
+def check_maxsim_edges(dev) -> dict:
+    """The bf16 MaxSim kernel against ``maxsim_full_plain`` at
+    ``MAXSIM_EDGES`` (allclose, rtol and atol 1e-4: float32 sums in another
+    order): empty docs score 0, and with every product negative (negated
+    doc tokens, positive queries) the scores of non-empty docs stay
+    negative."""
+    g = torch.Generator().manual_seed(2)
+    out = {}
+    for n, b, lq, l_doc, dt in MAXSIM_EDGES:
+        name = f"n{n}_b{b}_lq{lq}_l{l_doc}_dt{dt}"
+        tok, dmask, q_tok, q_mask = maxsim_edge_inputs(g, n, b, lq, l_doc,
+                                                       dt, dev)
+        got = maxsim_full(tok, dmask, q_tok, q_mask)
+        want = maxsim_full_plain(tok, dmask, q_tok, q_mask)
+        err = (got - want).abs().max().item()
+        check(got.shape == (b, n) and torch.allclose(got, want, rtol=1e-4,
+                                                     atol=1e-4),
+              f"maxsim bf16 {name} differs by {err}")
+        empty = ~dmask.any(dim=1)
+        check(bool((got[:, empty] == 0).all()),
+              f"maxsim bf16 {name}: an empty doc must score 0")
+        neg = maxsim_full((-tok.float().abs()).to(tok.dtype), dmask,
+                          q_tok.float().abs().to(q_tok.dtype), q_mask)
+        check(bool((neg[:, ~empty] < 0).all()),
+              f"maxsim bf16 {name}: negative best matches must stay negative")
+        out[name] = err
+    return out
+
+
 def check_edge_cases(dev) -> dict:
     """Both kernels against their plain versions off the main path's
-    shapes (kernel 1: ``check_score_select_edges``); MaxSim at token_dim
-    64, token masks that are not a prefix, an empty doc and negative
-    similarities."""
-    res = {"score_select": check_score_select_edges(dev)}
+    shapes (kernel 1: ``check_score_select_edges``; bf16 MaxSim:
+    ``check_maxsim_edges``); float32 MaxSim at token_dim 64, token masks
+    that are not a prefix, an empty doc and negative similarities."""
+    res = {"score_select": check_score_select_edges(dev),
+           "maxsim_bf16_max_abs_err": check_maxsim_edges(dev)}
     g = torch.Generator().manual_seed(1)
     tok = torch.randn(300, 40, 64, generator=g).to(dev)
     dmask = (torch.rand(300, 40, generator=g) > 0.6).to(dev)
@@ -291,8 +356,33 @@ def device_ops(fn) -> list:
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def kernel_label(mangled: str) -> str:
+    """``base<args>`` for a kernel of the port's anonymous namespaces
+    (``_ZN<len><namespace><len><base>[I<args>E]E...``): bf16 / f32 for a
+    type argument, the integers as they are."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    m = m and re.compile(r"\d+").match(mangled, m.end() + int(m.group(1)))
+    if not m:
+        return mangled
+    end = m.end() + int(m.group(0))
+    base, rest = mangled[m.end():end], mangled[end:]
+    if not rest.startswith("I"):
+        return base
+    head = rest[:rest.index("Ev")]
+    args = (["bf16"] if "__nv_bfloat16" in head
+            else ["f32"] if head.startswith("If") else [])
+    return f"{base}<{','.join(args + re.findall(r'Li(\d+)E', head))}>"
+
+
+# kernels whose SASS the build line counts, and which of their instances
+# must multiply on the tensor cores (HMMA) and which on the CUDA cores
+SASS_KERNELS = ("score_select_kernel", "maxsim_bf16_kernel",
+                "maxsim_tokens_kernel", "maxsim_reduce_kernel")
+ON_TENSOR_CORES = ("score_select_kernel<bf16>", "maxsim_bf16_kernel<")
+
+
 def sass_counts(lib_path: str) -> dict:
-    """Per score_select kernel instance, the count of tensor-core (HMMA)
+    """Per instance of ``SASS_KERNELS``, the count of tensor-core (HMMA)
     and float32 FMA (FFMA) instructions in its SASS (cuobjdump)."""
     cuobjdump = Path(kernels._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", lib_path],
@@ -302,13 +392,53 @@ def sass_counts(lib_path: str) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if "score_select_kernel" in m.group(1) else None
+            name = kernel_label(m.group(1))
+            name = name if name.split("<")[0] in SASS_KERNELS else None
             if name:
                 counts[name] = {"HMMA": 0, "FFMA": 0}
         elif name:
             for op in ("HMMA", "FFMA"):
                 counts[name][op] += bool(re.search(rf"\b{op}\b", line))
     return counts
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers and spill bytes of every kernel in ``nvcc -Xptxas -v``'s
+    report, by ``kernel_label``."""
+    out = {}
+    for part in text.split("Compiling entry function '")[1:]:
+        name = kernel_label(part.split("'", 1)[0])
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          part)
+        check(regs is not None and spill is not None,
+              f"ptxas report of {name} not understood")
+        out[name] = {"registers": int(regs.group(1)),
+                     "spill_stores": int(spill.group(1)),
+                     "spill_loads": int(spill.group(2))}
+    return out
+
+
+def phase_build() -> dict:
+    """Compile the kernels, read ptxas's registers and spills and the SASS
+    counts, and check that each instance multiplies where it should:
+    score_select<bf16> and every maxsim_bf16_kernel on the tensor cores,
+    the float32 instances on the CUDA cores (FFMA, no HMMA)."""
+    built = kernels.build(force=True)
+    sass = sass_counts(built["path"])
+    want = {"score_select_kernel": 2, "maxsim_bf16_kernel": 3,
+            "maxsim_tokens_kernel": 3, "maxsim_reduce_kernel": 1}
+    got = {k: sum(n.startswith(k + "<") or n == k for n in sass) for k in want}
+    check(got == want, f"kernel instances in the SASS: {list(sass)}")
+    for name, ops in sass.items():
+        on_tc = name.startswith(ON_TENSOR_CORES)
+        check(bool(ops["HMMA"]) == on_tc
+              and (on_tc or ops["FFMA"] > 0 or "reduce" in name),
+              f"SASS {name}: {ops}")
+    res = {"phase": "build", "seconds": built["seconds"],
+           "ptxas": ptxas_report(built["ptxas"]), "sass": sass}
+    emit(res)
+    return res
 
 
 # ------------------------------------------------------------------ phases
@@ -400,6 +530,12 @@ def phase_kernels(zh, queries):
     check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
           f"maxsim differs by {err2}")
     check(torch.isfinite(got).all().item(), "maxsim not finite")
+    # a fixed summation order: two calls give the same bits
+    check(torch.equal(got, maxsim_full(tok, dmask, q_tok, q_mask)),
+          "maxsim: two calls differ")
+    ops2 = device_ops(lambda: maxsim_full(tok, dmask, q_tok, q_mask))
+    check(len(ops2) == 1 and "maxsim_bf16_kernel" in ops2[0],
+          f"one maxsim_full call issued {ops2}")
     n, l_doc, dt = tok.shape
 
     def library2():
@@ -414,6 +550,8 @@ def phase_kernels(zh, queries):
         return res
 
     nvq, nvd = int(q_mask.sum()), int(dmask.sum())
+    qw = lib.maxsim_queries_per_block()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     bms, by = bound((nvd + nvq) * dt * tok.element_size() + n * l_doc
                     + q_mask.numel() + b * n * 4,
                     2 * dt * nvq * nvd, BF16_FLOP_PER_S)
@@ -426,8 +564,10 @@ def phase_kernels(zh, queries):
         "shapes": {"B": b, "Lq": q_tok.shape[1], "N": n, "L": l_doc,
                    "dt": dt, "dtype": str(tok.dtype),
                    "valid_query_tokens": nvq, "valid_doc_tokens": nvd,
-                   "doc_fill": nvd / (zh.tokens.n * l_doc)},
-        "max_abs_err": err2, "tolerance": 1e-4,
+                   "doc_fill": nvd / (zh.tokens.n * l_doc),
+                   "grid": [-(-b // qw), max(1, min(n, n_sm // -(-b // qw)))]},
+        "max_abs_err": err2, "tolerance": 1e-4, "bitwise_equal_calls": True,
+        "device_ops_per_call": ops2,
         "ms": cuda_ms(lambda: maxsim_full(tok, dmask, q_tok, q_mask)),
         "plain_ms": cuda_ms(lambda: maxsim_full_plain(tok, dmask, q_tok,
                                                       q_mask)),
@@ -779,18 +919,7 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    built = kernels.build(force=True)
-    regs = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
-                      built["ptxas"], re.S)
-    sass = sass_counts(built["path"])
-    check(len(sass) == 2, f"score_select instances in the SASS: {list(sass)}")
-    for name, ops in sass.items():   # bf16 on the tensor cores, f32 on FMA
-        on_tc = "bfloat16" in name
-        check(bool(ops["HMMA"]) == on_tc and (on_tc or ops["FFMA"] > 0),
-              f"score_select SASS {name}: {ops}")
-    emit({"phase": "build", "seconds": built["seconds"],
-          "registers": {name[-60:]: int(n) for name, n in regs},
-          "score_select_sass": sass})
+    phase_build()
     kernels.lib()
     emit({"phase": "kernel_edge_cases",
           **check_edge_cases(torch.device("cuda"))})

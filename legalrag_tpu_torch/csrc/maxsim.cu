@@ -11,27 +11,44 @@
 // negative. The masks are honoured as given: valid tokens need not be a
 // prefix.
 //
-// Two launches: maxsim_tokens_kernel writes best(b, i, n) for every valid
-// query token into scratch [N, B * Lq]; maxsim_reduce_kernel sums each
-// query's valid tokens in token order into out [B, N] (a fixed order, so the
-// result does not change from run to run).
+// What bounds it on an H100: the products of valid tokens. At the zh main
+// path's shapes (B 64, Lq 64, N 2048 of which 1,260 docs hold tokens, L 220,
+// token_dim 128, bf16) the batch has 3,511 valid query tokens and 173,762
+// valid doc tokens: 2 * 128 * 3511 * 173762 = 0.156 TFLOP, 0.158 ms at the
+// 989 TFLOP/s bf16 tensor-core peak. Its bytes (the valid doc tokens once,
+// 44.5 MB, 13 us at 3.35 TB/s) bound it far less.
 //
-// maxsim_tokens_kernel: a block owns up to THREADS valid query tokens (the
-// valid tokens of the whole batch, compacted in the block's prologue, so no
-// thread spends a doc on a padded query token) and walks a strided set of
-// docs. For each doc it compacts the valid doc-token positions, stages those
-// tokens widened to float32 in shared memory (<= L * DT * 4 bytes, 110 KB
-// at L=220, DT=128) and each thread keeps its query token in DT registers
-// and takes the running max of its dot products over the staged tokens.
+// bf16 (the main path): one launch, maxsim_bf16_kernel, products on the
+// tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums: exact
+// products, so only the order of the sums differs from the reference).
+// - A block of QW warps owns QW whole queries, one a warp, and walks a
+//   strided slice of the docs (grid [ceil(B / QW), doc slices], the query
+//   group fastest, so the blocks that read one doc run together and find it
+//   in L2; the wrapper picks about one block per SM).
+// - A warp keeps its query's slots as mma's A in registers, RG = 64 slots
+//   (four m16 tiles, token_dim / 16 k-steps each) loaded once; an m16 tile
+//   whose 16 slots are all masked issues no products. Longer queries go
+//   through in groups of RG slots, reloaded for each doc.
+// - Per doc, every warp ballots the doc's mask (its bytes prefetched into
+//   registers one doc ahead) and the warps copy the valid token rows,
+//   compacted, with cp.async into a ring of STAGES bf16 stages (rows padded
+//   to dt + 8 against bank conflicts), one doc in flight while the block
+//   works on the last. Rows stored [token][dt] are mma's column-major B as
+//   they lie, so ldmatrix reads them without .trans.
+// - Two n8 token chunks a pass: columns past the doc's valid count are
+//   masked to -inf, each thread folds its C fragment into running row
+//   maxima, and a quad shuffle finishes the doc (max is order-free).
+// - The warp's lane 0 sums the query's best matches in token order (masked
+//   slots add +0.0, which changes nothing), so a run gives the same bits
+//   every time, and writes out[b, n]. No scratch, no second launch.
 //
-// What bounds it on an H100: the padded work at the zh main-path shapes
-// (B=64, Lq=64, N=2048, L=220, DT=128) is 2*64*64*2048*220*128 = 0.47 TFLOP,
-// 0.48 ms at 989 TFLOP/s bf16. The valid-token work of real inputs is
-// smaller: the zh doc-token fill is 21% with jieba's tokens and 63% with the
-// char+bigram fallback, so a batch needs about a third of the padded work.
-// The bytes of the valid tokens (plus masks, queries and the output) bound
-// it next. This kernel skips all padded work but multiplies on the
-// CUDA cores in float32, far above the tensor-core bound; wgmma is later work.
+// float32 (off the main path; TF32 would change its results): two
+// launches on the CUDA cores. maxsim_tokens_kernel writes best(b, i, n)
+// for every valid query token into scratch [N, B * Lq]; a block owns up to
+// THREADS valid query tokens (compacted in its prologue), each thread keeps
+// its token in DT registers, and for each doc of its strided set the block
+// stages the valid doc tokens in shared memory. maxsim_reduce_kernel sums
+// each query's valid tokens in token order into out [B, N].
 
 #include <math.h>
 
@@ -39,7 +56,246 @@
 
 namespace {
 
+constexpr int SMEM_OPTIN = 232448;  // sm_90's per-block opt-in shared memory
+
+// ====================================================================== bf16
+
+constexpr int QW = 8;             // warps a block, one query each
+constexpr int QTHREADS = QW * 32;
+constexpr int RG = 64;            // query slots a warp holds at once
+constexpr int MT = RG / 16;       // m16 tiles in them
+constexpr int STAGES = 2;         // doc stages a block
+constexpr int MAXCH = 16;         // 32-token mask chunks a lane prefetches
+constexpr unsigned FULL = 0xffffffffu;
+
+__host__ __device__ constexpr int stage_rows(int L) { return (L + 7) / 8 * 8; }
+
+// Dynamic shared memory: the stages [STAGES][stage_rows(L)][dt + 8] bf16,
+// then per warp its sum buffer [RG] float32 and chunk lanes [32] int, then
+// the staged docs' valid counts [STAGES] int.
+size_t bf16_smem_bytes(int L, int dt) {
+  return (size_t)STAGES * stage_rows(L) * (dt + 8) * 2 +
+         (size_t)QW * (RG + 32) * 4 + STAGES * 4;
+}
+
+template <int DT>
+__global__ void __launch_bounds__(QTHREADS, 1)
+maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
+                   const uint8_t* __restrict__ doc_mask,
+                   const __nv_bfloat16* __restrict__ q_tok,
+                   const uint8_t* __restrict__ q_mask, int B, int Lq, int N,
+                   int L, float* __restrict__ out) {
+  typedef __nv_bfloat16 bf16;
+  constexpr int LD = DT + 8;   // stage row (bf16), 16-byte multiple
+  constexpr int KS = DT / 16;  // k16 steps
+  constexpr int P = DT / 8;    // 16-byte pieces of a token row
+  extern __shared__ __align__(16) unsigned char stage_smem[];
+  const int rows = stage_rows(L);
+  bf16* stages = reinterpret_cast<bf16*>(stage_smem);
+  float* tail = reinterpret_cast<float*>(stages + (size_t)STAGES * rows * LD);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* sbuf = tail + warp * RG;
+  int* tlane = reinterpret_cast<int*>(tail + QW * RG) + warp * 32;
+  int* nvs = reinterpret_cast<int*>(tail + QW * RG) + QW * 32;
+
+  const int n0 = blockIdx.y, dstep = gridDim.y;
+  const int count = n0 < N ? (N - 1 - n0) / dstep + 1 : 0;  // docs of this block
+  const int chunks = (L + 31) / 32;
+  const int b = blockIdx.x * QW + warp;
+  const bool has_q = b < B;
+  const int groups = (Lq + RG - 1) / RG;
+  const int g = lane >> 2, tq = lane & 3;
+
+  // mask bytes of token c * 32 + lane of the next doc to stage
+  unsigned mreg[MAXCH];
+  auto fetch_mask = [&](int i) {
+    const uint8_t* m = doc_mask + (size_t)(n0 + i * dstep) * L;
+#pragma unroll
+    for (int c = 0; c < MAXCH; ++c) {
+      const int j = c * 32 + lane;
+      mreg[c] = i < count && c < chunks && j < L ? m[j] : 0u;
+    }
+  };
+
+  // Doc i's valid token rows, compacted in token order, into stage i %
+  // STAGES; warp w copies the 32-token chunks c with c % QW == w.
+  auto load_doc = [&](int i) {
+    const bf16* src = doc_tok + (size_t)(n0 + i * dstep) * L * DT;
+    bf16* dst = stages + (size_t)(i % STAGES) * rows * LD;
+    int base = 0;
+#pragma unroll
+    for (int c = 0; c < MAXCH; ++c) {
+      const unsigned bal = __ballot_sync(FULL, mreg[c] != 0);
+      if (c % QW == warp && bal) {
+        if (mreg[c]) tlane[__popc(bal & ((1u << lane) - 1u))] = c * 32 + lane;
+        __syncwarp();
+        const int cnt = __popc(bal);
+        for (int e = lane; e < cnt * P; e += 32) {
+          const int k = e / P, p = e - k * P;
+          lrt::cp_async16(dst + (size_t)(base + k) * LD + p * 8,
+                          src + (size_t)tlane[k] * DT + p * 8, true);
+        }
+        __syncwarp();  // tlane is rewritten for the warp's next chunk
+      }
+      base += __popc(bal);
+    }
+    if (threadIdx.x == 0) nvs[i % STAGES] = base;
+  };
+
+  // The warp's query slots [r * RG, r * RG + RG) as A fragments: a[t][ks]
+  // = (rows g, g + 8 of tile t) x (k 2 tq, 2 tq + 8 of step ks); slots past
+  // Lq are zero. live: tiles with a valid slot; qbits: bit 2 t + h when
+  // this lane's slot t * 16 + g + 8 h is valid.
+  unsigned a[MT][KS][4];
+  unsigned live = 0, qbits = 0;
+  auto load_query = [&](int r) {
+    live = 0;
+    qbits = 0;
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      const int s0 = r * RG + t * 16;
+      const int sl = s0 + (lane & 15);
+      if (__ballot_sync(FULL, has_q && sl < Lq && q_mask[(size_t)b * Lq + sl]))
+        live |= 1u << t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int s = s0 + g + 8 * h;
+        const bool ok = has_q && s < Lq;
+        if (ok && q_mask[(size_t)b * Lq + s]) qbits |= 1u << (2 * t + h);
+        const unsigned* row = reinterpret_cast<const unsigned*>(
+            q_tok + ((size_t)b * Lq + (ok ? s : 0)) * DT + 2 * tq);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          a[t][ks][h] = ok ? row[ks * 8] : 0u;
+          a[t][ks][2 + h] = ok ? row[ks * 8 + 4] : 0u;
+        }
+      }
+    }
+  };
+
+  fetch_mask(0);
+  if (count > 0) load_doc(0);
+  lrt::cp_async_commit();
+  fetch_mask(1);
+  if (groups == 1) load_query(0);
+
+  for (int i = 0; i < count; ++i) {
+    lrt::cp_async_wait<0>();  // doc i has landed (this thread's copies)
+    __syncthreads();          // ... and everyone's; doc i - 1's stage is free
+    if (i + 1 < count) load_doc(i + 1);
+    lrt::cp_async_commit();
+    fetch_mask(i + 2);
+    if (!has_q) continue;
+
+    const int nv = nvs[i % STAGES];
+    const bf16* bs = stages + (size_t)(i % STAGES) * rows * LD;
+    float total = 0.f;
+    for (int r = 0; nv > 0 && r < groups; ++r) {
+      if (groups > 1) load_query(r);
+      float best[MT][2];
+#pragma unroll
+      for (int t = 0; t < MT; ++t) best[t][0] = best[t][1] = -INFINITY;
+
+      for (int j = 0; j < nv; j += 16) {  // token chunks j and j + 8
+        const bool two = j + 8 < nv;
+        float acc[2][MT][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < KS / 2; ++kk) {  // k-steps 2 kk, 2 kk + 1
+          unsigned b0[4], b1[4];
+          const bf16* p = bs + (j + (lane & 7)) * LD + kk * 32 + (lane >> 3) * 8;
+          lrt::ldmatrix_x4(b0, p);
+          if (two) lrt::ldmatrix_x4(b1, p + 8 * LD);
+#pragma unroll
+          for (int t = 0; t < MT; ++t) {
+            if (!(live >> t & 1u)) continue;
+            lrt::mma_bf16(acc[0][t], a[t][2 * kk], b0[0], b0[1]);
+            lrt::mma_bf16(acc[0][t], a[t][2 * kk + 1], b0[2], b0[3]);
+            if (two) {
+              lrt::mma_bf16(acc[1][t], a[t][2 * kk], b1[0], b1[1]);
+              lrt::mma_bf16(acc[1][t], a[t][2 * kk + 1], b1[2], b1[3]);
+            }
+          }
+        }
+        // accumulator (t, e): slot t * 16 + g (+ 8 for e >= 2), token
+        // j + 8 u + 2 tq + e % 2
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (u == 1 && !two) break;
+          const int c0 = j + 8 * u + 2 * tq;
+          const bool v0 = c0 < nv, v1 = c0 + 1 < nv;
+#pragma unroll
+          for (int t = 0; t < MT; ++t) {
+            best[t][0] = fmaxf(best[t][0], fmaxf(v0 ? acc[u][t][0] : -INFINITY,
+                                                 v1 ? acc[u][t][1] : -INFINITY));
+            best[t][1] = fmaxf(best[t][1], fmaxf(v0 ? acc[u][t][2] : -INFINITY,
+                                                 v1 ? acc[u][t][3] : -INFINITY));
+          }
+        }
+      }
+
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float m = best[t][h];
+          m = fmaxf(m, __shfl_xor_sync(FULL, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(FULL, m, 2));
+          best[t][h] = m;
+        }
+      }
+      __syncwarp();  // lane 0 has read the last group's buffer
+      if (tq == 0) {
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            sbuf[t * 16 + g + 8 * h] = qbits >> (2 * t + h) & 1u ? best[t][h] : 0.f;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) {  // token order; slots past Lq and masked add +0.0
+        const float4* s4 = reinterpret_cast<const float4*>(sbuf);
+#pragma unroll
+        for (int s = 0; s < RG / 4; ++s) {
+          const float4 v = s4[s];
+          total += v.x;
+          total += v.y;
+          total += v.z;
+          total += v.w;
+        }
+      }
+    }
+    if (lane == 0) out[(size_t)b * N + n0 + i * dstep] = total;  // empty doc: 0
+  }
+}
+
+template <int DT>
+int launch_bf16(const void* doc_tok, const void* doc_mask, const void* q_tok,
+                const void* q_mask, int B, int Lq, int N, int L,
+                int grid_docs, void* out, cudaStream_t stream) {
+  const size_t smem = bf16_smem_bytes(L, DT);
+  cudaError_t err = cudaFuncSetAttribute(
+      maxsim_bf16_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + QW - 1) / QW, grid_docs);
+  maxsim_bf16_kernel<DT><<<grid, QTHREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(doc_tok),
+      static_cast<const uint8_t*>(doc_mask),
+      static_cast<const __nv_bfloat16*>(q_tok),
+      static_cast<const uint8_t*>(q_mask), B, Lq, N, L,
+      static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+// =================================================================== float32
+
 constexpr int THREADS = 256;
+constexpr int F32_STATIC = 2048;  // the f32 kernel's static shared arrays, rounded up
+
+size_t f32_smem_bytes(int L, int dt) {
+  return (size_t)L * dt * sizeof(float) + (size_t)L * sizeof(int);
+}
 
 // Block-wide exclusive scan of one int per thread (THREADS threads).
 __device__ int block_exclusive_scan(int v, int* total) {
@@ -176,7 +432,7 @@ int launch(const void* doc_tok, const void* doc_mask, const void* q_tok,
            const void* q_mask, int B, int Lq, int N, int L, int grid_docs,
            void* scratch, void* out, cudaStream_t stream) {
   const int S = B * Lq;
-  const size_t smem = (size_t)L * DT * sizeof(float) + (size_t)L * sizeof(int);
+  const size_t smem = f32_smem_bytes(L, DT);
   cudaError_t err = cudaFuncSetAttribute(
       maxsim_tokens_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -195,45 +451,67 @@ int launch(const void* doc_tok, const void* doc_mask, const void* q_tok,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_dt(int dt, const void* doc_tok, const void* doc_mask,
-                const void* q_tok, const void* q_mask, int B, int Lq, int N,
-                int L, int grid_docs, void* scratch, void* out,
-                cudaStream_t s) {
-  switch (dt) {
-    case 32:
-      return launch<T, 32>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                           grid_docs, scratch, out, s);
-    case 64:
-      return launch<T, 64>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                           grid_docs, scratch, out, s);
-    case 128:
-      return launch<T, 128>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                            grid_docs, scratch, out, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
+// Queries a block of the bf16 kernel owns (its grid is [ceil(B / this),
+// doc slices]).
+int maxsim_queries_per_block() { return QW; }
+
+// Dynamic shared memory a launch needs for doc_maxlen L and token_dim dt,
+// or -1 when the kernel does not take the shape (dt not in {32, 64, 128},
+// bf16 L above 32 * MAXCH, or more than a block may have).
+long long maxsim_smem_bytes(int dtype, int L, int dt) {
+  if ((dt != 32 && dt != 64 && dt != 128) || L < 1) return -1;
+  if (dtype == lrt::kBF16) {
+    const size_t s = bf16_smem_bytes(L, dt);
+    return L <= 32 * MAXCH && s <= (size_t)SMEM_OPTIN ? (long long)s : -1;
+  }
+  if (dtype == lrt::kF32) {
+    const size_t s = f32_smem_bytes(L, dt);
+    return s <= (size_t)(SMEM_OPTIN - F32_STATIC) ? (long long)s : -1;
+  }
+  return -1;
+}
+
 // doc_tok [N, L, dt] and q_tok [B, Lq, dt] of one dtype (lrt::DType),
-// doc_mask [N, L] / q_mask [B, Lq] bool (1 byte), all contiguous;
-// dt in {32, 64, 128}; scratch float32 [N, B * Lq]; out float32 [B, N].
-// grid_docs blocks walk the doc axis. Returns cudaGetLastError().
+// doc_mask [N, L] / q_mask [B, Lq] bool (1 byte), all contiguous, the token
+// tensors 16-byte aligned; maxsim_smem_bytes(dtype, L, dt) >= 0; out
+// float32 [B, N]. bf16: one launch, grid [ceil(B / QW), grid_docs], no
+// scratch (pass NULL). float32: two launches, grid_docs blocks on the doc
+// axis, scratch float32 [N, B * Lq]. Returns cudaGetLastError().
 int maxsim(const void* doc_tok, const void* doc_mask, const void* q_tok,
            const void* q_mask, int dtype, int B, int Lq, int N, int L, int dt,
            int grid_docs, void* scratch, void* out, void* stream) {
+  if (B < 1 || Lq < 1 || N < 1 || grid_docs < 1 ||
+      maxsim_smem_bytes(dtype, L, dt) < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == lrt::kBF16)
-    return dispatch_dt<__nv_bfloat16>(dt, doc_tok, doc_mask, q_tok, q_mask, B,
-                                      Lq, N, L, grid_docs, scratch, out, s);
-  if (dtype == lrt::kF32)
-    return dispatch_dt<float>(dt, doc_tok, doc_mask, q_tok, q_mask, B, Lq, N,
-                              L, grid_docs, scratch, out, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == lrt::kBF16) {
+    switch (dt) {
+      case 32:
+        return launch_bf16<32>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                               grid_docs, out, s);
+      case 64:
+        return launch_bf16<64>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                               grid_docs, out, s);
+      default:
+        return launch_bf16<128>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                                grid_docs, out, s);
+    }
+  }
+  switch (dt) {
+    case 32:
+      return launch<float, 32>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                               grid_docs, scratch, out, s);
+    case 64:
+      return launch<float, 64>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                               grid_docs, scratch, out, s);
+    default:
+      return launch<float, 128>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                                grid_docs, scratch, out, s);
+  }
 }
 
 }  // extern "C"

@@ -100,46 +100,6 @@ __device__ __forceinline__ u64 load_cg(const u64* p) {
   return v;
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared past L1; zeros instead when !ok (nothing read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(PENDING) : "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)) : "memory");
-}
-
-// c[16 x 8] += a[16 x 16] (row-major) * b[16 x 8] (column-major), bf16
-// operands, float32 sums, on the tensor cores.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // ------------------------------------------------------------------ scores
 
 // bf16 store: the row-major query tile [QB][DP] is mma's A, and the store's
@@ -245,14 +205,14 @@ __device__ __forceinline__ void block_scores(const float* __restrict__ q,
       const int p = threadIdx.x + j * THREADS;  // 16-byte piece
       const int r = p / (KC / 8), col = c * KC + p % (KC / 8) * 8;
       const bool ok = row0 + r < rows && col < d;
-      cp_async16(dst + r * BST + p % (KC / 8) * 8,
+      lrt::cp_async16(dst + r * BST + p % (KC / 8) * 8,
                  ok ? emb + (size_t)(row0 + r) * d + col : emb, ok);
     }
   };
 #pragma unroll
   for (int c = 0; c < STAGES - 1; ++c) {
     if (c < chunks) load_chunk(c);
-    cp_async_commit();
+    lrt::cp_async_commit();
   }
 
   // queries: float32 -> bf16 (round to nearest even), QLOADS loads in
@@ -283,22 +243,22 @@ __device__ __forceinline__ void block_scores(const float* __restrict__ q,
 
   float acc[2][4] = {};
   for (int c = 0; c < chunks; ++c) {
-    cp_async_wait<STAGES - 2>();   // chunk c has landed (this thread's part)
+    lrt::cp_async_wait<STAGES - 2>();   // chunk c has landed (this thread's part)
     __syncthreads();               // ... and everyone's; stage c - 1 is free
     if (c + STAGES - 1 < chunks) load_chunk(c + STAGES - 1);
-    cp_async_commit();
+    lrt::cp_async_commit();
     const bf16* bs = stage + (c % STAGES) * TILE * BST;
 #pragma unroll
     for (int ks = 0; ks < KC / 16; ++ks) {
       unsigned a[4], b[4];
-      ldmatrix_x4(a, qs + (lane & 15) * dp + c * KC + ks * 16 + (lane >> 4) * 8);
-      ldmatrix_x4(b, bs + (warp * 16 + (lane >> 4) * 8 + (lane & 7)) * BST +
+      lrt::ldmatrix_x4(a, qs + (lane & 15) * dp + c * KC + ks * 16 + (lane >> 4) * 8);
+      lrt::ldmatrix_x4(b, bs + (warp * 16 + (lane >> 4) * 8 + (lane & 7)) * BST +
                          ks * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[0], a, b[0], b[1]);
-      mma_bf16(acc[1], a, b[2], b[3]);
+      lrt::mma_bf16(acc[0], a, b[0], b[1]);
+      lrt::mma_bf16(acc[1], a, b[2], b[3]);
     }
   }
-  cp_async_wait<0>();
+  lrt::cp_async_wait<0>();
 
   // accumulator (i, j): query lane / 4 (+ 8 for i = 2, 3), row 2 (lane % 4) + j % 2
   const int g = lane >> 2;

@@ -47,10 +47,13 @@ _SIGNATURES = {
     "score_select_queries": [],
     "score_select_scratch_bytes": [_I, _I, _I],
     "maxsim": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "maxsim_queries_per_block": [],
+    "maxsim_smem_bytes": [_I, _I, _I],
     "bm25_sparse": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P],
 }
 # entries that return something other than an int
-_RESTYPES = {"score_select_scratch_bytes": ctypes.c_longlong}
+_RESTYPES = {"score_select_scratch_bytes": ctypes.c_longlong,
+             "maxsim_smem_bytes": ctypes.c_longlong}
 # kernels counted by launch(): name -> the C entry that launches it
 KERNELS = ("score_select", "maxsim", "bm25_sparse")
 

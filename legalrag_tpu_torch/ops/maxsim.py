@@ -7,9 +7,11 @@ negative, as in the JAX ``maxsim_full`` and its Pallas kernels.
 
 ``maxsim_full`` is the full-corpus [B, N] map of the late channel. On a CUDA
 tensor it launches the hand-written kernel ``csrc/maxsim.cu`` (which
-replaces the Pallas ``maxsim_scores_pallas`` / ``maxsim_scores_pallas2``);
-on a CPU tensor it runs the plain version ``maxsim_full_plain``. Neither
-takes an int8 store yet (the kernel has no in-kernel dequant).
+replaces the Pallas ``maxsim_scores_pallas`` / ``maxsim_scores_pallas2``):
+for bf16 tokens one launch with the products on the tensor cores, for
+float32 tokens two launches on the CUDA cores through a [N, B * Lq]
+scratch. On a CPU tensor it runs the plain version ``maxsim_full_plain``.
+Neither takes an int8 store yet (the kernel has no in-kernel dequant).
 
 ``maxsim_candidates`` scores per-query candidate lists [B, C] (the
 large-corpus mode's late channel): a batched gather and einsum, as XLA
@@ -27,7 +29,6 @@ INT8_SCALE = 127.0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_DT = (32, 64, 128)
-_SMEM_LIMIT = 232448 - 2048  # per-block opt-in limit less the static arrays
 
 
 def _dequant(x: torch.Tensor) -> torch.Tensor:
@@ -111,20 +112,30 @@ def _maxsim_kernel(doc_tok: torch.Tensor, doc_mask: torch.Tensor,
                          f"qmask {tuple(q_mask.shape)}")
     if dt not in _KERNEL_DT:
         raise ValueError(f"maxsim kernel takes token_dim in {_KERNEL_DT}, got {dt}")
-    if l_doc * (dt + 1) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"doc_maxlen {l_doc} x token_dim {dt} does not fit "
-                         "the kernel's shared-memory staging")
     if not all(t.is_contiguous() for t in (doc_tok, doc_mask, q_tok, q_mask)):
         raise ValueError("maxsim needs contiguous tensors")
+    if doc_tok.data_ptr() % 16 or q_tok.data_ptr() % 16:
+        raise ValueError("maxsim needs 16-byte aligned token tensors")
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     if b == 0 or n == 0:
         return out
-    scratch = torch.empty((n, b * lq), dtype=torch.float32, device=dev)
+    lib = kernels.lib()
+    dtype_id = _KERNEL_DTYPES[doc_tok.dtype]
+    if lib.maxsim_smem_bytes(dtype_id, l_doc, dt) < 0:
+        raise ValueError(f"doc_maxlen {l_doc} x token_dim {dt} does not fit "
+                         f"the {doc_tok.dtype} kernel's shared-memory staging")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid_docs = max(1, min(n, 2 * n_sm))
+    if doc_tok.dtype == torch.bfloat16:
+        # one launch, about one block per SM: [query groups, doc slices]
+        groups = -(-b // lib.maxsim_queries_per_block())
+        grid_docs = max(1, min(n, 65535, n_sm // groups))
+        scratch = None
+    else:
+        grid_docs = max(1, min(n, 2 * n_sm))
+        scratch = torch.empty((n, b * lq), dtype=torch.float32, device=dev)
     kernels.launch("maxsim", doc_tok.data_ptr(), doc_mask.data_ptr(),
-                   q_tok.data_ptr(), q_mask.data_ptr(),
-                   _KERNEL_DTYPES[doc_tok.dtype], b, lq, n, l_doc, dt,
-                   grid_docs, scratch.data_ptr(), out.data_ptr(),
-                   torch.cuda.current_stream(dev).cuda_stream)
+                   q_tok.data_ptr(), q_mask.data_ptr(), dtype_id, b, lq, n,
+                   l_doc, dt, grid_docs,
+                   None if scratch is None else scratch.data_ptr(),
+                   out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return out
