@@ -198,21 +198,31 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
 
       for (int j = 0; j < nv; j += 16) {  // token chunks j and j + 8
         const bool two = j + 8 < nv;
+        const bf16* p = bs + (j + (lane & 7)) * LD + (lane >> 3) * 8;
         float acc[2][MT][4] = {};
+        unsigned b[2][2][4];  // [buffer][chunk]: k-steps 2 kk and 2 kk + 1
+        lrt::ldmatrix_x4(b[0][0], p);
+        if (two) lrt::ldmatrix_x4(b[0][1], p + 8 * LD);
 #pragma unroll
-        for (int kk = 0; kk < KS / 2; ++kk) {  // k-steps 2 kk, 2 kk + 1
-          unsigned b0[4], b1[4];
-          const bf16* p = bs + (j + (lane & 7)) * LD + kk * 32 + (lane >> 3) * 8;
-          lrt::ldmatrix_x4(b0, p);
-          if (two) lrt::ldmatrix_x4(b1, p + 8 * LD);
+        for (int kk = 0; kk < KS / 2; ++kk) {
+          const int cur = kk & 1;
+          if (kk + 1 < KS / 2) {  // the next fragments, ahead of the products
+            lrt::ldmatrix_x4(b[cur ^ 1][0], p + (kk + 1) * 32);
+            if (two) lrt::ldmatrix_x4(b[cur ^ 1][1], p + 8 * LD + (kk + 1) * 32);
+          }
+          // the products are issued in order (asm volatile): keep each
+          // accumulator's two products of this pass apart
 #pragma unroll
-          for (int t = 0; t < MT; ++t) {
-            if (!(live >> t & 1u)) continue;
-            lrt::mma_bf16(acc[0][t], a[t][2 * kk], b0[0], b0[1]);
-            lrt::mma_bf16(acc[0][t], a[t][2 * kk + 1], b0[2], b0[3]);
-            if (two) {
-              lrt::mma_bf16(acc[1][t], a[t][2 * kk], b1[0], b1[1]);
-              lrt::mma_bf16(acc[1][t], a[t][2 * kk + 1], b1[2], b1[3]);
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              if (u == 1 && !two) continue;
+#pragma unroll
+              for (int t = 0; t < MT; ++t) {
+                if (live >> t & 1u)
+                  lrt::mma_bf16(acc[u][t], a[t][2 * kk + h], b[cur][u][2 * h],
+                                b[cur][u][2 * h + 1]);
+              }
             }
           }
         }
