@@ -21,20 +21,27 @@
 // bf16 (the main path): one launch, maxsim_bf16_kernel, products on the
 // tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums: exact
 // products, so only the order of the sums differs from the reference).
-// - A block of QW warps owns QW whole queries, one a warp, and walks a
-//   strided slice of the docs (grid [ceil(B / QW), doc slices], the query
-//   group fastest, so the blocks that read one doc run together and find it
-//   in L2; the wrapper picks about one block per SM).
-// - A warp keeps its query's slots as mma's A in registers, RG = 64 slots
-//   (four m16 tiles, token_dim / 16 k-steps each) loaded once; an m16 tile
-//   whose 16 slots are all masked issues no products. Longer queries go
-//   through in groups of RG slots, reloaded for each doc.
-// - Per doc, every warp ballots the doc's mask (its bytes prefetched into
-//   registers one doc ahead) and the warps copy the valid token rows,
-//   compacted, with cp.async into a ring of STAGES bf16 stages (rows padded
-//   to dt + 8 against bank conflicts), one doc in flight while the block
-//   works on the last. Rows stored [token][dt] are mma's column-major B as
-//   they lie, so ldmatrix reads them without .trans.
+// - A block has QW consumer warps, which own QW whole queries, one a warp,
+//   and a producer warpgroup (one working warp, which gives most of its
+//   registers to the consumers with setmaxnreg); it walks a strided slice of the docs (grid
+//   [ceil(B / QW), doc slices], the query group fastest, so the blocks that
+//   read one doc run together and find it in L2; the wrapper picks about
+//   one block per SM).
+// - A consumer warp keeps its query's slots as mma's A in registers, RG =
+//   64 slots (four m16 tiles, token_dim / 16 k-steps each) loaded once; an
+//   m16 tile whose 16 slots are all masked issues no products. Longer
+//   queries go through in groups of RG slots, reloaded for each doc.
+// - The producer ballots each doc's mask (its bytes loaded one doc ahead)
+//   and each valid token's lane issues one bulk copy (TMA) of its row,
+//   compacted in token order, into a ring of 3 bf16 stages (2 where 3 do
+//   not fit the shared memory; rows
+//   padded to dt + 8 against bank conflicts). Per stage, an mbarrier
+//   `full` counts the doc's bytes in and one `empty` counts the consumers
+//   out, so no block barrier ties the warps after the prologue and no
+//   consumer issues a copy (issuing them from the consumers, as 16-byte
+//   cp.async or as bulk copies, held them up for a quarter of the
+//   kernel). Rows stored [token][dt] are mma's column-major B as they lie,
+//   so ldmatrix reads them without .trans.
 // - Two n8 token chunks a pass: columns past the doc's valid count are
 //   masked to -inf, each thread folds its C fragment into running row
 //   maxima, and a quad shuffle finishes the doc (max is order-free).
@@ -60,22 +67,86 @@ constexpr int SMEM_OPTIN = 232448;  // sm_90's per-block opt-in shared memory
 
 // ====================================================================== bf16
 
-constexpr int QW = 8;             // warps a block, one query each
-constexpr int QTHREADS = QW * 32;
+constexpr int QW = 8;             // consumer warps a block, one query each
+constexpr int QTHREADS = (QW + 4) * 32;  // and a producer warpgroup
+// Registers a thread: the launch gives 65536 / QTHREADS (168); the
+// producer warpgroup hands most of its own to the consumers.
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+static_assert(4 * 32 * PRODUCER_REGS + QW * 32 * CONSUMER_REGS <= 65536,
+              "register file");
 constexpr int RG = 64;            // query slots a warp holds at once
 constexpr int MT = RG / 16;       // m16 tiles in them
-constexpr int STAGES = 2;         // doc stages a block
+constexpr int MAX_STAGES = 3;     // doc stages a block, where they fit
 constexpr int MAXCH = 16;         // 32-token mask chunks a lane prefetches
 constexpr unsigned FULL = 0xffffffffu;
 
 __host__ __device__ constexpr int stage_rows(int L) { return (L + 7) / 8 * 8; }
 
-// Dynamic shared memory: the stages [STAGES][stage_rows(L)][dt + 8] bf16,
-// then per warp its sum buffer [RG] float32 and chunk lanes [32] int, then
-// the staged docs' valid counts [STAGES] int.
-size_t bf16_smem_bytes(int L, int dt) {
-  return (size_t)STAGES * stage_rows(L) * (dt + 8) * 2 +
-         (size_t)QW * (RG + 32) * 4 + STAGES * 4;
+// Dynamic shared memory: the stages [stages][stage_rows(L)][dt + 8] bf16,
+// then per consumer warp its sum buffer [RG] float32, then per stage its
+// barriers full and empty (u64 each) and its doc's valid count (int).
+size_t bf16_smem_bytes(int L, int dt, int stages) {
+  return (size_t)stages * stage_rows(L) * (dt + 8) * 2 + (size_t)QW * RG * 4 +
+         stages * (2 * 8 + 4);
+}
+
+// The most stages (of MAX_STAGES, at least 2) that fit a block, or 0.
+int bf16_stages(int L, int dt) {
+  for (int st = MAX_STAGES; st >= 2; --st)
+    if (bf16_smem_bytes(L, dt, st) <= (size_t)SMEM_OPTIN) return st;
+  return 0;
+}
+
+// mbarrier and bulk-copy (TMA) primitives, CTA scope.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(lrt::smem_addr(bar)), "r"(arrivals) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(lrt::smem_addr(bar)) : "memory");
+}
+
+// The one arrival of the barrier's phase, announcing `bytes` to come.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(lrt::smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(lrt::smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16, both ends 16-byte aligned) global -> shared by
+// the copy engine; their arrival completes on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(lrt::smem_addr(dst)), "l"(src), "r"(bytes),
+         "r"(lrt::smem_addr(bar)) : "memory");
+}
+
+// c = a * b (no accumulator read): mma_bf16 with a zero C.
+__device__ __forceinline__ void mma_bf16_first(float (&c)[4],
+                                               const unsigned (&a)[4],
+                                               unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
 }
 
 template <int DT>
@@ -84,63 +155,90 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
                    const uint8_t* __restrict__ doc_mask,
                    const __nv_bfloat16* __restrict__ q_tok,
                    const uint8_t* __restrict__ q_mask, int B, int Lq, int N,
-                   int L, float* __restrict__ out) {
+                   int L, int nst, float* __restrict__ out) {
   typedef __nv_bfloat16 bf16;
   constexpr int LD = DT + 8;   // stage row (bf16), 16-byte multiple
   constexpr int KS = DT / 16;  // k16 steps
-  constexpr int P = DT / 8;    // 16-byte pieces of a token row
   extern __shared__ __align__(16) unsigned char stage_smem[];
   const int rows = stage_rows(L);
   bf16* stages = reinterpret_cast<bf16*>(stage_smem);
-  float* tail = reinterpret_cast<float*>(stages + (size_t)STAGES * rows * LD);
+  float* tail = reinterpret_cast<float*>(stages + (size_t)nst * rows * LD);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* sbuf = tail + warp * RG;
-  int* tlane = reinterpret_cast<int*>(tail + QW * RG) + warp * 32;
-  int* nvs = reinterpret_cast<int*>(tail + QW * RG) + QW * 32;
+  uint64_t* full = reinterpret_cast<uint64_t*>(tail + QW * RG);  // doc landed
+  uint64_t* empty = full + nst;                                   // doc read
+  int* nvs = reinterpret_cast<int*>(empty + nst);                // its valid tokens
 
   const int n0 = blockIdx.y, dstep = gridDim.y;
   const int count = n0 < N ? (N - 1 - n0) / dstep + 1 : 0;  // docs of this block
-  const int chunks = (L + 31) / 32;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < nst; ++k) {
+      mbar_init(&full[k], 1);
+      mbar_init(&empty[k], QW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();  // the only block barrier: the warps run decoupled after it
+
+  // Doc i uses stage i % nst; its (i / nst)-th use completes that
+  // phase of the stage's barriers. A phase cannot run ahead of a warp
+  // that still waits on the one before: full needs the producer, which
+  // first waits for every consumer on empty, and empty needs the
+  // consumers, which first wait on full.
+  if (warp >= QW) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(PRODUCER_REGS));
+    if (warp > QW) return;
+    // the producer warp: each valid token's lane issues one bulk copy of its
+    // row, compacted in token order, into the stage; lane 0 announces the
+    // doc's bytes on full first. The mask of the next doc (bytes of tokens
+    // c * 32 + lane) is loaded while this one's copies fly.
+    const int chunks = (L + 31) / 32;
+    unsigned mreg[MAXCH];
+    auto fetch_mask = [&](int i) {
+      const uint8_t* m = doc_mask + (size_t)(n0 + i * dstep) * L;
+#pragma unroll
+      for (int c = 0; c < MAXCH; ++c) {
+        const int j = c * 32 + lane;
+        mreg[c] = i < count && c < chunks && j < L ? m[j] : 0u;
+      }
+    };
+    fetch_mask(0);
+    for (int i = 0; i < count; ++i) {
+      const int st = i % nst;
+      if (i >= nst) mbar_wait(&empty[st], (unsigned)(i / nst - 1) & 1u);
+      int nv = 0;
+#pragma unroll
+      for (int c = 0; c < MAXCH; ++c) nv += __popc(__ballot_sync(FULL, mreg[c] != 0));
+      if (lane == 0) {
+        nvs[st] = nv;
+        mbar_arrive_expect(&full[st], (unsigned)nv * DT * 2);
+      }
+      __syncwarp();
+      // the stage was last read by ldmatrix (the generic proxy)
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      const bf16* src = doc_tok + (size_t)(n0 + i * dstep) * L * DT;
+      bf16* dst = stages + (size_t)st * rows * LD;
+      int base = 0;
+#pragma unroll
+      for (int c = 0; c < MAXCH; ++c) {
+        const unsigned bal = __ballot_sync(FULL, mreg[c] != 0);
+        if (mreg[c])
+          bulk_copy(dst + (size_t)(base + __popc(bal & ((1u << lane) - 1u))) * LD,
+                    src + (size_t)(c * 32 + lane) * DT, DT * 2, &full[st]);
+        base += __popc(bal);
+      }
+      fetch_mask(i + 1);
+    }
+    return;
+  }
+
+  // the consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(CONSUMER_REGS));
+  float* sbuf = tail + warp * RG;
   const int b = blockIdx.x * QW + warp;
   const bool has_q = b < B;
   const int groups = (Lq + RG - 1) / RG;
   const int g = lane >> 2, tq = lane & 3;
-
-  // mask bytes of token c * 32 + lane of the next doc to stage
-  unsigned mreg[MAXCH];
-  auto fetch_mask = [&](int i) {
-    const uint8_t* m = doc_mask + (size_t)(n0 + i * dstep) * L;
-#pragma unroll
-    for (int c = 0; c < MAXCH; ++c) {
-      const int j = c * 32 + lane;
-      mreg[c] = i < count && c < chunks && j < L ? m[j] : 0u;
-    }
-  };
-
-  // Doc i's valid token rows, compacted in token order, into stage i %
-  // STAGES; warp w copies the 32-token chunks c with c % QW == w.
-  auto load_doc = [&](int i) {
-    const bf16* src = doc_tok + (size_t)(n0 + i * dstep) * L * DT;
-    bf16* dst = stages + (size_t)(i % STAGES) * rows * LD;
-    int base = 0;
-#pragma unroll
-    for (int c = 0; c < MAXCH; ++c) {
-      const unsigned bal = __ballot_sync(FULL, mreg[c] != 0);
-      if (c % QW == warp && bal) {
-        if (mreg[c]) tlane[__popc(bal & ((1u << lane) - 1u))] = c * 32 + lane;
-        __syncwarp();
-        const int cnt = __popc(bal);
-        for (int e = lane; e < cnt * P; e += 32) {
-          const int k = e / P, p = e - k * P;
-          lrt::cp_async16(dst + (size_t)(base + k) * LD + p * 8,
-                          src + (size_t)tlane[k] * DT + p * 8, true);
-        }
-        __syncwarp();  // tlane is rewritten for the warp's next chunk
-      }
-      base += __popc(bal);
-    }
-    if (threadIdx.x == 0) nvs[i % STAGES] = base;
-  };
 
   // The warp's query slots [r * RG, r * RG + RG) as A fragments: a[t][ks]
   // = (rows g, g + 8 of tile t) x (k 2 tq, 2 tq + 8 of step ks); slots past
@@ -173,24 +271,15 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
     }
   };
 
-  fetch_mask(0);
-  if (count > 0) load_doc(0);
-  lrt::cp_async_commit();
-  fetch_mask(1);
   if (groups == 1) load_query(0);
 
   for (int i = 0; i < count; ++i) {
-    lrt::cp_async_wait<0>();  // doc i has landed (this thread's copies)
-    __syncthreads();          // ... and everyone's; doc i - 1's stage is free
-    if (i + 1 < count) load_doc(i + 1);
-    lrt::cp_async_commit();
-    fetch_mask(i + 2);
-    if (!has_q) continue;
-
-    const int nv = nvs[i % STAGES];
-    const bf16* bs = stages + (size_t)(i % STAGES) * rows * LD;
+    const int st = i % nst;
+    mbar_wait(&full[st], (unsigned)(i / nst) & 1u);  // doc i has landed
+    const int nv = nvs[st];
+    const bf16* bs = stages + (size_t)st * rows * LD;
     float total = 0.f;
-    for (int r = 0; nv > 0 && r < groups; ++r) {
+    for (int r = 0; has_q && nv > 0 && r < groups; ++r) {
       if (groups > 1) load_query(r);
       float best[MT][2];
 #pragma unroll
@@ -199,7 +288,7 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
       for (int j = 0; j < nv; j += 16) {  // token chunks j and j + 8
         const bool two = j + 8 < nv;
         const bf16* p = bs + (j + (lane & 7)) * LD + (lane >> 3) * 8;
-        float acc[2][MT][4] = {};
+        float acc[2][MT][4];
         unsigned b[2][2][4];  // [buffer][chunk]: k-steps 2 kk and 2 kk + 1
         lrt::ldmatrix_x4(b[0][0], p);
         if (two) lrt::ldmatrix_x4(b[0][1], p + 8 * LD);
@@ -219,7 +308,10 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
               if (u == 1 && !two) continue;
 #pragma unroll
               for (int t = 0; t < MT; ++t) {
-                if (live >> t & 1u)
+                if (!(live >> t & 1u)) continue;
+                if (kk == 0 && h == 0)
+                  mma_bf16_first(acc[u][t], a[t][0], b[cur][u][0], b[cur][u][1]);
+                else
                   lrt::mma_bf16(acc[u][t], a[t][2 * kk + h], b[cur][u][2 * h],
                                 b[cur][u][2 * h + 1]);
               }
@@ -227,18 +319,31 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
           }
         }
         // accumulator (t, e): slot t * 16 + g (+ 8 for e >= 2), token
-        // j + 8 u + 2 tq + e % 2
+        // j + 8 u + 2 tq + e % 2; only the last pass has columns to mask
+        if (j + 16 <= nv) {
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          if (u == 1 && !two) break;
-          const int c0 = j + 8 * u + 2 * tq;
-          const bool v0 = c0 < nv, v1 = c0 + 1 < nv;
+          for (int u = 0; u < 2; ++u) {
 #pragma unroll
-          for (int t = 0; t < MT; ++t) {
-            best[t][0] = fmaxf(best[t][0], fmaxf(v0 ? acc[u][t][0] : -INFINITY,
-                                                 v1 ? acc[u][t][1] : -INFINITY));
-            best[t][1] = fmaxf(best[t][1], fmaxf(v0 ? acc[u][t][2] : -INFINITY,
-                                                 v1 ? acc[u][t][3] : -INFINITY));
+            for (int t = 0; t < MT; ++t) {
+              if (!(live >> t & 1u)) continue;
+              best[t][0] = fmaxf(best[t][0], fmaxf(acc[u][t][0], acc[u][t][1]));
+              best[t][1] = fmaxf(best[t][1], fmaxf(acc[u][t][2], acc[u][t][3]));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            if (u == 1 && !two) break;
+            const int c0 = j + 8 * u + 2 * tq;
+            const bool v0 = c0 < nv, v1 = c0 + 1 < nv;
+#pragma unroll
+            for (int t = 0; t < MT; ++t) {
+              if (!(live >> t & 1u)) continue;
+              best[t][0] = fmaxf(best[t][0], fmaxf(v0 ? acc[u][t][0] : -INFINITY,
+                                                   v1 ? acc[u][t][1] : -INFINITY));
+              best[t][1] = fmaxf(best[t][1], fmaxf(v0 ? acc[u][t][2] : -INFINITY,
+                                                   v1 ? acc[u][t][3] : -INFINITY));
+            }
           }
         }
       }
@@ -275,7 +380,11 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
         }
       }
     }
-    if (lane == 0) out[(size_t)b * N + n0 + i * dstep] = total;  // empty doc: 0
+    __syncwarp();  // every lane is done with the stage
+    if (lane == 0) {
+      if (has_q) out[(size_t)b * N + n0 + i * dstep] = total;  // empty doc: 0
+      mbar_arrive(&empty[st]);
+    }
   }
 }
 
@@ -283,7 +392,8 @@ template <int DT>
 int launch_bf16(const void* doc_tok, const void* doc_mask, const void* q_tok,
                 const void* q_mask, int B, int Lq, int N, int L,
                 int grid_docs, void* out, cudaStream_t stream) {
-  const size_t smem = bf16_smem_bytes(L, DT);
+  const int nst = bf16_stages(L, DT);
+  const size_t smem = bf16_smem_bytes(L, DT, nst);
   cudaError_t err = cudaFuncSetAttribute(
       maxsim_bf16_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -293,7 +403,7 @@ int launch_bf16(const void* doc_tok, const void* doc_mask, const void* q_tok,
       static_cast<const __nv_bfloat16*>(doc_tok),
       static_cast<const uint8_t*>(doc_mask),
       static_cast<const __nv_bfloat16*>(q_tok),
-      static_cast<const uint8_t*>(q_mask), B, Lq, N, L,
+      static_cast<const uint8_t*>(q_mask), B, Lq, N, L, nst,
       static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
@@ -475,8 +585,8 @@ int maxsim_queries_per_block() { return QW; }
 long long maxsim_smem_bytes(int dtype, int L, int dt) {
   if ((dt != 32 && dt != 64 && dt != 128) || L < 1) return -1;
   if (dtype == lrt::kBF16) {
-    const size_t s = bf16_smem_bytes(L, dt);
-    return L <= 32 * MAXCH && s <= (size_t)SMEM_OPTIN ? (long long)s : -1;
+    const int st = bf16_stages(L, dt);
+    return L <= 32 * MAXCH && st ? (long long)bf16_smem_bytes(L, dt, st) : -1;
   }
   if (dtype == lrt::kF32) {
     const size_t s = f32_smem_bytes(L, dt);
