@@ -6,12 +6,15 @@ Phases, each printing one JSON line:
 
 1. ``device``: the card's name, count, and ``nvidia-smi``'s name and power limit;
 2. ``build``: compiles the hand-written kernels (``legalrag_tpu_torch/csrc``)
-   with nvcc for sm_90a, timed, with the registers per kernel and the
-   tensor-core (HMMA) and FMA instruction counts of the score+select
-   instances' SASS; then ``kernel_edge_cases`` holds each kernel against its
-   plain version on inputs that the main path does not give it (float32,
-   ragged tiles, k above the tile and k = N, 512 tiles, bf16 rounding
-   midpoints, empty docs, ...);
+   with nvcc for sm_90a, timed, with ptxas's registers and spills per
+   kernel and the tensor-core (HMMA) and FMA instruction counts of the
+   score+select and MaxSim instances' SASS (the bf16 ones must multiply on
+   the tensor cores, the float32 ones must not); then ``kernel_edge_cases``
+   holds each kernel against its plain version on inputs that the main path
+   does not give it (float32, ragged tiles, k above the tile and k = N, 512
+   tiles, bf16 rounding midpoints; bf16 MaxSim at every token_dim, ragged
+   and long docs, short and long queries, B 1, N 1, empty docs, masks that
+   are not a prefix, negative similarities, ...);
 3. ``index``: builds the zh (Civil Code) and en (UCC) bundles from
    ``data/raw`` on the card, at full width (d=768, sketch 16384, token_dim
    128, doc_maxlen 220);
@@ -22,7 +25,8 @@ Phases, each printing one JSON line:
    chain computing the same function, and the least time the card could
    take (``bound_ms``); for kernel 1 also the C entry alone and the device
    operations one ``dense_topk`` call issues (at most the ticket memset and
-   the kernel);
+   the kernel); for MaxSim the device operations of one ``maxsim_full``
+   call (the kernel alone) and two calls compared bit for bit;
 5. ``e2e`` (zh, then en): 1024 self-retrieval queries (sampled as bench.py
    samples them), batch 64, top 10, through ``FusedQueryEngine`` (map
    mode): queries/s, Recall@10, the kernels' launch counts on that run
@@ -556,6 +560,7 @@ def phase_kernels(zh, queries):
                     + q_mask.numel() + b * n * 4,
                     2 * dt * nvq * nvd, BF16_FLOP_PER_S)
     padded_flop = 2 * b * q_tok.shape[1] * n * l_doc * dt
+    ms2 = cuda_ms(lambda: maxsim_full(tok, dmask, q_tok, q_mask))
     out["maxsim"] = {
         "name": "maxsim", "route": "cuda",
         "source": "legalrag_tpu_torch/csrc/maxsim.cu",
@@ -568,15 +573,15 @@ def phase_kernels(zh, queries):
                    "grid": [-(-b // qw), max(1, min(n, n_sm // -(-b // qw)))]},
         "max_abs_err": err2, "tolerance": 1e-4, "bitwise_equal_calls": True,
         "device_ops_per_call": ops2,
-        "ms": cuda_ms(lambda: maxsim_full(tok, dmask, q_tok, q_mask)),
+        "ms": ms2,
         "plain_ms": cuda_ms(lambda: maxsim_full_plain(tok, dmask, q_tok,
                                                       q_mask)),
         "library_ms": cuda_ms(library2),
         "bound_ms": bms, "bound_by": by,
         "valid_tflop": 2 * dt * nvq * nvd / 1e12,
+        "valid_tflop_per_s": 2 * dt * nvq * nvd / 1e9 / ms2,
         "padded_tflop": padded_flop / 1e12,
-        "padded_bound_ms": padded_flop / BF16_FLOP_PER_S * 1e3,
-        "f32_cuda_core_bound_ms": 2 * dt * nvq * nvd / F32_FLOP_PER_S * 1e3}
+        "padded_bound_ms": padded_flop / BF16_FLOP_PER_S * 1e3}
     for v in out.values():
         emit({"phase": "kernels", **v})
     return out
