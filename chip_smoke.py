@@ -570,7 +570,7 @@ def phase_kernels(zh, queries):
                    "dt": dt, "dtype": str(tok.dtype),
                    "valid_query_tokens": nvq, "valid_doc_tokens": nvd,
                    "doc_fill": nvd / (zh.tokens.n * l_doc),
-                   "grid": [-(-b // qw), max(1, min(n, n_sm // -(-b // qw)))]},
+                   "blocks": max(n_sm, -(-b // qw))},
         "max_abs_err": err2, "tolerance": 1e-4, "bitwise_equal_calls": True,
         "device_ops_per_call": ops2,
         "ms": ms2,

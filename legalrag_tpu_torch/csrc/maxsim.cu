@@ -21,33 +21,37 @@
 // bf16 (the main path): one launch, maxsim_bf16_kernel, products on the
 // tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums: exact
 // products, so only the order of the sums differs from the reference).
-// - A block has QW consumer warps, which own QW whole queries, one a warp,
-//   and a producer warpgroup (one working warp, which gives most of its
-//   registers to the consumers with setmaxnreg); it walks a strided slice of the docs (grid
-//   [ceil(B / QW), doc slices], the query group fastest, so the blocks that
-//   read one doc run together and find it in L2; the wrapper picks about
-//   one block per SM).
-// - A consumer warp keeps its query's slots as mma's A in registers, RG =
-//   64 slots (four m16 tiles, token_dim / 16 k-steps each) loaded once; an
-//   m16 tile whose 16 slots are all masked issues no products. Longer
-//   queries go through in groups of RG slots, reloaded for each doc.
+// - A block has QW consumer warps and a producer warpgroup (one working
+//   warp, which gives most of its registers to the consumers with
+//   setmaxnreg). The consumer warps take the batch's queries in order: a
+//   long query (Lq > 64) a warp, short ones packed by their valid tokens
+//   (below). Each group of QW warps is served by blocks/groups blocks, each
+//   walking a strided slice of the docs, the group fastest in the block
+//   index, so the blocks that read one doc run together and find it in L2
+//   (the wrapper launches about one block per SM).
+// - A consumer warp keeps its query slots as mma's A in registers, RG = 64
+//   slots (four m16 tiles, token_dim / 16 k-steps each), loaded once. For
+//   short queries the slots are their valid tokens, compacted and padded
+//   to a tile per query: a warp packs whole queries up to four tiles, so
+//   a batch of one-token queries costs a tile a query, not four. A tile
+//   that holds no valid slot issues no products. Long queries go through
+//   in groups of RG slots as they lie, reloaded for each doc.
 // - The producer ballots each doc's mask (its bytes loaded one doc ahead)
 //   and each valid token's lane issues one bulk copy (TMA) of its row,
-//   compacted in token order, into a ring of 3 bf16 stages (2 where 3 do
-//   not fit the shared memory; rows
-//   padded to dt + 8 against bank conflicts). Per stage, an mbarrier
-//   `full` counts the doc's bytes in and one `empty` counts the consumers
-//   out, so no block barrier ties the warps after the prologue and no
-//   consumer issues a copy (issuing them from the consumers, as 16-byte
-//   cp.async or as bulk copies, held them up for a quarter of the
+//   compacted in token order, into a ring of bf16 stages (3, or 2 where 3
+//   do not fit; rows padded to dt + 8 against bank conflicts). Per stage,
+//   an mbarrier `full` counts the doc's bytes in and one `empty` counts the
+//   consumers out, so no block barrier ties the warps after the prologue
+//   and no consumer issues a copy (issuing them from the consumers, as
+//   16-byte cp.async or as bulk copies, held them up for a quarter of the
 //   kernel). Rows stored [token][dt] are mma's column-major B as they lie,
 //   so ldmatrix reads them without .trans.
 // - Two n8 token chunks a pass: columns past the doc's valid count are
 //   masked to -inf, each thread folds its C fragment into running row
 //   maxima, and a quad shuffle finishes the doc (max is order-free).
-// - The warp's lane 0 sums the query's best matches in token order (masked
-//   slots add +0.0, which changes nothing), so a run gives the same bits
-//   every time, and writes out[b, n]. No scratch, no second launch.
+// - Each query's best matches are summed by one lane in token order (for
+//   a long query, masked slots add +0.0, which changes nothing), so a run
+//   gives the same bits every time. No scratch, no second launch.
 //
 // float32 (off the main path; TF32 would change its results): two
 // launches on the CUDA cores. maxsim_tokens_kernel writes best(b, i, n)
@@ -78,16 +82,34 @@ constexpr int RG = 64;            // query slots a warp holds at once
 constexpr int MT = RG / 16;       // m16 tiles in them
 constexpr int MAX_STAGES = 3;     // doc stages a block, where they fit
 constexpr int MAXCH = 16;         // 32-token mask chunks a lane prefetches
+constexpr int MAXQ = 32;          // short queries a consumer warp packs
 constexpr unsigned FULL = 0xffffffffu;
 
 __host__ __device__ constexpr int stage_rows(int L) { return (L + 7) / 8 * 8; }
 
 // Dynamic shared memory: the stages [stages][stage_rows(L)][dt + 8] bf16,
 // then per consumer warp its sum buffer [RG] float32, then per stage its
-// barriers full and empty (u64 each) and its doc's valid count (int).
+// barriers full and empty (u64 each) and its doc's valid count (int), then
+// the packing: the number of consumer warps the batch takes and, per
+// consumer warp of the block, its first query and query count (int).
 size_t bf16_smem_bytes(int L, int dt, int stages) {
   return (size_t)stages * stage_rows(L) * (dt + 8) * 2 + (size_t)QW * RG * 4 +
-         stages * (2 * 8 + 4);
+         stages * (2 * 8 + 4) + (1 + 2 * QW) * 4;
+}
+
+// Bit index of the k-th (from 0) set bit of m, which has more than k.
+__device__ __forceinline__ int nth_bit(unsigned long long m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 32; w > 0; w >>= 1) {
+    const int c = __popcll(m & ((1ull << w) - 1ull));
+    if (k >= c) {
+      k -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
 }
 
 // The most stages (of MAX_STAGES, at least 2) that fit a block, or 0.
@@ -167,10 +189,62 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
   uint64_t* full = reinterpret_cast<uint64_t*>(tail + QW * RG);  // doc landed
   uint64_t* empty = full + nst;                                   // doc read
   int* nvs = reinterpret_cast<int*>(empty + nst);                // its valid tokens
+  int* pack = nvs + nst;
 
-  const int n0 = blockIdx.y, dstep = gridDim.y;
-  const int count = n0 < N ? (N - 1 - n0) / dstep + 1 : 0;  // docs of this block
-
+  // Queries to consumer warps. Short queries (Lq <= RG) are packed: a warp
+  // takes a run of whole queries whose valid tokens, compacted and padded
+  // to m16 tiles per query, fill at most MT tiles (and at most MAXQ
+  // queries), so a batch of one-token queries costs a tile a query, not
+  // four. A longer query takes a warp of its own. W warps in all make
+  // ceil(W / QW) groups of QW; block x serves group x % groups and the doc
+  // slice x / groups, of blocks / groups slices (at most N). Warp 0 walks
+  // the batch twice, for W and then for the runs of this block's group.
+  const bool packed = Lq <= RG;
+  auto walk = [&](int lo) {  // records the runs of warps [lo, lo + QW)
+    int w = 0, used = 0, nq = 0, begin = 0;
+    auto close = [&]() {
+      if (lane == 0 && w >= lo && w < lo + QW) {
+        pack[1 + 2 * (w - lo)] = begin;
+        pack[2 + 2 * (w - lo)] = nq;
+      }
+      ++w;
+    };
+    for (int c0 = 0; c0 < B; c0 += 32) {
+      int tiles = 0;
+      if (c0 + lane < B) {
+        const uint8_t* m = q_mask + (size_t)(c0 + lane) * Lq;
+        int v = 0;
+#pragma unroll 16
+        for (int k = 0; k < Lq; ++k) v += m[k] != 0;
+        tiles = (v + 15) / 16;
+      }
+      for (int l = 0; l < 32 && c0 + l < B; ++l) {
+        const int t = __shfl_sync(FULL, tiles, l);
+        if (nq > 0 && (used + t > MT || nq == MAXQ)) {
+          close();
+          used = nq = 0;
+          begin = c0 + l;
+        }
+        used += t;
+        ++nq;
+      }
+    }
+    close();
+    return w;
+  };
+  if (warp == 0) {
+    if (lane < QW) pack[2 + 2 * lane] = 0;  // warps past W hold no query
+    __syncwarp();
+    const int nw = packed ? walk(B) : B;  // lo = B: records nothing
+    const int grp = blockIdx.x % ((nw + QW - 1) / QW);
+    if (packed) {
+      walk(grp * QW);
+    } else if (lane < QW && grp * QW + lane < B) {
+      pack[1 + 2 * lane] = grp * QW + lane;
+      pack[2 + 2 * lane] = 1;
+    }
+    if (lane == 0) pack[0] = nw;
+  }
   if (threadIdx.x == 0) {
     for (int k = 0; k < nst; ++k) {
       mbar_init(&full[k], 1);
@@ -179,6 +253,12 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();  // the only block barrier: the warps run decoupled after it
+
+  const int ngroups = (pack[0] + QW - 1) / QW;
+  const int dstep = min(N, (int)gridDim.x / ngroups);  // doc slices
+  const int n0 = blockIdx.x / ngroups;                 // this block's slice
+  if (n0 >= dstep) return;                             // the whole block
+  const int count = (N - 1 - n0) / dstep + 1;          // docs of this block
 
   // Doc i uses stage i % nst; its (i / nst)-th use completes that
   // phase of the stage's barriers. A phase cannot run ahead of a warp
@@ -235,17 +315,68 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
   // the consumers
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(CONSUMER_REGS));
   float* sbuf = tail + warp * RG;
-  const int b = blockIdx.x * QW + warp;
-  const bool has_q = b < B;
-  const int groups = (Lq + RG - 1) / RG;
+  const int qb = pack[1 + 2 * warp], qn = pack[2 + 2 * warp];  // its queries
+  const bool has_q = qn > 0;
+  const int groups = packed ? 1 : (Lq + RG - 1) / RG;
   const int g = lane >> 2, tq = lane & 3;
 
-  // The warp's query slots [r * RG, r * RG + RG) as A fragments: a[t][ks]
-  // = (rows g, g + 8 of tile t) x (k 2 tq, 2 tq + 8 of step ks); slots past
-  // Lq are zero. live: tiles with a valid slot; qbits: bit 2 t + h when
-  // this lane's slot t * 16 + g + 8 h is valid.
+  // packed: lane j < qn holds query qb + j's valid-token mask, their count
+  // and the query's first tile
+  unsigned long long qm64 = 0;
+  int vq = 0, t0 = 0;
+  if (packed) {
+    if (lane < qn) {
+      const uint8_t* m = q_mask + (size_t)(qb + lane) * Lq;
+#pragma unroll 16
+      for (int k = 0; k < Lq; ++k)
+        qm64 |= (unsigned long long)(m[k] != 0) << k;
+      vq = __popcll(qm64);
+    }
+    const int tiles = (vq + 15) / 16;
+    t0 = tiles;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(FULL, t0, o);
+      if (lane >= o) t0 += x;
+    }
+    t0 -= tiles;
+  }
+
+  // A fragments: a[t][ks] = (rows g, g + 8 of tile t) x (k 2 tq, 2 tq + 8
+  // of step ks). live: tiles that hold a valid slot; qbits: bit 2 t + h
+  // when this lane's slot t * 16 + g + 8 h is valid.
   unsigned a[MT][KS][4];
   unsigned live = 0, qbits = 0;
+  // packed: slot t0 * 16 + k of the warp is the k-th valid token of its
+  // query (tiles of no query issue no products)
+  auto load_packed = [&]() {
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      const unsigned own = __ballot_sync(
+          FULL, lane < qn && t0 <= t && t < t0 + (vq + 15) / 16);
+      if (!own) continue;
+      live |= 1u << t;
+      const int o = __ffs(own) - 1;
+      const unsigned long long m = __shfl_sync(FULL, qm64, o);
+      const int ov = __shfl_sync(FULL, vq, o), ot0 = __shfl_sync(FULL, t0, o);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = (t - ot0) * 16 + g + 8 * h;
+        const bool ok = k < ov;
+        if (ok) qbits |= 1u << (2 * t + h);
+        const unsigned* row = reinterpret_cast<const unsigned*>(
+            q_tok + ((size_t)(qb + o) * Lq + (ok ? nth_bit(m, k) : 0)) * DT +
+            2 * tq);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          a[t][ks][h] = ok ? row[ks * 8] : 0u;
+          a[t][ks][2 + h] = ok ? row[ks * 8 + 4] : 0u;
+        }
+      }
+    }
+  };
+  // long queries (one a warp): its slots [r * RG, r * RG + RG) as they lie;
+  // slots past Lq are zero
   auto load_query = [&](int r) {
     live = 0;
     qbits = 0;
@@ -253,15 +384,15 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
     for (int t = 0; t < MT; ++t) {
       const int s0 = r * RG + t * 16;
       const int sl = s0 + (lane & 15);
-      if (__ballot_sync(FULL, has_q && sl < Lq && q_mask[(size_t)b * Lq + sl]))
+      if (__ballot_sync(FULL, has_q && sl < Lq && q_mask[(size_t)qb * Lq + sl]))
         live |= 1u << t;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int s = s0 + g + 8 * h;
         const bool ok = has_q && s < Lq;
-        if (ok && q_mask[(size_t)b * Lq + s]) qbits |= 1u << (2 * t + h);
+        if (ok && q_mask[(size_t)qb * Lq + s]) qbits |= 1u << (2 * t + h);
         const unsigned* row = reinterpret_cast<const unsigned*>(
-            q_tok + ((size_t)b * Lq + (ok ? s : 0)) * DT + 2 * tq);
+            q_tok + ((size_t)qb * Lq + (ok ? s : 0)) * DT + 2 * tq);
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
           a[t][ks][h] = ok ? row[ks * 8] : 0u;
@@ -271,7 +402,10 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
     }
   };
 
-  if (groups == 1) load_query(0);
+  if (packed)
+    load_packed();
+  else if (groups == 1)
+    load_query(0);
 
   for (int i = 0; i < count; ++i) {
     const int st = i % nst;
@@ -368,10 +502,14 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
         }
       }
       __syncwarp();
-      if (lane == 0) {  // token order; slots past Lq and masked add +0.0
-        const float4* s4 = reinterpret_cast<const float4*>(sbuf);
-#pragma unroll
-        for (int s = 0; s < RG / 4; ++s) {
+      // lane j sums query qb + j's slots (packed: its valid tokens, then
+      // zeros to the next 4; long: all RG) in token order; a masked slot
+      // holds 0 and adds +0.0, which changes nothing
+      if (packed ? lane < qn : lane == 0) {
+        const float4* s4 = reinterpret_cast<const float4*>(sbuf + t0 * 16);
+        const int n4 = packed ? (vq + 3) / 4 : RG / 4;
+#pragma unroll 4
+        for (int s = 0; s < n4; ++s) {
           const float4 v = s4[s];
           total += v.x;
           total += v.y;
@@ -381,25 +519,23 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
       }
     }
     __syncwarp();  // every lane is done with the stage
-    if (lane == 0) {
-      if (has_q) out[(size_t)b * N + n0 + i * dstep] = total;  // empty doc: 0
-      mbar_arrive(&empty[st]);
-    }
+    if (packed ? lane < qn : lane == 0 && has_q)  // an empty doc scores 0
+      out[(size_t)(qb + (packed ? lane : 0)) * N + n0 + i * dstep] = total;
+    if (lane == 0) mbar_arrive(&empty[st]);
   }
 }
 
 template <int DT>
 int launch_bf16(const void* doc_tok, const void* doc_mask, const void* q_tok,
                 const void* q_mask, int B, int Lq, int N, int L,
-                int grid_docs, void* out, cudaStream_t stream) {
+                int blocks, void* out, cudaStream_t stream) {
   const int nst = bf16_stages(L, DT);
   const size_t smem = bf16_smem_bytes(L, DT, nst);
   cudaError_t err = cudaFuncSetAttribute(
       maxsim_bf16_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + QW - 1) / QW, grid_docs);
-  maxsim_bf16_kernel<DT><<<grid, QTHREADS, smem, stream>>>(
+  maxsim_bf16_kernel<DT><<<blocks, QTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(doc_tok),
       static_cast<const uint8_t*>(doc_mask),
       static_cast<const __nv_bfloat16*>(q_tok),
@@ -575,8 +711,8 @@ int launch(const void* doc_tok, const void* doc_mask, const void* q_tok,
 
 extern "C" {
 
-// Queries a block of the bf16 kernel owns (its grid is [ceil(B / this),
-// doc slices]).
+// Consumer warps a block of the bf16 kernel has; a launch needs at least
+// ceil(B / this) blocks.
 int maxsim_queries_per_block() { return QW; }
 
 // Dynamic shared memory a launch needs for doc_maxlen L and token_dim dt,
@@ -598,13 +734,14 @@ long long maxsim_smem_bytes(int dtype, int L, int dt) {
 // doc_tok [N, L, dt] and q_tok [B, Lq, dt] of one dtype (lrt::DType),
 // doc_mask [N, L] / q_mask [B, Lq] bool (1 byte), all contiguous, the token
 // tensors 16-byte aligned; maxsim_smem_bytes(dtype, L, dt) >= 0; out
-// float32 [B, N]. bf16: one launch, grid [ceil(B / QW), grid_docs], no
-// scratch (pass NULL). float32: two launches, grid_docs blocks on the doc
+// float32 [B, N]. bf16: one launch of `grid` blocks, at least ceil(B /
+// QW), no scratch (pass NULL). float32: two launches, `grid` blocks on the doc
 // axis, scratch float32 [N, B * Lq]. Returns cudaGetLastError().
 int maxsim(const void* doc_tok, const void* doc_mask, const void* q_tok,
            const void* q_mask, int dtype, int B, int Lq, int N, int L, int dt,
-           int grid_docs, void* scratch, void* out, void* stream) {
-  if (B < 1 || Lq < 1 || N < 1 || grid_docs < 1 ||
+           int grid, void* scratch, void* out, void* stream) {
+  if (B < 1 || Lq < 1 || N < 1 || grid < 1 ||
+      (dtype == lrt::kBF16 && grid < (B + QW - 1) / QW) ||
       maxsim_smem_bytes(dtype, L, dt) < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -612,25 +749,25 @@ int maxsim(const void* doc_tok, const void* doc_mask, const void* q_tok,
     switch (dt) {
       case 32:
         return launch_bf16<32>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                               grid_docs, out, s);
+                               grid, out, s);
       case 64:
         return launch_bf16<64>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                               grid_docs, out, s);
+                               grid, out, s);
       default:
         return launch_bf16<128>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                                grid_docs, out, s);
+                                grid, out, s);
     }
   }
   switch (dt) {
     case 32:
       return launch<float, 32>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                               grid_docs, scratch, out, s);
+                               grid, scratch, out, s);
     case 64:
       return launch<float, 64>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                               grid_docs, scratch, out, s);
+                               grid, scratch, out, s);
     default:
       return launch<float, 128>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                                grid_docs, scratch, out, s);
+                                grid, scratch, out, s);
   }
 }
 

@@ -126,16 +126,16 @@ def _maxsim_kernel(doc_tok: torch.Tensor, doc_mask: torch.Tensor,
                          f"the {doc_tok.dtype} kernel's shared-memory staging")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     if doc_tok.dtype == torch.bfloat16:
-        # one launch, about one block per SM: [query groups, doc slices]
-        groups = -(-b // lib.maxsim_queries_per_block())
-        grid_docs = max(1, min(n, 65535, n_sm // groups))
+        # one launch, about one block per SM; the kernel splits the blocks
+        # among its query groups and doc slices
+        grid = max(n_sm, -(-b // lib.maxsim_queries_per_block()))
         scratch = None
     else:
-        grid_docs = max(1, min(n, 2 * n_sm))
+        grid = max(1, min(n, 2 * n_sm))
         scratch = torch.empty((n, b * lq), dtype=torch.float32, device=dev)
     kernels.launch("maxsim", doc_tok.data_ptr(), doc_mask.data_ptr(),
                    q_tok.data_ptr(), q_mask.data_ptr(), dtype_id, b, lq, n,
-                   l_doc, dt, grid_docs,
+                   l_doc, dt, grid,
                    None if scratch is None else scratch.data_ptr(),
                    out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return out
