@@ -313,6 +313,23 @@ def check_maxsim_edges(dev) -> dict:
         check(bool((neg[:, ~empty] < 0).all()),
               f"maxsim bf16 {name}: negative best matches must stay negative")
         out[name] = err
+
+    # the packing of short queries: 0 to 64 valid tokens across the tile
+    # boundaries, a run of 40 empty queries (more than a warp's 32 lanes
+    # take), 1-token queries four to a warp, B not a multiple of a block
+    tok, dmask, q_tok, _ = maxsim_edge_inputs(g, 500, 150, 64, 220, 128, dev)
+    lens = torch.tensor([1, 2, 3, 0, 16, 17, 33, 48, 49, 64] * 5 + [0] * 40
+                        + [1] * 60)
+    q_mask = torch.rand(150, 64, generator=g).argsort(dim=1) < lens[:, None]
+    q_mask = q_mask.to(dev)
+    got = maxsim_full(tok, dmask, q_tok, q_mask)
+    want = maxsim_full_plain(tok, dmask, q_tok, q_mask)
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+          f"maxsim bf16 short queries differ by {err}")
+    check(bool((got[lens.to(dev) == 0] == 0).all()),
+          "maxsim bf16: a query with no valid token must score 0")
+    out["n500_b150_lq64_short_queries"] = err
     return out
 
 

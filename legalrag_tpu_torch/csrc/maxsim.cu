@@ -71,7 +71,7 @@ constexpr int SMEM_OPTIN = 232448;  // sm_90's per-block opt-in shared memory
 
 // ====================================================================== bf16
 
-constexpr int QW = 8;             // consumer warps a block, one query each
+constexpr int QW = 8;             // consumer warps a block
 constexpr int QTHREADS = (QW + 4) * 32;  // and a producer warpgroup
 // Registers a thread: the launch gives 65536 / QTHREADS (168); the
 // producer warpgroup hands most of its own to the consumers.
@@ -97,6 +97,13 @@ size_t bf16_smem_bytes(int L, int dt, int stages) {
          stages * (2 * 8 + 4) + (1 + 2 * QW) * 4;
 }
 
+// The most stages (of MAX_STAGES, at least 2) that fit a block, or 0.
+int bf16_stages(int L, int dt) {
+  for (int st = MAX_STAGES; st >= 2; --st)
+    if (bf16_smem_bytes(L, dt, st) <= (size_t)SMEM_OPTIN) return st;
+  return 0;
+}
+
 // Bit index of the k-th (from 0) set bit of m, which has more than k.
 __device__ __forceinline__ int nth_bit(unsigned long long m, int k) {
   int pos = 0;
@@ -110,13 +117,6 @@ __device__ __forceinline__ int nth_bit(unsigned long long m, int k) {
     }
   }
   return pos;
-}
-
-// The most stages (of MAX_STAGES, at least 2) that fit a block, or 0.
-int bf16_stages(int L, int dt) {
-  for (int st = MAX_STAGES; st >= 2; --st)
-    if (bf16_smem_bytes(L, dt, st) <= (size_t)SMEM_OPTIN) return st;
-  return 0;
 }
 
 // mbarrier and bulk-copy (TMA) primitives, CTA scope.
@@ -492,7 +492,7 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
           best[t][h] = m;
         }
       }
-      __syncwarp();  // lane 0 has read the last group's buffer
+      __syncwarp();  // the summing lanes have read the last group's buffer
       if (tq == 0) {
 #pragma unroll
         for (int t = 0; t < MT; ++t) {
