@@ -42,10 +42,10 @@
 //   do not fit; rows padded to dt + 8 against bank conflicts). Per stage,
 //   an mbarrier `full` counts the doc's bytes in and one `empty` counts the
 //   consumers out, so no block barrier ties the warps after the prologue
-//   and no consumer issues a copy (issuing them from the consumers, as
-//   16-byte cp.async or as bulk copies, held them up for a quarter of the
-//   kernel). Rows stored [token][dt] are mma's column-major B as they lie,
-//   so ldmatrix reads them without .trans.
+//   and no consumer issues a copy (issued by the consumers, as 16-byte
+//   cp.async or as bulk copies, the copies held up the products). Rows
+//   stored [token][dt] are mma's column-major B as they lie, so ldmatrix
+//   reads them without .trans.
 // - Two n8 token chunks a pass: columns past the doc's valid count are
 //   masked to -inf, each thread folds its C fragment into running row
 //   maxima, and a quad shuffle finishes the doc (max is order-free).
