@@ -32,7 +32,20 @@ Phases, each printing one JSON line:
    mode): queries/s, Recall@10, the kernels' launch counts on that run
    (reset just before it), a reference check of 8 queries against the
    port's plain CPU path on the same index, and one ``search_hits`` call;
-6. ``large``: the large-corpus mode at the JAX repo's 1M-doc scale point
+6. ``serve``: the single-query serving path. Both bundles are saved to a
+   temporary index directory with their law graphs (``GraphBuilder``) and
+   served by ``ByLangRetriever`` on the card (rerank, late channel, top 10,
+   oversample 4): 512 requests (256 zh, 256 en, sampled as in 5, every
+   other one ``GRAPH_AUGMENTED``) from 16 threads at once, so the
+   micro-batcher coalesces them. Requests/s, per-request p50 / p99 ms, the
+   channels calls and their mean batch, the per-stage ms of the retriever's
+   log line, device busy and idle share; every such call launches
+   score+select and MaxSim once. 16 requests against a ``ByLangRetriever``
+   on the CPU over the same directories (the plain versions), 8 against the
+   same question served alone on the card, a padded channels batch against
+   its solo rows, the four per-channel APIs once on the card against the
+   CPU, and self-retrieval Recall@10 per language;
+7. ``large``: the large-corpus mode at the JAX repo's 1M-doc scale point
    (``legalrag_tpu_torch.scale``: N 1,048,576, V 65,536, d 768 bf16,
    64 x 128 int8 doc tokens, B 64, 32 term slots, 16 query tokens): the
    index synthesized on the card (timed); the CSR BM25 kernel against its
@@ -55,11 +68,15 @@ jax and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import logging
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -80,11 +97,20 @@ from legalrag_tpu_torch.ops.maxsim import maxsim_full, maxsim_full_plain
 from legalrag_tpu_torch.ops.topk import (
     NEG_INF,
     TWO_PASS_MIN_N,
+    bucket_k,
     dense_topk,
     dense_topk_fused_plain,
     stable_topk,
 )
-from legalrag_tpu_torch.retrieval.engine import FusedQueryEngine
+from legalrag_tpu_torch.graph import GraphBuilder, LawGraphStore
+from legalrag_tpu_torch.retrieval.by_lang import ByLangRetriever
+from legalrag_tpu_torch.retrieval.engine import FusedQueryEngine, bucket_batch
+from legalrag_tpu_torch.schemas import (
+    IssueType,
+    RoutingDecision,
+    RoutingMode,
+    TaskType,
+)
 from legalrag_tpu_torch.tokenize import tokenizers
 
 REPO = Path(__file__).resolve().parent
@@ -97,8 +123,15 @@ TIE = 1e-6                  # scores closer than this may swap order
 LARGE = dict(n_docs=1 << 20, vocab=65536, dim=768, doc_len=64, token_dim=128)
 LARGE_BATCHES = 8           # back-to-back query batches of 64
 REF_DOCS = 65536            # the CPU reference's index
-# the kernels each path must launch once per batch (and no other)
-PATH_KERNELS = {"map": ("score_select", "maxsim"), "large": ("bm25_sparse",)}
+SERVE_PER_LANG = 256        # serve phase: requests per language
+SERVE_THREADS = 16          # request threads submitting at once
+SERVE_CPU_CHECKS = 16       # requests held against the CPU retriever
+SERVE_SOLO_CHECKS = 8       # requests held against a solo run on the card
+# the kernels each path must launch once per batch (and no other); the
+# serve path's batch is one channels call of the micro-batcher
+PATH_KERNELS = {"map": ("score_select", "maxsim"),
+                "serve": ("score_select", "maxsim"),
+                "large": ("bm25_sparse",)}
 
 
 def emit(obj) -> None:
@@ -729,6 +762,262 @@ def phase_e2e(lang, bundle):
     return res
 
 
+# ------------------------------------------------------- serving path
+
+class StageLog(logging.Handler):
+    """Collects the per-stage ms of the retriever's log line
+    (``[retrieval] channels=..ms fuse=..ms ... total=..ms``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.stages = {}
+        self._lock_stages = threading.Lock()
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if not msg.startswith("[retrieval]"):
+            return
+        with self._lock_stages:
+            for name, ms in re.findall(r"(\w+)=([0-9.]+)ms", msg):
+                self.stages.setdefault(name, []).append(float(ms))
+
+    def medians(self):
+        with self._lock_stages:
+            return {k: statistics.median(v) for k, v in self.stages.items()}
+
+
+def decision(mode: RoutingMode) -> RoutingDecision:
+    return RoutingDecision(task_type=TaskType.OTHER,
+                           issue_type=IssueType.OTHER, mode=mode)
+
+
+def same_hits(want, got, tol: float, what: str) -> int:
+    """Hit lists equal (chunk ids, ranks, sources), fused scores within
+    ``tol``; ids may differ only where two scores lie within ``tol``.
+    Returns the number of positions that differ."""
+    check(len(got) == len(want),
+          f"{what}: {len(got)} hits against {len(want)}")
+    check([h.rank for h in got] == list(range(1, len(got) + 1)),
+          f"{what}: ranks")
+    ids = sorted({h.chunk.id for h in want + got})
+    row = {cid: i for i, cid in enumerate(ids)}
+    ws = np.array([[h.score for h in want]])
+    gs = np.array([[h.score for h in got]])
+    check(np.allclose(gs, ws, atol=tol), f"{what}: scores differ by "
+          f"{float(np.abs(gs - ws).max()) if len(got) else 0.0}")
+    swaps = ties_only(ws, np.array([[row[h.chunk.id] for h in want]]), gs,
+                      np.array([[row[h.chunk.id] for h in got]]), tol)
+    src = {h.chunk.id: h.source for h in want}
+    check(all(src.get(h.chunk.id, h.source) == h.source for h in got),
+          f"{what}: sources differ")
+    return swaps
+
+
+def check_channel_rows(want, got, what: str) -> int:
+    """One channels result's rows against another's (near-ties may swap),
+    scores within 1e-4."""
+    swaps = 0
+    for name in ("dense", "bm25", "colbert"):
+        ws, wr = want[name]
+        gs, gr = got[name]
+        check(gs.shape == ws.shape and np.allclose(gs, ws, atol=1e-4),
+              f"{what} {name}: scores")
+        swaps += ties_only(ws, wr, gs, gr, 1e-5)
+    return swaps
+
+
+def check_serve_kernels(hr, questions) -> dict:
+    """Kernels 1 and 2/3 against their plain versions on the inputs one
+    channels call gives them: ``questions`` padded with empty questions to
+    their batch bucket, as ``HybridRetriever._channels_topk_batch`` pads
+    them, with timings at these shapes."""
+    b = hr.bundle
+    enc, maxlen = b.encoder, hr.cfg.engine.max_query_tokens
+    qs = list(questions) + [""] * (bucket_batch(len(questions))
+                                   - len(questions))
+    q = project_norm(enc.sketch_tensor(qs, query=True), enc.projection())
+    k = bucket_k(TOP_K * hr.cfg.retrieval.oversample_factor, b.dense.capacity)
+    _s, _i, res1 = check_dense_topk(b.dense.emb, q, b.dense.n, k,
+                                    "serve shapes")
+    qt, qm = enc.encode_tokens(qs, maxlen, query=True)
+    q_tok = torch.from_numpy(qt).to(b.device).to(b.tokens.query_dtype)
+    q_mask = torch.from_numpy(qm).to(b.device)
+    args = (b.tokens.tok, b.tokens.mask, q_tok, q_mask)
+    got, want = maxsim_full(*args), maxsim_full_plain(*args)
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+          f"maxsim at serve shapes differs by {err}")
+    check(bool((got[len(questions):] == 0).all()),
+          "maxsim: a padded empty question must score 0")
+    return {"B": len(qs), "padding": len(qs) - len(questions), "k": k,
+            "score_select": res1 | {
+                "ms": cuda_ms(lambda: dense_topk(b.dense.emb, q, b.dense.n,
+                                                 k)),
+                "plain_ms": cuda_ms(lambda: dense_topk_fused_plain(
+                    b.dense.emb, q, b.dense.n, k))},
+            "maxsim": {"max_abs_err": err,
+                       "ms": cuda_ms(lambda: maxsim_full(*args)),
+                       "plain_ms": cuda_ms(lambda: maxsim_full_plain(*args))}}
+
+
+def serve_setup(bundles, tmp: Path) -> AppConfig:
+    """Save the bundles and build their law graphs under ``tmp``; the
+    config that serves them."""
+    cfg = AppConfig()
+    cfg.paths.index_dir = tmp / "index"
+    cfg.paths.graph_dir = tmp / "graph"
+    for lang, b in bundles.items():
+        t0 = time.perf_counter()
+        lc = cfg.with_lang(lang)
+        b.save(lc.paths.lang_index_dir)
+        t1 = time.perf_counter()
+        GraphBuilder().build_to_file(b.chunks, lc.paths.graph_file)
+        store = LawGraphStore(lc.paths.graph_file)
+        store.load()
+        emit({"phase": "serve_setup", "lang": lang, "n_docs": b.n_docs,
+              "save_s": t1 - t0, "graph_s": time.perf_counter() - t1,
+              "graph_nodes": len(store.nodes),
+              "graph_edges": sum(len(v) for v in store.adj.values())})
+    return cfg
+
+
+def serve_requests(bundles):
+    """(lang, question, gold chunk id, decision) for SERVE_PER_LANG
+    questions per language, zh and en interleaved, every other one
+    GRAPH_AUGMENTED."""
+    per = {}
+    for lang, b in bundles.items():
+        qs, gold = make_queries(b, SERVE_PER_LANG)
+        check(len(qs) == SERVE_PER_LANG, f"{lang}: {len(qs)} questions")
+        per[lang] = [(lang, q, b.chunks[int(g)].id,
+                      decision(RoutingMode.GRAPH_AUGMENTED if i % 2
+                               else RoutingMode.RAG))
+                     for i, (q, g) in enumerate(zip(qs, gold))]
+    return [r for pair in zip(*per.values()) for r in pair]
+
+
+def phase_serve(bundles):
+    """The single-query serving path (module docstring, phase 6)."""
+    hybrid_log = logging.getLogger("torch.retrieval.hybrid")
+    stage_log = StageLog()
+    hybrid_log.handlers = [stage_log]
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        cfg = serve_setup(bundles, Path(tmp))
+        reqs = serve_requests(bundles)
+        card = ByLangRetriever(cfg, device="cuda")
+        for lang, q, _g, d in reqs[:4]:          # warm-up: load, build
+            card.search(q, decision=d)
+        torch.cuda.synchronize()
+        hrs = {lang: card.retriever(lang) for lang in bundles}
+        before = {lang: (hr._batcher.executions, hr._batcher.coalesced)
+                  for lang, hr in hrs.items()}
+
+        def timed(req):
+            _lang, q, _g, d = req
+            t0 = time.perf_counter()
+            hits = card.search(q, decision=d)
+            return hits, (time.perf_counter() - t0) * 1e3
+
+        def threaded(batch):
+            with ThreadPoolExecutor(SERVE_THREADS) as pool:
+                return list(pool.map(timed, batch))
+
+        stage_log.stages.clear()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = threaded(reqs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        stages = stage_log.medians()
+        check(all(card.retriever(lang) is hr for lang, hr in hrs.items()),
+              "serve: a retriever was rebuilt during the run")
+        execs = sum(hr._batcher.executions - before[lang][0]
+                    for lang, hr in hrs.items())
+        coalesced = sum(hr._batcher.coalesced - before[lang][1]
+                        for lang, hr in hrs.items())
+        check(execs + coalesced == len(reqs),
+              f"serve: {execs} calls + {coalesced} coalesced != {len(reqs)}")
+        check_launches("serve", launches, execs)
+        hits = [h for h, _ms in out]
+        ms = np.array([m for _h, m in out])
+        for (lang, q, _g, _d), hs in zip(reqs, hits):
+            check(0 < len(hs) <= TOP_K, f"serve {lang}: {len(hs)} hits")
+            check(all(np.isfinite(h.score) for h in hs), "serve: scores")
+        recall = {lang: float(np.mean([
+            g in {h.chunk.id for h in hs}
+            for (rl, _q, g, _d), hs in zip(reqs, hits) if rl == lang]))
+            for lang in bundles}
+
+        # the device's share of a second threaded pass
+        profile = profile_device(lambda: threaded(reqs[:128]), 128)
+
+        # 16 requests, zh and en in both modes, against the CPU retriever
+        cpu = ByLangRetriever(cfg, device="cpu")
+        picks = list(range(0, len(reqs), len(reqs) // SERVE_CPU_CHECKS))
+        cpu_swaps = 0
+        for i in picks[:SERVE_CPU_CHECKS]:
+            _lang, q, _g, d = reqs[i]
+            cpu_swaps += same_hits(cpu.search(q, decision=d), hits[i], 1e-4,
+                                   f"serve vs CPU, request {i}")
+        # the same questions alone on the card (a batch of one)
+        solo_swaps = 0
+        for i in picks[:SERVE_SOLO_CHECKS]:
+            _lang, q, _g, d = reqs[i]
+            solo_swaps += same_hits(card.search(q, decision=d), hits[i],
+                                    1e-4, f"serve solo, request {i}")
+        # a padded channels batch (3 questions in a bucket of 4) against
+        # each question's solo call
+        pad_swaps = 0
+        for lang, hr in hrs.items():
+            qs = [r[1] for r in reqs if r[0] == lang][:3]
+            batch = hr._channels_topk_batch(qs, TOP_K * 4)
+            for j, q in enumerate(qs):
+                one = {k: (v[0][j:j + 1], v[1][j:j + 1])
+                       for k, v in batch.items() if k != "qvec"}
+                pad_swaps += check_channel_rows(
+                    hr._channels_topk_batch([q], TOP_K * 4), one,
+                    f"serve {lang} padded batch")
+
+        serve_kernels = {lang: check_serve_kernels(
+            hr, [r[1] for r in reqs if r[0] == lang][:13])
+            for lang, hr in hrs.items()}
+
+        # the per-channel APIs, once each per language, card against CPU
+        kernels.reset_launch_counts()
+        api_swaps = 0
+        for lang, hr in hrs.items():
+            cpu_hr = cpu.retriever(lang)
+            i = next(i for i, r in enumerate(reqs) if r[0] == lang)
+            q, seeds = reqs[i][1], [h.chunk.article_id for h in hits[i][:3]]
+            for api, args in (("dense", (q, TOP_K)), ("bm25", (q, TOP_K)),
+                              ("colbert", (q, TOP_K)),
+                              ("graph", (q, seeds, TOP_K))):
+                got = getattr(hr, f"search_{api}")(*args)
+                check(len(got) > 0, f"search_{api} {lang}: no hits")
+                api_swaps += same_hits(getattr(cpu_hr, f"search_{api}")(*args),
+                                       got, 1e-4, f"search_{api} {lang}")
+        api_launches = kernels.launch_counts()
+        check(api_launches == {"score_select": len(hrs), "maxsim": len(hrs),
+                               "bm25_sparse": 0},
+              f"serve per-channel APIs launched {api_launches}")
+    res = {"phase": "serve", "requests": len(reqs), "threads": SERVE_THREADS,
+           "top_k": TOP_K, "seconds": seconds,
+           "requests_per_s": len(reqs) / seconds,
+           "p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)),
+           "channel_calls": execs, "mean_batch": len(reqs) / execs,
+           "stage_median_ms": stages, "profile": profile,
+           "launches": launches, "per_channel_api_launches": api_launches,
+           "recall_at_10": recall, "cpu_reference_tie_swaps": cpu_swaps,
+           "solo_tie_swaps": solo_swaps, "padded_batch_tie_swaps": pad_swaps,
+           "per_channel_api_tie_swaps": api_swaps,
+           "kernels_at_serve_shapes": serve_kernels,
+           "nvidia_smi": nvidia_smi()}
+    emit(res)
+    return res
+
+
 # ------------------------------------------------------- large-corpus mode
 
 def check_bm25_kernel(index, q, params):
@@ -963,17 +1252,20 @@ def main() -> int:
     kres = phase_kernels(bundles["zh"], zh_queries)
 
     e2e = {lang: phase_e2e(lang, bundles[lang]) for lang in ("zh", "en")}
+    serve = phase_serve(bundles)
     del bundles
     kres["bm25_sparse"], large = phase_large()
-    runs = {"map": list(e2e.values()), "large": [large]}
+    runs = {"map": list(e2e.values()), "serve": [serve], "large": [large]}
     summary = []
     for name, k in kres.items():
-        path = next(p for p, names in PATH_KERNELS.items() if name in names)
+        by_path = {p: sum(r["launches"][name] for r in rs)
+                   for p, rs in runs.items()}
         summary.append({
             key: k[key] for key in ("name", "route", "source", "replaces",
                                     "max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}
-            | {"launches": sum(e["launches"][name] for e in runs[path])})
+            | {"launches": sum(by_path.values()),
+               "launches_by_path": by_path})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

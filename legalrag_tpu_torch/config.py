@@ -2,13 +2,16 @@
 
 Dataclass copies of the fields of ``legalrag_tpu/config.py`` (``PathsConfig``,
 ``EngineConfig``, ``RetrievalConfig``, ``AppConfig.with_lang``) that the
-batched hybrid query path reads, with the same names and defaults, so a
-config tuned for one package means the same in the other.
+batched hybrid query path and the single-query serving path
+(``retrieval/hybrid.py``, ``retrieval/by_lang.py``) read, with the same
+names and defaults, so a config tuned for one package means the same in the
+other.
 
 Left out on purpose: ``engine.kernel_backend`` and ``engine.dense_tile_n``
-(declared in the JAX package, read nowhere). The port picks a kernel by the
-device of its tensors: a CUDA tensor goes to the hand-written kernel, a CPU
-tensor to its plain PyTorch version. There is no routing knob.
+and ``retrieval.graph_weight`` (declared in the JAX package, read nowhere).
+The port picks a kernel by the device of its tensors: a CUDA tensor goes to
+the hand-written kernel, a CPU tensor to its plain PyTorch version. There is
+no routing knob.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import copy
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 DEFAULT_ROOT = Path(os.environ.get("LEGALRAG_ROOT",
                                    Path(__file__).resolve().parent.parent))
@@ -30,9 +33,11 @@ class PathsConfig:
     raw_dir: Path = DEFAULT_ROOT / "data" / "raw"
     processed_dir: Path = DEFAULT_ROOT / "data" / "processed"
     index_dir: Path = DEFAULT_ROOT / "data" / "index"
+    graph_dir: Path = DEFAULT_ROOT / "data" / "graph"
     # per-language (resolved by AppConfig.with_lang)
     corpus_file: Path = DEFAULT_ROOT / "data" / "processed" / "law_zh.jsonl"
     lang_index_dir: Path = DEFAULT_ROOT / "data" / "index" / "zh"
+    graph_file: Path = DEFAULT_ROOT / "data" / "graph" / "law_graph_zh.jsonl"
 
 
 @dataclass
@@ -48,8 +53,19 @@ class EngineConfig:
     # token-store storage: "" = engine dtype, or "int8" (the nbit4 store is
     # not ported yet)
     token_dtype: str = ""
+    # dense-prefiltered candidates for MaxSim (the late channel's two-phase
+    # route past LateInteractionRetriever.FULL_SCAN_MAX docs)
+    late_candidates: int = 128
+    # query batching for the serving engine
+    max_query_batch: int = 64
     # query tokens kept per query (BM25 term ids and late-interaction tokens)
     max_query_tokens: int = 64
+    # serving micro-batch (retrieval/batcher.py): concurrent request
+    # threads' channel executions are coalesced into one device call. The
+    # window is how long a leader waits for followers before launching;
+    # 0 still coalesces requests that arrive while an execution runs.
+    microbatch_window_ms: float = 2.0
+    microbatch_max: int = 32
 
 
 @dataclass
@@ -74,8 +90,36 @@ class RetrievalConfig:
     bm25_b: float = 0.75
     bm25_epsilon: float = 0.25
 
+    # graph channel (reference config.py:75-88)
+    enable_graph: bool = True
+    graph_seed_k: int = 30
+    graph_limit: int = 800
+    graph_min_conf: float = 0.5
+    graph_relation_max_depth: Dict[str, int] = field(default_factory=lambda: {
+        "defined_by": 4, "defines_term": 3, "cite": 1, "cited_by": 1,
+        "prev": 2, "next": 2, "default": 2,
+    })
+    graph_depth_decay: float = 0.7
+    graph_relation_weights: Dict[str, float] = field(default_factory=lambda: {
+        "defined_by": 1.20, "cite": 1.15, "defines_term": 1.10,
+        "prev": 0.95, "next": 0.95, "default": 1.0,
+    })
+
     # late interaction channel
     enable_colbert: bool = True
+
+    # HyDE: expand the dense query with an LLM-written hypothetical answer
+    enable_hyde: bool = False
+
+    # rerank (reference config.py:119-124); the cross-encoder model waits
+    # for the BERT encoders, so reranker_model is read by nothing yet
+    enable_rerank: bool = True
+    rerank_top_n: int = 30
+    rerank_beta: float = 0.35
+    reranker_model: str = "BAAI/bge-reranker-v2-m3"
+    rerank_use_llm: bool = False
+    rerank_llm_top_k_threshold: int = 30
+    rerank_norm: str = "minmax"  # minmax | sigmoid | none
 
 
 @dataclass
@@ -87,8 +131,8 @@ class AppConfig:
     index_version: Optional[str] = None
 
     def with_lang(self, lang: str) -> "AppConfig":
-        """Deep copy with the corpus and index paths swapped per language
-        (``legalrag_tpu/config.py:384-406``)."""
+        """Deep copy with the corpus, index and graph paths swapped per
+        language (``legalrag_tpu/config.py:384-406``)."""
         cfg = copy.deepcopy(self)
         cfg.lang = lang
         p = cfg.paths
@@ -104,4 +148,5 @@ class AppConfig:
             if v and (base / "versions" / v).exists():
                 base = base / "versions" / v
         p.lang_index_dir = base
+        p.graph_file = Path(p.graph_dir) / f"law_graph_{lang}.jsonl"
         return cfg

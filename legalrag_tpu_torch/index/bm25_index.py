@@ -4,6 +4,11 @@ The host keeps the per-doc (term id, tf) lists and the vocabulary; the
 device holds the dense [V_pad, N_pad] float32 impact matrix, V rounded up to
 8 and N to 128 as in the JAX package. Same npz format (``flat_ids``,
 ``flat_tfs``, ``offsets``, ``vocab`` JSON, ``params``, ``lang``).
+
+Incremental adds (``add_texts``) rebuild the global statistics from the
+host CSR, as in JAX: the old docs' token lists are read back from it (each
+term repeated tf times, in term-id order), so both packages assign the same
+vocabulary ids.
 """
 
 from __future__ import annotations
@@ -16,7 +21,12 @@ import numpy as np
 import torch
 
 from legalrag_tpu_torch.index.dense_index import round_up
-from legalrag_tpu_torch.ops.bm25 import build_impact_matrix
+from legalrag_tpu_torch.ops.bm25 import (
+    bm25_scores_matmul,
+    bm25_topk,
+    build_impact_matrix,
+)
+from legalrag_tpu_torch.ops.topk import bucket_k
 from legalrag_tpu_torch.tokenize import tokenize
 from legalrag_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -52,6 +62,16 @@ class BM25Index:
     def build_from_texts(self, texts: Sequence[str]) -> None:
         self.build([tokenize(t, self.lang) for t in texts])
 
+    def add_texts(self, texts: Sequence[str]) -> None:
+        """Append docs: a global-stats rebuild over the old token lists
+        (from the host CSR) and the new texts' tokens."""
+        new_lists = [tokenize(t, self.lang) for t in texts]
+        inv = {v: k for k, v in self.vocab.items()}
+        old = [[inv[int(tid)] for tid, tf in zip(ids, tfs)
+                for _ in range(int(tf))]
+               for ids, tfs in zip(self.doc_term_ids, self.doc_term_freqs)]
+        self.build(old + new_lists)
+
     def _materialize(self) -> None:
         v = len(self.vocab)
         impact = build_impact_matrix(self.doc_term_ids, self.doc_term_freqs, v,
@@ -74,6 +94,36 @@ class BM25Index:
             ids[i, : len(toks)] = toks
             mask[i, : len(toks)] = True
         return ids, mask
+
+    def query_vectors(self, queries: Sequence[str]) -> np.ndarray:
+        """[B, V_pad] float32 query term counts (unknown tokens dropped,
+        repeats counted)."""
+        q = np.zeros((len(queries), self.impact.shape[0]), np.float32)
+        for i, text in enumerate(queries):
+            for t in tokenize(text, self.lang, query=True):
+                if t in self.vocab:
+                    q[i, self.vocab[t]] += 1.0
+        return q
+
+    def _qtf(self, queries: Sequence[str]) -> torch.Tensor:
+        return torch.from_numpy(self.query_vectors(queries)).to(self.device)
+
+    def scores(self, queries: Sequence[str]) -> np.ndarray:
+        """[B, n] BM25 scores of every doc."""
+        s = bm25_scores_matmul(self.impact, self._qtf(queries))
+        return s[:, : self.n].cpu().numpy()
+
+    def topk(self, queries: Sequence[str], k: int
+             ) -> Tuple[np.ndarray, np.ndarray]:
+        """(scores [B, k], row ids [B, k]) on the host; zero-score docs fill
+        the list lowest row first."""
+        if self.n == 0:
+            b = len(queries)
+            return np.zeros((b, 0), np.float32), np.zeros((b, 0), np.int64)
+        k = min(k, self.n)
+        kb = bucket_k(k, self.impact.shape[1])
+        s, i = bm25_topk(self.impact, self._qtf(queries), self.n, kb)
+        return s[:, :k].cpu().numpy(), i[:, :k].cpu().numpy()
 
     # -------------------------------------------------------------- persist
     def save(self, path: str | Path) -> None:

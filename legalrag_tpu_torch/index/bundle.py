@@ -105,12 +105,26 @@ class IndexBundle:
         if self.cfg.retrieval.enable_colbert:
             self.tokens.add(tok, mask)
         t0 = time.time()
-        self.bm25.build_from_texts([c.text for c in self.chunks])
+        if self.bm25.n:
+            self.bm25.add_texts(texts)
+        else:
+            self.bm25.build_from_texts([c.text for c in self.chunks])
         log.info("[%s] appended %d chunks (encode %.2fs, bm25 %.2fs) -> n=%d",
                  self.lang, len(fresh), t_enc, time.time() - t0,
                  len(self.chunks))
         self.generation += 1
         return len(fresh)
+
+    def add_chunks(self, chunks: Sequence[LawChunk]) -> int:
+        """Incremental add (the ingest path), deduplicated by chunk id: the
+        encoder's idf takes in the fresh chunks first, then they are
+        appended (``legalrag_tpu/index/bundle.py:135-142``)."""
+        fresh = [c for c in chunks if c.id not in self.id2row]
+        self.encoder.fit_idf([c.text for c in fresh])
+        return self._append(list(chunks))
+
+    def row_chunks(self, rows: Sequence[int]) -> List[LawChunk]:
+        return [self.chunks[r] for r in rows]
 
     @property
     def n_docs(self) -> int:
@@ -184,3 +198,7 @@ class IndexBundle:
             b.chunks = b.chunks[:n]
             b.id2row = {c.id: i for i, c in enumerate(b.chunks)}
         return b
+
+    @staticmethod
+    def exists(index_dir: str | Path) -> bool:
+        return (Path(index_dir) / "manifest.json").exists()

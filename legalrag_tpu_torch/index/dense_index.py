@@ -5,12 +5,16 @@ A [capacity, dim] bf16 or f32 store, capacity rounded up to a multiple of
 capacity, and with it eff_k, match). float32 -> bf16 rounds to nearest even
 in both packages. The npz format is the JAX package's: ``emb`` float16
 [n, dim], ``dim``, ``n``. The int8 store is not ported yet and raises.
+
+``topk`` (the dense channel of the serving path) selects as JAX's
+``dense_topk`` routes: the score+select kernel (``ops.topk.dense_topk``)
+below ``TWO_PASS_MIN_N`` rows, the block-max two-pass selection from there.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +70,34 @@ class DenseIndex:
         self.emb[self.n: self.n + m] = torch.tensor(
             np.asarray(vectors, np.float32), device=self.device).to(self.dtype)
         self.n += m
+
+    def topk(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """[B, dim] float queries -> (scores [B, k], row ids [B, k]) on the
+        host; the query is rounded to the store dtype inside the scorer."""
+        from legalrag_tpu_torch.ops import topk as topk_ops
+
+        if self.n == 0:
+            b = q.shape[0]
+            return np.zeros((b, 0), np.float32), np.zeros((b, 0), np.int64)
+        k = min(k, self.n)
+        kb = topk_ops.bucket_k(k, self.capacity)
+        qt = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        if self.capacity >= topk_ops.TWO_PASS_MIN_N:
+            s, i = topk_ops.dense_topk_2pass(self.emb, qt, self.n, kb)
+        else:
+            s, i = topk_ops.dense_topk(self.emb, qt, self.n, kb)
+        return s[:, :k].cpu().numpy(), i[:, :k].cpu().numpy()
+
+    def score_rows(self, q: np.ndarray, rows: np.ndarray) -> np.ndarray:
+        """Inner products of one query [dim] with the given rows [m] (the
+        graph channel's scorer): the query rounded to the store dtype, the
+        products summed in float32."""
+        if len(rows) == 0:
+            return np.zeros(0, np.float32)
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        qt = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        s = torch.matmul(self.emb[idx].float(), qt.to(self.dtype).float())
+        return s.cpu().numpy()
 
     # ------------------------------------------------------------- persist
     def save(self, path: str | Path) -> None:

@@ -9,18 +9,28 @@ stay float32. Same npz format (``tok`` float16, or int8 with
 ``quantized=True``; ``mask``, ``token_dim``, ``doc_maxlen``): an int8
 payload loads as int8 without requantization. The nbit4 store is not
 ported yet and raises.
+
+``topk`` (the late channel's full scan) goes through ``ops.maxsim``'s
+``maxsim_topk``, so on the card it launches the MaxSim kernel;
+``score_candidates`` (the two-phase route and the MaxSim reranker) scores
+[B, C] gathered rows with ``maxsim_candidates``.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from legalrag_tpu_torch.index.dense_index import round_up, store_dtype
-from legalrag_tpu_torch.ops.maxsim import INT8_SCALE
+from legalrag_tpu_torch.ops.maxsim import (
+    INT8_SCALE,
+    maxsim_candidates,
+    maxsim_topk,
+)
+from legalrag_tpu_torch.ops.topk import bucket_k
 from legalrag_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -101,6 +111,46 @@ class TokenIndex:
         self.mask[self.n: self.n + m] = torch.from_numpy(
             np.asarray(token_mask, bool)).to(self.device)
         self.n += m
+
+    # ---------------------------------------------------------------- score
+    def _queries(self, q_tok: np.ndarray, q_mask: np.ndarray):
+        return (torch.from_numpy(np.asarray(q_tok, np.float32)).to(
+                    self.device).to(self.query_dtype),
+                torch.from_numpy(np.asarray(q_mask, bool)).to(self.device))
+
+    def score_candidates(self, q_tok: np.ndarray, q_mask: np.ndarray,
+                         cand: np.ndarray) -> np.ndarray:
+        """[B, Lq, dt] query tokens x [B, C] candidate rows -> [B, C]
+        float32 scores on the host."""
+        qt, qm = self._queries(q_tok, q_mask)
+        rows = torch.from_numpy(np.asarray(cand, np.int64)).to(self.device)
+        return maxsim_candidates(self.tok, self.mask, qt, qm, rows).cpu().numpy()
+
+    def topk(self, q_tok: np.ndarray, q_mask: np.ndarray, k: int
+             ) -> Tuple[np.ndarray, np.ndarray]:
+        """Full-scan MaxSim top-k: (scores [B, k], row ids [B, k]) on the
+        host."""
+        if self.n == 0:
+            b = q_tok.shape[0]
+            return np.zeros((b, 0), np.float32), np.zeros((b, 0), np.int64)
+        k = min(k, self.n)
+        kb = bucket_k(k, self.capacity)
+        qt, qm = self._queries(q_tok, q_mask)
+        s, i = maxsim_topk(self.tok, self.mask, qt, qm, self.n, kb)
+        return s[:, :k].cpu().numpy(), i[:, :k].cpu().numpy()
+
+    def dequantized_rows(self, start: int, stop: int
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """Host float32 values and mask of rows [start, stop) (an int8
+        store rescaled by 1/127, as ``ops.maxsim._dequant`` widens it)."""
+        stop = min(stop, self.capacity)
+        tok = self.tok[start:stop].float().cpu().numpy()
+        if self.dtype == torch.int8:
+            tok *= 1.0 / 127.0
+        return tok, self.mask[start:stop].cpu().numpy()
+
+    def dequantized(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self.dequantized_rows(0, self.capacity)
 
     # -------------------------------------------------------------- persist
     def save(self, path: str | Path) -> None:

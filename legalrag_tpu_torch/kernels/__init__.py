@@ -150,13 +150,16 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
-    _launches[name] += 1
+    with _lock:  # request threads launch concurrently on the serving path
+        _launches[name] += 1
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(_launches)
+    with _lock:
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
+    with _lock:
+        for k in _launches:
+            _launches[k] = 0

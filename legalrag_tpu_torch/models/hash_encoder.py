@@ -46,8 +46,10 @@ class HashEncoder:
         self.token_dim = token_dim
         self.seed = seed
         self.device = resolve_device(device)
+        # a copy: fit_idf adds to it in place, and a caller's array (a
+        # carried JAX encoder's state) must not change with it
         self.df = (np.zeros(sketch_dim, np.int64) if df is None
-                   else np.asarray(df, np.int64))
+                   else np.array(df, np.int64))
         self.n_docs = int(n_docs)
         # trained projection (contrastive adaptation) overrides the default
         # Gaussian when present; it is saved with the index

@@ -10,15 +10,19 @@ The per-(term, doc) contribution is query-independent, so scoring is
 ``S = Q @ C`` with Q the [B, V] query term counts and C the dense [V, N]
 impact matrix built here on the host (the same numpy code as the JAX
 package, so the impact matrices are bit-equal). The product is one float32
-``torch.matmul`` (the JAX package leaves it to XLA as well).
+``torch.matmul`` (the JAX package leaves it to XLA as well). ``bm25_topk``
+selects from that map with ``topk_large``, whose order is ``lax.top_k``'s:
+the many docs that score exactly 0 come lowest index first.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from legalrag_tpu_torch.ops.topk import NEG_INF, topk_large
 
 
 def compute_idf(df: np.ndarray, n_docs: int, epsilon: float = 0.25) -> np.ndarray:
@@ -55,6 +59,16 @@ def build_impact_matrix(doc_term_ids: Sequence[np.ndarray],
 def bm25_scores_matmul(impact: torch.Tensor, qtf: torch.Tensor) -> torch.Tensor:
     """S [B, N] = qtf [B, V] @ impact [V, N] (float32)."""
     return torch.matmul(qtf.to(impact.dtype), impact).float()
+
+
+def bm25_topk(impact: torch.Tensor, qtf: torch.Tensor, valid_n: int, k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of ``qtf @ impact`` with columns >= ``valid_n`` scored NEG_INF
+    (``legalrag_tpu/ops/bm25.py:73-81``): ([B, k] float32, [B, k] int64)."""
+    scores = bm25_scores_matmul(impact, qtf)
+    col = torch.arange(scores.shape[1], device=scores.device)[None, :]
+    scores = torch.where(col < valid_n, scores, NEG_INF)
+    return topk_large(scores, min(k, scores.shape[1]))
 
 
 def query_term_counts(term_ids: torch.Tensor, term_mask: torch.Tensor,

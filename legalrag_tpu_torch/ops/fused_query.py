@@ -36,6 +36,14 @@ are fused (``fuse_candidate_lists``); no [B, N] fusion map exists.
 4. RRF + min-max over the concatenated lists per query, duplicate ids
    merged onto their first valid occurrence; the final top-k.
 
+``fused_channels_topk`` (``legalrag_tpu/ops/fused_query.py:337-396``) is
+the single-query serving path's device call: each channel's own top-eff_k
+list, for host fusion. Dense: the score+select kernel's list below
+``TWO_PASS_MIN_N`` columns (it equals ``lax.top_k`` of the masked map), from
+there ``topk_large`` of the masked map, the route JAX takes; BM25: the
+impact matmul and ``topk_large``; late: the MaxSim kernel's map and
+``topk_large``.
+
 Ranking semantics are the JAX program's, with every ``lax.top_k`` replaced
 by ``stable_topk`` (ties to the lower index). The map mode's packed
 ``dense`` component at the final rows is the exact float32 dot of the
@@ -136,6 +144,18 @@ def channel_components(scores: torch.Tensor, eff_k: int, weight: float,
     return _components_from_top(top_s, top_i, n, weight, rrf_k)
 
 
+def _mask_cols(s: torch.Tensor, n: int, valid_n: int) -> torch.Tensor:
+    """A [B, *] score map aligned to the dense capacity ``n`` (the channels
+    pad the doc axis differently: impact N to 128, dense to
+    ``capacity_round``), columns >= ``valid_n`` set to NEG_INF."""
+    if s.shape[1] < n:
+        s = torch.nn.functional.pad(s, (0, n - s.shape[1]), value=NEG_INF)
+    elif s.shape[1] > n:
+        s = s[:, :n]
+    col = torch.arange(n, device=s.device)[None, :]
+    return torch.where(col < valid_n, s, torch.full_like(s, NEG_INF))
+
+
 def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor],
                       doc_mask: Optional[torch.Tensor], qvec, qtf,
                       q_tok: Optional[torch.Tensor],
@@ -161,14 +181,7 @@ def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor]
         qtf = query_term_counts(qtf[0], qtf[1], impact.shape[0])
 
     def mask_invalid(s: torch.Tensor) -> torch.Tensor:
-        # channels pad the doc axis differently (impact: N rounded to 128,
-        # dense capacity: to capacity_round); align to the dense capacity n
-        if s.shape[1] < n:
-            s = torch.nn.functional.pad(s, (0, n - s.shape[1]), value=NEG_INF)
-        elif s.shape[1] > n:
-            s = s[:, :n]
-        col = torch.arange(n, device=s.device)[None, :]
-        return torch.where(col < valid_n, s, torch.full_like(s, NEG_INF))
+        return _mask_cols(s, n, valid_n)
 
     eff_k = min(params.eff_k, n)
     late_c = (min(params.late_candidates, n)
@@ -230,6 +243,38 @@ def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor]
     if late_s is not None:
         packed.append(gather(late_s))
     return {"rows": top_i, "packed": torch.stack(packed, dim=-1)}
+
+
+def fused_channels_topk(emb: torch.Tensor, impact: torch.Tensor,
+                        doc_tok: Optional[torch.Tensor],
+                        doc_mask: Optional[torch.Tensor], qvec, qtf,
+                        q_tok: Optional[torch.Tensor],
+                        q_mask: Optional[torch.Tensor], valid_n: int,
+                        eff_k: int) -> Dict[str, object]:
+    """Each channel's top-min(eff_k, N) list from one call: ``{"qvec": [B,
+    d], "dense": (scores, rows), "bm25": (...), "colbert": (...)}`` (colbert
+    only with a token store), scores [B, k] float32 (NEG_INF past
+    ``valid_n``), rows [B, k] int64. ``qvec`` and ``qtf`` take the forms of
+    ``fused_hybrid_topk``'s map mode."""
+    n = emb.shape[0]
+    if isinstance(qvec, (tuple, list)):
+        qvec = project_norm(*qvec)
+    if isinstance(qtf, (tuple, list)):
+        qtf = query_term_counts(qtf[0], qtf[1], impact.shape[0])
+    k = min(eff_k, n)
+    out: Dict[str, object] = {"qvec": qvec}
+    if n >= topk_ops.TWO_PASS_MIN_N:
+        out["dense"] = topk_ops.topk_large(
+            _mask_cols(dense_scores(emb, qvec), n, valid_n), k)
+    else:
+        out["dense"] = dense_topk(emb, qvec, valid_n, k)
+    out["bm25"] = topk_ops.topk_large(
+        _mask_cols(bm25_scores_matmul(impact, qtf), n, valid_n), k)
+    if doc_tok is not None:
+        out["colbert"] = topk_ops.topk_large(
+            _mask_cols(maxsim_full(doc_tok, doc_mask, q_tok, q_mask), n,
+                       valid_n), k)
+    return out
 
 
 def fuse_candidate_lists(per: Sequence[Tuple[float, torch.Tensor, torch.Tensor]],

@@ -13,6 +13,10 @@ float32 tokens two launches on the CUDA cores through a [N, B * Lq]
 scratch. On a CPU tensor it runs the plain version ``maxsim_full_plain``.
 Neither takes an int8 store yet (the kernel has no in-kernel dequant).
 
+``maxsim_topk`` is the late channel's masked top-k over that map
+(``legalrag_tpu/ops/maxsim.py:135-142``): columns >= ``valid_n`` NEG_INF,
+then ``topk_large``.
+
 ``maxsim_candidates`` scores per-query candidate lists [B, C] (the
 large-corpus mode's late channel): a batched gather and einsum, as XLA
 computes it in JAX. It takes bf16, f32 and int8 stores (int8 holds
@@ -21,9 +25,12 @@ computes it in JAX. It takes bf16, f32 and int8 stores (int8 holds
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from legalrag_tpu_torch import kernels
+from legalrag_tpu_torch.ops.topk import NEG_INF, topk_large
 
 INT8_SCALE = 127.0
 
@@ -90,6 +97,17 @@ def maxsim_full(doc_tok: torch.Tensor, doc_mask: torch.Tensor,
     if doc_tok.device.type == "cpu":
         return maxsim_full_plain(doc_tok, doc_mask, q_tok, q_mask)
     return _maxsim_kernel(doc_tok, doc_mask, q_tok, q_mask)
+
+
+def maxsim_topk(doc_tok: torch.Tensor, doc_mask: torch.Tensor,
+                q_tok: torch.Tensor, q_mask: torch.Tensor, valid_n: int,
+                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k rows of the full MaxSim map, rows >= ``valid_n`` scored
+    NEG_INF: ([B, k] float32, [B, k] int64)."""
+    scores = maxsim_full(doc_tok, doc_mask, q_tok, q_mask)
+    col = torch.arange(scores.shape[1], device=scores.device)[None, :]
+    scores = torch.where(col < valid_n, scores, NEG_INF)
+    return topk_large(scores, min(k, scores.shape[1]))
 
 
 def _maxsim_kernel(doc_tok: torch.Tensor, doc_mask: torch.Tensor,

@@ -130,3 +130,170 @@ def test_stale_fingerprint_refuses_to_load(en_chunks, tmp_path):
     (d / "manifest.json").write_text(json.dumps(m))
     with pytest.raises(StaleIndexError):
         IndexBundle.load(d, cfg, "en", device="cpu")
+
+
+# ------------------------------------------------ the serving path's methods
+
+QUERIES = ["buyer in ordinary course of business",
+           "security interest attaches when value is given",
+           "negotiable instrument payable to bearer", "",
+           "zebra astronomy"]
+
+
+def assert_rows_up_to_ties(ws, wr, gs, gr, atol=1e-5, tie=1e-6):
+    """Scores within atol; rows equal except where the JAX scores tie."""
+    np.testing.assert_allclose(gs, ws, atol=atol)
+    for q, p in np.argwhere(np.asarray(wr) != np.asarray(gr)):
+        j = np.nonzero(wr[q] == gr[q, p])[0]
+        ref = ws[q, j[0]] if len(j) else gs[q, p]
+        assert abs(ref - ws[q, p]) < tie, (q, p, wr[q], gr[q])
+
+
+@pytest.fixture(scope="module")
+def carried(en_chunks):
+    """The JAX bundle of en[:150] (small config) and its port copy."""
+    from test_torch_engine import carry
+
+    jcfg, cfg = JaxConfig(), AppConfig()
+    for c in (jcfg, cfg):
+        c.engine.capacity_round = 256
+        c.engine.late_doc_maxlen = 64
+    jb = JaxBundle.build_from_chunks(en_chunks[:150], jcfg, "en")
+    return jb, carry(jb, cfg)
+
+
+@pytest.mark.parametrize("k", [1, 10, 40, 150, 300])
+def test_dense_topk_matches_jax(carried, k):
+    jb, tb = carried
+    q = jb.encoder.encode_queries(QUERIES)
+    ws, wr = jb.dense.topk(q, k)
+    gs, gr = tb.dense.topk(np.asarray(q), k)
+    assert gs.shape == ws.shape == (len(QUERIES), min(k, 150))
+    assert_rows_up_to_ties(ws, wr, gs, gr)
+
+
+def test_dense_score_rows_matches_jax(carried):
+    jb, tb = carried
+    q = np.asarray(jb.encoder.encode_queries(QUERIES[:1]))[0]
+    rows = np.array([0, 5, 149, 5, 77], np.int32)
+    np.testing.assert_allclose(tb.dense.score_rows(q, rows),
+                               jb.dense.score_rows(q, rows), atol=1e-6)
+    assert tb.dense.score_rows(q, np.zeros(0, np.int32)).shape == (0,)
+
+
+def test_bm25_query_methods_match_jax(carried):
+    jb, tb = carried
+    np.testing.assert_array_equal(tb.bm25.query_vectors(QUERIES),
+                                  jb.bm25.query_vectors(QUERIES))
+    np.testing.assert_allclose(tb.bm25.scores(QUERIES),
+                               jb.bm25.scores(QUERIES), atol=1e-5)
+    for k in (1, 10, 40, 150):
+        ws, wr = jb.bm25.topk(QUERIES, k)
+        gs, gr = tb.bm25.topk(QUERIES, k)
+        assert gs.shape == ws.shape
+        assert_rows_up_to_ties(ws, wr, gs, gr)
+    # the last two queries match nothing: their lists are rows 0..k-1
+    assert tb.bm25.topk(QUERIES, 10)[1][4].tolist() == list(range(10))
+
+
+def test_bm25_add_texts_matches_jax(en_chunks):
+    from legalrag_tpu.index.bm25_index import BM25Index as JaxBM25
+    from legalrag_tpu_torch.index.bm25_index import BM25Index
+
+    texts = [c.text for c in en_chunks[:60]]
+    jx, tx = JaxBM25("en"), BM25Index("en", device="cpu")
+    jx.build_from_texts(texts[:40])
+    tx.build_from_texts(texts[:40])
+    jx.add_texts(texts[40:])
+    tx.add_texts(texts[40:])
+    assert tx.n == jx.n == 60 and tx.vocab == jx.vocab
+    np.testing.assert_array_equal(tx.impact.numpy(), np.asarray(jx.impact))
+    for a, b in zip(tx.doc_term_freqs, jx.doc_term_freqs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_token_index_methods_match_jax(carried):
+    jb, tb = carried
+    q_tok, q_mask = jb.encoder.encode_tokens(QUERIES, 64, query=True)
+    cand = np.array([[0, 3, 149, 3], [7, 8, 9, 10], [1, 2, 3, 4],
+                     [0, 1, 2, 3], [140, 141, 142, 143]], np.int32)
+    np.testing.assert_allclose(tb.tokens.score_candidates(q_tok, q_mask, cand),
+                               jb.tokens.score_candidates(q_tok, q_mask, cand),
+                               atol=1e-5)
+    for k in (1, 10, 40, 150):
+        ws, wr = jb.tokens.topk(q_tok, q_mask, k)
+        gs, gr = tb.tokens.topk(q_tok, q_mask, k)
+        assert gs.shape == ws.shape
+        assert_rows_up_to_ties(ws, wr, gs, gr)
+    for start, stop in ((0, 10), (140, 400)):
+        for g, w in zip(tb.tokens.dequantized_rows(start, stop),
+                        jb.tokens.dequantized_rows(start, stop)):
+            np.testing.assert_array_equal(g, w)
+    assert tb.tokens.dequantized()[0].shape == (256, 64, 128)
+
+
+def test_int8_token_store_methods_match_jax():
+    from legalrag_tpu.index.token_index import TokenIndex as JaxTokens
+    from legalrag_tpu_torch.index.token_index import TokenIndex
+
+    rng = np.random.default_rng(3)
+    tok = rng.normal(size=(40, 16, 32)).astype(np.float32)
+    tok /= np.linalg.norm(tok, axis=-1, keepdims=True)
+    mask = rng.random((40, 16)) > 0.3
+    jt = JaxTokens(32, 16, "int8", 64)
+    jt.add(tok, mask)
+    tt = TokenIndex(32, 16, "int8", 64, device="cpu")
+    tt.add_quantized(np.asarray(jt.tok)[:40], mask)
+    for g, w in zip(tt.dequantized_rows(0, 64), jt.dequantized_rows(0, 64)):
+        np.testing.assert_array_equal(g, w)
+    q = rng.normal(size=(2, 8, 32)).astype(np.float32)
+    qm = np.ones((2, 8), bool)
+    cand = rng.integers(0, 40, (2, 6))
+    np.testing.assert_allclose(tt.score_candidates(q, qm, cand),
+                               jt.score_candidates(q, qm, cand), atol=1e-5)
+
+
+def test_add_chunks_then_search_matches_jax(en_chunks):
+    """A carried bundle of en[:100] and the JAX one both take en[90:150]
+    (ten already in): the same rows, vocabulary, stores and encoder
+    statistics after it, and the same BM25 and MaxSim rankings."""
+    from test_torch_engine import carry
+
+    jcfg, cfg = JaxConfig(), AppConfig()
+    for c in (jcfg, cfg):
+        c.engine.capacity_round = 128  # the stores grow from 128 to 256 rows
+        c.engine.late_doc_maxlen = 64
+    jb = JaxBundle.build_from_chunks(en_chunks[:100], jcfg, "en")
+    tb = carry(jb, cfg)
+    # the carried encoder owns its document frequencies
+    assert tb.encoder.df is not jb.encoder.df
+    assert jb.add_chunks(en_chunks[90:150]) == 50
+    assert tb.add_chunks(port_chunks(en_chunks[90:150])) == 50
+    assert tb.add_chunks(port_chunks(en_chunks[:3])) == 0
+    assert (tb.n_docs, tb.generation, tb.dense.capacity) == \
+        (jb.n_docs, jb.generation, jb.dense.capacity) == (150, 2, 256)
+    assert tb.id2row == jb.id2row and tb.bm25.vocab == jb.bm25.vocab
+    assert [c.id for c in tb.row_chunks([0, 149, 7])] == \
+        [c.id for c in jb.row_chunks([0, 149, 7])]
+    np.testing.assert_array_equal(tb.encoder.df, jb.encoder.df)
+    assert tb.encoder.n_docs == jb.encoder.n_docs
+    np.testing.assert_array_equal(tb.bm25.impact.numpy(),
+                                  np.asarray(jb.bm25.impact))
+    np.testing.assert_array_equal(tb.tokens.tok.float().numpy(),
+                                  np.asarray(jb.tokens.tok, np.float32))
+    # fresh rows: one bf16 ulp at most (the projection's float32 sums)
+    got = tb.dense.emb.float().numpy()
+    want = np.asarray(jb.dense.emb, np.float32)
+    ulp = bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
+    assert (np.abs(got - want) <= np.maximum(ulp, 1e-6)).all()
+    ws, wr = jb.bm25.topk(QUERIES, 20)
+    gs, gr = tb.bm25.topk(QUERIES, 20)
+    assert_rows_up_to_ties(ws, wr, gs, gr)
+    q_tok, q_mask = jb.encoder.encode_tokens(QUERIES, 64, query=True)
+    ws, wr = jb.tokens.topk(q_tok, q_mask, 20)
+    gs, gr = tb.tokens.topk(q_tok, q_mask, 20)
+    assert_rows_up_to_ties(ws, wr, gs, gr)
+    q = np.asarray(jb.encoder.encode_queries(QUERIES))
+    ws, wr = jb.dense.topk(q, 20)
+    gs, gr = tb.dense.topk(q, 20)
+    assert_rows_up_to_ties(ws, wr, gs, gr, atol=1e-4, tie=1e-4)

@@ -42,7 +42,16 @@ def test_module_list_covers_the_slice():
                  "legalrag_tpu_torch.ops.bm25_sparse",
                  "legalrag_tpu_torch.index.bundle",
                  "legalrag_tpu_torch.kernels", "legalrag_tpu_torch.convert",
-                 "legalrag_tpu_torch.scale"):
+                 "legalrag_tpu_torch.scale",
+                 "legalrag_tpu_torch.retrieval.hybrid",
+                 "legalrag_tpu_torch.retrieval.by_lang",
+                 "legalrag_tpu_torch.retrieval.batcher",
+                 "legalrag_tpu_torch.retrieval.channels",
+                 "legalrag_tpu_torch.retrieval.fusion",
+                 "legalrag_tpu_torch.retrieval.rerankers",
+                 "legalrag_tpu_torch.graph.builder",
+                 "legalrag_tpu_torch.graph.store",
+                 "legalrag_tpu_torch.utils.tracing"):
         assert name in PORT_MODULES
 
 
