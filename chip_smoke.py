@@ -39,7 +39,8 @@ Phases, each printing one JSON line:
    other one ``GRAPH_AUGMENTED``) from 16 threads at once, so the
    micro-batcher coalesces them. Requests/s, per-request p50 / p99 ms, the
    channels calls and their mean batch, the per-stage ms of the retriever's
-   log line, device busy and idle share; every such call launches
+   log line, device busy and idle share, and p50 / p99 and stages of 64
+   requests sent one at a time; every channels call launches
    score+select and MaxSim once. 16 requests against a ``ByLangRetriever``
    on the CPU over the same directories (the plain versions), 8 against the
    same question served alone on the card, a padded channels batch against
@@ -127,6 +128,7 @@ SERVE_PER_LANG = 256        # serve phase: requests per language
 SERVE_THREADS = 16          # request threads submitting at once
 SERVE_CPU_CHECKS = 16       # requests held against the CPU retriever
 SERVE_SOLO_CHECKS = 8       # requests held against a solo run on the card
+SERVE_SERIAL = 64           # requests sent one at a time (no contention)
 # the kernels each path must launch once per batch (and no other); the
 # serve path's batch is one channels call of the micro-batcher
 PATH_KERNELS = {"map": ("score_select", "maxsim"),
@@ -901,6 +903,8 @@ def phase_serve(bundles):
     hybrid_log = logging.getLogger("torch.retrieval.hybrid")
     stage_log = StageLog()
     hybrid_log.handlers = [stage_log]
+    t_phase = time.perf_counter()
+    (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         cfg = serve_setup(bundles, Path(tmp))
         reqs = serve_requests(bundles)
@@ -951,6 +955,12 @@ def phase_serve(bundles):
 
         # the device's share of a second threaded pass
         profile = profile_device(lambda: threaded(reqs[:128]), 128)
+
+        # one request at a time: each request's own host and device time,
+        # without the other threads' share of the interpreter
+        stage_log.stages.clear()
+        serial_ms = np.array([timed(r)[1] for r in reqs[:SERVE_SERIAL]])
+        serial_stages = stage_log.medians()
 
         # 16 requests, zh and en in both modes, against the CPU retriever
         cpu = ByLangRetriever(cfg, device="cpu")
@@ -1008,11 +1018,16 @@ def phase_serve(bundles):
            "p99_ms": float(np.percentile(ms, 99)),
            "channel_calls": execs, "mean_batch": len(reqs) / execs,
            "stage_median_ms": stages, "profile": profile,
+           "serial": {"requests": SERVE_SERIAL,
+                      "p50_ms": float(np.percentile(serial_ms, 50)),
+                      "p99_ms": float(np.percentile(serial_ms, 99)),
+                      "stage_median_ms": serial_stages},
            "launches": launches, "per_channel_api_launches": api_launches,
            "recall_at_10": recall, "cpu_reference_tie_swaps": cpu_swaps,
            "solo_tie_swaps": solo_swaps, "padded_batch_tie_swaps": pad_swaps,
            "per_channel_api_tie_swaps": api_swaps,
            "kernels_at_serve_shapes": serve_kernels,
+           "phase_seconds": time.perf_counter() - t_phase,
            "nvidia_smi": nvidia_smi()}
     emit(res)
     return res

@@ -74,6 +74,7 @@ class DenseIndex:
     def topk(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """[B, dim] float queries -> (scores [B, k], row ids [B, k]) on the
         host; the query is rounded to the store dtype inside the scorer."""
+        # here, not at the top: ops.topk imports this module
         from legalrag_tpu_torch.ops import topk as topk_ops
 
         if self.n == 0:
@@ -81,7 +82,7 @@ class DenseIndex:
             return np.zeros((b, 0), np.float32), np.zeros((b, 0), np.int64)
         k = min(k, self.n)
         kb = topk_ops.bucket_k(k, self.capacity)
-        qt = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        qt = torch.from_numpy(np.array(q, np.float32)).to(self.device)
         if self.capacity >= topk_ops.TWO_PASS_MIN_N:
             s, i = topk_ops.dense_topk_2pass(self.emb, qt, self.n, kb)
         else:
@@ -94,8 +95,8 @@ class DenseIndex:
         products summed in float32."""
         if len(rows) == 0:
             return np.zeros(0, np.float32)
-        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
-        qt = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        idx = torch.from_numpy(np.array(rows, np.int64)).to(self.device)
+        qt = torch.from_numpy(np.array(q, np.float32)).to(self.device)
         s = torch.matmul(self.emb[idx].float(), qt.to(self.dtype).float())
         return s.cpu().numpy()
 

@@ -180,16 +180,13 @@ def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor]
     if isinstance(qtf, (tuple, list)):
         qtf = query_term_counts(qtf[0], qtf[1], impact.shape[0])
 
-    def mask_invalid(s: torch.Tensor) -> torch.Tensor:
-        return _mask_cols(s, n, valid_n)
-
     eff_k = min(params.eff_k, n)
     late_c = (min(params.late_candidates, n)
               if doc_tok is not None and params.late_candidates > 0 else 0)
     # one selection serves the dense channel and the late candidates: the
     # first k of a (score desc, row asc) list are the top k
     d_s, d_i = dense_topk(emb, qvec, valid_n, max(eff_k, late_c))
-    bm25_s = mask_invalid(bm25_scores_matmul(impact, qtf))
+    bm25_s = _mask_cols(bm25_scores_matmul(impact, qtf), n, valid_n)
     comps = [_components_from_top(d_s[:, :eff_k], d_i[:, :eff_k], n,
                                   params.w_dense, params.rrf_k),
              channel_components(bm25_s, eff_k, params.w_bm25, params.rrf_k)]
@@ -198,17 +195,18 @@ def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor]
         if n >= topk_ops.TWO_PASS_MIN_N:
             # JAX's topk_large takes the block-max route at this width; its
             # ties at the cut do not always fall to the lower row
-            cand = topk_ops.topk_large(mask_invalid(dense_scores(emb, qvec)),
-                                       late_c)[1]
+            cand = topk_ops.topk_large(
+                _mask_cols(dense_scores(emb, qvec), n, valid_n), late_c)[1]
         else:
             cand = d_i[:, :late_c]
         late_s = torch.full((cand.shape[0], n), NEG_INF, dtype=torch.float32,
                             device=emb.device)
         late_s.scatter_(1, cand, maxsim_candidates(doc_tok, doc_mask, q_tok,
                                                    q_mask, cand))
-        late_s = mask_invalid(late_s)
+        late_s = _mask_cols(late_s, n, valid_n)
     elif doc_tok is not None:
-        late_s = mask_invalid(maxsim_full(doc_tok, doc_mask, q_tok, q_mask))
+        late_s = _mask_cols(maxsim_full(doc_tok, doc_mask, q_tok, q_mask),
+                            n, valid_n)
     if late_s is not None:
         comps.append(channel_components(late_s, eff_k, params.w_late,
                                         params.rrf_k))
