@@ -24,9 +24,10 @@ Phases, each printing one JSON line:
    warm-up) of the kernel, the plain version and one PyTorch library call
    chain computing the same function, and the least time the card could
    take (``bound_ms``); for kernel 1 also the C entry alone and the device
-   operations one ``dense_topk`` call issues (at most the ticket memset and
-   the kernel); for MaxSim the device operations of one ``maxsim_full``
-   call (the kernel alone) and two calls compared bit for bit;
+   operations one ``score_select_topk`` call issues (at most the ticket
+   memset and the kernel); for MaxSim the device operations of one
+   ``maxsim_full`` call (the kernel alone) and two calls compared bit for
+   bit;
 5. ``e2e`` (zh, then en): 1024 self-retrieval queries (sampled as bench.py
    samples them), batch 64, top 10, through ``FusedQueryEngine`` (map
    mode): queries/s, Recall@10, the kernels' launch counts on that run
@@ -45,7 +46,9 @@ Phases, each printing one JSON line:
    on the CPU over the same directories (the plain versions), 8 against the
    same question served alone on the card, a padded channels batch against
    its solo rows, the four per-channel APIs once on the card against the
-   CPU, and self-retrieval Recall@10 per language;
+   CPU, and self-retrieval Recall@10 per language; kernels 1 and 2/3
+   against their plain versions on the tensors the path's channels calls
+   handed them (recorded at each batch bucket seen), with timings;
 7. ``large``: the large-corpus mode at the JAX repo's 1M-doc scale point
    (``legalrag_tpu_torch.scale``: N 1,048,576, V 65,536, d 768 bf16,
    64 x 128 int8 doc tokens, B 64, 32 term slots, 16 query tokens): the
@@ -94,18 +97,19 @@ from legalrag_tpu_torch.ops.bm25_sparse import (
     bm25_sparse_scores,
     bm25_sparse_scores_plain,
 )
+from legalrag_tpu_torch.ops import fused_query
 from legalrag_tpu_torch.ops.maxsim import maxsim_full, maxsim_full_plain
 from legalrag_tpu_torch.ops.topk import (
     NEG_INF,
     TWO_PASS_MIN_N,
     bucket_k,
-    dense_topk,
     dense_topk_fused_plain,
+    score_select_topk,
     stable_topk,
 )
 from legalrag_tpu_torch.graph import GraphBuilder, LawGraphStore
 from legalrag_tpu_torch.retrieval.by_lang import ByLangRetriever
-from legalrag_tpu_torch.retrieval.engine import FusedQueryEngine, bucket_batch
+from legalrag_tpu_torch.retrieval.engine import FusedQueryEngine
 from legalrag_tpu_torch.schemas import (
     IssueType,
     RoutingDecision,
@@ -219,10 +223,11 @@ def ties_only(want_s, want_i, got_s, got_i, tol: float) -> int:
 
 
 def check_dense_topk(emb, q, valid_n: int, k: int, what: str):
-    """``dense_topk`` (the kernel) against ``dense_topk_fused_plain`` on the
-    same card tensors: scores within 1e-4, rows equal but for near-ties,
-    the masked tail (rows >= valid_n, all -1e30) in exact row order."""
-    s, i = dense_topk(emb, q, valid_n, k)
+    """``score_select_topk`` (the kernel) against ``dense_topk_fused_plain``
+    on the same card tensors: scores within 1e-4, rows equal but for
+    near-ties, the masked tail (rows >= valid_n, all -1e30) in exact row
+    order."""
+    s, i = score_select_topk(emb, q, valid_n, k)
     ps, pi = dense_topk_fused_plain(emb, q, valid_n, k)
     check(s.shape == ps.shape and i.dtype == torch.int64,
           f"score_select {what}: {tuple(s.shape)} {i.dtype}")
@@ -509,7 +514,7 @@ def phase_kernels(zh, queries):
     out = {}
 
     # kernel 1: dense score + select (main path, then ties + valid_n < N)
-    s, i = dense_topk(emb, q, valid_n, eff_k)
+    s, i = score_select_topk(emb, q, valid_n, eff_k)
     ps, pi = dense_topk_fused_plain(emb, q, valid_n, eff_k)
     err1 = (s - ps).abs().max().item()
     check(err1 <= 1e-4, f"score_select scores differ by {err1}")
@@ -519,7 +524,7 @@ def phase_kernels(zh, queries):
     dup[1300:1310] = dup[7]          # rows 1300-1304 valid, 1305-1309 masked
     q_dup = q.clone()
     q_dup[0] = dup[7].float()
-    s2, i2 = dense_topk(dup, q_dup, 1305, eff_k)
+    s2, i2 = score_select_topk(dup, q_dup, 1305, eff_k)
     ps2, pi2 = dense_topk_fused_plain(dup, q_dup, 1305, eff_k)
     check(torch.equal(i2, pi2), "score_select tie order differs (dup rows)")
     check((s2 - ps2).abs().max().item() <= 1e-4, "score_select dup scores")
@@ -550,10 +555,10 @@ def phase_kernels(zh, queries):
 
     kernel_only()
     check(torch.equal(o_s, s) and torch.equal(o_i, i),
-          "score_select: the C entry and dense_topk disagree")
-    ops = device_ops(lambda: dense_topk(emb, q, valid_n, eff_k))
+          "score_select: the C entry and score_select_topk disagree")
+    ops = device_ops(lambda: score_select_topk(emb, q, valid_n, eff_k))
     check(1 <= len(ops) <= 2 and any("score_select" in o for o in ops),
-          f"one dense_topk call issued {ops}")
+          f"one score_select_topk call issued {ops}")
     bms, by = bound(valid_n * d * emb.element_size() + b * d * 4
                     + b * eff_k * 12,
                     2 * b * valid_n * d, BF16_FLOP_PER_S)
@@ -567,7 +572,7 @@ def phase_kernels(zh, queries):
         "max_abs_err": err1, "ids_equal": bool(torch.equal(i, pi)),
         "tie_swaps": swaps, "tolerance": 1e-4,
         "device_ops_per_call": ops,
-        "ms": cuda_ms(lambda: dense_topk(emb, q, valid_n, eff_k)),
+        "ms": cuda_ms(lambda: score_select_topk(emb, q, valid_n, eff_k)),
         "kernel_only_ms": cuda_ms(kernel_only),
         "plain_ms": cuda_ms(lambda: dense_topk_fused_plain(emb, q, valid_n,
                                                            eff_k)),
@@ -828,38 +833,79 @@ def check_channel_rows(want, got, what: str) -> int:
     return swaps
 
 
-def check_serve_kernels(hr, questions) -> dict:
-    """Kernels 1 and 2/3 against their plain versions on the inputs one
-    channels call gives them: ``questions`` padded with empty questions to
-    their batch bucket, as ``HybridRetriever._channels_topk_batch`` pads
-    them, with timings at these shapes."""
-    b = hr.bundle
-    enc, maxlen = b.encoder, hr.cfg.engine.max_query_tokens
-    qs = list(questions) + [""] * (bucket_batch(len(questions))
-                                   - len(questions))
-    q = project_norm(enc.sketch_tensor(qs, query=True), enc.projection())
-    k = bucket_k(TOP_K * hr.cfg.retrieval.oversample_factor, b.dense.capacity)
-    _s, _i, res1 = check_dense_topk(b.dense.emb, q, b.dense.n, k,
-                                    "serve shapes")
-    qt, qm = enc.encode_tokens(qs, maxlen, query=True)
-    q_tok = torch.from_numpy(qt).to(b.device).to(b.tokens.query_dtype)
-    q_mask = torch.from_numpy(qm).to(b.device)
-    args = (b.tokens.tok, b.tokens.mask, q_tok, q_mask)
-    got, want = maxsim_full(*args), maxsim_full_plain(*args)
-    err = (got - want).abs().max().item()
-    check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
-          f"maxsim at serve shapes differs by {err}")
-    check(bool((got[len(questions):] == 0).all()),
-          "maxsim: a padded empty question must score 0")
-    return {"B": len(qs), "padding": len(qs) - len(questions), "k": k,
+class KernelInputs:
+    """Between ``start`` and ``stop``, records the tensors that
+    ``fused_channels_topk`` hands kernels 1 and 2/3 (``ops.fused_query``'s
+    ``dense_topk`` and ``maxsim_full``) on the given bundles: the first
+    call of each language and batch bucket. Every call goes on as before (a
+    dict lookup per call)."""
+
+    def __init__(self, bundles):
+        self.lang = {b.dense.emb.data_ptr(): lang
+                     for lang, b in bundles.items()}
+        self.lang |= {b.tokens.tok.data_ptr(): lang
+                      for lang, b in bundles.items()}
+        self.dense, self.maxsim = {}, {}
+        self._lock = threading.Lock()
+        self._orig = (fused_query.dense_topk, fused_query.maxsim_full)
+
+    def _keep(self, store, store_ptr, b, args):
+        lang = self.lang.get(store_ptr)      # None: the CPU retriever's
+        if lang is not None:
+            with self._lock:
+                store.setdefault((lang, b), args)
+
+    def start(self) -> None:
+        dense_topk, maxsim_full_ = self._orig
+
+        def dense(emb, q, valid_n, k):
+            self._keep(self.dense, emb.data_ptr(), q.shape[0],
+                       (emb, q, valid_n, k))
+            return dense_topk(emb, q, valid_n, k)
+
+        def late(doc_tok, doc_mask, q_tok, q_mask):
+            self._keep(self.maxsim, doc_tok.data_ptr(), q_tok.shape[0],
+                       (doc_tok, doc_mask, q_tok, q_mask))
+            return maxsim_full_(doc_tok, doc_mask, q_tok, q_mask)
+
+        fused_query.dense_topk, fused_query.maxsim_full = dense, late
+
+    def stop(self) -> None:
+        fused_query.dense_topk, fused_query.maxsim_full = self._orig
+
+
+def check_serve_kernels(rec: KernelInputs) -> dict:
+    """Kernels 1 and 2/3 against their plain versions on the tensors that
+    the serving path's channels calls gave them (``KernelInputs``), at
+    every batch bucket seen, with timings at those shapes. A bucket's
+    padding questions are empty: their MaxSim row must be 0."""
+    check(set(rec.dense) == set(rec.maxsim) and rec.dense,
+          f"serve: recorded dense {sorted(rec.dense)} and MaxSim "
+          f"{sorted(rec.maxsim)} calls")
+    out = {}
+    for lang, b in sorted(rec.dense):
+        emb, q, valid_n, k = rec.dense[lang, b]
+        check(emb.shape[0] < TWO_PASS_MIN_N, "serve: the one-pass route")
+        _s, _i, res1 = check_dense_topk(emb, q, valid_n, k,
+                                        f"serve {lang} B {b}")
+        args = rec.maxsim[lang, b]
+        got, want = maxsim_full(*args), maxsim_full_plain(*args)
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+              f"maxsim at serve {lang} B {b} differs by {err}")
+        empty = ~args[3].any(dim=1)
+        check(bool((got[empty] == 0).all()),
+              "maxsim: a padded empty question must score 0")
+        out[f"{lang}_B{b}"] = {
+            "B": b, "empty_questions": int(empty.sum()), "k": k,
             "score_select": res1 | {
-                "ms": cuda_ms(lambda: dense_topk(b.dense.emb, q, b.dense.n,
-                                                 k)),
+                "ms": cuda_ms(lambda: score_select_topk(emb, q, valid_n, k)),
                 "plain_ms": cuda_ms(lambda: dense_topk_fused_plain(
-                    b.dense.emb, q, b.dense.n, k))},
+                    emb, q, valid_n, k))},
             "maxsim": {"max_abs_err": err,
                        "ms": cuda_ms(lambda: maxsim_full(*args)),
                        "plain_ms": cuda_ms(lambda: maxsim_full_plain(*args))}}
+    return out
 
 
 def serve_setup(bundles, tmp: Path) -> AppConfig:
@@ -927,6 +973,10 @@ def phase_serve(bundles):
                 return list(pool.map(timed, batch))
 
         stage_log.stages.clear()
+        # the kernels' inputs from the threaded run, the one-at-a-time pass
+        # (bucket 1) and the padded batch (bucket 4)
+        rec = KernelInputs({lang: hr.bundle for lang, hr in hrs.items()})
+        rec.start()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         out = threaded(reqs)
@@ -988,10 +1038,8 @@ def phase_serve(bundles):
                 pad_swaps += check_channel_rows(
                     hr._channels_topk_batch([q], TOP_K * 4), one,
                     f"serve {lang} padded batch")
-
-        serve_kernels = {lang: check_serve_kernels(
-            hr, [r[1] for r in reqs if r[0] == lang][:13])
-            for lang, hr in hrs.items()}
+        rec.stop()
+        serve_kernels = check_serve_kernels(rec)
 
         # the per-channel APIs, once each per language, card against CPU
         kernels.reset_launch_counts()

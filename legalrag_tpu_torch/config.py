@@ -111,12 +111,11 @@ class RetrievalConfig:
     # HyDE: expand the dense query with an LLM-written hypothetical answer
     enable_hyde: bool = False
 
-    # rerank (reference config.py:119-124); the cross-encoder model waits
-    # for the BERT encoders, so reranker_model is read by nothing yet
+    # rerank (reference config.py:119-124); reranker_model comes with the
+    # cross-encoder it names
     enable_rerank: bool = True
     rerank_top_n: int = 30
     rerank_beta: float = 0.35
-    reranker_model: str = "BAAI/bge-reranker-v2-m3"
     rerank_use_llm: bool = False
     rerank_llm_top_k_threshold: int = 30
     rerank_norm: str = "minmax"  # minmax | sigmoid | none

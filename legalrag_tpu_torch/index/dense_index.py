@@ -6,9 +6,10 @@ capacity, and with it eff_k, match). float32 -> bf16 rounds to nearest even
 in both packages. The npz format is the JAX package's: ``emb`` float16
 [n, dim], ``dim``, ``n``. The int8 store is not ported yet and raises.
 
-``topk`` (the dense channel of the serving path) selects as JAX's
-``dense_topk`` routes: the score+select kernel (``ops.topk.dense_topk``)
-below ``TWO_PASS_MIN_N`` rows, the block-max two-pass selection from there.
+``topk`` (the dense channel of the serving path) selects through
+``ops.topk.dense_topk``, which routes by size as JAX's does: the
+score+select kernel below ``TWO_PASS_MIN_N`` rows, the block-max two-pass
+selection from there.
 """
 
 from __future__ import annotations
@@ -83,10 +84,7 @@ class DenseIndex:
         k = min(k, self.n)
         kb = topk_ops.bucket_k(k, self.capacity)
         qt = torch.from_numpy(np.array(q, np.float32)).to(self.device)
-        if self.capacity >= topk_ops.TWO_PASS_MIN_N:
-            s, i = topk_ops.dense_topk_2pass(self.emb, qt, self.n, kb)
-        else:
-            s, i = topk_ops.dense_topk(self.emb, qt, self.n, kb)
+        s, i = topk_ops.dense_topk(self.emb, qt, self.n, kb)
         return s[:, :k].cpu().numpy(), i[:, :k].cpu().numpy()
 
     def score_rows(self, q: np.ndarray, rows: np.ndarray) -> np.ndarray:

@@ -22,7 +22,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from legalrag_tpu_torch.ops.topk import NEG_INF, topk_large
+from legalrag_tpu_torch.ops.topk import mask_cols, topk_large
 
 
 def compute_idf(df: np.ndarray, n_docs: int, epsilon: float = 0.25) -> np.ndarray:
@@ -65,9 +65,7 @@ def bm25_topk(impact: torch.Tensor, qtf: torch.Tensor, valid_n: int, k: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of ``qtf @ impact`` with columns >= ``valid_n`` scored NEG_INF
     (``legalrag_tpu/ops/bm25.py:73-81``): ([B, k] float32, [B, k] int64)."""
-    scores = bm25_scores_matmul(impact, qtf)
-    col = torch.arange(scores.shape[1], device=scores.device)[None, :]
-    scores = torch.where(col < valid_n, scores, NEG_INF)
+    scores = mask_cols(bm25_scores_matmul(impact, qtf), valid_n)
     return topk_large(scores, min(k, scores.shape[1]))
 
 

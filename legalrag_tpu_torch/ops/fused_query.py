@@ -9,13 +9,13 @@ Map mode (``impact`` a dense [V, N] matrix), in order:
 1. the hash sketch -> projection -> L2 norm (float32 matmul);
 2. the BM25 query term counts, scattered on the device (duplicate ids add);
 3. the dense channel's masked top-eff_k from the score+select kernel
-   (``ops.topk.dense_topk``): the [B, N] dense map never exists;
+   (``ops.topk.score_select_topk``): the [B, N] dense map never exists;
 4. BM25 as one [B, V] x [V, N] float32 matmul;
 5. the late channel: the full-corpus MaxSim map from the MaxSim kernel
    (``ops.maxsim``), or, with ``late_candidates > 0``, MaxSim of the
    top-``late_candidates`` dense rows scattered into a NEG_INF map (the
-   rows from step 3's list, or from ``TWO_PASS_MIN_N`` columns on, as JAX
-   takes them there, by ``topk_large`` over the masked dense map);
+   rows from ``ops.topk.dense_topk``, whose route by width is that of
+   JAX's ``topk_large`` over the masked dense map);
 6. per channel: top-eff_k, 1-based ranks, weighted RRF ``w / (rrf_k + rank)``
    and weighted min-max over the channel's valid candidates;
 7. ``alpha * minmax(rrf_total) + (1 - alpha) * sum of weighted min-max``
@@ -38,11 +38,10 @@ are fused (``fuse_candidate_lists``); no [B, N] fusion map exists.
 
 ``fused_channels_topk`` (``legalrag_tpu/ops/fused_query.py:337-396``) is
 the single-query serving path's device call: each channel's own top-eff_k
-list, for host fusion. Dense: the score+select kernel's list below
-``TWO_PASS_MIN_N`` columns (it equals ``lax.top_k`` of the masked map), from
-there ``topk_large`` of the masked map, the route JAX takes; BM25: the
-impact matmul and ``topk_large``; late: the MaxSim kernel's map and
-``topk_large``.
+list, for host fusion. Dense: ``ops.topk.dense_topk`` (the score+select
+kernel below ``TWO_PASS_MIN_N`` rows, the block-max selection from there:
+JAX's ``topk_large`` of the masked map); BM25: the impact matmul and
+``topk_large``; late: the MaxSim kernel's map and ``topk_large``.
 
 Ranking semantics are the JAX program's, with every ``lax.top_k`` replaced
 by ``stable_topk`` (ties to the lower index). The map mode's packed
@@ -68,8 +67,11 @@ from legalrag_tpu_torch.ops.topk import (
     dense_scores,
     dense_scores_bf16,
     dense_topk,
+    mask_cols,
     rescore_exact,
+    score_select_topk,
     stable_topk,
+    topk_large,
 )
 
 # packed-component order along the last axis of ``packed`` (colbert present
@@ -144,18 +146,6 @@ def channel_components(scores: torch.Tensor, eff_k: int, weight: float,
     return _components_from_top(top_s, top_i, n, weight, rrf_k)
 
 
-def _mask_cols(s: torch.Tensor, n: int, valid_n: int) -> torch.Tensor:
-    """A [B, *] score map aligned to the dense capacity ``n`` (the channels
-    pad the doc axis differently: impact N to 128, dense to
-    ``capacity_round``), columns >= ``valid_n`` set to NEG_INF."""
-    if s.shape[1] < n:
-        s = torch.nn.functional.pad(s, (0, n - s.shape[1]), value=NEG_INF)
-    elif s.shape[1] > n:
-        s = s[:, :n]
-    col = torch.arange(n, device=s.device)[None, :]
-    return torch.where(col < valid_n, s, torch.full_like(s, NEG_INF))
-
-
 def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor],
                       doc_mask: Optional[torch.Tensor], qvec, qtf,
                       q_tok: Optional[torch.Tensor],
@@ -183,30 +173,24 @@ def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor]
     eff_k = min(params.eff_k, n)
     late_c = (min(params.late_candidates, n)
               if doc_tok is not None and params.late_candidates > 0 else 0)
-    # one selection serves the dense channel and the late candidates: the
-    # first k of a (score desc, row asc) list are the top k
-    d_s, d_i = dense_topk(emb, qvec, valid_n, max(eff_k, late_c))
-    bm25_s = _mask_cols(bm25_scores_matmul(impact, qtf), n, valid_n)
-    comps = [_components_from_top(d_s[:, :eff_k], d_i[:, :eff_k], n,
-                                  params.w_dense, params.rrf_k),
+    # the dense channel is one selection of the full map at any width
+    # (JAX's lax.top_k); the late candidates take dense_topk's route
+    # (JAX's topk_large of the masked map)
+    d_s, d_i = score_select_topk(emb, qvec, valid_n, eff_k)
+    bm25_s = mask_cols(bm25_scores_matmul(impact, qtf), valid_n, n)
+    comps = [_components_from_top(d_s, d_i, n, params.w_dense, params.rrf_k),
              channel_components(bm25_s, eff_k, params.w_bm25, params.rrf_k)]
     late_s = None
     if late_c:
-        if n >= topk_ops.TWO_PASS_MIN_N:
-            # JAX's topk_large takes the block-max route at this width; its
-            # ties at the cut do not always fall to the lower row
-            cand = topk_ops.topk_large(
-                _mask_cols(dense_scores(emb, qvec), n, valid_n), late_c)[1]
-        else:
-            cand = d_i[:, :late_c]
+        cand = dense_topk(emb, qvec, valid_n, late_c)[1]
         late_s = torch.full((cand.shape[0], n), NEG_INF, dtype=torch.float32,
                             device=emb.device)
         late_s.scatter_(1, cand, maxsim_candidates(doc_tok, doc_mask, q_tok,
                                                    q_mask, cand))
-        late_s = _mask_cols(late_s, n, valid_n)
+        late_s = mask_cols(late_s, valid_n, n)
     elif doc_tok is not None:
-        late_s = _mask_cols(maxsim_full(doc_tok, doc_mask, q_tok, q_mask),
-                            n, valid_n)
+        late_s = mask_cols(maxsim_full(doc_tok, doc_mask, q_tok, q_mask),
+                           valid_n, n)
     if late_s is not None:
         comps.append(channel_components(late_s, eff_k, params.w_late,
                                         params.rrf_k))
@@ -260,18 +244,14 @@ def fused_channels_topk(emb: torch.Tensor, impact: torch.Tensor,
     if isinstance(qtf, (tuple, list)):
         qtf = query_term_counts(qtf[0], qtf[1], impact.shape[0])
     k = min(eff_k, n)
-    out: Dict[str, object] = {"qvec": qvec}
-    if n >= topk_ops.TWO_PASS_MIN_N:
-        out["dense"] = topk_ops.topk_large(
-            _mask_cols(dense_scores(emb, qvec), n, valid_n), k)
-    else:
-        out["dense"] = dense_topk(emb, qvec, valid_n, k)
-    out["bm25"] = topk_ops.topk_large(
-        _mask_cols(bm25_scores_matmul(impact, qtf), n, valid_n), k)
+    out: Dict[str, object] = {"qvec": qvec,
+                              "dense": dense_topk(emb, qvec, valid_n, k)}
+    out["bm25"] = topk_large(
+        mask_cols(bm25_scores_matmul(impact, qtf), valid_n, n), k)
     if doc_tok is not None:
-        out["colbert"] = topk_ops.topk_large(
-            _mask_cols(maxsim_full(doc_tok, doc_mask, q_tok, q_mask), n,
-                       valid_n), k)
+        out["colbert"] = topk_large(
+            mask_cols(maxsim_full(doc_tok, doc_mask, q_tok, q_mask), valid_n,
+                      n), k)
     return out
 
 
@@ -326,8 +306,7 @@ def _fused_lists(dense_s: torch.Tensor, valid_n: int, emb: torch.Tensor,
         def dsel(kk: int):
             return topk_ops.topk_2pass_masked(dense_s, valid_n, kk)
     else:
-        col = torch.arange(n, device=dense_s.device)[None, :]
-        dense_masked = torch.where(col < valid_n, dense_s, NEG_INF)
+        dense_masked = mask_cols(dense_s, valid_n)
 
         def dsel(kk: int):
             return stable_topk(dense_masked, kk)

@@ -30,7 +30,7 @@ from typing import Tuple
 import torch
 
 from legalrag_tpu_torch import kernels
-from legalrag_tpu_torch.ops.topk import NEG_INF, topk_large
+from legalrag_tpu_torch.ops.topk import mask_cols, topk_large
 
 INT8_SCALE = 127.0
 
@@ -104,9 +104,7 @@ def maxsim_topk(doc_tok: torch.Tensor, doc_mask: torch.Tensor,
                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k rows of the full MaxSim map, rows >= ``valid_n`` scored
     NEG_INF: ([B, k] float32, [B, k] int64)."""
-    scores = maxsim_full(doc_tok, doc_mask, q_tok, q_mask)
-    col = torch.arange(scores.shape[1], device=scores.device)[None, :]
-    scores = torch.where(col < valid_n, scores, NEG_INF)
+    scores = mask_cols(maxsim_full(doc_tok, doc_mask, q_tok, q_mask), valid_n)
     return topk_large(scores, min(k, scores.shape[1]))
 
 

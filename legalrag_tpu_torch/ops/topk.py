@@ -7,11 +7,17 @@
   for every ``lax.top_k`` of the JAX package, whose ties fall to the lowest
   index; ``torch.topk`` leaves tie order undefined, so it runs over keys
   that never tie.
-- ``dense_topk``: the dense channel's masked top-k. On a CUDA tensor it
-  launches the hand-written score+select kernel (``csrc/score_select.cu``,
-  which replaces the Pallas ``_score_select_kernel`` and the merge of its
-  tile lists, in one launch); on a CPU tensor it runs the plain version
+- ``score_select_topk``: the masked top-k of the full dense map in one
+  selection (``lax.top_k``'s order). On a CUDA tensor it launches the
+  hand-written score+select kernel (``csrc/score_select.cu``, which
+  replaces the Pallas ``_score_select_kernel`` and the merge of its tile
+  lists, in one launch); on a CPU tensor it runs the plain version
   ``dense_topk_fused_plain``, which computes the same function.
+- ``dense_topk``: the dense channel's masked top-k, routed by size as JAX's
+  ``default_backend`` routes it: ``score_select_topk`` below
+  ``TWO_PASS_MIN_N`` rows, ``dense_topk_2pass`` from there.
+- ``mask_cols``: a score map aligned to a width, columns past ``valid_n``
+  NEG_INF (the mask every channel applies before its selection).
 - ``topk_2pass``, ``topk_large``, ``topk_2pass_masked``,
   ``dense_topk_2pass``: the block-max two-pass selection of the
   large-corpus mode, step by step as in JAX (where XLA computes them), with
@@ -21,7 +27,7 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -84,11 +90,8 @@ def dense_topk_fused_plain(emb: torch.Tensor, q: torch.Tensor, valid_n: int,
     n = emb.shape[0]
     k = min(k, n)
     kp = min(k, tile)
-    scores = dense_scores(emb, q)
+    scores = mask_cols(dense_scores(emb, q), valid_n)
     b = scores.shape[0]
-    col = torch.arange(n, device=emb.device)
-    scores = torch.where(col[None, :] < valid_n, scores,
-                         torch.full_like(scores, NEG_INF))
     tiles = -(-n // tile)
     pad = tiles * tile - n
     if pad:  # rows that do not exist: -inf, never among the top k
@@ -99,13 +102,37 @@ def dense_topk_fused_plain(emb: torch.Tensor, q: torch.Tensor, valid_n: int,
     return top_s, torch.gather(rows.reshape(b, tiles * kp), 1, pos)
 
 
-def dense_topk(emb: torch.Tensor, q: torch.Tensor, valid_n: int, k: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked top-k inner products: ([B, k] float32 scores, [B, k] int64
-    rows), rows >= ``valid_n`` scored NEG_INF. ``k`` is clamped to N."""
+def score_select_topk(emb: torch.Tensor, q: torch.Tensor, valid_n: int,
+                      k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k inner products in one selection: ([B, k] float32
+    scores, [B, k] int64 rows), rows >= ``valid_n`` scored NEG_INF. ``k``
+    is clamped to N."""
     if emb.device.type == "cpu":
         return dense_topk_fused_plain(emb, q, valid_n, k)
     return _score_select(emb, q, valid_n, k)
+
+
+def dense_topk(emb: torch.Tensor, q: torch.Tensor, valid_n: int, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``score_select_topk`` below ``TWO_PASS_MIN_N`` store rows, the
+    block-max ``dense_topk_2pass`` from there (``topk_large``'s route over
+    the masked map, without the masked copy)."""
+    if emb.shape[0] >= TWO_PASS_MIN_N:
+        return dense_topk_2pass(emb, q, valid_n, k)
+    return score_select_topk(emb, q, valid_n, k)
+
+
+def mask_cols(s: torch.Tensor, valid_n: int, n: Optional[int] = None
+              ) -> torch.Tensor:
+    """A [B, *] score map with columns >= ``valid_n`` set to NEG_INF, first
+    aligned to ``n`` columns when given (the channels pad the doc axis
+    differently: impact N to 128, dense to ``capacity_round``)."""
+    if n is not None and s.shape[1] < n:
+        s = torch.nn.functional.pad(s, (0, n - s.shape[1]), value=NEG_INF)
+    elif n is not None and s.shape[1] > n:
+        s = s[:, :n]
+    col = torch.arange(s.shape[1], device=s.device)[None, :]
+    return torch.where(col < valid_n, s, torch.full_like(s, NEG_INF))
 
 
 def _score_select(emb: torch.Tensor, q: torch.Tensor, valid_n: int, k: int
@@ -211,9 +238,8 @@ def topk_2pass_masked(scores: torch.Tensor, valid_n: int, k: int,
     b, n = scores.shape
     valid_n = int(valid_n)
     if k >= n or n < 2 * block:
-        col = torch.arange(n, device=scores.device)[None, :]
-        return topk_2pass(torch.where(col < valid_n, scores, NEG_INF), k,
-                          block=block, block2=block2)
+        return topk_2pass(mask_cols(scores, valid_n), k, block=block,
+                          block2=block2)
     scores = _pad_cols(scores, round_up(n, block))
     g = scores.shape[1] // block
     blk = scores.reshape(b, g, block)

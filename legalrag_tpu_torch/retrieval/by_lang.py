@@ -68,11 +68,6 @@ class BundleCache:
             self._bundles[lang] = bundle
         return bundle
 
-    def put(self, lang: str, bundle: IndexBundle) -> None:
-        """Install a live bundle (in-process ingest path)."""
-        self._bundles[lang] = bundle
-        self._last_check[lang] = time.monotonic()
-
 
 class ByLangRetriever:
     def __init__(self, cfg: AppConfig, device: DeviceLike = None, llm=None,

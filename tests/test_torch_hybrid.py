@@ -370,14 +370,16 @@ def test_two_phase_late_route_matches_jax(pair, monkeypatch):
             late.candidates = 128
 
 
-def test_by_lang_serves_through_the_cache_as_jax(pair):
+def test_by_lang_serves_through_the_cache_as_jax(pair, tmp_path):
+    """Each package saves its bundle and serves it as its cache loads it."""
     jhr, thr = pair
-    jcache = JaxBundleCache(jhr.cfg, check_interval=1e9)
-    tcache = BundleCache(thr.cfg, device="cpu", check_interval=1e9)
-    jcache.put("en", jhr.bundle)
-    tcache.put("en", thr.bundle)
-    jbl = JaxByLang(jhr.cfg, cache=jcache)
-    tbl = ByLangRetriever(thr.cfg, cache=tcache)
+    jcfg, cfg = small_configs()
+    for c, b in ((jcfg, jhr.bundle), (cfg, thr.bundle)):
+        c.paths.index_dir = tmp_path / type(c).__module__
+        b.save(c.with_lang("en").paths.lang_index_dir)
+    jbl = JaxByLang(jcfg, cache=JaxBundleCache(jcfg, check_interval=1e9))
+    tbl = ByLangRetriever(cfg, cache=BundleCache(cfg, device="cpu",
+                                                 check_interval=1e9))
     jbl._graphs["en"] = jhr.graph.store
     tbl._graphs["en"] = thr.graph.store
     jd, td = decisions("GRAPH_AUGMENTED")
