@@ -49,7 +49,25 @@ Phases, each printing one JSON line:
    CPU, and self-retrieval Recall@10 per language; kernels 1 and 2/3
    against their plain versions on the tensors the path's channels calls
    handed them (recorded at each batch bucket seen), with timings;
-7. ``large``: the large-corpus mode at the JAX repo's 1M-doc scale point
+7. ``http``: the HTTP server (``api.server.create_app`` on the card, served
+   by ``App.serve`` on 127.0.0.1) over the directories of 6, with the
+   ``openai`` LLM provider pointed at an OpenAI-compatible stub on
+   127.0.0.1 (``OpenAIStub``) that streams a sections JSON citing the
+   prompt's first candidate. ``/health`` and ``/ready`` (cuda, the card's
+   name); 256 ``/rag/retrieve`` requests (128 zh, 128 en, every other one
+   worded to interpret, so the router sends it ``GRAPH_AUGMENTED``) from
+   16 client threads: requests/s, p50 / p99 ms, channels calls, stages,
+   device busy and idle share, the micro-batcher's counters on
+   ``/metrics``; 64 of them one at a time; every hit list against the
+   same server on the CPU (``device="cpu"``, in-process) over the same
+   directories; ``/rag/retrieve_batch`` with 64 questions per language;
+   ``/rag/answer`` by ``retrieval_id`` (no launch) and as SSE, ``/rag/query``
+   as JSON and 16 SSE streams one at a time (time to the first ``token``
+   and to the end; events ``meta``, ``token``, ``section``/``item``/
+   ``sentence``, ``citations`` with the cited article supported, ``done``);
+   the launch counts per endpoint (one score+select and one MaxSim per
+   channels call and per language of a batch); then the graceful drain;
+8. ``large``: the large-corpus mode at the JAX repo's 1M-doc scale point
    (``legalrag_tpu_torch.scale``: N 1,048,576, V 65,536, d 768 bf16,
    64 x 128 int8 doc tokens, B 64, 32 term slots, 16 query tokens): the
    index synthesized on the card (timed); the CSR BM25 kernel against its
@@ -71,6 +89,7 @@ jax and nothing of the JAX package.
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import re
@@ -80,6 +99,8 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -87,6 +108,8 @@ import numpy as np
 import torch
 
 from legalrag_tpu_torch import kernels, scale
+from legalrag_tpu_torch.api.server import create_app, shutdown_gracefully
+from legalrag_tpu_torch.api.webcore import TestClient
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.convert import bundle_from_arrays
 from legalrag_tpu_torch.corpus import parse_auto
@@ -112,6 +135,7 @@ from legalrag_tpu_torch.retrieval.by_lang import ByLangRetriever
 from legalrag_tpu_torch.retrieval.engine import FusedQueryEngine
 from legalrag_tpu_torch.schemas import (
     IssueType,
+    RetrievalHit,
     RoutingDecision,
     RoutingMode,
     TaskType,
@@ -133,10 +157,16 @@ SERVE_THREADS = 16          # request threads submitting at once
 SERVE_CPU_CHECKS = 16       # requests held against the CPU retriever
 SERVE_SOLO_CHECKS = 8       # requests held against a solo run on the card
 SERVE_SERIAL = 64           # requests sent one at a time (no contention)
+HTTP_PER_LANG = 128         # http phase: /rag/retrieve requests per language
+HTTP_THREADS = 16           # client threads sending at once
+HTTP_SERIAL = 64            # /rag/retrieve requests sent one at a time
+HTTP_BATCH_PER_LANG = 64    # questions per language in /rag/retrieve_batch
+HTTP_SSE = 16               # /rag/query SSE streams, one at a time
 # the kernels each path must launch once per batch (and no other); the
 # serve path's batch is one channels call of the micro-batcher
 PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "serve": ("score_select", "maxsim"),
+                "http": ("score_select", "maxsim"),
                 "large": ("bm25_sparse",)}
 
 
@@ -178,6 +208,61 @@ def bound(n_bytes: float, n_flop: float, flop_rate: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flop / flop_rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+class OpenAIStub:
+    """A stdlib OpenAI-compatible chat-completions server on 127.0.0.1 at a
+    free port: every ``POST .../chat/completions`` is answered with
+    ``reply(messages)``, as one JSON body, or, when the request streams, as
+    SSE ``data:`` frames of ``chunk`` characters each and ``[DONE]``. It
+    records every request body (``requests``). ``url`` is the base URL for
+    ``LLMConfig.base_url``; ``close`` stops it."""
+
+    def __init__(self, reply, chunk: int = 8):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        stub = self
+        self.requests = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):
+                pass
+
+            def do_POST(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers.get("Content-Length") or 0)))
+                stub.requests.append(body)
+                text = reply(body["messages"])
+                self.send_response(200)
+                if not body.get("stream"):
+                    out = json.dumps({"choices": [{"message": {
+                        "role": "assistant", "content": text}}]}).encode()
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(out)))
+                    self.end_headers()
+                    self.wfile.write(out)
+                    return
+                self.send_header("Content-Type", "text/event-stream")
+                self.end_headers()
+                for i in range(0, len(text), chunk):
+                    frame = {"choices": [{"delta": {
+                        "content": text[i:i + chunk]}}]}
+                    self.wfile.write(b"data: " + json.dumps(
+                        frame, ensure_ascii=False).encode() + b"\n\n")
+                    self.wfile.flush()
+                self.wfile.write(b"data: [DONE]\n\n")
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self._thread = threading.Thread(target=self.server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/v1"
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self._thread.join(timeout=10)
 
 
 def load_chunks(lang: str):
@@ -944,121 +1029,119 @@ def serve_requests(bundles):
     return [r for pair in zip(*per.values()) for r in pair]
 
 
-def phase_serve(bundles):
-    """The single-query serving path (module docstring, phase 6)."""
+def phase_serve(bundles, cfg: AppConfig):
+    """The single-query serving path (module docstring, phase 6) over
+    the directories that ``serve_setup`` wrote for ``cfg``."""
     hybrid_log = logging.getLogger("torch.retrieval.hybrid")
     stage_log = StageLog()
     hybrid_log.handlers = [stage_log]
     t_phase = time.perf_counter()
-    (REPO / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        cfg = serve_setup(bundles, Path(tmp))
-        reqs = serve_requests(bundles)
-        card = ByLangRetriever(cfg, device="cuda")
-        for lang, q, _g, d in reqs[:4]:          # warm-up: load, build
-            card.search(q, decision=d)
-        torch.cuda.synchronize()
-        hrs = {lang: card.retriever(lang) for lang in bundles}
-        before = {lang: (hr._batcher.executions, hr._batcher.coalesced)
-                  for lang, hr in hrs.items()}
+    reqs = serve_requests(bundles)
+    card = ByLangRetriever(cfg, device="cuda")
+    for lang, q, _g, d in reqs[:4]:          # warm-up: load, build
+        card.search(q, decision=d)
+    torch.cuda.synchronize()
+    hrs = {lang: card.retriever(lang) for lang in bundles}
+    before = {lang: (hr._batcher.executions, hr._batcher.coalesced)
+              for lang, hr in hrs.items()}
 
-        def timed(req):
-            _lang, q, _g, d = req
-            t0 = time.perf_counter()
-            hits = card.search(q, decision=d)
-            return hits, (time.perf_counter() - t0) * 1e3
-
-        def threaded(batch):
-            with ThreadPoolExecutor(SERVE_THREADS) as pool:
-                return list(pool.map(timed, batch))
-
-        stage_log.stages.clear()
-        # the kernels' inputs from the threaded run, the one-at-a-time pass
-        # (bucket 1) and the padded batch (bucket 4)
-        rec = KernelInputs({lang: hr.bundle for lang, hr in hrs.items()})
-        rec.start()
-        kernels.reset_launch_counts()
+    def timed(req):
+        _lang, q, _g, d = req
         t0 = time.perf_counter()
-        out = threaded(reqs)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = kernels.launch_counts()
-        stages = stage_log.medians()
-        check(all(card.retriever(lang) is hr for lang, hr in hrs.items()),
-              "serve: a retriever was rebuilt during the run")
-        execs = sum(hr._batcher.executions - before[lang][0]
+        hits = card.search(q, decision=d)
+        return hits, (time.perf_counter() - t0) * 1e3
+
+    def threaded(batch):
+        with ThreadPoolExecutor(SERVE_THREADS) as pool:
+            return list(pool.map(timed, batch))
+
+    stage_log.stages.clear()
+    # the kernels' inputs from the threaded run, the one-at-a-time pass
+    # (bucket 1) and the padded batch (bucket 4)
+    rec = KernelInputs({lang: hr.bundle for lang, hr in hrs.items()})
+    rec.start()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = threaded(reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    stages = stage_log.medians()
+    check(all(card.retriever(lang) is hr for lang, hr in hrs.items()),
+          "serve: a retriever was rebuilt during the run")
+    execs = sum(hr._batcher.executions - before[lang][0]
+                for lang, hr in hrs.items())
+    coalesced = sum(hr._batcher.coalesced - before[lang][1]
                     for lang, hr in hrs.items())
-        coalesced = sum(hr._batcher.coalesced - before[lang][1]
-                        for lang, hr in hrs.items())
-        check(execs + coalesced == len(reqs),
-              f"serve: {execs} calls + {coalesced} coalesced != {len(reqs)}")
-        check_launches("serve", launches, execs)
-        hits = [h for h, _ms in out]
-        ms = np.array([m for _h, m in out])
-        for (lang, q, _g, _d), hs in zip(reqs, hits):
-            check(0 < len(hs) <= TOP_K, f"serve {lang}: {len(hs)} hits")
-            check(all(np.isfinite(h.score) for h in hs), "serve: scores")
-        recall = {lang: float(np.mean([
-            g in {h.chunk.id for h in hs}
-            for (rl, _q, g, _d), hs in zip(reqs, hits) if rl == lang]))
-            for lang in bundles}
+    check(execs + coalesced == len(reqs),
+          f"serve: {execs} calls + {coalesced} coalesced != {len(reqs)}")
+    check_launches("serve", launches, execs)
+    hits = [h for h, _ms in out]
+    ms = np.array([m for _h, m in out])
+    for (lang, q, _g, _d), hs in zip(reqs, hits):
+        check(0 < len(hs) <= TOP_K, f"serve {lang}: {len(hs)} hits")
+        check(all(np.isfinite(h.score) for h in hs), "serve: scores")
+    recall = {lang: float(np.mean([
+        g in {h.chunk.id for h in hs}
+        for (rl, _q, g, _d), hs in zip(reqs, hits) if rl == lang]))
+        for lang in bundles}
 
-        # the device's share of a second threaded pass
-        profile = profile_device(lambda: threaded(reqs[:128]), 128)
+    # the device's share of a second threaded pass
+    profile = profile_device(lambda: threaded(reqs[:128]), 128)
 
-        # one request at a time: each request's own host and device time,
-        # without the other threads' share of the interpreter
-        stage_log.stages.clear()
-        serial_ms = np.array([timed(r)[1] for r in reqs[:SERVE_SERIAL]])
-        serial_stages = stage_log.medians()
+    # one request at a time: each request's own host and device time,
+    # without the other threads' share of the interpreter
+    stage_log.stages.clear()
+    serial_ms = np.array([timed(r)[1] for r in reqs[:SERVE_SERIAL]])
+    serial_stages = stage_log.medians()
 
-        # 16 requests, zh and en in both modes, against the CPU retriever
-        cpu = ByLangRetriever(cfg, device="cpu")
-        picks = list(range(0, len(reqs), len(reqs) // SERVE_CPU_CHECKS))
-        cpu_swaps = 0
-        for i in picks[:SERVE_CPU_CHECKS]:
-            _lang, q, _g, d = reqs[i]
-            cpu_swaps += same_hits(cpu.search(q, decision=d), hits[i], 1e-4,
-                                   f"serve vs CPU, request {i}")
-        # the same questions alone on the card (a batch of one)
-        solo_swaps = 0
-        for i in picks[:SERVE_SOLO_CHECKS]:
-            _lang, q, _g, d = reqs[i]
-            solo_swaps += same_hits(card.search(q, decision=d), hits[i],
-                                    1e-4, f"serve solo, request {i}")
-        # a padded channels batch (3 questions in a bucket of 4) against
-        # each question's solo call
-        pad_swaps = 0
-        for lang, hr in hrs.items():
-            qs = [r[1] for r in reqs if r[0] == lang][:3]
-            batch = hr._channels_topk_batch(qs, TOP_K * 4)
-            for j, q in enumerate(qs):
-                one = {k: (v[0][j:j + 1], v[1][j:j + 1])
-                       for k, v in batch.items() if k != "qvec"}
-                pad_swaps += check_channel_rows(
-                    hr._channels_topk_batch([q], TOP_K * 4), one,
-                    f"serve {lang} padded batch")
-        rec.stop()
-        serve_kernels = check_serve_kernels(rec)
+    # 16 requests, zh and en in both modes, against the CPU retriever
+    cpu = ByLangRetriever(cfg, device="cpu")
+    picks = list(range(0, len(reqs), len(reqs) // SERVE_CPU_CHECKS))
+    cpu_swaps = 0
+    for i in picks[:SERVE_CPU_CHECKS]:
+        _lang, q, _g, d = reqs[i]
+        cpu_swaps += same_hits(cpu.search(q, decision=d), hits[i], 1e-4,
+                               f"serve vs CPU, request {i}")
+    # the same questions alone on the card (a batch of one)
+    solo_swaps = 0
+    for i in picks[:SERVE_SOLO_CHECKS]:
+        _lang, q, _g, d = reqs[i]
+        solo_swaps += same_hits(card.search(q, decision=d), hits[i],
+                                1e-4, f"serve solo, request {i}")
+    # a padded channels batch (3 questions in a bucket of 4) against
+    # each question's solo call
+    pad_swaps = 0
+    for lang, hr in hrs.items():
+        qs = [r[1] for r in reqs if r[0] == lang][:3]
+        batch = hr._channels_topk_batch(qs, TOP_K * 4)
+        for j, q in enumerate(qs):
+            one = {k: (v[0][j:j + 1], v[1][j:j + 1])
+                   for k, v in batch.items() if k != "qvec"}
+            pad_swaps += check_channel_rows(
+                hr._channels_topk_batch([q], TOP_K * 4), one,
+                f"serve {lang} padded batch")
+    rec.stop()
+    serve_kernels = check_serve_kernels(rec)
 
-        # the per-channel APIs, once each per language, card against CPU
-        kernels.reset_launch_counts()
-        api_swaps = 0
-        for lang, hr in hrs.items():
-            cpu_hr = cpu.retriever(lang)
-            i = next(i for i, r in enumerate(reqs) if r[0] == lang)
-            q, seeds = reqs[i][1], [h.chunk.article_id for h in hits[i][:3]]
-            for api, args in (("dense", (q, TOP_K)), ("bm25", (q, TOP_K)),
-                              ("colbert", (q, TOP_K)),
-                              ("graph", (q, seeds, TOP_K))):
-                got = getattr(hr, f"search_{api}")(*args)
-                check(len(got) > 0, f"search_{api} {lang}: no hits")
-                api_swaps += same_hits(getattr(cpu_hr, f"search_{api}")(*args),
-                                       got, 1e-4, f"search_{api} {lang}")
-        api_launches = kernels.launch_counts()
-        check(api_launches == {"score_select": len(hrs), "maxsim": len(hrs),
-                               "bm25_sparse": 0},
-              f"serve per-channel APIs launched {api_launches}")
+    # the per-channel APIs, once each per language, card against CPU
+    kernels.reset_launch_counts()
+    api_swaps = 0
+    for lang, hr in hrs.items():
+        cpu_hr = cpu.retriever(lang)
+        i = next(i for i, r in enumerate(reqs) if r[0] == lang)
+        q, seeds = reqs[i][1], [h.chunk.article_id for h in hits[i][:3]]
+        for api, args in (("dense", (q, TOP_K)), ("bm25", (q, TOP_K)),
+                          ("colbert", (q, TOP_K)),
+                          ("graph", (q, seeds, TOP_K))):
+            got = getattr(hr, f"search_{api}")(*args)
+            check(len(got) > 0, f"search_{api} {lang}: no hits")
+            api_swaps += same_hits(getattr(cpu_hr, f"search_{api}")(*args),
+                                   got, 1e-4, f"search_{api} {lang}")
+    api_launches = kernels.launch_counts()
+    check(api_launches == {"score_select": len(hrs), "maxsim": len(hrs),
+                           "bm25_sparse": 0},
+          f"serve per-channel APIs launched {api_launches}")
     res = {"phase": "serve", "requests": len(reqs), "threads": SERVE_THREADS,
            "top_k": TOP_K, "seconds": seconds,
            "requests_per_s": len(reqs) / seconds,
@@ -1079,6 +1162,340 @@ def phase_serve(bundles):
            "nvidia_smi": nvidia_smi()}
     emit(res)
     return res
+
+
+# ------------------------------------------------------- HTTP server
+
+def cite_first_candidate(messages) -> str:
+    """The OpenAI stub's answer: a sections JSON that cites the article of
+    the prompt's first candidate provision (``RagPipeline._build_messages``
+    heads it ``[候选条文 1] law / ... / 第X条``, or ``[Candidate Provision
+    1] ... / § N-NNN``)."""
+    user = messages[-1]["content"]
+    m = re.search(r"\[(?:候选条文|Candidate Provision) 1\] ([^\n]*)", user)
+    ref = m.group(1).split(" / ")[-1] if m else "(none)"
+    zh = "候选条文" in user
+    return json.dumps({"sections": [
+        {"title": "结论" if zh else "Conclusion",
+         "items": [f"依据{ref}。" if zh else f"Under {ref}."]},
+        {"title": "分析" if zh else "Analysis",
+         "items": ["要件一。要件二。" if zh else "First point. Second point."]}]},
+        ensure_ascii=False)
+
+
+def http_json(base: str, path: str, body=None):
+    """(status, parsed JSON or text) of one request to the server."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"},
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, raw, ctype = r.status, r.read(), r.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        status, raw, ctype = e.code, e.read(), e.headers["Content-Type"]
+    text = raw.decode("utf-8")
+    return status, json.loads(text) if "json" in ctype else text
+
+
+def http_sse(base: str, path: str, body):
+    """One SSE request: its events in order (name, payload) and the ms to
+    the first ``token`` event and to the end of the stream."""
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"},
+                                 method="POST")
+    t0 = time.perf_counter()
+    events, first, name = [], None, None
+    with urllib.request.urlopen(req, timeout=120) as r:
+        check(r.headers["Content-Type"].startswith("text/event-stream"),
+              f"{path}: content type {r.headers['Content-Type']}")
+        for raw in r:
+            line = raw.decode("utf-8").rstrip("\n")
+            if line.startswith("event: "):
+                name = line[7:]
+            elif line.startswith("data: ") and name is not None:
+                events.append((name, json.loads(line[6:])))
+                if name == "token" and first is None:
+                    first = (time.perf_counter() - t0) * 1e3
+                name = None
+    return events, first, (time.perf_counter() - t0) * 1e3
+
+
+def http_questions(bundles):
+    """(lang, question, gold chunk id) for HTTP_PER_LANG questions per
+    language, zh and en interleaved; every other one asks to interpret, so
+    the router sends it GRAPH_AUGMENTED by its wording."""
+    per = {}
+    for lang, b in bundles.items():
+        qs, gold = make_queries(b, HTTP_PER_LANG, seed=1)
+        check(len(qs) == HTTP_PER_LANG, f"{lang}: {len(qs)} questions")
+        ask = "如何理解：{}" if lang == "zh" else "What is the meaning of: {}"
+        per[lang] = [(lang, ask.format(q) if i % 2 else q, b.chunks[int(g)].id)
+                     for i, (q, g) in enumerate(zip(qs, gold))]
+    return [r for pair in zip(*per.values()) for r in pair]
+
+
+def check_sse(events, what: str) -> dict:
+    """meta, then tokens with the section/item/sentence events, then
+    citations (the stub cites the first candidate: supported), then done."""
+    kinds = [e for e, _ in events]
+    check(kinds[0] == "meta" and kinds[-2:] == ["citations", "done"],
+          f"{what}: events {kinds[:3]} ... {kinds[-3:]}")
+    check("token" in kinds and kinds.count("section") == 2
+          and kinds.count("item") == 2 and "sentence" in kinds,
+          f"{what}: structure events {sorted(set(kinds))}")
+    check(set(kinds[1:-2]) <= {"token", "section", "item", "sentence"},
+          f"{what}: unexpected events {sorted(set(kinds[1:-2]))}")
+    hits = events[0][1]["hits"]
+    cit = events[-2][1]
+    check([c["article_id"] for c in cit["supported"]]
+          == [hits[0]["chunk"]["article_id"]] and not cit["unsupported"],
+          f"{what}: citations {cit} for {hits[0]['chunk']['article_id']}")
+    return {"tokens": kinds.count("token"), "events": len(kinds)}
+
+
+def metric_values(text: str) -> dict:
+    """``/metrics`` text as {series: value}."""
+    return {line.rsplit(" ", 1)[0]: float(line.rsplit(" ", 1)[1])
+            for line in text.splitlines() if line and " " in line}
+
+
+def launches_of(run, calls_of=None):
+    """Run ``run()`` with the launch counts and (if given) the
+    micro-batchers' execution counts read around it: (result, launches,
+    channels calls)."""
+    e0 = sum(b.executions for b in calls_of or [])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts(), \
+        sum(b.executions for b in calls_of or []) - e0
+
+
+def phase_http(bundles, cfg: AppConfig):
+    """The HTTP server on the card (module docstring, phase 7) over the
+    directories that ``serve_setup`` wrote for ``cfg``."""
+    for name in ("torch.webcore", "torch.api.server", "torch.rag_pipeline",
+                 "torch.llm.client", "torch.llm.gateway"):
+        logging.getLogger(name).setLevel(logging.WARNING)
+    stage_log = StageLog()
+    logging.getLogger("torch.retrieval.hybrid").handlers = [stage_log]
+    t_phase = time.perf_counter()
+    stub = OpenAIStub(cite_first_candidate)
+    cfg = copy.deepcopy(cfg)
+    cfg.llm.provider, cfg.llm.base_url = "openai", stub.url
+    cfg.llm.api_key = "sk-chip-smoke"
+    server = None
+    try:
+        t0 = time.perf_counter()
+        app = create_app(cfg, build_async=False)      # on cuda
+        startup_s = time.perf_counter() - t0
+        st = app.state
+        check(st.error is None and st.warmup_done, f"http: build {st.error}")
+        server = app.serve("127.0.0.1", 0)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        cpu_cfg = copy.deepcopy(cfg)
+        cpu_cfg.server.prewarm_buckets = 0
+        cpu = TestClient(create_app(cpu_cfg, build_async=False, device="cpu"))
+
+        status, health = http_json(base, "/health")
+        check(status == 200 and health == {"status": "ok"}, "http: /health")
+        status, ready = http_json(base, "/ready")
+        check(status == 200 and ready["ready"] and ready["backend"] == "cuda"
+              and torch.cuda.get_device_name(0) in ready["devices"],
+              f"http: /ready {ready}")
+        batchers = [st.pipeline.retriever.retriever(lang)._batcher
+                    for lang in bundles]
+        reqs = http_questions(bundles)
+
+        # /rag/retrieve from HTTP_THREADS client threads at once
+        def retrieve(req):
+            t = time.perf_counter()
+            status, body = http_json(base, "/rag/retrieve",
+                                     {"question": req[1]})
+            check(status == 200, f"http /rag/retrieve: {status} {body}")
+            return body, (time.perf_counter() - t) * 1e3
+
+        def threaded(batch):
+            with ThreadPoolExecutor(HTTP_THREADS) as pool:
+                return list(pool.map(retrieve, batch))
+
+        stage_log.stages.clear()
+        m0 = metric_values(http_json(base, "/metrics")[1])
+        t0 = time.perf_counter()
+        out, retrieve_launches, calls = launches_of(lambda: threaded(reqs),
+                                                    batchers)
+        seconds = time.perf_counter() - t0
+        stages = stage_log.medians()
+        check_launches("http", retrieve_launches, calls)
+        # the micro-batcher's counters on /metrics moved with the run
+        m1 = metric_values(http_json(base, "/metrics")[1])
+        moved = {k: m1.get(k, 0.0) - m0.get(k, 0.0) for k in (
+            "legalrag_microbatch_executions_total",
+            "legalrag_microbatch_batched_requests_total",
+            'legalrag_requests_total{endpoint="retrieve"}',
+            "legalrag_retrieve_seconds_count")}
+        check(moved == {"legalrag_microbatch_executions_total": calls,
+                        "legalrag_microbatch_batched_requests_total": len(reqs),
+                        'legalrag_requests_total{endpoint="retrieve"}': len(reqs),
+                        "legalrag_retrieve_seconds_count": len(reqs)},
+              f"http /metrics moved {moved} for {calls} calls")
+        bodies = [b for b, _ms in out]
+        ms = np.array([m for _b, m in out])
+        modes = [b["decision"]["mode"] for b in bodies]
+        check(modes.count("GRAPH_AUGMENTED") >= len(reqs) // 2,
+              f"http: {modes.count('GRAPH_AUGMENTED')} graph-augmented")
+        recall = {lang: float(np.mean([
+            g in {h["chunk"]["id"] for h in b["hits"]}
+            for (rl, _q, g), b in zip(reqs, bodies) if rl == lang]))
+            for lang in bundles}
+        profile = profile_device(lambda: threaded(reqs[:64]), 64)
+
+        # one request at a time; /metrics' retrieve histogram splits each
+        # request's time into the server's route + search and the rest
+        # (HTTP, JSON, the client)
+        stage_log.stages.clear()
+        m0 = metric_values(http_json(base, "/metrics")[1])
+        serial, serial_launches, serial_calls = launches_of(
+            lambda: [retrieve(r) for r in reqs[:HTTP_SERIAL]], batchers)
+        m1 = metric_values(http_json(base, "/metrics")[1])
+        check_launches("http", serial_launches, serial_calls)
+        check(serial_calls == HTTP_SERIAL, f"http serial: {serial_calls} calls")
+        serial_ms = np.array([m for _b, m in serial])
+        serial_stages = stage_log.medians()
+        route_search_ms = 1e3 * (m1["legalrag_retrieve_seconds_sum"]
+                                 - m0["legalrag_retrieve_seconds_sum"]) / HTTP_SERIAL
+
+        # every hit list against the CPU app over the same directories
+        swaps = 0
+        for (lang, q, _g), body in zip(reqs, bodies):
+            want = cpu.post("/rag/retrieve", json_body={"question": q}).json()
+            check(want["decision"] == body["decision"],
+                  f"http {lang}: decisions differ for {q!r}")
+            swaps += same_hits([RetrievalHit.from_dict(h) for h in want["hits"]],
+                               [RetrievalHit.from_dict(h) for h in body["hits"]],
+                               1e-4, f"http /rag/retrieve {q!r}")
+
+        # /rag/retrieve_batch: HTTP_BATCH_PER_LANG questions per language in
+        # one call, one fused map-mode query per language
+        qs = [q for _l, q, _g in reqs[: 2 * HTTP_BATCH_PER_LANG]]
+        (status, batch), batch_launches, _ = launches_of(
+            lambda: http_json(base, "/rag/retrieve_batch",
+                              {"questions": qs}))
+        check(status == 200 and len(batch["results"]) == len(qs),
+              f"http /rag/retrieve_batch: {status}")
+        check_launches("http", batch_launches, len(bundles))
+        want = cpu.post("/rag/retrieve_batch", json_body={"questions": qs}).json()
+        batch_swaps = 0
+        for i, (w, g) in enumerate(zip(want["results"], batch["results"])):
+            batch_swaps += same_hits([RetrievalHit.from_dict(h) for h in w],
+                                     [RetrievalHit.from_dict(h) for h in g],
+                                     1e-4, f"http /rag/retrieve_batch {i}")
+        t0 = time.perf_counter()
+        http_json(base, "/rag/retrieve_batch", {"questions": qs})
+        batch_ms = (time.perf_counter() - t0) * 1e3
+
+        # answers: JSON by retrieval_id (no retrieval: no launch), /rag/query
+        # as JSON, and SSE through both endpoints, against the CPU app
+        q = reqs[0][1]
+        (status, ans), answer_launches, _ = launches_of(
+            lambda: http_json(base, "/rag/answer",
+                              {"retrieval_id": bodies[0]["retrieval_id"]}))
+        check(status == 200 and answer_launches == {k: 0 for k in kernels.KERNELS},
+              f"http /rag/answer: {status} {answer_launches}")
+        check(ans["hits"] == bodies[0]["hits"] and ans["citations"]["supported"],
+              f"http /rag/answer: {ans['citations']}")
+        (status, qry), query_launches, query_calls = launches_of(
+            lambda: http_json(base, "/rag/query", {"question": q}), batchers)
+        check(status == 200 and query_calls == 1, f"http /rag/query: {status}")
+        check_launches("http", query_launches, query_calls)
+        want = cpu.post("/rag/query", json_body={"question": q}).json()
+        check(qry["answer"] == want["answer"]
+              and qry["citations"] == want["citations"],
+              f"http /rag/query: {qry['answer']!r} vs {want['answer']!r}")
+        query_swaps = same_hits(
+            [RetrievalHit.from_dict(h) for h in want["hits"]],
+            [RetrievalHit.from_dict(h) for h in qry["hits"]], 1e-4,
+            "http /rag/query")
+
+        events, _first, _total = http_sse(base, "/rag/answer", {
+            "retrieval_id": bodies[1]["retrieval_id"], "stream": True})
+        sse_answer = check_sse(events, "SSE /rag/answer")
+        cpu_events = cpu.post("/rag/query", json_body={
+            "question": reqs[1][1], "stream": True}).sse_events()
+        check([e for e, _ in cpu_events] == [e for e, _ in events]
+              and [p for e, p in cpu_events if e == "token"][0]["text"]
+              == [p for e, p in events if e == "token"][0]["text"],
+              "SSE: the CPU app's events differ")
+        sse, sse_launches, sse_calls = launches_of(
+            lambda: [http_sse(base, "/rag/query",
+                              {"question": r[1], "stream": True})
+                     for r in reqs[:HTTP_SSE]], batchers)
+        check(sse_calls == HTTP_SSE, f"SSE /rag/query: {sse_calls} calls")
+        check_launches("http", sse_launches, sse_calls)
+        for i, (ev, _f, _t) in enumerate(sse):
+            check_sse(ev, f"SSE /rag/query {i}")
+        ttft = np.array([f for _e, f, _t in sse])
+        total = np.array([t for _e, _f, t in sse])
+
+        drained = time.perf_counter()
+        shutdown_gracefully(st, server, 0.0)
+        server = None
+        check(st.draining, "http: drain")
+        drain_ms = (time.perf_counter() - drained) * 1e3
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        stub.close()
+    res = {"phase": "http", "requests": len(reqs), "threads": HTTP_THREADS,
+           "top_k": TOP_K, "startup_s": startup_s, "seconds": seconds,
+           "requests_per_s": len(reqs) / seconds,
+           "p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)),
+           "channel_calls": calls, "mean_batch": len(reqs) / calls,
+           "graph_augmented": modes.count("GRAPH_AUGMENTED"),
+           "stage_median_ms": stages, "profile": profile,
+           "serial": {"requests": HTTP_SERIAL,
+                      "p50_ms": float(np.percentile(serial_ms, 50)),
+                      "p99_ms": float(np.percentile(serial_ms, 99)),
+                      "mean_ms": float(serial_ms.mean()),
+                      "route_search_mean_ms": route_search_ms,
+                      "stage_median_ms": serial_stages},
+           "retrieve_batch": {"questions": len(qs), "ms": batch_ms,
+                              "launches": batch_launches,
+                              "cpu_reference_tie_swaps": batch_swaps},
+           "sse_query": {"requests": HTTP_SSE,
+                         "ttft_p50_ms": float(np.percentile(ttft, 50)),
+                         "ttft_max_ms": float(ttft.max()),
+                         "total_p50_ms": float(np.percentile(total, 50)),
+                         "total_max_ms": float(total.max()),
+                         "events": sse_answer},
+           "launches": {k: retrieve_launches[k] + serial_launches[k]
+                        + batch_launches[k] + query_launches[k]
+                        + sse_launches[k] for k in kernels.KERNELS},
+           "launches_by_endpoint": {
+               "retrieve_threaded": retrieve_launches,
+               "retrieve_serial": serial_launches,
+               "retrieve_batch": batch_launches, "answer": answer_launches,
+               "query": query_launches, "query_sse": sse_launches},
+           "recall_at_10": recall, "cpu_reference_tie_swaps": swaps,
+           "query_tie_swaps": query_swaps, "metrics_moved": moved,
+           "drain_ms": drain_ms,
+           "phase_seconds": time.perf_counter() - t_phase,
+           "nvidia_smi": nvidia_smi()}
+    emit(res)
+    return res
+
+
+def run_serving(bundles):
+    """Save both bundles with their law graphs, then the ``serve`` and
+    ``http`` phases over them: (serve result, http result)."""
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        cfg = serve_setup(bundles, Path(tmp))
+        return phase_serve(bundles, cfg), phase_http(bundles, cfg)
 
 
 # ------------------------------------------------------- large-corpus mode
@@ -1315,18 +1732,21 @@ def main() -> int:
     kres = phase_kernels(bundles["zh"], zh_queries)
 
     e2e = {lang: phase_e2e(lang, bundles[lang]) for lang in ("zh", "en")}
-    serve = phase_serve(bundles)
+    serve, http = run_serving(bundles)
     del bundles
     kres["bm25_sparse"], large = phase_large()
-    runs = {"map": list(e2e.values()), "serve": [serve], "large": [large]}
+    runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
+            "large": [large]}
     summary = []
     for name, k in kres.items():
         by_path = {p: sum(r["launches"][name] for r in rs)
                    for p, rs in runs.items()}
+        # MaxSim's one kernel replaces two TPU kernels: the line names both
         summary.append({
             key: k[key] for key in ("name", "route", "source", "replaces",
-                                    "max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")}
+                                    "also_replaces", "max_abs_err", "ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms") if key in k}
             | {"launches": sum(by_path.values()),
                "launches_by_path": by_path})
     emit({"kernels": summary})

@@ -1,11 +1,19 @@
-"""Configuration of the query path.
+"""Configuration of the query path, the RAG pipeline and the server.
 
 Dataclass copies of the fields of ``legalrag_tpu/config.py`` (``PathsConfig``,
-``EngineConfig``, ``RetrievalConfig``, ``AppConfig.with_lang``) that the
-batched hybrid query path and the single-query serving path
-(``retrieval/hybrid.py``, ``retrieval/by_lang.py``) read, with the same
-names and defaults, so a config tuned for one package means the same in the
-other.
+``EngineConfig``, ``RetrievalConfig``, ``LLMConfig``, ``RoutingConfig``,
+``ServerConfig``, ``AppConfig.load``/``with_lang``) that the batched hybrid
+query path, the single-query serving path (``retrieval/hybrid.py``,
+``retrieval/by_lang.py``) and the HTTP server with its pipeline
+(``api/server.py``, ``pipeline/rag_pipeline.py``, ``llm/client.py``) read,
+with the same names and defaults, so a config tuned for one package means
+the same in the other.
+
+``LLMConfig`` keeps the fields of the API providers (``openai``, ``local``,
+``disabled``); the local decoder engines' knobs come with those engines.
+``AppConfig.load`` overlays a JSON (or, where ``yaml`` imports, YAML) file
+on the defaults as pydantic's ``model_validate`` does: keys the port does
+not have (``pdf``, the decoder knobs) are ignored.
 
 Left out on purpose: ``engine.kernel_backend`` and ``engine.dense_tile_n``
 and ``retrieval.graph_weight`` (declared in the JAX package, read nowhere).
@@ -17,10 +25,12 @@ no routing knob.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import json
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 DEFAULT_ROOT = Path(os.environ.get("LEGALRAG_ROOT",
                                    Path(__file__).resolve().parent.parent))
@@ -34,10 +44,18 @@ class PathsConfig:
     processed_dir: Path = DEFAULT_ROOT / "data" / "processed"
     index_dir: Path = DEFAULT_ROOT / "data" / "index"
     graph_dir: Path = DEFAULT_ROOT / "data" / "graph"
+    eval_dir: Path = DEFAULT_ROOT / "data" / "eval"
+    upload_dir: Path = DEFAULT_ROOT / "data" / "uploads"
     # per-language (resolved by AppConfig.with_lang)
     corpus_file: Path = DEFAULT_ROOT / "data" / "processed" / "law_zh.jsonl"
     lang_index_dir: Path = DEFAULT_ROOT / "data" / "index" / "zh"
     graph_file: Path = DEFAULT_ROOT / "data" / "graph" / "law_graph_zh.jsonl"
+
+    def ensure_tree(self) -> None:
+        for p in (self.data_dir, self.raw_dir, self.processed_dir,
+                  self.index_dir, self.graph_dir, self.eval_dir,
+                  self.upload_dir):
+            Path(p).mkdir(parents=True, exist_ok=True)
 
 
 @dataclass
@@ -122,23 +140,113 @@ class RetrievalConfig:
 
 
 @dataclass
+class LLMConfig:
+    provider: str = "disabled"  # openai | local | disabled
+    model: str = "gpt-4o-mini"
+    api_key: Optional[str] = field(
+        default_factory=lambda: os.environ.get("OPENAI_API_KEY"))
+    base_url: Optional[str] = field(
+        default_factory=lambda: os.environ.get("OPENAI_BASE_URL"))
+    temperature: float = 0.3
+    top_p: float = 0.9
+    max_new_tokens: int = 1024
+    # local provider: the prompt is truncated to this many tokens
+    max_context_tokens: int = 4096
+    request_timeout: float = 30.0
+    max_retries: int = 2
+    retry_backoff: float = 0.6
+
+
+@dataclass
+class RoutingConfig:
+    llm_based: bool = False
+    issue_llm_refine: bool = False
+
+
+@dataclass
+class ServerConfig:
+    host: str = "0.0.0.0"
+    port: int = field(default_factory=lambda: int(os.environ.get("PORT", "8000")))
+    retrieve_cache_ttl: float = 900.0  # 15 min
+    cors_allow_all: bool = True
+    # startup warmup runs one channels call at every micro-batch bucket up to
+    # this batch size (powers of two) before /ready flips; 0 disables
+    prewarm_buckets: int = 16
+    # graceful SIGTERM drain: /ready flips to 503 at once, in-flight
+    # requests get this many seconds, then the listener stops
+    drain_grace_s: float = 5.0
+
+
+def _overlay(obj, data: Dict[str, Any]):
+    """Set the fields of dataclass ``obj`` that ``data`` names, recursing
+    into sub-configs and making ``Path`` fields paths; other keys are
+    ignored, as pydantic ignores extra fields."""
+    for f in dataclasses.fields(obj):
+        if f.name not in data:
+            continue
+        value, cur = data[f.name], getattr(obj, f.name)
+        if dataclasses.is_dataclass(cur) and isinstance(value, dict):
+            _overlay(cur, value)
+        elif isinstance(cur, Path) and value is not None:
+            setattr(obj, f.name, Path(value))
+        else:
+            setattr(obj, f.name, copy.deepcopy(value))
+    return obj
+
+
+@dataclass
 class AppConfig:
     lang: str = "zh"
     paths: PathsConfig = field(default_factory=PathsConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
+    llm: LLMConfig = field(default_factory=LLMConfig)
+    routing: RoutingConfig = field(default_factory=RoutingConfig)
+    server: ServerConfig = field(default_factory=ServerConfig)
     index_version: Optional[str] = None
+
+    @classmethod
+    def load(cls, path: Optional[str | Path] = None, *,
+             mkdirs: bool = True) -> "AppConfig":
+        """Defaults, overlaid field by field with a JSON (or YAML) file;
+        the index version from ``LEGALRAG_INDEX_VERSION`` when set; the
+        data tree created unless ``mkdirs`` is false
+        (``legalrag_tpu/config.py:357-383``)."""
+        data: Dict[str, Any] = {}
+        if path is not None:
+            text = Path(path).read_text(encoding="utf-8")
+            if str(path).endswith((".yaml", ".yml")):
+                try:
+                    import yaml  # type: ignore
+
+                    data = yaml.safe_load(text) or {}
+                except ImportError as e:
+                    raise RuntimeError("YAML config requires pyyaml; use "
+                                       "JSON instead") from e
+            else:
+                data = json.loads(text)
+        cfg = _overlay(cls(), data)
+        cfg.index_version = os.environ.get("LEGALRAG_INDEX_VERSION",
+                                           cfg.index_version)
+        cfg._apply_lang_paths(cfg.lang)
+        if mkdirs:
+            cfg.paths.ensure_tree()
+        return cfg
 
     def with_lang(self, lang: str) -> "AppConfig":
         """Deep copy with the corpus, index and graph paths swapped per
         language (``legalrag_tpu/config.py:384-406``)."""
         cfg = copy.deepcopy(self)
         cfg.lang = lang
-        p = cfg.paths
+        cfg._apply_lang_paths(lang)
+        return cfg
+
+    def _apply_lang_paths(self, lang: str) -> None:
+        p = self.paths
         p.corpus_file = Path(p.processed_dir) / f"law_{lang}.jsonl"
         base = Path(p.index_dir) / lang
-        if cfg.index_version:
-            base = base / "versions" / cfg.index_version
+        if self.index_version:
+            base = base / "versions" / self.index_version
         else:
             # the registry's ACTIVE pointer (index/registry.py), if present
             active = base / "ACTIVE"
@@ -148,4 +256,3 @@ class AppConfig:
                 base = base / "versions" / v
         p.lang_index_dir = base
         p.graph_file = Path(p.graph_dir) / f"law_graph_{lang}.jsonl"
-        return cfg

@@ -1,0 +1,273 @@
+"""Provider-agnostic LLM client (port of ``legalrag_tpu/llm/client.py``).
+
+- Providers: ``openai`` (chat completions over stdlib HTTP, no SDK),
+  ``local`` (a transformers causal LM from local files, imported lazily;
+  without transformers, or without the model on disk, it degrades and never
+  downloads) and ``disabled`` (expects a per-request user key; degrades
+  otherwise). Any other provider name, such as ``local-jax`` (the JAX
+  package's decoder engines, not ported yet), raises ``LLMUnavailable``
+  and so gets the degraded answer, as the JAX client does for a provider
+  it cannot load.
+- Reasoning models (gpt-5, o1, o3, "thinking") get no temperature or top_p
+  and ``max_completion_tokens`` in place of ``max_tokens``.
+- ``chat`` makes two attempts, then returns the degraded answer: a fixed
+  "model unavailable, showing retrieval only" text instead of an exception,
+  so retrieval results always reach the user.
+- ``chat_stream`` yields text chunks; the OpenAI SSE frames are parsed as
+  they arrive. A stream that dies after its first chunk ends with a
+  "generation interrupted" tail; one that dies before gives the degraded
+  answer.
+- ``from_config`` (one client per ``LLMConfig``) and
+  ``from_config_with_key`` (a client per user key, which forces the
+  ``openai`` provider).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import re
+import threading
+import urllib.request
+from typing import Dict, Generator, List, Optional
+
+from legalrag_tpu_torch.config import AppConfig, LLMConfig
+from legalrag_tpu_torch.llm.context import get_request_id
+from legalrag_tpu_torch.utils import get_logger, has_chinese
+
+log = get_logger("torch.llm.client")
+
+Message = Dict[str, str]
+
+DEGRADED_ANSWER = {
+    "zh": "（当前未配置生成模型或模型暂不可用，以下仅展示检索到的相关条文，请结合原文自行判断。）",
+    "en": "(No generation model is configured or the model is temporarily "
+          "unavailable; showing retrieved provisions only.)",
+}
+
+
+def _is_reasoning_model(model: str) -> bool:
+    """gpt-5 / o1 / o3 / "thinking" families reject sampling params. o1 and
+    o3 match as whole name segments, so "turbo1" is not one."""
+    m = (model or "").lower()
+    if "gpt-5" in m or "thinking" in m:
+        return True
+    return any(seg in ("o1", "o3") for seg in re.split(r"[^a-z0-9]+", m))
+
+
+class LLMUnavailable(RuntimeError):
+    pass
+
+
+class LLMClient:
+    _singleton: Optional["LLMClient"] = None
+    _keyed_cache: Dict[str, "LLMClient"] = {}
+    _cache_lock = threading.Lock()
+
+    def __init__(self, cfg: LLMConfig, api_key: Optional[str] = None):
+        self.cfg = cfg
+        self.api_key = api_key or cfg.api_key
+        self.provider = cfg.provider
+        if self.provider == "openai" and not self.api_key:
+            self.provider = "disabled"
+        self._local = None  # (tokenizer, model) of the local provider
+        # serving threads share this client: one model load, not one each
+        self._load_lock = threading.Lock()
+
+    # ------------------------------------------------------------ factories
+    @classmethod
+    def from_config(cls, cfg: AppConfig) -> "LLMClient":
+        with cls._cache_lock:
+            if cls._singleton is None or cls._singleton.cfg is not cfg.llm:
+                cls._singleton = cls(cfg.llm)
+            return cls._singleton
+
+    @classmethod
+    def from_config_with_key(cls, cfg: AppConfig, user_key: str) -> "LLMClient":
+        with cls._cache_lock:
+            client = cls._keyed_cache.get(user_key)
+            if client is None:
+                llm_cfg = dataclasses.replace(cfg.llm, provider="openai")
+                client = cls(llm_cfg, api_key=user_key)
+                if len(cls._keyed_cache) < 256:
+                    cls._keyed_cache[user_key] = client
+        return client
+
+    # ----------------------------------------------------------------- chat
+    def chat(self, messages: List[Message], tag: str = "chat",
+             max_new_tokens: Optional[int] = None) -> str:
+        rid = get_request_id()
+        last_err: Optional[Exception] = None
+        for attempt in range(2):
+            try:
+                if self.provider == "openai":
+                    return self._chat_openai(messages, max_new_tokens)
+                if self.provider == "local":
+                    return self._chat_local(messages, max_new_tokens)
+                raise LLMUnavailable(f"provider {self.provider!r} is "
+                                     "disabled or not available")
+            except LLMUnavailable as e:
+                last_err = e
+                break
+            except Exception as e:
+                last_err = e
+                log.warning("[%s] llm %s attempt %d failed: %s",
+                            rid, tag, attempt + 1, e)
+        log.info("[%s] llm %s degraded (%s)", rid, tag, last_err)
+        return self.degraded_answer(messages)
+
+    def chat_stream(self, messages: List[Message], tag: str = "chat",
+                    max_new_tokens: Optional[int] = None
+                    ) -> Generator[str, None, None]:
+        yielded = False
+        try:
+            streams = {"openai": self._stream_openai,
+                       "local": self._stream_local}
+            fn = streams.get(self.provider)
+            if fn is not None:
+                for chunk in fn(messages, max_new_tokens):
+                    yielded = True
+                    yield chunk
+                return
+        except Exception as e:
+            log.warning("[%s] llm stream %s failed: %s", get_request_id(), tag, e)
+        if yielded:
+            # the provider died mid-answer: mark the truncation rather than
+            # append the "no model is configured" text to half an answer
+            text = " ".join(m.get("content", "") for m in messages)
+            yield ("……（生成中断）" if has_chinese(text)
+                   else " … (generation interrupted)")
+        else:
+            yield self.degraded_answer(messages)
+
+    def degraded_answer(self, messages: List[Message]) -> str:
+        text = " ".join(m.get("content", "") for m in messages)
+        return DEGRADED_ANSWER["zh" if has_chinese(text) else "en"]
+
+    @property
+    def is_degraded(self) -> bool:
+        return self.provider == "disabled"
+
+    def close(self) -> None:
+        """Drop the local model. Idempotent."""
+        self._local = None
+
+    # --------------------------------------------------------------- openai
+    def _openai_payload(self, messages: List[Message],
+                        max_new_tokens: Optional[int], stream: bool) -> dict:
+        payload: dict = {
+            "model": self.cfg.model,
+            "messages": messages,
+            "stream": stream,
+        }
+        budget = max_new_tokens or self.cfg.max_new_tokens
+        if _is_reasoning_model(self.cfg.model):
+            # reasoning families reject sampling params and max_tokens
+            payload["max_completion_tokens"] = budget
+        else:
+            # max_tokens keeps OpenAI-compatible local servers working
+            payload["max_tokens"] = budget
+            payload["temperature"] = self.cfg.temperature
+            payload["top_p"] = self.cfg.top_p
+        return payload
+
+    def _openai_request(self, payload: dict) -> urllib.request.Request:
+        base = (self.cfg.base_url or "https://api.openai.com/v1").rstrip("/")
+        return urllib.request.Request(
+            f"{base}/chat/completions",
+            data=json.dumps(payload).encode("utf-8"),
+            headers={"Content-Type": "application/json",
+                     "Authorization": f"Bearer {self.api_key}"},
+            method="POST")
+
+    def _chat_openai(self, messages: List[Message],
+                     max_new_tokens: Optional[int]) -> str:
+        req = self._openai_request(self._openai_payload(messages,
+                                                        max_new_tokens, False))
+        with urllib.request.urlopen(req, timeout=self.cfg.request_timeout) as r:
+            obj = json.loads(r.read().decode("utf-8"))
+        return obj["choices"][0]["message"]["content"] or ""
+
+    def _stream_openai(self, messages: List[Message],
+                       max_new_tokens: Optional[int]
+                       ) -> Generator[str, None, None]:
+        req = self._openai_request(self._openai_payload(messages,
+                                                        max_new_tokens, True))
+        with urllib.request.urlopen(req, timeout=self.cfg.request_timeout) as r:
+            for raw in r:
+                line = raw.decode("utf-8").strip()
+                if not line.startswith("data:"):
+                    continue
+                data = line[5:].strip()
+                if data == "[DONE]":
+                    break
+                try:
+                    delta = json.loads(data)["choices"][0]["delta"]
+                except (json.JSONDecodeError, KeyError, IndexError):
+                    continue
+                piece = delta.get("content")
+                if piece:
+                    yield piece
+
+    # ---------------------------------------------------------------- local
+    def _load_local(self):
+        with self._load_lock:
+            if self._local is None:
+                try:
+                    import torch
+                    from transformers import AutoModelForCausalLM, AutoTokenizer
+                except ImportError as e:
+                    raise LLMUnavailable(f"transformers unavailable: {e}") from e
+                try:
+                    # local files only: the server never downloads a model
+                    tok = AutoTokenizer.from_pretrained(
+                        self.cfg.model, local_files_only=True)
+                    cuda = torch.cuda.is_available()
+                    model = AutoModelForCausalLM.from_pretrained(
+                        self.cfg.model, local_files_only=True,
+                        torch_dtype=torch.float16 if cuda else torch.float32)
+                    model.to("cuda" if cuda else "cpu")
+                except Exception as e:
+                    raise LLMUnavailable(f"local model load failed: {e}") from e
+                self._local = (tok, model)
+            return self._local
+
+    def _local_inputs(self, tok, messages: List[Message]):
+        prompt = tok.apply_chat_template(messages, tokenize=False,
+                                         add_generation_prompt=True)
+        return tok(prompt, return_tensors="pt",
+                   truncation=True, max_length=self.cfg.max_context_tokens)
+
+    def _chat_local(self, messages: List[Message],
+                    max_new_tokens: Optional[int]) -> str:
+        tok, model = self._load_local()
+        inputs = self._local_inputs(tok, messages).to(model.device)
+        out = model.generate(
+            **inputs, max_new_tokens=max_new_tokens or self.cfg.max_new_tokens,
+            do_sample=self.cfg.temperature > 0,
+            temperature=max(self.cfg.temperature, 1e-5),
+            top_p=self.cfg.top_p, repetition_penalty=1.05)
+        gen = out[0][inputs["input_ids"].shape[1]:]
+        return tok.decode(gen, skip_special_tokens=True)
+
+    def _stream_local(self, messages: List[Message],
+                      max_new_tokens: Optional[int]
+                      ) -> Generator[str, None, None]:
+        tok, model = self._load_local()
+        from transformers import TextIteratorStreamer
+
+        inputs = self._local_inputs(tok, messages).to(model.device)
+        # a generate() error would otherwise die silently in its thread
+        # while the consumer blocks forever
+        streamer = TextIteratorStreamer(tok, skip_prompt=True,
+                                        skip_special_tokens=True,
+                                        timeout=300.0)
+        kwargs = dict(**inputs, streamer=streamer,
+                      max_new_tokens=max_new_tokens or self.cfg.max_new_tokens,
+                      do_sample=self.cfg.temperature > 0,
+                      temperature=max(self.cfg.temperature, 1e-5),
+                      top_p=self.cfg.top_p)
+        thread = threading.Thread(target=model.generate, kwargs=kwargs,
+                                  daemon=True)
+        thread.start()
+        yield from streamer

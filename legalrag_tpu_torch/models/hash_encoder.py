@@ -8,12 +8,15 @@ device and L2-normalized.
 
 The default projection is ``jax.random.normal(PRNGKey(seed), (sketch_dim,
 dim)) / sqrt(dim)``, drawn here in numpy (``models/prng.py``), because it is
-not saved with an index. A trained projection (``proj``) overrides it, as in
-the JAX package.
+not saved with an index. Drawing it takes seconds on the host, so it is
+drawn once per process for each seed and shape (every bundle load, one per
+language and reload, copies it). A trained projection (``proj``) overrides
+it, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -24,6 +27,15 @@ from legalrag_tpu_torch.native import fnv1a64_batch, sketch_accumulate
 from legalrag_tpu_torch.tokenize import char_ngrams, hash_features, tokenize
 from legalrag_tpu_torch.tokenize.tokenizers import fnv1a_batch
 from legalrag_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+@functools.lru_cache(maxsize=2)
+def _default_projection(seed: int, sketch_dim: int, dim: int) -> np.ndarray:
+    """The default [sketch_dim, dim] float32 projection, read-only (every
+    caller shares the cached array)."""
+    proj = jax_normal(seed, (sketch_dim, dim)) / np.float32(np.sqrt(dim))
+    proj.flags.writeable = False
+    return proj
 
 
 def project_norm(sketch: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
@@ -96,11 +108,11 @@ class HashEncoder:
         """The [sketch_dim, dim] float32 projection on ``self.device``."""
         if self._proj is None:
             if self.trained_proj is not None:
-                proj = self.trained_proj
+                self._proj = torch.as_tensor(self.trained_proj,
+                                             device=self.device)
             else:
-                proj = (jax_normal(self.seed, (self.sketch_dim, self.dim))
-                        / np.float32(np.sqrt(self.dim)))
-            self._proj = torch.as_tensor(proj, device=self.device)
+                self._proj = torch.tensor(_default_projection(
+                    self.seed, self.sketch_dim, self.dim), device=self.device)
         return self._proj
 
     def use_projection(self, proj: np.ndarray) -> None:

@@ -14,14 +14,22 @@ thread, so the leader's own request returns after its first batch).
 
 The channels call is row-independent (per-query products and top-k), so a
 coalesced call returns the solo rankings; scores agree to float tolerance.
+
+Each execution feeds the server's ``/metrics`` (``utils.metrics.METRICS``,
+the JAX package's names): executions, coalesced requests, batched requests,
+the summed queue depth, and histograms of the execution time and of each
+request's wait before its batch started.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+
+from legalrag_tpu_torch.utils.metrics import METRICS
 
 # res dict: {"dense"|"bm25"|"colbert": (scores [B,k], rows [B,k]),
 #            "qvec": [B,d]} — see HybridRetriever._channels_topk_batch
@@ -30,7 +38,7 @@ RunBatch = Callable[[Sequence[str], int], Result]
 
 
 class _Slot:
-    __slots__ = ("question", "eff_k", "event", "value", "error")
+    __slots__ = ("question", "eff_k", "event", "value", "error", "t_enqueue")
 
     def __init__(self, question: str, eff_k: int):
         self.question = question
@@ -38,6 +46,7 @@ class _Slot:
         self.event = threading.Event()
         self.value: Result = None
         self.error: Optional[BaseException] = None
+        self.t_enqueue = time.perf_counter()
 
 
 def _slice_result(res: Result, i: int, eff_k: int) -> Result:
@@ -149,6 +158,9 @@ class MicroBatcher:
 
     def _execute(self, batch: List[_Slot]) -> None:
         eff_k = max(s.eff_k for s in batch)
+        t_start = time.perf_counter()
+        with self._lock:
+            depth = len(self._pending)
         try:
             res = self._run([s.question for s in batch], eff_k)
         except BaseException as e:  # propagate to every waiter
@@ -158,6 +170,18 @@ class MicroBatcher:
             return
         self.executions += 1
         self.coalesced += len(batch) - 1
+        # where a slow request's time goes: its wait before the batch
+        # started, the execution itself, or a deep queue at that time
+        METRICS.inc("legalrag_microbatch_executions")
+        if len(batch) > 1:
+            METRICS.inc("legalrag_microbatch_coalesced", value=len(batch) - 1)
+        METRICS.observe("legalrag_microbatch_exec_seconds",
+                        time.perf_counter() - t_start)
+        for s in batch:
+            METRICS.observe("legalrag_microbatch_wait_seconds",
+                            t_start - s.t_enqueue)
+        METRICS.inc("legalrag_microbatch_batched_requests", value=len(batch))
+        METRICS.inc("legalrag_microbatch_queue_depth_sum", value=depth)
         for i, s in enumerate(batch):
             s.value = _slice_result(res, i, s.eff_k)
             s.event.set()

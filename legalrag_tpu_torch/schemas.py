@@ -1,14 +1,20 @@
-"""Core data model of the query and serving paths.
+"""Core data model of the query, serving and answer paths.
 
 Keyword-only dataclasses and string enums with the JAX package's field
-names, order and defaults (``legalrag_tpu/schemas.py:19-139, 173-199``):
+names, order and defaults (``legalrag_tpu/schemas.py:19-150, 173-199``):
 ``LawChunk``, ``RetrievalHit``, the routing axes (``TaskType``,
-``IssueType``, ``RoutingMode``, ``RoutingDecision``) and the law graph's
-``Neighbor`` and ``LawNode``. ``LawChunk.to_json`` writes
-the same line as pydantic's ``model_dump_json(exclude_none=True)`` (fields
-in declaration order, ``None`` fields left out, compact separators,
-non-ASCII kept as is), so ``chunks.jsonl`` reads and writes identically in
-both packages.
+``IssueType``, ``RoutingMode``, ``RoutingDecision``), ``RagAnswer`` and the
+law graph's ``Neighbor`` and ``LawNode``.
+
+:func:`dump` is pydantic's ``model_dump`` (``exclude_none`` drops the
+``None`` fields of every dataclass in the tree, not the ``None`` values of
+a plain dict) with the result ready for ``json.dumps``: enums as their
+values, numpy scalars as Python numbers. The ``from_dict`` class methods
+are ``model_validate`` for what the server reads back from JSON.
+``LawChunk.to_json`` writes the same line as pydantic's
+``model_dump_json(exclude_none=True)`` (fields in declaration order,
+compact separators, non-ASCII kept as is), so ``chunks.jsonl`` reads and
+writes identically in both packages.
 """
 
 from __future__ import annotations
@@ -18,6 +24,32 @@ import json
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+
+def dump(obj: Any, *, exclude_none: bool = False) -> Any:
+    """``obj`` as plain JSON data: dataclasses as dicts in field order
+    (their ``None`` fields left out under ``exclude_none``), lists and dict
+    values converted in turn, enums as their values, numpy scalars as
+    Python numbers."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        out = {}
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if v is None and exclude_none:
+                continue
+            out[f.name] = dump(v, exclude_none=exclude_none)
+        return out
+    if isinstance(obj, Enum):
+        return obj.value
+    if isinstance(obj, dict):
+        return {k: dump(v, exclude_none=exclude_none) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [dump(v, exclude_none=exclude_none) for v in obj]
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
 
 
 @dataclass(kw_only=True)
@@ -37,13 +69,15 @@ class LawChunk:
     end_char: Optional[int] = None
 
     def to_json(self) -> str:
-        d = {k: v for k, v in dataclasses.asdict(self).items()
-             if v is not None}
-        return json.dumps(d, ensure_ascii=False, separators=(",", ":"))
+        return json.dumps(dump(self, exclude_none=True), ensure_ascii=False,
+                          separators=(",", ":"))
 
     @classmethod
     def from_json(cls, line: str) -> "LawChunk":
-        d = json.loads(line)
+        return cls.from_dict(json.loads(line))
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "LawChunk":
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
 
@@ -61,6 +95,16 @@ class RetrievalHit:
     relations: Optional[List[str]] = None
     seed_article_id: Optional[str] = None
     score_breakdown: Optional[Dict[str, Any]] = None
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "RetrievalHit":
+        names = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in d.items() if k in names}
+        kw["chunk"] = LawChunk.from_dict(d["chunk"])
+        kw["score"] = float(d["score"])
+        if kw.get("semantic_score") is not None:
+            kw["semantic_score"] = float(kw["semantic_score"])
+        return cls(**kw)
 
 
 class TaskType(str, Enum):
@@ -153,6 +197,27 @@ class RoutingDecision:
     explain: Optional[str] = None
     tags: List[str] = field(default_factory=list)
     signals: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "RoutingDecision":
+        names = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in d.items() if k in names}
+        kw.update(task_type=TaskType(d["task_type"]),
+                  issue_type=IssueType(d["issue_type"]),
+                  mode=RoutingMode(d["mode"]))
+        if "top_k_factor" in kw:
+            kw["top_k_factor"] = float(kw["top_k_factor"])
+        return cls(**kw)
+
+
+@dataclass(kw_only=True)
+class RagAnswer:
+    question: str
+    answer: str
+    hits: List[RetrievalHit]
+    # which article refs in the answer the retrieved hits support
+    # (pipeline/citations.py); None when verification was not run
+    citations: Optional[Dict[str, Any]] = None
 
 
 @dataclass(kw_only=True)

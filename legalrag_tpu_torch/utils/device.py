@@ -30,12 +30,11 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means ``cuda``, and raises
-    when no CUDA device is present."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """``device`` as a ``torch.device``; ``None`` means ``cuda``. A CUDA
+    device, named or by default, raises when no CUDA device is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: pass device='cpu' explicitly to run the port "
             "on the CPU")
-    return torch.device("cuda")
+    return dev

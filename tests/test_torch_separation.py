@@ -51,8 +51,34 @@ def test_module_list_covers_the_slice():
                  "legalrag_tpu_torch.retrieval.rerankers",
                  "legalrag_tpu_torch.graph.builder",
                  "legalrag_tpu_torch.graph.store",
-                 "legalrag_tpu_torch.utils.tracing"):
+                 "legalrag_tpu_torch.utils.tracing",
+                 "legalrag_tpu_torch.config", "legalrag_tpu_torch.schemas",
+                 "legalrag_tpu_torch.utils.metrics",
+                 "legalrag_tpu_torch.llm.context",
+                 "legalrag_tpu_torch.llm.client",
+                 "legalrag_tpu_torch.llm.gateway",
+                 "legalrag_tpu_torch.prompts",
+                 "legalrag_tpu_torch.routing.issue_extractor",
+                 "legalrag_tpu_torch.routing.router",
+                 "legalrag_tpu_torch.pipeline.citations",
+                 "legalrag_tpu_torch.pipeline.rag_pipeline",
+                 "legalrag_tpu_torch.api.webcore",
+                 "legalrag_tpu_torch.api.answer_scanner",
+                 "legalrag_tpu_torch.api.server",
+                 "legalrag_tpu_torch.api.retrieval_api"):
         assert name in PORT_MODULES
+
+
+def test_prompts_are_the_ports_own_copies():
+    """The port reads its prompt registries from its own files, which hold
+    what the JAX package's files hold."""
+    import json
+
+    for lang in ("zh", "en"):
+        mine = REPO / "legalrag_tpu_torch" / "prompts" / f"prompt_{lang}.json"
+        theirs = REPO / "legalrag_tpu" / "prompts" / f"prompt_{lang}.json"
+        assert json.loads(mine.read_text(encoding="utf-8")) == \
+            json.loads(theirs.read_text(encoding="utf-8"))
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -65,8 +91,34 @@ def test_default_device_raises_without_cuda(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         IndexBundle("en", AppConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     assert IndexBundle("en", AppConfig(), device="cpu").device.type == "cpu"
+
+
+def test_server_and_pipeline_raise_without_cuda_unless_told(monkeypatch, tmp_path):
+    """create_app, the retrieval service and RagPipeline serve on cuda by
+    default: without CUDA they raise at once instead of serving from the
+    CPU; with device="cpu" the app builds (here over an empty index
+    directory, so its warmup finds no index)."""
+    from legalrag_tpu_torch.api import retrieval_api
+    from legalrag_tpu_torch.api.server import create_app
+    from legalrag_tpu_torch.config import AppConfig
+    from legalrag_tpu_torch.pipeline.rag_pipeline import RagPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = AppConfig()
+    cfg.paths.index_dir = tmp_path / "index"
+    cfg.server.prewarm_buckets = 0
+    for make in (lambda: create_app(cfg, build_async=False),
+                 lambda: create_app(cfg, build_async=False, device="cuda"),
+                 lambda: retrieval_api.create_app(cfg),
+                 lambda: RagPipeline(cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    app = create_app(cfg, build_async=False, device="cpu")
+    assert app.state.device.type == "cpu" and app.state.warmup_done
 
 
 def test_tf32_is_off():
