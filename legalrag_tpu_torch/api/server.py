@@ -10,6 +10,12 @@ the request path).
   ``sentence`` structure events, keep-alive pings, ``citations``,
   ``done``/``error``
 - ``POST /rag/query``: retrieve + answer in one call
+- ``POST /ingest/pdf``: a multipart upload (``file``: a PDF or a text
+  file) extracted and chunked in the request, then appended to the live
+  bundles by a background worker (``ingest/service.py``); 422 without a
+  file, 400 when no text can be extracted
+- ``GET /ingest/status/{doc_id}``: the upload's four-key status (404 for
+  an unknown id); ``GET /debug/ingest/preview?doc_id=``: its first chunks
 - ``GET /``, ``/health``, ``/ready``, ``/metrics``, ``/ui``
 
 The JSON is the JAX server's: the same keys in the same order, ``None``
@@ -53,6 +59,7 @@ from legalrag_tpu_torch.api.webcore import (
     sse_event,
 )
 from legalrag_tpu_torch.config import AppConfig
+from legalrag_tpu_torch.ingest.service import IngestService
 from legalrag_tpu_torch.llm.client import LLMClient
 from legalrag_tpu_torch.llm.context import set_request_id
 from legalrag_tpu_torch.llm.gateway import LLMGateway
@@ -110,6 +117,7 @@ class ServerState:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.pipeline: Optional[RagPipeline] = None
+        self.ingest: Optional[IngestService] = None
         self.ready = False
         self.warmup_done = False
         self.draining = False  # SIGTERM received: /ready 503, drain, stop
@@ -139,6 +147,8 @@ class ServerState:
             retriever = ByLangRetriever(self.cfg, llm=gateway, cache=cache)
             self.pipeline = RagPipeline(self.cfg, llm=gateway,
                                         retriever=retriever)
+            # uploads grow the bundles of the cache the retriever serves
+            self.ingest = IngestService(self.cfg, cache)
             self.ready = True
             self._warmup()
         except Exception as e:
@@ -253,8 +263,9 @@ def create_app(cfg: Optional[AppConfig] = None, *, build_async: bool = True,
     def root(req: Request) -> Response:
         return Response({"name": "legalrag-tpu", "ready": st.ready,
                          "endpoints": ["/rag/retrieve", "/rag/answer",
-                                       "/rag/query", "/health", "/ready",
-                                       "/ui"]})
+                                       "/rag/query", "/ingest/pdf",
+                                       "/ingest/status/{doc_id}", "/health",
+                                       "/ready", "/ui"]})
 
     @app.get("/health")
     def health(req: Request) -> Response:
@@ -466,6 +477,43 @@ def create_app(cfg: Optional[AppConfig] = None, *, build_async: bool = True,
                          "citations": ans.citations,
                          "decision": dump(decision),
                          "hits": [_hit_payload(h) for h in hits]})
+
+    # -------------------------------------------------------------- ingest
+    @app.post("/ingest/pdf")
+    def ingest_pdf(req: Request) -> Response:
+        st.require_ready()
+        form = req.form()
+        f = form.get("file")
+        if not isinstance(f, dict) or not f.get("content"):
+            raise HTTPError(422, "multipart field 'file' is required")
+        try:
+            doc_id, n = st.ingest.ingest_upload_and_schedule(
+                f.get("filename") or "upload.bin", f["content"])
+        except (ValueError, RuntimeError) as e:
+            raise HTTPError(400, str(e))
+        return Response({"doc_id": doc_id, "chunks": n,
+                         "status_url": f"/ingest/status/{doc_id}"})
+
+    @app.get("/ingest/status/{doc_id}")
+    def ingest_status(req: Request) -> Response:
+        st.require_ready()
+        status = st.ingest.get_status(req.params["doc_id"])
+        if not status:
+            raise HTTPError(404, "unknown doc_id")
+        return Response({"doc_id": req.params["doc_id"], "status": status})
+
+    @app.get("/debug/ingest/preview")
+    def ingest_preview(req: Request) -> Response:
+        """The first chunks of an ingested document, as written."""
+        st.require_ready()
+        doc_id = req.query.get("doc_id", "")
+        path = Path(cfg.paths.processed_dir) / f"ingested_{doc_id}.jsonl"
+        if not doc_id or not path.exists():
+            raise HTTPError(404, "unknown doc_id")
+        chunks = [json.loads(l) for l in
+                  path.read_text(encoding="utf-8").splitlines() if l.strip()]
+        return Response({"doc_id": doc_id, "n_chunks": len(chunks),
+                         "chunks": chunks[:5]})
 
     return app
 

@@ -2,18 +2,21 @@
 
 Dataclass copies of the fields of ``legalrag_tpu/config.py`` (``PathsConfig``,
 ``EngineConfig``, ``RetrievalConfig``, ``LLMConfig``, ``RoutingConfig``,
-``ServerConfig``, ``AppConfig.load``/``with_lang``) that the batched hybrid
-query path, the single-query serving path (``retrieval/hybrid.py``,
-``retrieval/by_lang.py``) and the HTTP server with its pipeline
-(``api/server.py``, ``pipeline/rag_pipeline.py``, ``llm/client.py``) read,
-with the same names and defaults, so a config tuned for one package means
-the same in the other.
+``PDFConfig``, ``ServerConfig``, ``AppConfig.load``/``with_lang``) that the
+batched hybrid query path, the single-query serving path
+(``retrieval/hybrid.py``, ``retrieval/by_lang.py``), the HTTP server with its
+pipeline (``api/server.py``, ``pipeline/rag_pipeline.py``,
+``llm/client.py``), the offline build CLIs (``cli/``) and PDF ingestion
+(``ingest/``) read, with the same names and defaults, so a config tuned for
+one package means the same in the other. ``with_lang`` resolves a
+language's index directory through the registry's ``ACTIVE`` pointer
+(``index/registry.py``), as the JAX package does.
 
 ``LLMConfig`` keeps the fields of the API providers (``openai``, ``local``,
 ``disabled``); the local decoder engines' knobs come with those engines.
 ``AppConfig.load`` overlays a JSON (or, where ``yaml`` imports, YAML) file
 on the defaults as pydantic's ``model_validate`` does: keys the port does
-not have (``pdf``, the decoder knobs) are ignored.
+not have (the decoder knobs) are ignored.
 
 Left out on purpose: ``engine.kernel_backend`` and ``engine.dense_tile_n``
 and ``retrieval.graph_weight`` (declared in the JAX package, read nowhere).
@@ -31,6 +34,8 @@ import os
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, Optional
+
+from legalrag_tpu_torch.index.registry import IndexRegistry
 
 DEFAULT_ROOT = Path(os.environ.get("LEGALRAG_ROOT",
                                    Path(__file__).resolve().parent.parent))
@@ -164,6 +169,22 @@ class RoutingConfig:
 
 
 @dataclass
+class PDFConfig:
+    enable_docling: bool = False
+    enable_ocr: bool = False
+    # the generic chunker: ~chunk_chars per chunk, chunk_overlap carried over
+    chunk_chars: int = 650
+    chunk_overlap: int = 90
+    # the statute-quality gate (ingest/ingestor.py)
+    min_statute_records: int = 20
+    statute_coverage_min: float = 0.3
+    statute_gap_ratio_max: float = 0.5
+    statute_avg_len_ratio_max: float = 0.12
+    ingest_rebuild_colbert: bool = True
+    ingest_rebuild_graph: bool = True
+
+
+@dataclass
 class ServerConfig:
     host: str = "0.0.0.0"
     port: int = field(default_factory=lambda: int(os.environ.get("PORT", "8000")))
@@ -202,6 +223,7 @@ class AppConfig:
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
     llm: LLMConfig = field(default_factory=LLMConfig)
     routing: RoutingConfig = field(default_factory=RoutingConfig)
+    pdf: PDFConfig = field(default_factory=PDFConfig)
     server: ServerConfig = field(default_factory=ServerConfig)
     index_version: Optional[str] = None
 
@@ -248,11 +270,6 @@ class AppConfig:
         if self.index_version:
             base = base / "versions" / self.index_version
         else:
-            # the registry's ACTIVE pointer (index/registry.py), if present
-            active = base / "ACTIVE"
-            v = (active.read_text(encoding="utf-8").strip()
-                 if active.exists() else "")
-            if v and (base / "versions" / v).exists():
-                base = base / "versions" / v
+            base = IndexRegistry(base).active_index_dir()
         p.lang_index_dir = base
         p.graph_file = Path(p.graph_dir) / f"law_graph_{lang}.jsonl"

@@ -1,13 +1,19 @@
-"""Chunk JSONL IO: the reader and the writer of a bundle's
-``chunks.jsonl``. The line format is the JAX package's byte for byte
-(``LawChunk.to_json``).
+"""Chunk JSONL IO (port of ``legalrag_tpu/corpus/loader.py``): the reader
+and the writer of a bundle's ``chunks.jsonl``, of the processed corpora
+(``law_{lang}.jsonl``) and of the ingested documents
+(``ingested_<doc_id>.jsonl``). The line format is the JAX package's byte for
+byte (``LawChunk.to_json``).
+
+``load_chunks_from_dir`` streams every ``*.jsonl`` file of a processed
+directory in name order, keeps the first chunk of each id, and optionally
+only one language's.
 """
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, List, Optional
 
 from legalrag_tpu_torch.schemas import LawChunk
 
@@ -18,6 +24,24 @@ def iter_chunks_from_file(path: str | Path) -> Iterator[LawChunk]:
             line = line.strip()
             if line:
                 yield LawChunk.from_json(line)
+
+
+def load_chunks_from_dir(processed_dir: str | Path,
+                         lang: Optional[str] = None) -> List[LawChunk]:
+    seen: set[str] = set()
+    out: List[LawChunk] = []
+    d = Path(processed_dir)
+    if not d.exists():
+        return out
+    for path in sorted(d.glob("*.jsonl")):
+        for chunk in iter_chunks_from_file(path):
+            if lang is not None and chunk.lang != lang:
+                continue
+            if chunk.id in seen:
+                continue
+            seen.add(chunk.id)
+            out.append(chunk)
+    return out
 
 
 def write_chunks_jsonl(chunks: Iterable[LawChunk], path: str | Path) -> int:

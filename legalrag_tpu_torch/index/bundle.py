@@ -13,12 +13,28 @@ formats, so a bundle saved by either package loads in the other:
 Host featurization depends on whether jieba is installed
 (``tokenize/tokenizers.py``) and the fingerprint does not record it, so a
 bundle is built on the machine that serves it.
+
+A live bundle grows while requests read it (the ingest path,
+``add_chunks``). Its encoder, stores, chunks and generation form one
+``BundleState``, and the bundle holds one reference to the current state.
+An append builds the next state aside (the encoder's statistics copied and
+grown, each store grown in a shallow copy, the chunk list and id map
+copied) and publishes it by replacing that one reference. A reader that
+takes ``bundle.state`` once sees one generation, its stores consistent
+with each other. A reader that reads ``bundle.dense``, ``bundle.bm25``, ...
+one at a time gets each from the state current at that moment; states
+only grow, so rows that an earlier read gave it are valid in every later
+one. A store grown in place writes only rows past the ``n`` of the states
+that readers may hold, and readers mask those rows.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -48,6 +64,36 @@ class StaleIndexError(RuntimeError):
     it would skew every channel. Rebuild it."""
 
 
+@dataclasses.dataclass(frozen=True)
+class BundleState:
+    """One generation of a bundle, which a reader takes at once. Nothing in
+    a published state changes (a store's rows past its ``n`` aside)."""
+
+    encoder: Optional[HashEncoder]
+    dense: DenseIndex
+    bm25: BM25Index
+    tokens: TokenIndex
+    chunks: List[LawChunk]
+    id2row: Dict[str, int]
+    generation: int
+
+
+class _Published:
+    """A field of the bundle's current ``BundleState``. Setting one (at
+    build or load time) publishes a state with that field replaced."""
+
+    def __set_name__(self, owner, name: str) -> None:
+        self.name = name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        return getattr(obj.state, self.name)
+
+    def __set__(self, obj, value) -> None:
+        obj.state = dataclasses.replace(obj.state, **{self.name: value})
+
+
 def _check_backend(cfg: AppConfig) -> None:
     if cfg.retrieval.embedding_backend != "hash":
         raise NotImplementedError("only the hash embedding backend is "
@@ -55,22 +101,31 @@ def _check_backend(cfg: AppConfig) -> None:
 
 
 class IndexBundle:
+    encoder = _Published()
+    dense = _Published()
+    bm25 = _Published()
+    tokens = _Published()
+    chunks = _Published()
+    id2row = _Published()
+    generation = _Published()
+
     def __init__(self, lang: str, cfg: AppConfig, device: DeviceLike = None):
         self.lang = lang
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.chunks: List[LawChunk] = []
-        self.id2row: Dict[str, int] = {}
         r, e = cfg.retrieval, cfg.engine
-        self.encoder: Optional[HashEncoder] = None  # set in build/load
-        self.dense = DenseIndex(r.embedding_dim, e.dtype, e.capacity_round,
-                                self.device)
-        self.bm25 = BM25Index(lang, r.bm25_k1, r.bm25_b, r.bm25_epsilon,
-                              self.device)
-        self.tokens = TokenIndex(e.late_dim, e.late_doc_maxlen,
-                                 e.token_dtype or e.dtype, e.capacity_round,
-                                 self.device)
-        self.generation = 0
+        self.state = BundleState(
+            encoder=None,  # set in build/load
+            dense=DenseIndex(r.embedding_dim, e.dtype, e.capacity_round,
+                             self.device),
+            bm25=BM25Index(lang, r.bm25_k1, r.bm25_b, r.bm25_epsilon,
+                           self.device),
+            tokens=TokenIndex(e.late_dim, e.late_doc_maxlen,
+                              e.token_dtype or e.dtype, e.capacity_round,
+                              self.device),
+            chunks=[], id2row={}, generation=0)
+        # one append at a time: each grows the state the last one published
+        self._append_lock = threading.Lock()
 
     # ----------------------------------------------------------------- build
     @classmethod
@@ -87,41 +142,53 @@ class IndexBundle:
         b._append(list(chunks))
         return b
 
-    def _append(self, chunks: List[LawChunk]) -> int:
-        """Append chunks new to this bundle; returns the number added."""
-        fresh = [c for c in chunks if c.id not in self.id2row]
-        if not fresh:
-            return 0
-        texts = [c.text for c in fresh]
-        t0 = time.time()
-        vecs = self.encoder.encode_passages(texts)
-        if self.cfg.retrieval.enable_colbert:
-            tok, mask = self.encoder.encode_tokens(texts, self.tokens.doc_maxlen)
-        t_enc = time.time() - t0
-        for c in fresh:
-            self.id2row[c.id] = len(self.chunks)
-            self.chunks.append(c)
-        self.dense.add(vecs)
-        if self.cfg.retrieval.enable_colbert:
-            self.tokens.add(tok, mask)
-        t0 = time.time()
-        if self.bm25.n:
-            self.bm25.add_texts(texts)
-        else:
-            self.bm25.build_from_texts([c.text for c in self.chunks])
+    def _append(self, chunks: List[LawChunk], grow_idf: bool = False) -> int:
+        """Append the chunks new to this bundle and publish the grown state;
+        returns the number added. With ``grow_idf`` the encoder's document
+        frequencies take in the new chunks first (in a copy)."""
+        with self._append_lock:
+            cur = self.state
+            fresh = [c for c in chunks if c.id not in cur.id2row]
+            if not fresh:
+                return 0
+            texts = [c.text for c in fresh]
+            enc = cur.encoder.with_idf(texts) if grow_idf else cur.encoder
+            colbert = self.cfg.retrieval.enable_colbert
+            t0 = time.time()
+            vecs = enc.encode_passages(texts)
+            if colbert:
+                tok, mask = enc.encode_tokens(texts, cur.tokens.doc_maxlen)
+            t_enc = time.time() - t0
+            chunks_after = cur.chunks + fresh
+            id2row = dict(cur.id2row)
+            for row, c in enumerate(fresh, start=len(cur.chunks)):
+                id2row[c.id] = row
+            dense = copy.copy(cur.dense)
+            dense.add(vecs)
+            tokens = cur.tokens
+            if colbert:
+                tokens = copy.copy(tokens)
+                tokens.add(tok, mask)
+            t0 = time.time()
+            bm25 = copy.copy(cur.bm25)
+            if bm25.n:
+                bm25.add_texts(texts)
+            else:
+                bm25.build_from_texts([c.text for c in chunks_after])
+            t_bm25 = time.time() - t0
+            self.state = BundleState(enc, dense, bm25, tokens, chunks_after,
+                                     id2row, cur.generation + 1)
         log.info("[%s] appended %d chunks (encode %.2fs, bm25 %.2fs) -> n=%d",
-                 self.lang, len(fresh), t_enc, time.time() - t0,
-                 len(self.chunks))
-        self.generation += 1
+                 self.lang, len(fresh), t_enc, t_bm25, len(chunks_after))
         return len(fresh)
 
     def add_chunks(self, chunks: Sequence[LawChunk]) -> int:
         """Incremental add (the ingest path), deduplicated by chunk id: the
         encoder's idf takes in the fresh chunks first, then they are
-        appended (``legalrag_tpu/index/bundle.py:135-142``)."""
-        fresh = [c for c in chunks if c.id not in self.id2row]
-        self.encoder.fit_idf([c.text for c in fresh])
-        return self._append(list(chunks))
+        appended (``legalrag_tpu/index/bundle.py:135-142``). The grown
+        encoder and stores are built aside: requests served meanwhile read
+        the state from before the append."""
+        return self._append(list(chunks), grow_idf=True)
 
     def row_chunks(self, rows: Sequence[int]) -> List[LawChunk]:
         return [self.chunks[r] for r in rows]

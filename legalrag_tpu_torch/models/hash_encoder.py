@@ -16,6 +16,7 @@ it, as in the JAX package.
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Dict, List, Optional, Tuple
 
@@ -77,6 +78,15 @@ class HashEncoder:
             b = (h % np.uint64(self.sketch_dim)).astype(np.int64)
             self.df[np.unique(b)] += 1
         self.n_docs += len(texts)
+
+    def with_idf(self, texts: List[str]) -> "HashEncoder":
+        """A copy whose document frequencies also count ``texts``; this one
+        stays as it is. The copy shares the projection and the token
+        cache, which do not depend on the frequencies."""
+        enc = copy.copy(self)
+        enc.df = self.df.copy()
+        enc.fit_idf(texts)
+        return enc
 
     def _idf(self) -> np.ndarray:
         n = max(self.n_docs, 1)

@@ -8,7 +8,9 @@
 ``BundleCache`` reloads a language's bundle when the manifest generation on
 disk moves past the one in memory, checking at most every
 ``check_interval`` seconds: a live server picks up incremental ingests and
-newly activated index versions without a restart.
+newly activated index versions without a restart. A version whose
+generation is not above the one in memory is not picked up, as in JAX.
+``put`` installs a bundle grown in this process (the ingest path).
 
 The device is fixed when the cache is made: ``cuda`` unless the caller
 asks for another, and without CUDA that raises. A CUDA error while serving
@@ -67,6 +69,11 @@ class BundleCache:
             bundle = IndexBundle.load(d, lang_cfg, lang, device=self.device)
             self._bundles[lang] = bundle
         return bundle
+
+    def put(self, lang: str, bundle: IndexBundle) -> None:
+        """Install a live bundle (the in-process ingest path)."""
+        self._bundles[lang] = bundle
+        self._last_check[lang] = time.monotonic()
 
 
 class ByLangRetriever:

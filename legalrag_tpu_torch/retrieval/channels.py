@@ -115,11 +115,12 @@ class GraphRetriever:
     def _article_rows(self) -> Dict[str, int]:
         """article id -> first row, rebuilt when the bundle's generation
         moves (``add_chunks``)."""
-        if self._aid2row is None or self._aid_gen != self.bundle.generation:
+        st = self.bundle.state
+        if self._aid2row is None or self._aid_gen != st.generation:
             aid2row: Dict[str, int] = {}
-            for i, c in enumerate(self.bundle.chunks):
+            for i, c in enumerate(st.chunks):
                 aid2row.setdefault(c.article_id, i)
-            self._aid2row, self._aid_gen = aid2row, self.bundle.generation
+            self._aid2row, self._aid_gen = aid2row, st.generation
         return self._aid2row
 
     def search(self, question: str, seed_article_ids: Sequence[str],

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from legalrag_tpu_torch.config import AppConfig
-from legalrag_tpu_torch.index.bundle import IndexBundle
+from legalrag_tpu_torch.index.bundle import BundleState, IndexBundle
 from legalrag_tpu_torch.ops.fused_query import (
     PACKED_NAMES,
     FusedParams,
@@ -40,11 +40,12 @@ class FusedQueryEngine:
         self.bundle = bundle
         self.cfg = cfg or bundle.cfg
 
-    def _params(self, top_k: int) -> FusedParams:
+    def _params(self, top_k: int, st: Optional[BundleState] = None
+                ) -> FusedParams:
         r = self.cfg.retrieval
         # eff_k from the DENSE capacity (the impact matrix pads N to 128,
         # the dense store to capacity_round), as in the JAX engine
-        n = max(self.bundle.dense.capacity, 1)
+        n = max((st or self.bundle.state).dense.capacity, 1)
         return FusedParams(
             eff_k=bucket_k(min(top_k * r.oversample_factor, n), n),
             final_k=bucket_k(min(top_k, n), n),
@@ -52,41 +53,41 @@ class FusedQueryEngine:
             w_dense=float(r.dense_weight), w_bm25=float(r.bm25_weight),
             w_late=float(r.colbert_weight))
 
-    def _use_late(self) -> bool:
-        t = self.bundle.tokens
+    def _use_late(self, st: BundleState) -> bool:
         return (self.cfg.retrieval.enable_colbert
-                and t.n == self.bundle.dense.n and t.n > 0)
+                and st.tokens.n == st.dense.n and st.tokens.n > 0)
 
     def prepare(self, questions: Sequence[str], top_k: int = 10):
-        """Host encode + host-to-device copies only (no device work)."""
+        """Host encode + host-to-device copies only (no device work), over
+        one generation of the bundle (``BundleState``), which ``execute``
+        then runs on."""
         b = len(questions)
         qs = list(questions) + [""] * (bucket_batch(b) - b)
-        bundle = self.bundle
-        dev = bundle.device
-        enc = bundle.encoder
-        term_ids, term_mask = bundle.bm25.query_term_ids(
+        st = self.bundle.state
+        dev = self.bundle.device
+        enc = st.encoder
+        term_ids, term_mask = st.bm25.query_term_ids(
             qs, self.cfg.engine.max_query_tokens)
         qtf = (torch.from_numpy(term_ids).to(dev),
                torch.from_numpy(term_mask).to(dev))
         qvec = (enc.sketch_tensor(qs, query=True), enc.projection())
         q_tok = q_mask = None
-        if self._use_late():
+        if self._use_late(st):
             qt, qm = enc.encode_tokens(qs, self.cfg.engine.max_query_tokens,
                                        query=True)
-            q_tok = torch.from_numpy(qt).to(dev).to(bundle.tokens.query_dtype)
+            q_tok = torch.from_numpy(qt).to(dev).to(st.tokens.query_dtype)
             q_mask = torch.from_numpy(qm).to(dev)
-        return (qvec, qtf, q_tok, q_mask), b, top_k
+        return (qvec, qtf, q_tok, q_mask), st, b, top_k
 
     def execute(self, prepared):
         """Launch the fused query on prepared inputs (asynchronous on CUDA)."""
-        (qvec, qtf, q_tok, q_mask), b, top_k = prepared
-        bundle = self.bundle
+        (qvec, qtf, q_tok, q_mask), st, b, top_k = prepared
         late = q_tok is not None
         out = fused_hybrid_topk(
-            bundle.dense.emb, bundle.bm25.impact,
-            bundle.tokens.tok if late else None,
-            bundle.tokens.mask if late else None,
-            qvec, qtf, q_tok, q_mask, bundle.dense.n, self._params(top_k))
+            st.dense.emb, st.bm25.impact,
+            st.tokens.tok if late else None,
+            st.tokens.mask if late else None,
+            qvec, qtf, q_tok, q_mask, st.dense.n, self._params(top_k, st))
         return out, b, top_k
 
     def dispatch(self, questions: Sequence[str], top_k: int = 10):

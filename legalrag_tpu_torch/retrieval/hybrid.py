@@ -11,7 +11,9 @@ log line → top-k. With HyDE on and an LLM present, the dense query is
 expanded and the channels run one by one instead.
 
 On the card one channels call launches the score+select kernel once (the
-dense list) and the MaxSim kernel once (the late list).
+dense list) and the MaxSim kernel once (the late list). A channels call
+reads one ``BundleState`` of the bundle, so an ingest that grows the bundle
+meanwhile gives it the lists from before or from after the append.
 """
 
 from __future__ import annotations
@@ -76,32 +78,35 @@ class HybridRetriever:
         [B, eff_k], rows [B, eff_k]), "qvec": [B, d]}`` on the host, or None
         for an empty index. The batch is padded with empty questions to a
         bucket size, as in JAX; their rows are dropped."""
-        bundle = self.bundle
-        if bundle.dense.n == 0:
+        # one generation of the bundle for the whole call: an ingest that
+        # publishes meanwhile cannot hand it one store's rows with
+        # another's vocabulary or count
+        st = self.bundle.state
+        if st.dense.n == 0:
             return None
-        enc = bundle.encoder
-        dev = bundle.device
+        enc = st.encoder
+        dev = self.bundle.device
         use_late = (self.late is not None
-                    and bundle.tokens.n == bundle.dense.n
-                    and bundle.tokens.n > 0)
-        eff_k = min(eff_k, bundle.dense.n)
-        kb = bucket_k(eff_k, bundle.dense.capacity)
+                    and st.tokens.n == st.dense.n
+                    and st.tokens.n > 0)
+        eff_k = min(eff_k, st.dense.n)
+        kb = bucket_k(eff_k, st.dense.capacity)
         nb = len(questions)
         qs = list(questions) + [""] * (bucket_batch(nb) - nb)
         maxlen = self.cfg.engine.max_query_tokens
         qvec = (enc.sketch_tensor(qs, query=True), enc.projection())
-        ids, mask = bundle.bm25.query_term_ids(qs, maxlen)
+        ids, mask = st.bm25.query_term_ids(qs, maxlen)
         qtf = (torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev))
         q_tok = q_mask = None
         if use_late:
             qt, qm = enc.encode_tokens(qs, maxlen, query=True)
-            q_tok = torch.from_numpy(qt).to(dev).to(bundle.tokens.query_dtype)
+            q_tok = torch.from_numpy(qt).to(dev).to(st.tokens.query_dtype)
             q_mask = torch.from_numpy(qm).to(dev)
         out = fused_channels_topk(
-            bundle.dense.emb, bundle.bm25.impact,
-            bundle.tokens.tok if use_late else None,
-            bundle.tokens.mask if use_late else None,
-            qvec, qtf, q_tok, q_mask, bundle.dense.n, kb)
+            st.dense.emb, st.bm25.impact,
+            st.tokens.tok if use_late else None,
+            st.tokens.mask if use_late else None,
+            qvec, qtf, q_tok, q_mask, st.dense.n, kb)
         res = {"qvec": out.pop("qvec")[:nb].cpu().numpy()}
         for name, (s, i) in out.items():
             res[name] = (s[:nb, :eff_k].cpu().numpy(),

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither jax nor any module of
 the JAX package, and it never falls back to the CPU silently."""
 
+import json
 import subprocess
 import sys
 import textwrap
@@ -65,7 +66,20 @@ def test_module_list_covers_the_slice():
                  "legalrag_tpu_torch.api.webcore",
                  "legalrag_tpu_torch.api.answer_scanner",
                  "legalrag_tpu_torch.api.server",
-                 "legalrag_tpu_torch.api.retrieval_api"):
+                 "legalrag_tpu_torch.api.retrieval_api",
+                 "legalrag_tpu_torch.api.index_api",
+                 "legalrag_tpu_torch.index.registry",
+                 "legalrag_tpu_torch.corpus.loader",
+                 "legalrag_tpu_torch.cli.preprocess_law",
+                 "legalrag_tpu_torch.cli.build_index",
+                 "legalrag_tpu_torch.cli.build_graph",
+                 "legalrag_tpu_torch.cli.index_admin",
+                 "legalrag_tpu_torch.ingest.minipdf",
+                 "legalrag_tpu_torch.ingest.pdf_parser",
+                 "legalrag_tpu_torch.ingest.ingestor",
+                 "legalrag_tpu_torch.ingest.task_queue",
+                 "legalrag_tpu_torch.ingest.orchestrator",
+                 "legalrag_tpu_torch.ingest.service"):
         assert name in PORT_MODULES
 
 
@@ -158,3 +172,29 @@ def test_cpu_tensor_takes_plain_version_and_never_builds_kernels(monkeypatch):
                             torch.tensor([0.5, 0.25, 2.0, 0.0]), 4, chunk=4)
     assert bm.tolist() == [[4.0, 0.5, 0.0, 0.25]]
     assert kernels.launch_counts() == before
+
+
+def test_ingest_and_build_raise_without_cuda_unless_told(monkeypatch, tmp_path):
+    """The ingest service grows the bundles of its cache on the cache's
+    device (``cuda`` by default, which raises without CUDA), and the index
+    build CLI builds on ``cuda`` unless given ``--device cpu``."""
+    from legalrag_tpu_torch.cli import build_index
+    from legalrag_tpu_torch.config import AppConfig
+    from legalrag_tpu_torch.ingest.service import IngestService
+    from legalrag_tpu_torch.retrieval.by_lang import BundleCache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = AppConfig()
+    cfg.paths.processed_dir = tmp_path / "processed"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IngestService(cfg, BundleCache(cfg))
+    assert IngestService(cfg, BundleCache(cfg, device="cpu")).queue.join(1)
+    cfg_file = tmp_path / "cfg.json"
+    cfg_file.write_text(json.dumps({"paths": {
+        name: str(tmp_path / name) for name in (
+            "data_dir", "raw_dir", "processed_dir", "index_dir", "graph_dir",
+            "eval_dir", "upload_dir")}}))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_index.main(["--config", str(cfg_file)])
+    build_index.main(["--config", str(cfg_file), "--device", "cpu"])
+    assert not any((tmp_path / "index_dir").iterdir())  # no chunks: no bundle

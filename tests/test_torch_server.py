@@ -13,7 +13,9 @@ the network: the LLM is disabled, a stub on 127.0.0.1, or a closed
 loopback port."""
 
 import json
+import shutil
 import socket
+import sys
 import threading
 import time
 import urllib.error
@@ -26,6 +28,7 @@ from legalrag_tpu.api.server import create_app as jax_create_app
 from legalrag_tpu.api.webcore import TestClient as JaxTestClient
 from legalrag_tpu.config import AppConfig as JaxConfig
 from legalrag_tpu.config import LLMConfig as JaxLLMConfig
+from legalrag_tpu.corpus import write_chunks_jsonl as jax_write_chunks
 from legalrag_tpu.graph import GraphBuilder as JaxGraphBuilder
 from legalrag_tpu.index.bundle import IndexBundle as JaxBundle
 from legalrag_tpu.llm.client import LLMClient as JaxLLMClient
@@ -42,6 +45,7 @@ from legalrag_tpu_torch.api.webcore import (
 )
 from legalrag_tpu_torch.config import AppConfig, LLMConfig
 from legalrag_tpu_torch.index.bundle import IndexBundle
+from legalrag_tpu_torch.ingest.minipdf import build_pdf
 from legalrag_tpu_torch.llm.client import LLMClient
 from legalrag_tpu_torch.llm.gateway import LLMGateway
 from legalrag_tpu_torch.retrieval.hybrid import HybridRetriever
@@ -168,9 +172,8 @@ def test_health_root_and_ready(served):
     got, want = both(served, "get", "/health")
     assert got.status == want.status == 200 and got.json() == want.json()
     got, want = both(served, "get", "/")
-    jax_routes = [e for e in want.json()["endpoints"]
-                  if not e.startswith("/ingest")]
-    assert got.json() == dict(want.json(), endpoints=jax_routes)
+    assert got.json() == want.json()
+    assert "/ingest/pdf" in got.json()["endpoints"]
     got, want = both(served, "get", "/ready")
     assert got.status == want.status == 200
     assert list(got.json()) == list(want.json())
@@ -583,3 +586,112 @@ def test_graceful_drain_over_a_socket(served):
     finally:
         llm.close = old_close
         app.state.draining = False
+
+
+# ---------------------------------------------------------------- ingest
+
+@pytest.fixture(scope="module")
+def ingest_served(served, en_chunks, zh_chunks, tmp_path_factory):
+    """(JAX client, port client, port config), each app over its own copy
+    of ``served``'s bundles and graphs, with the base corpora in its
+    processed directory (the graph job rebuilds over it)."""
+    base = served[2].paths.index_dir.parent
+    clients = []
+    for name, cfg, create, client in (
+            ("jax", JaxConfig(), jax_create_app, JaxTestClient),
+            ("port", AppConfig(), create_app, TestClient)):
+        root = tmp_path_factory.mktemp(f"ingest_{name}")
+        for d in ("index_dir", "graph_dir"):
+            shutil.copytree(base / d, root / d)
+        cfg = small_config(cfg, root)
+        cfg.llm.base_url = served[2].llm.base_url
+        cfg.paths.ensure_tree()
+        for lang, chunks in (("en", en_chunks[:100]), ("zh", zh_chunks[:100])):
+            jax_write_chunks(chunks, root / "processed_dir" / f"law_{lang}.jsonl")
+        kw = {"device": "cpu"} if name == "port" else {}
+        app = create(cfg, build_async=False, **kw)
+        assert app.state.error is None
+        clients.append(client(app))
+    return clients[0], clients[1], cfg
+
+
+def multipart(filename: str, content: bytes, field: str = "file"):
+    boundary = "torchingestboundary"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+            f'name="{field}"; filename="{filename}"\r\n'
+            "Content-Type: application/octet-stream\r\n\r\n").encode() \
+        + content + f"\r\n--{boundary}--\r\n".encode()
+    return {"body": body, "headers": {
+        "content-type": f"multipart/form-data; boundary={boundary}"}}
+
+
+WIDGET_ACT = ("Model Widget Act\n"
+              "§ 1-101. Definitions. In this act, \"widget\" means a purple "
+              "gadget used for testing ingestion pipelines.\n"
+              "§ 1-102. Widget Registration. Every widget must be registered "
+              "with the widget registry within thirty days.\n")
+
+
+def test_ingest_routes_match_jax(ingest_served, zh_chunks, monkeypatch):
+    """Two uploads through both servers (a generic text, a zh statute as
+    PDF bytes): the same responses, statuses and previews; then the live
+    indexes answer ``/rag/retrieve`` and ``/rag/retrieve_batch`` as the
+    JAX server's do."""
+    monkeypatch.setitem(sys.modules, "pdfplumber", None)
+    jc, pc, _cfg = ingest_served
+    statute = "测试统一法\n" + "\n".join(c.text for c in zh_chunks[100:130])
+    doc_ids = []
+    for name, content in (("widget_act.txt", WIDGET_ACT.encode()),
+                          ("test_statute.pdf", build_pdf([statute]))):
+        got, want = both(ingest_served, "post", "/ingest/pdf",
+                         **multipart(name, content))
+        assert got.status == want.status == 200, got.text
+        assert got.json() == want.json()
+        doc_ids.append(got.json()["doc_id"])
+    assert got.json()["chunks"] == 30
+    assert jc.app.state.ingest.queue.join(timeout=120)
+    assert pc.app.state.ingest.queue.join(timeout=120)
+    for doc_id in doc_ids:
+        got, want = both(ingest_served, "get", f"/ingest/status/{doc_id}")
+        assert (got.status, got.json()) == (want.status, want.json())
+        assert set(got.json()["status"].values()) == {"added"}
+        got, want = both(ingest_served, "get",
+                         f"/debug/ingest/preview?doc_id={doc_id}")
+        assert (got.status, got.json()) == (want.status, want.json())
+    assert got.json()["n_chunks"] == 30 and len(got.json()["chunks"]) == 5
+
+    for q in ("purple gadget widget registry", statute.splitlines()[5][:40],
+              "buyer in ordinary course of business"):
+        got, want = both(ingest_served, "post", "/rag/retrieve",
+                         json_body={"question": q})
+        assert got.status == want.status == 200, got.text
+        assert_same_json(without(got.json(), "retrieval_id"),
+                         without(want.json(), "retrieval_id"))
+    got = pc.post("/rag/retrieve",
+                  json_body={"question": "purple gadget widget registry"})
+    assert got.json()["hits"][0]["chunk"]["source"] == f"ingest:{doc_ids[0]}"
+    got, want = both(ingest_served, "post", "/rag/retrieve_batch",
+                     json_body={"questions": ["widget registration",
+                                              statute.splitlines()[9][:30]]})
+    assert got.status == want.status == 200
+    assert_same_json(got.json(), want.json())
+
+
+def test_ingest_errors_match_jax(ingest_served, monkeypatch):
+    monkeypatch.setitem(sys.modules, "pdfplumber", None)
+    cases = [
+        ("post", "/ingest/pdf", {"body": b"not multipart",
+                                 "headers": {"content-type": "text/plain"}}),
+        ("post", "/ingest/pdf", multipart("a.txt", b"text", field="upload")),
+        ("post", "/ingest/pdf", multipart("blank.txt", b"  \t ")),
+        ("post", "/ingest/pdf", multipart("scan.pdf", build_pdf([""]))),
+        ("get", "/ingest/status/0123456789abcdef", {}),
+        ("get", "/debug/ingest/preview?doc_id=0123456789abcdef", {}),
+        ("get", "/debug/ingest/preview", {}),
+    ]
+    statuses = []
+    for method, path, kw in cases:
+        got, want = both(ingest_served, method, path, **kw)
+        assert (got.status, got.json()) == (want.status, want.json()), path
+        statuses.append(got.status)
+    assert statuses == [422, 422, 400, 400, 404, 404, 404]
