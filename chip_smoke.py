@@ -67,7 +67,36 @@ Phases, each printing one JSON line:
    ``sentence``, ``citations`` with the cited article supported, ``done``);
    the launch counts per endpoint (one score+select and one MaxSim per
    channels call and per language of a batch); then the graceful drain;
-8. ``large``: the large-corpus mode at the JAX repo's 1M-doc scale point
+8. ``ingest``: the index lifecycle in a temporary root. A raw tree with
+   part of the corpus held out (the Civil Code cut before article 1001, the
+   UCC without articles 8 and 9) goes through the port's build CLIs
+   in-process (``preprocess_law``, ``build_index --index-version v1
+   --activate`` on the card, ``build_graph``), timed. The port's server
+   (on the card, ``openai`` against the stub) serves that root; 8 client
+   threads keep sending ``/rag/retrieve`` (zh and en, as in 7) while three
+   uploads go through ``/ingest/pdf``: articles 1001-1260 as PDF bytes from
+   the port's ``build_pdf`` (zh grows from 1000 rows to 1260, across the
+   dense and token capacity from 1024 to 2048), ``ucc_8.txt`` and
+   ``ucc_9.txt`` as one text upload, and a zh document with no article
+   structure (the generic chunker); ``/ingest/status`` is polled until all
+   four keys read ``added`` (an ``error`` fails the phase). Printed: each
+   upload's seconds to the response, to the index keys' ``added`` and to
+   the graph's; the worker's steps (passage encode with the card's
+   projection, token encode, BM25 rebuild, save, graph rebuild);
+   ``/rag/retrieve`` p50 / p99 before, during and after the ingest; the
+   first zh request sent after the crossing. Checked: every request
+   answered 200; rows, capacities and generations in memory and in the
+   manifests; ``/debug/ingest/preview``; self-retrieval Recall@10 of 64
+   questions from the ingested statute chunks under their
+   ``"{doc_id}:{article_id}"`` ids; a copy of the root taken after the
+   CLIs gets the same uploads in the same order through the same server
+   on the CPU, whose ``chunks.jsonl`` and ``ingested_*.jsonl`` files must
+   be byte-equal and whose hit lists for 32 questions must equal the
+   card's but for near-ties; one score+select and one MaxSim launch per
+   channels call during and after the ingest; kernels 1 and 2/3 against
+   their plain versions on the tensors the path handed them after the
+   crossing;
+9. ``large``: the large-corpus mode at the JAX repo's 1M-doc scale point
    (``legalrag_tpu_torch.scale``: N 1,048,576, V 65,536, d 768 bf16,
    64 x 128 int8 doc tokens, B 64, 32 term slots, 16 query tokens): the
    index synthesized on the card (timed); the CSR BM25 kernel against its
@@ -90,15 +119,18 @@ jax and nothing of the JAX package.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import logging
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -110,11 +142,14 @@ import torch
 from legalrag_tpu_torch import kernels, scale
 from legalrag_tpu_torch.api.server import create_app, shutdown_gracefully
 from legalrag_tpu_torch.api.webcore import TestClient
+from legalrag_tpu_torch.cli import build_graph, build_index, preprocess_law
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.convert import bundle_from_arrays
 from legalrag_tpu_torch.corpus import parse_auto
+from legalrag_tpu_torch.index.bm25_index import BM25Index
 from legalrag_tpu_torch.index.bundle import IndexBundle
-from legalrag_tpu_torch.models.hash_encoder import project_norm
+from legalrag_tpu_torch.ingest.minipdf import build_pdf
+from legalrag_tpu_torch.models.hash_encoder import HashEncoder, project_norm
 from legalrag_tpu_torch.ops.bm25_sparse import (
     bm25_sparse_map,
     bm25_sparse_scores,
@@ -162,11 +197,16 @@ HTTP_THREADS = 16           # client threads sending at once
 HTTP_SERIAL = 64            # /rag/retrieve requests sent one at a time
 HTTP_BATCH_PER_LANG = 64    # questions per language in /rag/retrieve_batch
 HTTP_SSE = 16               # /rag/query SSE streams, one at a time
+INGEST_THREADS = 8          # ingest phase: client threads asking throughout
+INGEST_WINDOW = 128         # /rag/retrieve requests before and after it
+INGEST_RECALL = 64          # self-retrieval queries from the ingested chunks
+INGEST_CPU_CHECKS = 32      # questions held against the CPU twin
 # the kernels each path must launch once per batch (and no other); the
 # serve path's batch is one channels call of the micro-batcher
 PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "serve": ("score_select", "maxsim"),
                 "http": ("score_select", "maxsim"),
+                "ingest": ("score_select", "maxsim"),
                 "large": ("bm25_sparse",)}
 
 
@@ -1500,6 +1540,440 @@ def run_serving(bundles):
 
 # ------------------------------------------------------- large-corpus mode
 
+# ------------------------------------------------------- index lifecycle
+
+# the generic upload: a zh document with no article structure
+GENERIC_ZH = (
+    "合同审查工作指引\n\n"
+    "本指引适用于企业法务部门在签订买卖、租赁和服务合同之前进行的内部审查。"
+    "审查人员应当核对当事人的名称、住所和联系方式，确认签约代表的授权文件真实有效。"
+    "对于金额较大的交易，审查人员还应当查阅对方近三年的经营状况和涉诉记录，"
+    "并在审查意见中写明可能影响履约能力的风险。"
+    "合同的标的、数量和质量条款应当具体明确，避免使用含义模糊的表述。"
+    "价款或者报酬的支付方式、支付期限和发票开具要求应当逐项列明。\n\n"
+    "履行期限和履行地点是审查的重点。审查人员应当结合业务部门的实际安排，"
+    "判断约定的交货时间是否留有合理余地，运输费用和风险转移的时间点是否清楚。"
+    "对于分期履行的合同，应当约定每一期的验收标准和异议期间。"
+    "违约责任条款应当与可能发生的损失相当，违约金过高或者过低都可能在争议中被调整。"
+    "解除条件和通知方式应当写明，以免一方在履行中途无所适从。\n\n"
+    "争议解决条款应当明确选择仲裁或者诉讼，并写明具体的仲裁机构或者管辖法院。"
+    "涉及保密信息的合同应当约定保密范围、保密期限和违反保密义务的后果。"
+    "审查完成后，审查人员应当出具书面意见，由业务部门负责人签字确认后归档保存。"
+    "归档材料包括合同文本、授权文件、审查意见和往来函件，保存期限不少于十年。"
+    "本指引由法务部门负责解释，自发布之日起施行。\n\n"
+    "审查人员发现重大风险时，应当及时向业务部门说明风险的性质、可能造成的损失和建议的应对措施。"
+    "业务部门决定继续签约的，应当在审批单中写明理由，并由分管负责人签字。"
+    "对于格式条款较多的合同，审查人员应当逐条核对免除或者减轻己方责任的条款是否已经以显著方式提示。"
+    "合同签订后发生变更的，变更协议同样需要经过审查，审查意见与原合同一并归档。")
+
+
+def multipart_body(filename: str, content: bytes):
+    """(body, content type) of a multipart upload with one ``file`` field."""
+    boundary = "chipsmokeboundary"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"{filename}\"\r\nContent-Type: application/octet-stream"
+            "\r\n\r\n").encode() + content + f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def http_upload(base: str, filename: str, content: bytes):
+    body, ctype = multipart_body(filename, content)
+    req = urllib.request.Request(base + "/ingest/pdf", data=body,
+                                 headers={"Content-Type": ctype},
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read().decode("utf-8"))
+
+
+def ingest_tree(tmp: Path):
+    """The raw tree with part of the corpus held out: the Civil Code cut
+    before article 1001 and the UCC without articles 8 and 9, under
+    ``tmp/root``; the JSON config that points every path there. Returns
+    (config path, held-out zh text, held-out en text)."""
+    root = tmp / "root"
+    raw = root / "data" / "raw"
+    (raw / "ucc").mkdir(parents=True)
+    src = REPO / "data" / "raw"
+    lines = (src / "minfadian.txt").read_text(encoding="utf-8").splitlines()
+    cut = next(i for i, l in enumerate(lines) if l.startswith("第一千零一条"))
+    (raw / "minfadian.txt").write_text("\n".join(lines[:cut]) + "\n",
+                                       encoding="utf-8")
+    zh_held = "中华人民共和国民法典（续）\n" + "\n".join(lines[cut:])
+    en_held = []
+    for p in sorted((src / "ucc").glob("*.txt")):
+        text = p.read_text(encoding="utf-8")
+        if p.name in ("ucc_8.txt", "ucc_9.txt"):
+            en_held.append(text)
+        else:
+            (raw / "ucc" / p.name).write_text(text, encoding="utf-8")
+    return write_config(root), zh_held, "\n".join(en_held)
+
+
+def write_config(root: Path) -> Path:
+    paths = {"root": str(root), "data_dir": str(root / "data")}
+    for name in ("raw", "processed", "index", "graph", "eval", "uploads"):
+        key = "upload_dir" if name == "uploads" else f"{name}_dir"
+        paths[key] = str(root / "data" / name)
+    path = root / "config.json"
+    path.write_text(json.dumps({"paths": paths}), encoding="utf-8")
+    return path
+
+
+class AppendTimes:
+    """Between ``start`` and ``stop``, the seconds of each step that the
+    ingest worker's jobs take (calls from other threads are not timed),
+    and each append's published state: when, its rows and capacity."""
+
+    STEPS = {"append": (IndexBundle, "add_chunks"),
+             "encode_passages": (HashEncoder, "encode_passages"),
+             "encode_tokens": (HashEncoder, "encode_tokens"),
+             "bm25_rebuild": (BM25Index, "add_texts"),
+             "save": (IndexBundle, "save"),
+             "graph_rebuild": (GraphBuilder, "build_to_file")}
+
+    def __init__(self):
+        self.times = {key: [] for key in self.STEPS}
+        self.published = []
+        self._orig = {key: getattr(cls, name)
+                      for key, (cls, name) in self.STEPS.items()}
+
+    def _timed(self, key, fn):
+        rec = self
+
+        def run(obj, *args, **kwargs):
+            if not threading.current_thread().name.startswith("taskqueue-"):
+                return fn(obj, *args, **kwargs)
+            t0 = time.perf_counter()
+            out = fn(obj, *args, **kwargs)
+            t1 = time.perf_counter()
+            rec.times[key].append(t1 - t0)
+            if key == "append":
+                rec.published.append({
+                    "lang": obj.lang, "at": t1, "rows": out,
+                    "n_docs": obj.n_docs, "capacity": obj.dense.capacity,
+                    "generation": obj.generation})
+            return out
+        return run
+
+    def start(self) -> None:
+        for key, (cls, name) in self.STEPS.items():
+            setattr(cls, name, self._timed(key, self._orig[key]))
+
+    def stop(self) -> None:
+        for key, (cls, name) in self.STEPS.items():
+            setattr(cls, name, self._orig[key])
+
+
+def retrieve_load(base: str, reqs, count=None, stop=None):
+    """``INGEST_THREADS`` client threads send ``/rag/retrieve``, cycling
+    through ``reqs``: ``count`` requests in all, or until ``stop`` is set.
+    Returns [(start time, ms, status, lang, body)]."""
+    out, lock, order = [], threading.Lock(), itertools.count()
+
+    def client():
+        while not (stop is not None and stop.is_set()):
+            i = next(order)
+            if count is not None and i >= count:
+                return
+            lang, q = reqs[i % len(reqs)][:2]
+            t0 = time.perf_counter()
+            status, body = http_json(base, "/rag/retrieve", {"question": q})
+            ms = (time.perf_counter() - t0) * 1e3
+            with lock:
+                out.append((t0, ms, status, lang, body))
+
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(INGEST_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not any(t.is_alive() for t in threads), "ingest: a client hung")
+    return out
+
+
+def latency(window) -> dict:
+    ms = np.array([m for _t, m, _s, _l, _b in window])
+    check(all(s == 200 for _t, _m, s, _l, _b in window),
+          f"ingest: statuses {sorted({s for *_x, s, _l, _b in window})}")
+    return {"requests": len(window), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "max_ms": float(ms.max())}
+
+
+def pdf_pages(text: str, lines_per_page: int = 40):
+    lines = text.split("\n")
+    return ["\n".join(lines[i:i + lines_per_page])
+            for i in range(0, len(lines), lines_per_page)]
+
+
+def phase_ingest(device: str = "cuda"):
+    """The index lifecycle (module docstring, phase 8): the build CLIs on
+    the card, then uploads appended to the served bundles while clients
+    keep asking. ``device`` is the card; a CPU run of the same steps (for
+    a rehearsal) skips what only the card has: kernel launches and
+    timings."""
+    card = device == "cuda"
+    for name in ("torch.webcore", "torch.api.server", "torch.rag_pipeline",
+                 "torch.llm.client", "torch.llm.gateway",
+                 "torch.cli.build_index", "torch.cli.preprocess_law",
+                 "torch.cli.build_graph"):
+        logging.getLogger(name).setLevel(logging.WARNING)
+    logging.getLogger("torch.retrieval.hybrid").handlers = [StageLog()]
+    t_phase = time.perf_counter()
+    (REPO / "build").mkdir(exist_ok=True)
+    stub = OpenAIStub(cite_first_candidate)
+    server = None
+    times = AppendTimes()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        tmp = Path(tmp)
+        cfg_path, zh_held, en_held = ingest_tree(tmp)
+        cli_s = {}
+        for name, run, argv in (
+                ("preprocess_law", preprocess_law.main, []),
+                ("build_index", build_index.main,
+                 ["--index-version", "v1", "--activate", "--device", device]),
+                ("build_graph", build_graph.main, [])):
+            t0 = time.perf_counter()
+            run(["--config", str(cfg_path)] + argv)
+            if card:
+                torch.cuda.synchronize()
+            cli_s[name] = time.perf_counter() - t0
+        # the CPU twin starts from a copy of the same root
+        shutil.copytree(tmp / "root", tmp / "cpu_root")
+        cpu_cfg = AppConfig.load(write_config(tmp / "cpu_root"))
+        cfg = AppConfig.load(cfg_path)
+        for c in (cfg, cpu_cfg):
+            c.llm.provider, c.llm.base_url = "openai", stub.url
+            c.llm.api_key = "sk-chip-smoke"
+        cpu_cfg.server.prewarm_buckets = 0
+        docs = [("minfadian_1001_1260.pdf", build_pdf(pdf_pages(zh_held))),
+                ("ucc_8_9.txt", en_held.encode("utf-8")),
+                ("contract_review_guide.txt", GENERIC_ZH.encode("utf-8"))]
+        try:
+            t0 = time.perf_counter()
+            app = create_app(cfg, build_async=False, device=device)
+            startup_s = time.perf_counter() - t0
+            st = app.state
+            check(st.error is None and st.warmup_done, f"ingest: {st.error}")
+            server = app.serve("127.0.0.1", 0)
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            cache = st.pipeline.retriever.cache
+            bundles = {lang: cache.get(lang) for lang in ("zh", "en")}
+            base_n = {lang: b.n_docs for lang, b in bundles.items()}
+            check(base_n["zh"] == 1000 and bundles["zh"].dense.capacity == 1024,
+                  f"ingest: the cut zh bundle holds {base_n['zh']} rows at "
+                  f"capacity {bundles['zh'].dense.capacity}")
+            hrs = {lang: st.pipeline.retriever.retriever(lang)
+                   for lang in bundles}
+            batchers = [hr._batcher for hr in hrs.values()]
+            reqs = http_questions(bundles)
+            before = retrieve_load(base, reqs, count=INGEST_WINDOW)
+
+            # the uploads, while the clients keep asking
+            e0 = sum(b.executions for b in batchers)
+            if card:
+                torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            times.start()
+            stop, during = threading.Event(), []
+            load = threading.Thread(target=lambda: during.extend(
+                retrieve_load(base, reqs, stop=stop)), daemon=True)
+            load.start()
+            t_ingest = time.perf_counter()
+            uploads = []
+            try:
+                for name, content in docs:
+                    t0 = time.perf_counter()
+                    status, body = http_upload(base, name, content)
+                    check(status == 200, f"ingest {name}: {status} {body}")
+                    uploads.append({"name": name, "bytes": len(content),
+                                    "doc_id": body["doc_id"],
+                                    "chunks": body["chunks"], "sent": t0,
+                                    "response_s": time.perf_counter() - t0})
+                pending = {u["doc_id"] for u in uploads}
+                deadline = time.perf_counter() + 300
+                while pending:
+                    check(time.perf_counter() < deadline,
+                          f"ingest: {sorted(pending)} not added in 300 s")
+                    for u in uploads:
+                        if u["doc_id"] not in pending:
+                            continue
+                        status, body = http_json(
+                            base, f"/ingest/status/{u['doc_id']}")
+                        s = body["status"]
+                        check(status == 200 and not any(
+                            v.startswith("error") for v in s.values()),
+                            f"ingest {u['name']}: {status} {s}")
+                        now = time.perf_counter() - u["sent"]
+                        if {s["faiss"], s["bm25"], s["colbert"]} == {"added"}:
+                            u.setdefault("index_added_s", now)
+                        if s["graph"] == "added":
+                            u.setdefault("graph_added_s", now)
+                        if set(s.values()) == {"added"}:
+                            pending.discard(u["doc_id"])
+                    time.sleep(0.02)
+                ingest_s = time.perf_counter() - t_ingest
+            finally:
+                stop.set()
+                load.join(600)
+                times.stop()
+            check(not load.is_alive(), "ingest: the client load hung")
+            check(st.ingest.queue.join(timeout=60), "ingest: queue not drained")
+
+            # after the ingest, on the grown stores
+            grown = {lang: cache.get(lang) for lang in bundles}
+            check(all(grown[lang] is bundles[lang]
+                      and st.pipeline.retriever.retriever(lang) is hrs[lang]
+                      for lang in bundles),
+                  "ingest: the served bundle or retriever was replaced")
+            rec = KernelInputs(grown)
+            rec.start()
+            try:
+                after = retrieve_load(base, reqs, count=INGEST_WINDOW)
+            finally:
+                rec.stop()
+            if card:
+                torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            calls = sum(b.executions for b in batchers) - e0
+            if card:
+                check_launches("ingest", launches, calls)
+
+            # what the uploads left
+            up = {u["name"]: u for u in uploads}
+            zh_doc, en_doc, gen_doc = (up[n]["doc_id"] for n, _c in docs)
+            check(up[docs[0][0]]["chunks"] == 260,
+                  f"ingest: the zh statute gave {up[docs[0][0]]['chunks']}")
+            want_n = {"zh": 1260 + up[docs[2][0]]["chunks"],
+                      "en": base_n["en"] + up[docs[1][0]]["chunks"]}
+            stores = {}
+            for lang, b in grown.items():
+                manifest = json.loads((cache.index_dir(lang) / "manifest.json")
+                                      .read_text(encoding="utf-8"))
+                stores[lang] = {"n_docs": b.n_docs, "generation": b.generation,
+                                "manifest_generation": manifest["generation"],
+                                "dense_capacity": b.dense.capacity,
+                                "token_capacity": b.tokens.capacity,
+                                "impact": list(b.bm25.impact.shape)}
+                check(b.n_docs == want_n[lang] == b.tokens.n
+                      == manifest["n_docs"],
+                      f"ingest {lang}: {b.n_docs} rows, want {want_n[lang]}")
+                check(b.generation == manifest["generation"]
+                      == {"zh": 3, "en": 2}[lang],
+                      f"ingest {lang}: generation {stores[lang]}")
+                check(b.dense.capacity == b.tokens.capacity
+                      == -(-b.n_docs // 1024) * 1024,
+                      f"ingest {lang}: capacity {stores[lang]}")
+            check(stores["zh"]["dense_capacity"] == 2048,
+                  "ingest: zh did not cross to capacity 2048")
+            for u in uploads:
+                status, prev = http_json(
+                    base, f"/debug/ingest/preview?doc_id={u['doc_id']}")
+                check(status == 200 and prev["n_chunks"] == u["chunks"]
+                      and len(prev["chunks"]) == min(5, u["chunks"])
+                      and all(c["id"].startswith(u["doc_id"] + ":")
+                              for c in prev["chunks"]),
+                      f"ingest preview {u['name']}: {status}")
+            ingested = [c for c in grown["zh"].chunks + grown["en"].chunks
+                        if c.source in (f"ingest:{zh_doc}", f"ingest:{en_doc}")]
+            check(all(c.id == f"{c.source[7:]}:{c.article_id}"
+                      for c in ingested), "ingest: statute chunk ids")
+
+            # the first zh request sent after the crossing was published
+            crossed = next(p for p in times.published
+                           if p["lang"] == "zh" and p["capacity"] == 2048)
+            firsts = sorted((t, ms) for t, ms, _s, lang, _b in during
+                            if lang == "zh" and t >= crossed["at"])
+            check(firsts, "ingest: no zh request after the crossing")
+
+            # self-retrieval of the ingested statute chunks
+            qs, gold = make_queries(types.SimpleNamespace(
+                chunks=ingested, n_docs=len(ingested)), INGEST_RECALL)
+            found = []
+            for q, g in zip(qs, gold):
+                status, body = http_json(base, "/rag/retrieve", {"question": q})
+                check(status == 200, f"ingest recall: {status}")
+                found.append((ingested[g].lang, ingested[g].id in
+                              {h["chunk"]["id"] for h in body["hits"]}))
+            recall = {lang: float(np.mean([ok for l, ok in found if l == lang]))
+                      for lang in ("zh", "en")}
+            check(recall["zh"] >= 0.9 and recall["en"] >= 0.3,
+                  f"ingest: Recall@10 of the ingested chunks {recall}")
+
+            # the same uploads in the same order through the CPU twin
+            cpu_app = create_app(cpu_cfg, build_async=False, device="cpu")
+            check(cpu_app.state.error is None, "ingest: CPU app")
+            cpu = TestClient(cpu_app)
+            for (name, content), u in zip(docs, uploads):
+                body, ctype = multipart_body(name, content)
+                r = cpu.post("/ingest/pdf", body=body,
+                             headers={"content-type": ctype})
+                check(r.status == 200 and r.json()["doc_id"] == u["doc_id"],
+                      f"ingest CPU twin {name}: {r.status}")
+            check(cpu_app.state.ingest.queue.join(timeout=600),
+                  "ingest: CPU twin queue")
+            for u in uploads:
+                check(set(cpu_app.state.ingest.get_status(
+                    u["doc_id"]).values()) == {"added"}, "ingest: CPU status")
+            files = [(cache.index_dir(lang) / "chunks.jsonl",
+                      cpu_app.state.pipeline.retriever.cache.index_dir(lang)
+                      / "chunks.jsonl") for lang in ("zh", "en")]
+            files += [(Path(cfg.paths.processed_dir) / f"ingested_{u['doc_id']}.jsonl",
+                       Path(cpu_cfg.paths.processed_dir)
+                       / f"ingested_{u['doc_id']}.jsonl") for u in uploads]
+            for mine, twin in files:
+                check(mine.read_bytes() == twin.read_bytes(),
+                      f"ingest: {mine.name} differs from the CPU twin's")
+            cpu_swaps = 0
+            checks = ([q for q in qs[:INGEST_CPU_CHECKS // 2]]
+                      + [r[1] for r in reqs[:INGEST_CPU_CHECKS // 2]])
+            for q in checks:
+                _s, got = http_json(base, "/rag/retrieve", {"question": q})
+                want = cpu.post("/rag/retrieve", json_body={"question": q}).json()
+                check(got["decision"] == want["decision"],
+                      f"ingest: decisions differ for {q!r}")
+                cpu_swaps += same_hits(
+                    [RetrievalHit.from_dict(h) for h in want["hits"]],
+                    [RetrievalHit.from_dict(h) for h in got["hits"]], 1e-4,
+                    f"ingest vs CPU twin {q!r}")
+            kernels_after = check_serve_kernels(rec) if card else None
+            if card:
+                check(any(lang == "zh" and rec.dense[lang, b][0].shape[0] == 2048
+                          for lang, b in rec.dense),
+                      "ingest: kernels not held at the grown zh store")
+            shutdown_gracefully(st, server, 0.0)
+            server = None
+        finally:
+            times.stop()
+            if server is not None:
+                server.shutdown()
+                server.server_close()
+            stub.close()
+    for u in uploads:
+        u.pop("sent")
+    res = {"phase": "ingest", "device": device, "cli_s": cli_s,
+           "startup_s": startup_s, "threads": INGEST_THREADS,
+           "uploads": uploads, "ingest_s": ingest_s,
+           "append_steps_s": times.times,
+           "published": [{k: v for k, v in p.items() if k != "at"}
+                         for p in times.published],
+           "retrieve_before": latency(before),
+           "retrieve_during": latency(during),
+           "retrieve_after": latency(after),
+           "first_zh_after_crossing_ms": firsts[0][1],
+           "zh_during_after_crossing_p50_ms": float(np.percentile(
+               [ms for _t, ms in firsts], 50)),
+           "stores": stores, "base_n_docs": base_n,
+           "recall_at_10_ingested": recall, "recall_queries": len(qs),
+           "cpu_twin_checks": len(checks), "cpu_twin_tie_swaps": cpu_swaps,
+           "channel_calls": calls, "launches": launches,
+           "kernels_after_crossing": kernels_after,
+           "phase_seconds": time.perf_counter() - t_phase,
+           "nvidia_smi": nvidia_smi() if card else None}
+    emit(res)
+    return res
+
+
 def check_bm25_kernel(index, q, params):
     """Kernel 4 (CSR BM25) against its plain version on the same card
     tensors, at the scale point's shapes, with timings and the bound."""
@@ -1734,9 +2208,10 @@ def main() -> int:
     e2e = {lang: phase_e2e(lang, bundles[lang]) for lang in ("zh", "en")}
     serve, http = run_serving(bundles)
     del bundles
+    ingest = phase_ingest()
     kres["bm25_sparse"], large = phase_large()
     runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
-            "large": [large]}
+            "ingest": [ingest], "large": [large]}
     summary = []
     for name, k in kres.items():
         by_path = {p: sum(r["launches"][name] for r in rs)
