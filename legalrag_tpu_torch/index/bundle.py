@@ -199,33 +199,34 @@ class IndexBundle:
 
     # --------------------------------------------------------------- persist
     def save(self, index_dir: str | Path) -> None:
+        st = self.state  # one generation, whatever an append publishes
         d = Path(index_dir)
         d.mkdir(parents=True, exist_ok=True)
         with file_lock(d / ".lock"):
             # meta before payloads: a crash can leave extra meta but never
             # a payload row without meta
-            write_chunks_jsonl(self.chunks, d / "chunks.jsonl")
-            self.dense.save(d / "dense.npz")
-            self.bm25.save(d / "bm25.npz")
+            write_chunks_jsonl(st.chunks, d / "chunks.jsonl")
+            st.dense.save(d / "dense.npz")
+            st.bm25.save(d / "bm25.npz")
             if self.cfg.retrieval.enable_colbert:
-                self.tokens.save(d / "tokens.npz")
-            np.savez_compressed(d / "encoder.npz", **self.encoder.state())
+                st.tokens.save(d / "tokens.npz")
+            np.savez_compressed(d / "encoder.npz", **st.encoder.state())
             manifest = {
                 "schema_version": SCHEMA_VERSION,
                 "tokenize_fingerprint": TOKENIZE_FINGERPRINT,
                 "lang": self.lang,
-                "n_docs": self.n_docs,
-                "dim": self.dense.dim,
-                "token_dim": self.tokens.token_dim,
-                "doc_maxlen": self.tokens.doc_maxlen,
-                "generation": self.generation,
+                "n_docs": len(st.chunks),
+                "dim": st.dense.dim,
+                "token_dim": st.tokens.token_dim,
+                "doc_maxlen": st.tokens.doc_maxlen,
+                "generation": st.generation,
                 "embedding_backend": self.cfg.retrieval.embedding_backend,
                 "created_unix": time.time(),
             }
             tmp = d / "manifest.json.tmp"
             tmp.write_text(json.dumps(manifest, indent=2), encoding="utf-8")
             os.replace(tmp, d / "manifest.json")
-        log.info("[%s] saved index (n=%d) -> %s", self.lang, self.n_docs, d)
+        log.info("[%s] saved index (n=%d) -> %s", self.lang, len(st.chunks), d)
 
     @classmethod
     def load(cls, index_dir: str | Path, cfg: AppConfig, lang: str,

@@ -494,6 +494,60 @@ def test_request_in_the_middle_of_an_append_reads_the_state_before_it(
     assert tb.n_docs == jb.n_docs == 160 and tb.generation == jb.generation
 
 
+def test_appends_under_concurrent_reads_publish_whole_states(en_chunks):
+    """Stress: 6 reader threads (more than this test's appends need) serve
+    channels calls and read states while a writer appends 10 batches, with
+    the interpreter switching threads every 10 us. Every state a reader
+    takes has its stores, chunks and id map of one size, and every row a
+    channels call returns lies inside the state it read."""
+    _jcfg, cfg = small_configs()
+    cfg.engine.capacity_round = 16     # a capacity crossing every few appends
+    chunks = port_chunks(en_chunks[:90])
+    tb = IndexBundle.build_from_chunks(chunks[:40], cfg, "en", device="cpu")
+    hr = HybridRetriever(tb, cfg)
+    questions = [c.text[:80] for c in chunks[40:90:7]]
+    errors, seen, done = [], [], threading.Event()
+
+    def reader(k):
+        i = 0
+        while not done.is_set():
+            try:
+                st = tb.state
+                n = len(st.chunks)
+                assert st.dense.n == st.tokens.n == st.bm25.n == n
+                assert len(st.id2row) == n
+                assert st.dense.capacity >= n and st.tokens.capacity >= n
+                out = hr._channels_topk_batch([questions[(i + k) % len(
+                    questions)]], 20)
+                top = max(int(out[ch][1].max()) for ch in
+                          ("dense", "bm25", "colbert"))
+                assert top < tb.n_docs
+                seen.append(n)
+            except Exception as e:  # reported below, with the thread's stop
+                errors.append(repr(e))
+                return
+            i += 1
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=reader, args=(k,)) for k in range(6)]
+        for t in threads:
+            t.start()
+        for lo in range(40, 90, 5):
+            assert tb.add_chunks(chunks[lo:lo + 5]) == 5
+    finally:
+        done.set()
+        for t in threads:
+            t.join(60)
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+    assert tb.n_docs == 90 and tb.generation == 11
+    assert tb.dense.capacity == tb.tokens.capacity == 96
+    assert len(set(seen)) > 2   # the readers saw several generations
+
+
 # ------------------------------------------------- activation and the cache
 
 @pytest.mark.parametrize("package", ["port", "jax"])
