@@ -1925,7 +1925,7 @@ def phase_ingest(device: str = "cuda"):
                 check(mine.read_bytes() == twin.read_bytes(),
                       f"ingest: {mine.name} differs from the CPU twin's")
             cpu_swaps = 0
-            checks = ([q for q in qs[:INGEST_CPU_CHECKS // 2]]
+            checks = (qs[:INGEST_CPU_CHECKS // 2]
                       + [r[1] for r in reqs[:INGEST_CPU_CHECKS // 2]])
             for q in checks:
                 _s, got = http_json(base, "/rag/retrieve", {"question": q})

@@ -18,8 +18,9 @@ language's index directory through the registry's ``ACTIVE`` pointer
 on the defaults as pydantic's ``model_validate`` does: keys the port does
 not have (the decoder knobs) are ignored.
 
-Left out on purpose: ``engine.kernel_backend`` and ``engine.dense_tile_n``
-and ``retrieval.graph_weight`` (declared in the JAX package, read nowhere).
+Left out on purpose: ``engine.kernel_backend``, ``engine.dense_tile_n``,
+``retrieval.graph_weight`` and ``pdf.ingest_rebuild_colbert`` (declared in
+the JAX package, read nowhere).
 The port picks a kernel by the device of its tensors: a CUDA tensor goes to
 the hand-written kernel, a CPU tensor to its plain PyTorch version. There is
 no routing knob.
@@ -180,7 +181,6 @@ class PDFConfig:
     statute_coverage_min: float = 0.3
     statute_gap_ratio_max: float = 0.5
     statute_avg_len_ratio_max: float = 0.12
-    ingest_rebuild_colbert: bool = True
     ingest_rebuild_graph: bool = True
 
 
