@@ -146,10 +146,9 @@ from legalrag_tpu_torch.cli import build_graph, build_index, preprocess_law
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.convert import bundle_from_arrays
 from legalrag_tpu_torch.corpus import parse_auto
-from legalrag_tpu_torch.index.bm25_index import BM25Index
 from legalrag_tpu_torch.index.bundle import IndexBundle
 from legalrag_tpu_torch.ingest.minipdf import build_pdf
-from legalrag_tpu_torch.models.hash_encoder import HashEncoder, project_norm
+from legalrag_tpu_torch.models.hash_encoder import project_norm
 from legalrag_tpu_torch.ops.bm25_sparse import (
     bm25_sparse_map,
     bm25_sparse_scores,
@@ -1619,49 +1618,48 @@ def write_config(root: Path) -> Path:
     return path
 
 
-class AppendTimes:
-    """Between ``start`` and ``stop``, the seconds of each step that the
-    ingest worker's jobs take (calls from other threads are not timed),
-    and each append's published state: when, its rows and capacity."""
+class AppendLog(logging.Handler):
+    """Between ``start`` and ``stop``, the ingest worker's step seconds as
+    the bundle and the orchestrator log them (``[zh] appended N chunks
+    (encode Es, bm25 Bs) -> n=.. capacity=.. generation=..``, ``[zh]
+    ingest DOC: ... append As, save Ss``, ``[zh] graph DOC: ..., Gs``),
+    and each append's published state with the time its line came."""
 
-    STEPS = {"append": (IndexBundle, "add_chunks"),
-             "encode_passages": (HashEncoder, "encode_passages"),
-             "encode_tokens": (HashEncoder, "encode_tokens"),
-             "bm25_rebuild": (BM25Index, "add_texts"),
-             "save": (IndexBundle, "save"),
-             "graph_rebuild": (GraphBuilder, "build_to_file")}
+    LOGGERS = ("torch.index.bundle", "torch.ingest.orchestrator")
+    APPENDED = re.compile(r"\[(\w+)\] appended (\d+) chunks \(encode "
+                          r"([0-9.]+)s, bm25 ([0-9.]+)s\) -> n=(\d+) "
+                          r"capacity=(\d+) generation=(\d+)$")
+    INGEST = re.compile(r"\[\w+\] ingest .*, append ([0-9.]+)s, "
+                        r"save ([0-9.]+)s$")
+    GRAPH = re.compile(r"\[\w+\] graph .*, ([0-9.]+)s$")
 
     def __init__(self):
-        self.times = {key: [] for key in self.STEPS}
+        super().__init__()
+        self.times = {key: [] for key in ("append", "encode", "bm25_rebuild",
+                                          "save", "graph_rebuild")}
         self.published = []
-        self._orig = {key: getattr(cls, name)
-                      for key, (cls, name) in self.STEPS.items()}
 
-    def _timed(self, key, fn):
-        rec = self
-
-        def run(obj, *args, **kwargs):
-            if not threading.current_thread().name.startswith("taskqueue-"):
-                return fn(obj, *args, **kwargs)
-            t0 = time.perf_counter()
-            out = fn(obj, *args, **kwargs)
-            t1 = time.perf_counter()
-            rec.times[key].append(t1 - t0)
-            if key == "append":
-                rec.published.append({
-                    "lang": obj.lang, "at": t1, "rows": out,
-                    "n_docs": obj.n_docs, "capacity": obj.dense.capacity,
-                    "generation": obj.generation})
-            return out
-        return run
+    def emit(self, record):
+        at, msg = time.perf_counter(), record.getMessage()
+        if m := self.APPENDED.match(msg):
+            self.times["encode"].append(float(m[3]))
+            self.times["bm25_rebuild"].append(float(m[4]))
+            self.published.append({
+                "lang": m[1], "at": at, "rows": int(m[2]), "n_docs": int(m[5]),
+                "capacity": int(m[6]), "generation": int(m[7])})
+        elif m := self.INGEST.match(msg):
+            self.times["append"].append(float(m[1]))
+            self.times["save"].append(float(m[2]))
+        elif m := self.GRAPH.match(msg):
+            self.times["graph_rebuild"].append(float(m[1]))
 
     def start(self) -> None:
-        for key, (cls, name) in self.STEPS.items():
-            setattr(cls, name, self._timed(key, self._orig[key]))
+        for name in self.LOGGERS:
+            logging.getLogger(name).addHandler(self)
 
     def stop(self) -> None:
-        for key, (cls, name) in self.STEPS.items():
-            setattr(cls, name, self._orig[key])
+        for name in self.LOGGERS:
+            logging.getLogger(name).removeHandler(self)
 
 
 def retrieve_load(base: str, reqs, count=None, stop=None):
@@ -1706,13 +1704,10 @@ def pdf_pages(text: str, lines_per_page: int = 40):
             for i in range(0, len(lines), lines_per_page)]
 
 
-def phase_ingest(device: str = "cuda"):
+def phase_ingest():
     """The index lifecycle (module docstring, phase 8): the build CLIs on
     the card, then uploads appended to the served bundles while clients
-    keep asking. ``device`` is the card; a CPU run of the same steps (for
-    a rehearsal) skips what only the card has: kernel launches and
-    timings."""
-    card = device == "cuda"
+    keep asking; a CPU twin of the server takes the same uploads."""
     for name in ("torch.webcore", "torch.api.server", "torch.rag_pipeline",
                  "torch.llm.client", "torch.llm.gateway",
                  "torch.cli.build_index", "torch.cli.preprocess_law",
@@ -1723,7 +1718,7 @@ def phase_ingest(device: str = "cuda"):
     (REPO / "build").mkdir(exist_ok=True)
     stub = OpenAIStub(cite_first_candidate)
     server = None
-    times = AppendTimes()
+    times = AppendLog()
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         tmp = Path(tmp)
         cfg_path, zh_held, en_held = ingest_tree(tmp)
@@ -1731,12 +1726,11 @@ def phase_ingest(device: str = "cuda"):
         for name, run, argv in (
                 ("preprocess_law", preprocess_law.main, []),
                 ("build_index", build_index.main,
-                 ["--index-version", "v1", "--activate", "--device", device]),
+                 ["--index-version", "v1", "--activate", "--device", "cuda"]),
                 ("build_graph", build_graph.main, [])):
             t0 = time.perf_counter()
             run(["--config", str(cfg_path)] + argv)
-            if card:
-                torch.cuda.synchronize()
+            torch.cuda.synchronize()
             cli_s[name] = time.perf_counter() - t0
         # the CPU twin starts from a copy of the same root
         shutil.copytree(tmp / "root", tmp / "cpu_root")
@@ -1751,7 +1745,7 @@ def phase_ingest(device: str = "cuda"):
                 ("contract_review_guide.txt", GENERIC_ZH.encode("utf-8"))]
         try:
             t0 = time.perf_counter()
-            app = create_app(cfg, build_async=False, device=device)
+            app = create_app(cfg, build_async=False, device="cuda")
             startup_s = time.perf_counter() - t0
             st = app.state
             check(st.error is None and st.warmup_done, f"ingest: {st.error}")
@@ -1771,8 +1765,7 @@ def phase_ingest(device: str = "cuda"):
 
             # the uploads, while the clients keep asking
             e0 = sum(b.executions for b in batchers)
-            if card:
-                torch.cuda.synchronize()
+            torch.cuda.synchronize()
             kernels.reset_launch_counts()
             times.start()
             stop, during = threading.Event(), []
@@ -1832,12 +1825,10 @@ def phase_ingest(device: str = "cuda"):
                 after = retrieve_load(base, reqs, count=INGEST_WINDOW)
             finally:
                 rec.stop()
-            if card:
-                torch.cuda.synchronize()
+            torch.cuda.synchronize()
             launches = kernels.launch_counts()
             calls = sum(b.executions for b in batchers) - e0
-            if card:
-                check_launches("ingest", launches, calls)
+            check_launches("ingest", launches, calls)
 
             # what the uploads left
             up = {u["name"]: u for u in uploads}
@@ -1936,11 +1927,10 @@ def phase_ingest(device: str = "cuda"):
                     [RetrievalHit.from_dict(h) for h in want["hits"]],
                     [RetrievalHit.from_dict(h) for h in got["hits"]], 1e-4,
                     f"ingest vs CPU twin {q!r}")
-            kernels_after = check_serve_kernels(rec) if card else None
-            if card:
-                check(any(lang == "zh" and rec.dense[lang, b][0].shape[0] == 2048
-                          for lang, b in rec.dense),
-                      "ingest: kernels not held at the grown zh store")
+            kernels_after = check_serve_kernels(rec)
+            check(any(lang == "zh" and rec.dense[lang, b][0].shape[0] == 2048
+                      for lang, b in rec.dense),
+                  "ingest: kernels not held at the grown zh store")
             shutdown_gracefully(st, server, 0.0)
             server = None
         finally:
@@ -1951,7 +1941,7 @@ def phase_ingest(device: str = "cuda"):
             stub.close()
     for u in uploads:
         u.pop("sent")
-    res = {"phase": "ingest", "device": device, "cli_s": cli_s,
+    res = {"phase": "ingest", "cli_s": cli_s,
            "startup_s": startup_s, "threads": INGEST_THREADS,
            "uploads": uploads, "ingest_s": ingest_s,
            "append_steps_s": times.times,
@@ -1969,7 +1959,7 @@ def phase_ingest(device: str = "cuda"):
            "channel_calls": calls, "launches": launches,
            "kernels_after_crossing": kernels_after,
            "phase_seconds": time.perf_counter() - t_phase,
-           "nvidia_smi": nvidia_smi() if card else None}
+           "nvidia_smi": nvidia_smi()}
     emit(res)
     return res
 

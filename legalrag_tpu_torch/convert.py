@@ -36,7 +36,7 @@ import torch
 
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.index.bm25_index import BM25Index
-from legalrag_tpu_torch.index.bundle import IndexBundle
+from legalrag_tpu_torch.index.bundle import BundleState, IndexBundle
 from legalrag_tpu_torch.models.hash_encoder import HashEncoder
 from legalrag_tpu_torch.index.token_index import TokenIndex
 from legalrag_tpu_torch.schemas import LawChunk
@@ -60,27 +60,29 @@ def bundle_from_arrays(arrays: Mapping[str, object],
     state = arrays["encoder"]
     lang = str(state["lang"])
     b = IndexBundle(lang, cfg, device)
-    b.encoder = encoder_from_jax(state, arrays["proj"], b.device)
-    b.chunks = list(chunks)
-    b.id2row = {c.id: i for i, c in enumerate(b.chunks)}
+    chunks = list(chunks)
     n = int(arrays["n"])
-    b.dense.add(np.asarray(arrays["emb"], np.float32)[:n])
-    b.bm25 = BM25Index.from_csr(
-        lang, vocab, np.asarray(arrays["flat_ids"]),
-        np.asarray(arrays["flat_tfs"]), np.asarray(arrays["offsets"]),
-        np.asarray(arrays["bm25_params"]), b.device,
-        impact=np.asarray(arrays["impact"], np.float32))
+    dense = b.dense  # the new bundle's empty stores, filled before publishing
+    dense.add(np.asarray(arrays["emb"], np.float32)[:n])
+    tokens = b.tokens
     if "tok" in arrays:
         tok = np.asarray(arrays["tok"])
         mask = np.asarray(arrays["mask"], bool)[:n]
         if tok.dtype == np.int8:
             e = cfg.engine
-            b.tokens = TokenIndex(e.late_dim, e.late_doc_maxlen, "int8",
-                                  e.capacity_round, b.device)
-            b.tokens.add_quantized(tok[:n], mask)
+            tokens = TokenIndex(e.late_dim, e.late_doc_maxlen, "int8",
+                                e.capacity_round, b.device)
+            tokens.add_quantized(tok[:n], mask)
         else:
-            b.tokens.add(np.asarray(tok, np.float32)[:n], mask)
-    b.generation = 1
+            tokens.add(np.asarray(tok, np.float32)[:n], mask)
+    bm25 = BM25Index.from_csr(
+        lang, vocab, np.asarray(arrays["flat_ids"]),
+        np.asarray(arrays["flat_tfs"]), np.asarray(arrays["offsets"]),
+        np.asarray(arrays["bm25_params"]), b.device,
+        impact=np.asarray(arrays["impact"], np.float32))
+    b.state = BundleState(
+        encoder_from_jax(state, arrays["proj"], b.device), dense, bm25,
+        tokens, chunks, {c.id: i for i, c in enumerate(chunks)}, 1)
     return b
 
 

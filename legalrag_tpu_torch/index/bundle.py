@@ -25,7 +25,8 @@ with each other. A reader that reads ``bundle.dense``, ``bundle.bm25``, ...
 one at a time gets each from the state current at that moment; states
 only grow, so rows that an earlier read gave it are valid in every later
 one. A store grown in place writes only rows past the ``n`` of the states
-that readers may hold, and readers mask those rows.
+that readers may hold, and readers mask those rows. Those fields are
+read-only: a state is published whole, by a build, a load or an append.
 """
 
 from __future__ import annotations
@@ -78,20 +79,10 @@ class BundleState:
     generation: int
 
 
-class _Published:
-    """A field of the bundle's current ``BundleState``. Setting one (at
-    build or load time) publishes a state with that field replaced."""
-
-    def __set_name__(self, owner, name: str) -> None:
-        self.name = name
-
-    def __get__(self, obj, owner=None):
-        if obj is None:
-            return self
-        return getattr(obj.state, self.name)
-
-    def __set__(self, obj, value) -> None:
-        obj.state = dataclasses.replace(obj.state, **{self.name: value})
+def _published(name: str) -> property:
+    """A read-only field of the bundle's current ``BundleState``."""
+    return property(lambda self: getattr(self.state, name),
+                    doc=f"``state.{name}``")
 
 
 def _check_backend(cfg: AppConfig) -> None:
@@ -101,21 +92,23 @@ def _check_backend(cfg: AppConfig) -> None:
 
 
 class IndexBundle:
-    encoder = _Published()
-    dense = _Published()
-    bm25 = _Published()
-    tokens = _Published()
-    chunks = _Published()
-    id2row = _Published()
-    generation = _Published()
+    encoder = _published("encoder")
+    dense = _published("dense")
+    bm25 = _published("bm25")
+    tokens = _published("tokens")
+    chunks = _published("chunks")
+    id2row = _published("id2row")
+    generation = _published("generation")
 
     def __init__(self, lang: str, cfg: AppConfig, device: DeviceLike = None):
         self.lang = lang
         self.cfg = cfg
         self.device = resolve_device(device)
         r, e = cfg.retrieval, cfg.engine
+        # empty stores; build, load and convert.bundle_from_arrays publish
+        # the first full state
         self.state = BundleState(
-            encoder=None,  # set in build/load
+            encoder=None,
             dense=DenseIndex(r.embedding_dim, e.dtype, e.capacity_round,
                              self.device),
             bm25=BM25Index(lang, r.bm25_k1, r.bm25_b, r.bm25_epsilon,
@@ -135,24 +128,26 @@ class IndexBundle:
                           ) -> "IndexBundle":
         _check_backend(cfg)
         b = cls(lang, cfg, device)
-        b.encoder = encoder or HashEncoder(
+        b.state = dataclasses.replace(b.state, encoder=encoder or HashEncoder(
             lang=lang, dim=cfg.retrieval.embedding_dim,
-            token_dim=cfg.engine.late_dim, device=b.device)
-        b.encoder.fit_idf([c.text for c in chunks])
-        b._append(list(chunks))
+            token_dim=cfg.engine.late_dim, device=b.device))
+        b.add_chunks(chunks)
         return b
 
-    def _append(self, chunks: List[LawChunk], grow_idf: bool = False) -> int:
-        """Append the chunks new to this bundle and publish the grown state;
-        returns the number added. With ``grow_idf`` the encoder's document
-        frequencies take in the new chunks first (in a copy)."""
+    def add_chunks(self, chunks: Sequence[LawChunk]) -> int:
+        """Append the chunks new to this bundle (deduplicated by chunk id)
+        and publish the grown state; returns the number added. The
+        encoder's idf takes in the fresh chunks first
+        (``legalrag_tpu/index/bundle.py:135-142``); at build time they are
+        the whole corpus. The grown encoder and stores are built aside:
+        requests served meanwhile read the state from before the append."""
         with self._append_lock:
             cur = self.state
             fresh = [c for c in chunks if c.id not in cur.id2row]
             if not fresh:
                 return 0
             texts = [c.text for c in fresh]
-            enc = cur.encoder.with_idf(texts) if grow_idf else cur.encoder
+            enc = cur.encoder.with_idf(texts)
             colbert = self.cfg.retrieval.enable_colbert
             t0 = time.time()
             vecs = enc.encode_passages(texts)
@@ -178,17 +173,10 @@ class IndexBundle:
             t_bm25 = time.time() - t0
             self.state = BundleState(enc, dense, bm25, tokens, chunks_after,
                                      id2row, cur.generation + 1)
-        log.info("[%s] appended %d chunks (encode %.2fs, bm25 %.2fs) -> n=%d",
-                 self.lang, len(fresh), t_enc, t_bm25, len(chunks_after))
+        log.info("[%s] appended %d chunks (encode %.6fs, bm25 %.6fs) -> n=%d "
+                 "capacity=%d generation=%d", self.lang, len(fresh), t_enc,
+                 t_bm25, len(chunks_after), dense.capacity, cur.generation + 1)
         return len(fresh)
-
-    def add_chunks(self, chunks: Sequence[LawChunk]) -> int:
-        """Incremental add (the ingest path), deduplicated by chunk id: the
-        encoder's idf takes in the fresh chunks first, then they are
-        appended (``legalrag_tpu/index/bundle.py:135-142``). The grown
-        encoder and stores are built aside: requests served meanwhile read
-        the state from before the append."""
-        return self._append(list(chunks), grow_idf=True)
 
     def row_chunks(self, rows: Sequence[int]) -> List[LawChunk]:
         return [self.chunks[r] for r in rows]
@@ -243,28 +231,28 @@ class IndexBundle:
             raise NotImplementedError("only hash-encoder bundles load in the "
                                       "port yet")
         b = cls(lang, cfg, device)
-        b.generation = int(manifest.get("generation", 0))
-        b.chunks = list(iter_chunks_from_file(d / "chunks.jsonl"))
-        b.id2row = {c.id: i for i, c in enumerate(b.chunks)}
+        chunks = list(iter_chunks_from_file(d / "chunks.jsonl"))
         z = np.load(d / "encoder.npz", allow_pickle=False)
-        b.encoder = HashEncoder.from_state({k: z[k] for k in z.files},
-                                           device=b.device)
+        encoder = HashEncoder.from_state({k: z[k] for k in z.files},
+                                         device=b.device)
         e = cfg.engine
-        b.dense = DenseIndex.load(d / "dense.npz", e.dtype, e.capacity_round,
-                                  b.device)
-        b.bm25 = BM25Index.load(d / "bm25.npz", b.device)
+        dense = DenseIndex.load(d / "dense.npz", e.dtype, e.capacity_round,
+                                b.device)
+        tokens = b.tokens
         tok_path = d / "tokens.npz"
         if cfg.retrieval.enable_colbert and tok_path.exists():
-            b.tokens = TokenIndex.load(tok_path, e.token_dtype or e.dtype,
-                                       e.capacity_round, b.device)
+            tokens = TokenIndex.load(tok_path, e.token_dtype or e.dtype,
+                                     e.capacity_round, b.device)
         # chunks.jsonl may lead payload rows after a crash (meta-first
         # write ordering); trim the view to the payload row count
-        n = min(b.n_docs, b.dense.n)
-        if n < b.n_docs:
+        if dense.n < len(chunks):
             log.warning("[%s] trimming %d meta rows without payload",
-                        lang, b.n_docs - n)
-            b.chunks = b.chunks[:n]
-            b.id2row = {c.id: i for i, c in enumerate(b.chunks)}
+                        lang, len(chunks) - dense.n)
+            chunks = chunks[:dense.n]
+        b.state = BundleState(
+            encoder, dense, BM25Index.load(d / "bm25.npz", b.device), tokens,
+            chunks, {c.id: i for i, c in enumerate(chunks)},
+            int(manifest.get("generation", 0)))
         return b
 
     @staticmethod

@@ -18,6 +18,7 @@ a channel that is off), or ``error: <message>`` when the job raised.
 from __future__ import annotations
 
 import threading
+import time
 from collections import defaultdict
 from typing import Dict, List
 
@@ -60,11 +61,14 @@ class IngestOrchestrator:
         try:
             for lang, lang_chunks in by_lang.items():
                 bundle = self.cache.get(lang)
+                t0 = time.perf_counter()
                 added = bundle.add_chunks(lang_chunks)
+                t1 = time.perf_counter()
                 bundle.save(self.cache.index_dir(lang))
                 self.cache.put(lang, bundle)
-                log.info("[%s] ingest %s: +%d chunks (n=%d)", lang, doc_id,
-                         added, bundle.n_docs)
+                log.info("[%s] ingest %s: +%d chunks (n=%d), append %.6fs, "
+                         "save %.6fs", lang, doc_id, added, bundle.n_docs,
+                         t1 - t0, time.perf_counter() - t1)
             for key in ("faiss", "bm25", "colbert"):
                 enabled = key != "colbert" or self.cfg.retrieval.enable_colbert
                 self._set(doc_id, key, "added" if enabled else "disabled")
@@ -84,7 +88,10 @@ class IngestOrchestrator:
                 by_lang[c.lang or "zh"].append(c)
             for lang, lang_chunks in by_lang.items():
                 out = self.cfg.with_lang(lang).paths.graph_file
+                t0 = time.perf_counter()
                 GraphBuilder().build_to_file(lang_chunks, out)
+                log.info("[%s] graph %s: rebuilt over %d chunks, %.6fs", lang,
+                         doc_id, len(lang_chunks), time.perf_counter() - t0)
             self._set(doc_id, "graph", "added")
         except Exception as e:
             log.error("graph job failed for %s: %s", doc_id, e, exc_info=True)

@@ -494,6 +494,22 @@ def test_request_in_the_middle_of_an_append_reads_the_state_before_it(
     assert tb.n_docs == jb.n_docs == 160 and tb.generation == jb.generation
 
 
+def test_bundle_fields_are_read_only(en_chunks):
+    """A bundle publishes whole states only (build, load, append): none of
+    its fields can be set on its own, so no store can be swapped in beside
+    a state it does not match."""
+    _jcfg, cfg = small_configs()
+    tb = IndexBundle.build_from_chunks(port_chunks(en_chunks[:20]), cfg, "en",
+                                       device="cpu")
+    st = tb.state
+    for name in ("encoder", "dense", "bm25", "tokens", "chunks", "id2row",
+                 "generation"):
+        with pytest.raises(AttributeError):
+            setattr(tb, name, getattr(tb, name))
+        assert getattr(tb, name) is getattr(st, name)
+    assert tb.state is st and st.generation == 1
+
+
 def test_appends_under_concurrent_reads_publish_whole_states(en_chunks):
     """Stress: 6 reader threads (more than this test's appends need) serve
     channels calls and read states while a writer appends 10 batches, with
