@@ -14,7 +14,8 @@ Phases, each printing one JSON line:
    does not give it (float32, ragged tiles, k above the tile and k = N, 512
    tiles, bf16 rounding midpoints; bf16 MaxSim at every token_dim, ragged
    and long docs, short and long queries, B 1, N 1, empty docs, masks that
-   are not a prefix, negative similarities, ...);
+   are not a prefix, negative similarities, ...; the int8 and nbit4 MaxSim
+   routes at the same shapes);
 3. ``index``: builds the zh (Civil Code) and en (UCC) bundles from
    ``data/raw`` on the card, at full width (d=768, sketch 16384, token_dim
    128, doc_maxlen 220);
@@ -96,7 +97,22 @@ Phases, each printing one JSON line:
    channels call during and after the ingest; kernels 1 and 2/3 against
    their plain versions on the tensors the path handed them after the
    crossing;
-9. ``large``: the large-corpus mode at the JAX repo's 1M-doc scale point
+9. ``stores``: the quantized configurations, each built on the card from
+   ``data/raw`` at full width for zh and en by ``build_from_chunks``: Q8
+   (``EngineConfig(dtype="int8")``: the unit-int8 dense store, selected
+   from its quantized map, never by score+select, and an int8 token
+   store) and N4 (``token_dtype="nbit4"``: bf16 dense, the residual token
+   store). For each: the bytes of its stores; MaxSim's int8 or nbit4 route
+   against its plain version on the zh store at batch sizes 1, 8 and 64,
+   with timings, the bound and the library chain; the map path (zh 16, en
+   9 batches through ``FusedQueryEngine``: q/s, Recall@10 against the bf16
+   bundle's, N4 within 0.02, exact launches per batch (Q8: MaxSim only;
+   N4: both kernels), device busy and idle share, MaxSim's device ms a
+   batch) with 32 questions against the bundle's CPU twin (saved and
+   loaded on the CPU: the same stores, no swap in the top 10); then 128
+   ``ByLangRetriever`` requests from 16 threads over the saved bundles
+   (requests/s, p50 / p99, launches per channels call, 8 against the CPU);
+10. ``large``: the large-corpus mode at the JAX repo's 1M-doc scale point
    (``legalrag_tpu_torch.scale``: N 1,048,576, V 65,536, d 768 bf16,
    64 x 128 int8 doc tokens, B 64, 32 term slots, 16 query tokens): the
    index synthesized on the card (timed); the CSR BM25 kernel against its
@@ -106,7 +122,14 @@ Phases, each printing one JSON line:
    dense map against the float32 map; the 1M-doc index copied to the CPU,
    whose plain path must give the first batch's top-10 for 8 queries (the
    two-pass dense selection); and the same check on a 65,536-doc index
-   synthesized on the card (the one-pass selection).
+   synthesized on the card (the one-pass selection). Then the scale point's
+   quantized stores: the unit-int8 dense store at 1M docs (``scale.py
+   --dense-dtype int8``: 8 batches, launches, the int8 scorer's time and
+   memory beside the bf16 store's map, the CPU reference at 1M), and the
+   late channel's self-retrieval Recall@10 of 256 noisy queries over
+   65,536 docs with int8 and with nbit4 tokens (``scale.py --token-dtype
+   nbit4 --recall-queries 256``: MaxSim's nbit4 route at scale, and the
+   compression's recall cost).
 
 Each path checks its own kernels: every kernel of the path launched once
 per batch, every other kernel not at all. Then the ``{"kernels": [...]}``
@@ -147,6 +170,10 @@ from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.convert import bundle_from_arrays
 from legalrag_tpu_torch.corpus import parse_auto
 from legalrag_tpu_torch.index.bundle import IndexBundle
+from legalrag_tpu_torch.index.token_index import (
+    Residual4TokenIndex,
+    quantize_int8,
+)
 from legalrag_tpu_torch.ingest.minipdf import build_pdf
 from legalrag_tpu_torch.models.hash_encoder import project_norm
 from legalrag_tpu_torch.ops.bm25_sparse import (
@@ -155,11 +182,20 @@ from legalrag_tpu_torch.ops.bm25_sparse import (
     bm25_sparse_scores_plain,
 )
 from legalrag_tpu_torch.ops import fused_query
-from legalrag_tpu_torch.ops.maxsim import maxsim_full, maxsim_full_plain
+from legalrag_tpu_torch.ops.maxsim import (
+    Residual4Store,
+    dequant,
+    doc_len,
+    maxsim_full,
+    maxsim_full_plain,
+    n_docs,
+    slice_docs,
+)
 from legalrag_tpu_torch.ops.topk import (
     NEG_INF,
     TWO_PASS_MIN_N,
     bucket_k,
+    dense_scores,
     dense_topk_fused_plain,
     score_select_topk,
     stable_topk,
@@ -200,13 +236,25 @@ INGEST_THREADS = 8          # ingest phase: client threads asking throughout
 INGEST_WINDOW = 128         # /rag/retrieve requests before and after it
 INGEST_RECALL = 64          # self-retrieval queries from the ingested chunks
 INGEST_CPU_CHECKS = 32      # questions held against the CPU twin
+# stores phase: the quantized configurations (EngineConfig overrides)
+STORES = {"q8": {"dtype": "int8"}, "n4": {"token_dtype": "nbit4"}}
+STORES_REQUESTS = 128       # ByLangRetriever requests per configuration
+STORES_CPU_CHECKS = 32      # map-path questions held against the CPU twin
+STORES_SERVE_CPU_CHECKS = 8  # ByLangRetriever requests against the CPU
+STORE_BUCKETS = (1, 8, 64)  # batch sizes of the MaxSim route checks
+RECALL_DOCS = 65536         # the nbit4 scale run (bench_scale.py's default)
+RECALL_QUERIES = 256
 # the kernels each path must launch once per batch (and no other); the
-# serve path's batch is one channels call of the micro-batcher
+# serve path's batch is one channels call of the micro-batcher. An int8
+# dense store never reaches score+select (JAX sends it to XLA).
 PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "serve": ("score_select", "maxsim"),
                 "http": ("score_select", "maxsim"),
                 "ingest": ("score_select", "maxsim"),
-                "large": ("bm25_sparse",)}
+                "stores_q8": ("maxsim",),
+                "stores_n4": ("score_select", "maxsim"),
+                "large": ("bm25_sparse",),
+                "recall": ("maxsim",)}
 
 
 def emit(obj) -> None:
@@ -500,10 +548,12 @@ def check_maxsim_edges(dev) -> dict:
 def check_edge_cases(dev) -> dict:
     """Both kernels against their plain versions off the main path's
     shapes (kernel 1: ``check_score_select_edges``; bf16 MaxSim:
-    ``check_maxsim_edges``); float32 MaxSim at token_dim 64, token masks
-    that are not a prefix, an empty doc and negative similarities."""
+    ``check_maxsim_edges``; the int8 and nbit4 routes:
+    ``check_maxsim_store_edges``); float32 MaxSim at token_dim 64, token
+    masks that are not a prefix, an empty doc and negative similarities."""
     res = {"score_select": check_score_select_edges(dev),
-           "maxsim_bf16_max_abs_err": check_maxsim_edges(dev)}
+           "maxsim_bf16_max_abs_err": check_maxsim_edges(dev),
+           "maxsim_int8_nbit4_max_abs_err": check_maxsim_store_edges(dev)}
     g = torch.Generator().manual_seed(1)
     tok = torch.randn(300, 40, 64, generator=g).to(dev)
     dmask = (torch.rand(300, 40, generator=g) > 0.6).to(dev)
@@ -524,6 +574,55 @@ def check_edge_cases(dev) -> dict:
     check(bool((got_neg[:, dmask[:, 0]] < 0).all()),
           "maxsim: negative best matches must stay negative")
     return res | {"maxsim_max_abs_err": err2}
+
+
+def quantized_stores(tok, dmask) -> dict:
+    """The int8 and nbit4 stores of float32 unit tokens [N, L, dt] (on the
+    card): ``quantize_int8`` of the JAX package, and a
+    ``Residual4TokenIndex`` trained and encoded from them."""
+    host = tok.float().cpu().numpy()
+    n, l_doc, dt = host.shape
+    nbit4 = Residual4TokenIndex(dt, l_doc, capacity_round=n, device=tok.device)
+    nbit4.add(host, dmask.cpu().numpy())
+    return {"int8": torch.from_numpy(quantize_int8(host)).to(tok.device),
+            "nbit4": nbit4.tok}
+
+
+def check_store_routes(tok, dmask, q_tok, q_mask, what: str) -> dict:
+    """MaxSim's int8 and nbit4 routes against ``maxsim_full_plain`` on the
+    same card tensors (allclose, rtol and atol 1e-4: the staged values are
+    the plain version's bit for bit, the float32 sums run in another
+    order); an empty doc scores 0, two calls give the same bits."""
+    out = {}
+    q = q_tok.float()
+    for route, store in quantized_stores(tok, dmask).items():
+        got = maxsim_full(store, dmask, q, q_mask)
+        want = maxsim_full_plain(store, dmask, q, q_mask)
+        err = (got - want).abs().max().item()
+        check(got.shape == want.shape and torch.allclose(
+            got, want, rtol=1e-4, atol=1e-4),
+              f"maxsim {route} {what} differs by {err}")
+        empty = ~dmask.any(dim=1)
+        check(bool((got[:, empty] == 0).all()),
+              f"maxsim {route} {what}: an empty doc must score 0")
+        check(torch.equal(got, maxsim_full(store, dmask, q, q_mask)),
+              f"maxsim {route} {what}: two calls differ")
+        out[route] = err
+    return out
+
+
+def check_maxsim_store_edges(dev) -> dict:
+    """The int8 and nbit4 routes at the bf16 edge shapes of every
+    token_dim (``MAXSIM_EDGES``: ragged and long docs, empty, one-token and
+    non-prefix docs, short and long queries, B 1, N 1)."""
+    g = torch.Generator().manual_seed(3)
+    out = {}
+    for n, b, lq, l_doc, dt in MAXSIM_EDGES:
+        name = f"n{n}_b{b}_lq{lq}_l{l_doc}_dt{dt}"
+        tok, dmask, q_tok, q_mask = maxsim_edge_inputs(
+            g, n, b, lq, l_doc, dt, dev, torch.float32)
+        out[name] = check_store_routes(tok, dmask, q_tok, q_mask, name)
+    return out
 
 
 def device_ops(fn) -> list:
@@ -556,7 +655,10 @@ def kernel_label(mangled: str) -> str:
     head = rest[:rest.index("Ev")]
     args = (["bf16"] if "__nv_bfloat16" in head
             else ["f32"] if head.startswith("If") else [])
-    return f"{base}<{','.join(args + re.findall(r'Li(\d+)E', head))}>"
+    ints = re.findall(r'Li(\d+)E', head)
+    if base == "maxsim_tokens_kernel":  # <store kind (lrt::DType), DT>
+        ints[0] = {"0": "f32", "2": "int8", "3": "nbit4"}[ints[0]]
+    return f"{base}<{','.join(args + ints)}>"
 
 
 # kernels whose SASS the build line counts, and which of their instances
@@ -608,11 +710,12 @@ def phase_build() -> dict:
     """Compile the kernels, read ptxas's registers and spills and the SASS
     counts, and check that each instance multiplies where it should:
     score_select<bf16> and every maxsim_bf16_kernel on the tensor cores,
-    the float32 instances on the CUDA cores (FFMA, no HMMA)."""
+    the float32, int8 and nbit4 instances on the CUDA cores (FFMA, no
+    HMMA)."""
     built = kernels.build(force=True)
     sass = sass_counts(built["path"])
     want = {"score_select_kernel": 2, "maxsim_bf16_kernel": 3,
-            "maxsim_tokens_kernel": 3, "maxsim_reduce_kernel": 1}
+            "maxsim_tokens_kernel": 9, "maxsim_reduce_kernel": 1}
     got = {k: sum(n.startswith(k + "<") or n == k for n in sass) for k in want}
     check(got == want, f"kernel instances in the SASS: {list(sass)}")
     for name, ops in sass.items():
@@ -944,16 +1047,16 @@ def same_hits(want, got, tol: float, what: str) -> int:
     return swaps
 
 
-def check_channel_rows(want, got, what: str) -> int:
-    """One channels result's rows against another's (near-ties may swap),
-    scores within 1e-4."""
+def check_channel_rows(want, got, what: str, tie: float = 1e-5) -> int:
+    """One channels result's rows against another's (scores closer than
+    ``tie`` may swap), scores within 1e-4."""
     swaps = 0
     for name in ("dense", "bm25", "colbert"):
         ws, wr = want[name]
         gs, gr = got[name]
         check(gs.shape == ws.shape and np.allclose(gs, ws, atol=1e-4),
               f"{what} {name}: scores")
-        swaps += ties_only(ws, wr, gs, gr, 1e-5)
+        swaps += ties_only(ws, wr, gs, gr, tie)
     return swaps
 
 
@@ -1964,6 +2067,326 @@ def phase_ingest():
     return res
 
 
+# ------------------------------------------------------- quantized stores
+
+def store_config(name: str, root: Path) -> AppConfig:
+    """``AppConfig()`` with the ``STORES[name]`` engine overrides, serving
+    from ``root``."""
+    cfg = AppConfig()
+    for key, value in STORES[name].items():
+        setattr(cfg.engine, key, value)
+    cfg.paths.index_dir = root / "index"
+    cfg.paths.graph_dir = root / "graph"
+    return cfg
+
+
+def store_bytes(bundle) -> dict:
+    """Bytes of a bundle's stores on the card, at capacity."""
+    st = bundle.state
+    tok = st.tokens.tok
+    parts = list(tok) if isinstance(tok, Residual4Store) else [tok]
+    return {"dense": st.dense.emb.numel() * st.dense.emb.element_size(),
+            "dense_dtype": str(st.dense.dtype),
+            "tokens": sum(t.numel() * t.element_size() for t in parts),
+            "token_store": "nbit4" if isinstance(tok, Residual4Store)
+            else str(tok.dtype), "token_mask": st.tokens.mask.numel(),
+            "capacity": st.dense.capacity}
+
+
+def library_quantized(store, dmask, q_tok, q_mask):
+    """One PyTorch chain computing the same map as MaxSim's quantized
+    routes: per 256 docs the store dequantized, an einsum, amax and sum."""
+    n = n_docs(store)
+    res = torch.empty((q_tok.shape[0], n), dtype=torch.float32,
+                      device=dmask.device)
+    for c0 in range(0, n, 256):
+        sim = torch.einsum("bqd,cld->bcql", q_tok,
+                           dequant(slice_docs(store, c0, c0 + 256)))
+        sim = sim.masked_fill(~dmask[c0:c0 + 256][None, :, None, :],
+                              float("-inf")).amax(-1)
+        sim = torch.where(torch.isfinite(sim), sim, 0.0)
+        res[:, c0:c0 + 256] = torch.where(q_mask[:, None, :], sim, 0.0).sum(-1)
+    return res
+
+
+def phase_store_kernels(route: str, bundle, queries) -> dict:
+    """MaxSim's int8 or nbit4 route against its plain version on the
+    bundle's own store, with the path's queries at batch sizes
+    ``STORE_BUCKETS`` (allclose, rtol and atol 1e-4: the staged values
+    equal the plain version's, the float32 sums run in another order; two
+    calls give the same bits), then timings at B 64 beside the bound, the
+    plain version and the library chain."""
+    st = bundle.state
+    tok, dmask, dev = st.tokens.tok, st.tokens.mask, bundle.device
+    errs = {}
+    for b in STORE_BUCKETS:
+        qt, qm = st.encoder.encode_tokens(
+            queries[:b], bundle.cfg.engine.max_query_tokens, query=True)
+        q_tok = torch.from_numpy(qt).to(dev).to(st.tokens.query_dtype)
+        q_mask = torch.from_numpy(qm).to(dev)
+        got = maxsim_full(tok, dmask, q_tok, q_mask)
+        want = maxsim_full_plain(tok, dmask, q_tok, q_mask)
+        err = (got - want).abs().max().item()
+        check(got.shape == (b, n_docs(tok)) and torch.allclose(
+            got, want, rtol=1e-4, atol=1e-4),
+              f"maxsim {route} at B {b} differs by {err}")
+        check(bool(torch.isfinite(got).all()), f"maxsim {route} not finite")
+        check(torch.equal(got, maxsim_full(tok, dmask, q_tok, q_mask)),
+              f"maxsim {route}: two calls differ")
+        errs[b] = err
+    n, l_doc = n_docs(tok), doc_len(tok)
+    dt = q_tok.shape[2]
+    nvq, nvd = int(q_mask.sum()), int(dmask.sum())
+    if route == "int8":
+        store_b = nvd * dt
+    else:  # a code byte and dt / 2 nibble bytes a token, and the codebook
+        store_b = nvd * (1 + dt // 2) + sum(
+            t.numel() * t.element_size() for t in tok[2:])
+    bms, by = bound(store_b + n * l_doc + nvq * dt * 4 + q_mask.numel()
+                    + b * n * 4, 2 * dt * nvq * nvd, F32_FLOP_PER_S)
+    ms = cuda_ms(lambda: maxsim_full(tok, dmask, q_tok, q_mask))
+    return {"dtype": route,
+            "shapes": {"B": b, "Lq": q_tok.shape[1], "N": n, "L": l_doc,
+                       "dt": dt, "valid_query_tokens": nvq,
+                       "valid_doc_tokens": nvd},
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_by_batch": errs, "tolerance": 1e-4,
+            "bitwise_equal_calls": True, "ms": ms,
+            "plain_ms": cuda_ms(lambda: maxsim_full_plain(tok, dmask, q_tok,
+                                                          q_mask)),
+            "library_ms": cuda_ms(lambda: library_quantized(
+                tok, dmask, q_tok, q_mask)),
+            "library": "chunked dequant + einsum + amax + sum",
+            "bound_ms": bms, "bound_by": by,
+            "valid_tflop_per_s": 2 * dt * nvq * nvd / 1e9 / ms}
+
+
+def store_map(name: str, lang: str, bundle, bf16_recall: float) -> dict:
+    """The map path (``FusedQueryEngine.search_batch``) over a quantized
+    bundle: q/s, Recall@10 (N4's within 0.02 of the bf16 bundle's, the JAX
+    test's bound), exact launches, the card's busy and idle share and
+    MaxSim's device ms a batch; the first ``STORES_CPU_CHECKS`` questions
+    against the bundle's CPU twin (saved, then loaded on the CPU: the same
+    stores, the plain versions): the late map within 1e-4 of the plain
+    version's, and, given the card's late map, the same top 10 with no
+    swap."""
+    engine = FusedQueryEngine(bundle)
+    queries, gold = make_queries(bundle, N_QUERIES)
+    batches = [queries[i:i + BATCH] for i in range(0, len(queries), BATCH)]
+    engine.search_batch(batches[0], TOP_K)           # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    prepared = [engine.prepare(b, TOP_K) for b in batches]
+    t1 = time.perf_counter()
+    results = [engine.collect(engine.execute(p)) for p in prepared]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = kernels.launch_counts()
+    check_launches(f"stores_{name}", launches, len(batches))
+    scores = np.concatenate([r[0] for r in results])
+    rows = np.concatenate([r[1] for r in results])
+    check(np.isfinite(scores).all(), f"stores {name} {lang}: scores")
+    check(((rows >= 0) & (rows < bundle.n_docs)).all(),
+          f"stores {name} {lang}: row out of range")
+    recall = float(np.mean([g in set(r.tolist()) for r, g in zip(rows, gold)]))
+    if name == "n4":
+        check(recall >= bf16_recall - 0.02,
+              f"stores n4 {lang}: Recall@10 {recall} against bf16 "
+              f"{bf16_recall}")
+    profile = profile_device(lambda: [engine.execute(p) for p in prepared],
+                             len(prepared))
+    with tempfile.TemporaryDirectory() as d:
+        bundle.save(d)
+        twin = IndexBundle.load(d, bundle.cfg, lang, device="cpu")
+    st, tw = bundle.state, twin.state
+    n = st.dense.n
+    # int8 and nbit4 payloads load exactly; a bf16 row passes through the
+    # file's float16 (subnormals below 6.1e-5 round)
+    same = torch.equal if st.dense.dtype == torch.int8 else (
+        lambda a, b: torch.allclose(a.float(), b.float(), rtol=0, atol=1e-6))
+    check(same(tw.dense.emb[:n], st.dense.emb[:n].cpu()),
+          f"stores {name} {lang}: the twin's dense store differs")
+    if isinstance(st.tokens.tok, Residual4Store):
+        pairs = [(tw.tokens.codes_c[:n], st.tokens.codes_c[:n]),
+                 (tw.tokens.packed[:n], st.tokens.packed[:n]),
+                 *zip(tw.tokens.tok[2:], st.tokens.tok[2:])]
+    else:
+        pairs = [(tw.tokens.tok[:n], st.tokens.tok[:n])]
+    for a, b in pairs + [(tw.tokens.mask[:n], st.tokens.mask[:n])]:
+        check(torch.equal(a, b.cpu()),
+              f"stores {name} {lang}: the twin's token store differs")
+    # the twin's fused ranking, given the card's late-channel map for the
+    # same questions (MaxSim's float32 sums run in another order than the
+    # plain version's, within 1e-4, which can swap a channel's near-ties
+    # and with them the RRF ranks): rows equal, no swap; the map itself
+    # against the plain version on the twin's store
+    m = STORES_CPU_CHECKS
+    card_map = {}
+
+    def keep(*args):
+        card_map["out"] = orig(*args)
+        card_map["args"] = args
+        return card_map["out"]
+
+    orig = fused_query.maxsim_full
+    fused_query.maxsim_full = keep
+    try:
+        gs, gr, _ = engine.search_batch(queries[:m], TOP_K)
+        fused_query.maxsim_full = lambda *args: card_map["out"].cpu()
+        ws, wr, _ = FusedQueryEngine(twin).search_batch(queries[:m], TOP_K)
+    finally:
+        fused_query.maxsim_full = orig
+    q_tok, q_mask = (a.cpu() for a in card_map["args"][2:])
+    plain = maxsim_full_plain(tw.tokens.tok, tw.tokens.mask, q_tok, q_mask)
+    map_err = (card_map["out"].cpu() - plain).abs().max().item()
+    check(torch.allclose(card_map["out"].cpu(), plain, rtol=1e-4, atol=1e-4),
+          f"stores {name} {lang}: the late map differs from the twin's by "
+          f"{map_err}")
+    check(np.allclose(gs, ws, atol=1e-4),
+          f"stores {name} {lang}: fused scores vs the CPU twin")
+    swaps = ties_only(ws, wr, gs, gr, TIE)
+    check(swaps == 0, f"stores {name} {lang}: {swaps} swaps against the "
+                      f"CPU twin")
+    # the twin on its own (plain MaxSim too): positions whose row differs,
+    # recorded, not checked (channel near-ties, above)
+    _s, own_r, _c = FusedQueryEngine(twin).search_batch(queries[:m], TOP_K)
+    own_diffs = int((own_r != gr).sum())
+    res = {"phase": "stores_map", "store": name, "lang": lang,
+           "n_docs": bundle.n_docs, "queries": len(queries),
+           "batches": len(batches), "qps": len(queries) / (t2 - t0),
+           "host_prepare_s": t1 - t0, "execute_collect_s": t2 - t1,
+           "recall_at_10": recall, "bf16_recall_at_10": bf16_recall,
+           "launches": launches, "profile": profile,
+           "maxsim_device_ms_per_batch":
+               profile["kernels_device_ms"]["maxsim"] / len(batches),
+           "cpu_twin_questions": m, "cpu_twin_swaps": swaps,
+           "cpu_twin_late_map_max_abs_err": map_err,
+           "cpu_twin_own_late_map_row_diffs": own_diffs,
+           "bytes": store_bytes(bundle)}
+    emit(res)
+    return res
+
+
+def store_serve(name: str, bundles, cfg: AppConfig) -> dict:
+    """``ByLangRetriever`` on the card over the saved quantized bundles
+    (with their law graphs): ``STORES_REQUESTS`` requests from
+    ``SERVE_THREADS`` threads, exact launches per channels call (Q8:
+    MaxSim only), Recall@10, device busy and idle share, and
+    ``STORES_SERVE_CPU_CHECKS`` requests against the CPU retriever (its
+    channel lists; its hits from the card's channel lists)."""
+    for lang, b in bundles.items():
+        lc = cfg.with_lang(lang)
+        b.save(lc.paths.lang_index_dir)
+        GraphBuilder().build_to_file(b.chunks, lc.paths.graph_file)
+    reqs = serve_requests(bundles)[:STORES_REQUESTS]
+    card = ByLangRetriever(cfg, device="cuda")
+    for _lang, q, _g, d in reqs[:4]:         # warm-up: load, build
+        card.search(q, decision=d)
+    hrs = [card.retriever(lang) for lang in bundles]
+
+    def timed(req):
+        t0 = time.perf_counter()
+        hits = card.search(req[1], decision=req[3])
+        return hits, (time.perf_counter() - t0) * 1e3
+
+    def threaded(batch):
+        with ThreadPoolExecutor(SERVE_THREADS) as pool:
+            return list(pool.map(timed, batch))
+
+    t0 = time.perf_counter()
+    out, launches, calls = launches_of(lambda: threaded(reqs),
+                                       [hr._batcher for hr in hrs])
+    seconds = time.perf_counter() - t0
+    check_launches(f"stores_{name}", launches, calls)
+    hits = [h for h, _ms in out]
+    ms = np.array([m for _h, m in out])
+    for hs in hits:
+        check(0 < len(hs) <= TOP_K and all(np.isfinite(h.score) for h in hs),
+              f"stores {name} serve: hits")
+    recall = {lang: float(np.mean([
+        g in {h.chunk.id for h in hs}
+        for (rl, _q, g, _d), hs in zip(reqs, hits) if rl == lang]))
+        for lang in bundles}
+    profile = profile_device(lambda: threaded(reqs[:64]), 64)
+    # requests against the CPU retriever: its channel lists against the
+    # card's (late-channel near-ties within 1e-4 may swap), then its hits
+    # from the card's channel lists (host fusion, graph and rerank on the
+    # CPU) against the card's hits
+    cpu = ByLangRetriever(cfg, device="cpu")
+    swaps = chan_swaps = 0
+    step = len(reqs) // STORES_SERVE_CPU_CHECKS
+    for i in range(0, len(reqs), step):
+        lang, q, _g, d = reqs[i]
+        thr, chr_ = card.retriever(lang), cpu.retriever(lang)
+        lists = {}
+
+        def card_channels(question, eff_k, thr=thr, lists=lists):
+            lists[eff_k] = thr._channels_topk_batch([question], eff_k)
+            return lists[eff_k]
+
+        chr_._channels_topk_all = card_channels
+        try:
+            swaps += same_hits(cpu.search(q, decision=d), hits[i], 1e-4,
+                               f"stores {name} serve vs CPU, request {i}")
+        finally:
+            del chr_._channels_topk_all
+        for eff_k, got in lists.items():
+            chan_swaps += check_channel_rows(
+                chr_._channels_topk_batch([q], eff_k), got,
+                f"stores {name} serve channels, request {i}", tie=1e-4)
+    res = {"phase": "stores_serve", "store": name, "requests": len(reqs),
+           "threads": SERVE_THREADS, "seconds": seconds,
+           "requests_per_s": len(reqs) / seconds,
+           "p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)), "channel_calls": calls,
+           "launches": launches, "recall_at_10": recall, "profile": profile,
+           "cpu_reference_tie_swaps": swaps,
+           "cpu_channel_tie_swaps": chan_swaps}
+    emit(res)
+    return res
+
+
+def phase_stores(e2e) -> tuple:
+    """The quantized configurations (``STORES``) built on the card from
+    ``data/raw`` at full width, each driven through the map path and
+    ``ByLangRetriever``; MaxSim's int8 and nbit4 routes at the zh shapes.
+    Returns ({route: kernel result}, [runs with launches])."""
+    t_phase = time.perf_counter()
+    routes, runs = {}, []
+    tmp = Path(tempfile.mkdtemp(prefix="stores_"))
+    try:
+        for name in STORES:
+            cfg = store_config(name, tmp / name)
+            bundles = {}
+            for lang in ("zh", "en"):
+                t0 = time.perf_counter()
+                bundles[lang] = IndexBundle.build_from_chunks(
+                    load_chunks(lang), cfg.with_lang(lang), lang,
+                    device="cuda")
+                torch.cuda.synchronize()
+                emit({"phase": "stores_index", "store": name, "lang": lang,
+                      "n_docs": bundles[lang].n_docs,
+                      "seconds": time.perf_counter() - t0,
+                      "bytes": store_bytes(bundles[lang])})
+            route = "int8" if name == "q8" else "nbit4"
+            zh_queries, _ = make_queries(bundles["zh"], BATCH)
+            routes[route] = phase_store_kernels(route, bundles["zh"],
+                                                zh_queries)
+            emit({"phase": "kernels", "name": "maxsim", "store": name,
+                  **routes[route]})
+            for lang, b in bundles.items():
+                runs.append(store_map(name, lang, b,
+                                      e2e[lang]["recall_at_10"]))
+            runs.append(store_serve(name, bundles, cfg))
+            del bundles
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "stores", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": nvidia_smi()})
+    return routes, runs
+
+
 def check_bm25_kernel(index, q, params):
     """Kernel 4 (CSR BM25) against its plain version on the same card
     tensors, at the scale point's shapes, with timings and the bound."""
@@ -2048,9 +2471,7 @@ def cpu_reference_large(idx, q, got, params, queries: int = 8):
     give the card's top-10 (``got``) for the first queries of ``q``, except
     near-ties. From ``TWO_PASS_MIN_N`` docs on, both sides select the dense
     list by the block-max two-pass route."""
-    cpu_idx = scale.ScaleIndex(idx.emb.cpu(),
-                               tuple(t.cpu() for t in idx.postings),
-                               idx.doc_tok.cpu(), idx.doc_mask.cpu(), idx.n)
+    cpu_idx = idx.to("cpu")
     cpu_q = scale.ScaleQueries(*(getattr(q, f)[:queries].cpu() for f in (
         "qvec", "term_ids", "term_counts", "q_tok", "q_mask")))
     want = scale.run_hybrid(cpu_idx, cpu_q, params)
@@ -2164,6 +2585,109 @@ def phase_large():
     return kres, res
 
 
+def phase_large_stores():
+    """The scale point's quantized stores: the unit-int8 dense store at 1M
+    docs (``scale.py --dense-dtype int8``: batches, launches, the int8
+    scorer's time and memory beside the bf16 store's map, the CPU
+    reference), then the late channel's self-retrieval Recall@10 of
+    ``RECALL_QUERIES`` noisy queries at ``RECALL_DOCS`` docs over the int8
+    and the nbit4 token store (``scale.py --token-dtype nbit4
+    --recall-queries 256``): the nbit4 route of the MaxSim kernel at scale,
+    and the compression's recall cost."""
+    t0 = time.perf_counter()
+    index = scale.synthesize_index(**LARGE, device="cuda", dense_dtype="int8")
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    batches = [scale.synthesize_queries(index, LARGE["vocab"], BATCH,
+                                        seed=1 + i)
+               for i in range(LARGE_BATCHES)]
+    params = scale.scale_params()
+
+    def run_all():
+        return [scale.run_hybrid(index, q, params) for q in batches]
+
+    scale.run_hybrid(index, batches[0], params)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, launches, _ = launches_of(run_all)
+    check_launches("large", launches, len(batches))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for out in outs:
+        check_large_out(out, index.n, BATCH)
+    ms = []
+    for q in batches:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        scale.run_hybrid(index, q, params)
+        b.record()
+        ms.append((a, b))
+    torch.cuda.synchronize()
+    batch_ms = statistics.median(a.elapsed_time(b) for a, b in ms)
+    profile = profile_device(run_all, len(batches))
+    # the int8 scorer alone (quantized query, exact int32 sums, rescale)
+    # beside the bf16 store's map at the same shapes (codes as bf16 rows)
+    qv = batches[0].qvec
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dense_scores(index.emb, qv)
+    int8_extra_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    int8_ms = cuda_ms(lambda: dense_scores(index.emb, qv), reps=10)
+    emb_bf16 = index.emb.to(torch.bfloat16)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dense_scores(emb_bf16, qv)
+    bf16_extra_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    bf16_ms = cuda_ms(lambda: dense_scores(emb_bf16, qv), reps=10)
+    del emb_bf16
+    ref = cpu_reference_large(index, batches[0], outs[0], params)
+    nbytes = index.nbytes
+    del outs, index
+    torch.cuda.empty_cache()
+    dense_res = {"n_docs": LARGE["n_docs"], "synthesis_s": synth_s,
+                 "bytes": nbytes, "ms_per_batch": batch_ms,
+                 "qps": BATCH / batch_ms * 1e3, "peak_device_gb": peak_gb,
+                 "launches": launches, "profile": profile,
+                 "dense_scores_ms": {"int8": int8_ms, "bf16": bf16_ms},
+                 "dense_scores_extra_gb": {"int8": int8_extra_gb,
+                                           "bf16": bf16_extra_gb},
+                 "cpu_reference_1m": ref}
+    emit({"phase": "large_int8_dense", **dense_res})
+
+    recall, recall_launches = {}, {k: 0 for k in kernels.KERNELS}
+    for td in ("int8", "nbit4"):
+        t0 = time.perf_counter()
+        idx = scale.synthesize_index(**dict(LARGE, n_docs=RECALL_DOCS),
+                                     device="cuda", token_dtype=td,
+                                     gold_rows=RECALL_QUERIES)
+        torch.cuda.synchronize()
+        synth_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r, launches, _ = launches_of(lambda: scale.late_recall(idx, BATCH))
+        check_launches("recall", launches, RECALL_QUERIES // BATCH)
+        recall_s = time.perf_counter() - t0
+        q = scale.synthesize_queries(idx, LARGE["vocab"], BATCH, seed=1)
+        check_large_out(scale.run_hybrid(idx, q, scale.scale_params()),
+                        idx.n, BATCH)
+        recall[td] = {"late_recall@10": r, "synthesis_s": synth_s,
+                      "recall_s": recall_s,
+                      "token_store_bytes": idx.nbytes["tokens"],
+                      "launches": launches}
+        recall_launches = {k: recall_launches[k] + launches[k]
+                           for k in kernels.KERNELS}
+        del idx
+        torch.cuda.empty_cache()
+    res = {"phase": "large_stores", "int8_dense_1m": dense_res,
+           "late_recall": recall, "n_docs_recall": RECALL_DOCS,
+           "recall_queries": RECALL_QUERIES,
+           "nbit4_recall_cost": recall["int8"]["late_recall@10"]
+           - recall["nbit4"]["late_recall@10"]}
+    emit({"phase": "large_stores", "late_recall": recall,
+          "nbit4_recall_cost": res["nbit4_recall_cost"]})
+    return [{"launches": dense_res["launches"]},
+            {"launches": recall_launches}], res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2191,7 +2715,8 @@ def main() -> int:
         emit({"phase": "index", "lang": lang, "n_docs": b.n_docs,
               "seconds": time.perf_counter() - t0,
               "emb": list(b.dense.emb.shape), "impact": list(b.bm25.impact.shape),
-              "tok": list(b.tokens.tok.shape)})
+              "tok": [b.tokens.capacity, b.tokens.doc_maxlen,
+                      b.tokens.token_dim]})
     zh_queries, _ = make_queries(bundles["zh"], BATCH)
     kres = phase_kernels(bundles["zh"], zh_queries)
 
@@ -2199,9 +2724,22 @@ def main() -> int:
     serve, http = run_serving(bundles)
     del bundles
     ingest = phase_ingest()
+    routes, store_runs = phase_stores(e2e)
     kres["bm25_sparse"], large = phase_large()
+    large_store_runs, large_stores = phase_large_stores()
     runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
-            "ingest": [ingest], "large": [large]}
+            "ingest": [ingest], "stores": store_runs,
+            "large": [large] + large_store_runs}
+    # MaxSim's quantized routes: their launches are the stores runs' (Q8
+    # int8, N4 nbit4) and the scale point's recall runs'
+    for route, store in (("int8", "q8"), ("nbit4", "n4")):
+        by_path = {"stores": sum(r["launches"]["maxsim"] for r in store_runs
+                                 if r["store"] == store),
+                   "large": large_stores["late_recall"][route]["launches"][
+                       "maxsim"]}
+        routes[route] |= {"launches": sum(by_path.values()),
+                          "launches_by_path": by_path}
+    kres["maxsim"]["routes"] = routes
     summary = []
     for name, k in kres.items():
         by_path = {p: sum(r["launches"][name] for r in rs)
@@ -2211,7 +2749,7 @@ def main() -> int:
             key: k[key] for key in ("name", "route", "source", "replaces",
                                     "also_replaces", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms") if key in k}
+                                    "library_ms", "routes") if key in k}
             | {"launches": sum(by_path.values()),
                "launches_by_path": by_path})
     emit({"kernels": summary})

@@ -66,20 +66,27 @@ class PathsConfig:
 
 @dataclass
 class EngineConfig:
-    # storage dtype of the dense / token embedding matrices on the device
-    # ("bfloat16" | "float32"; the int8 dense store is not ported yet)
+    # storage dtype of the dense / token embedding matrices on the device:
+    # "bfloat16", "float32", or "int8": the unit-int8 dense store
+    # (round(127 * e) of unit rows, implicit scale 1/127), scored s8 x s8 ->
+    # s32 (ops.topk.dense_scores); it halves the bf16 store's bytes
     dtype: str = "bfloat16"
     # index capacity is rounded up to a multiple of this
     capacity_round: int = 1024
     # late interaction
     late_doc_maxlen: int = 220
     late_dim: int = 128
-    # token-store storage: "" = engine dtype, or "int8" (the nbit4 store is
-    # not ported yet)
+    # token-store storage: "" = engine dtype, "bfloat16", "int8" (unit
+    # vectors * 127) or "nbit4" (the PLAID-class residual store: a centroid
+    # id and dt / 2 bytes of 4-bit residuals a token, ~4x smaller than bf16)
     token_dtype: str = ""
     # dense-prefiltered candidates for MaxSim (the late channel's two-phase
     # route past LateInteractionRetriever.FULL_SCAN_MAX docs)
     late_candidates: int = 128
+    # large-corpus mode only: write the [B, N] dense score map in bf16 and
+    # rescore the winners exactly in float32 ("float32" keeps the exact
+    # selection; never applied to an int8 dense store)
+    dense_map_dtype: str = "float32"
     # query batching for the serving engine
     max_query_batch: int = 64
     # query tokens kept per query (BM25 term ids and late-interaction tokens)

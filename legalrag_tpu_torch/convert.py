@@ -11,13 +11,20 @@ package.
   token_dim, seed, df, n_docs, and proj when trained);
 - ``proj``: [sketch_dim, dim] float32, the JAX encoder's projection
   (``np.asarray(encoder._projection())``);
-- ``emb``: [n or capacity, dim] dense rows and ``n`` the row count;
+- ``emb``: [n or capacity, dim] dense rows and ``n`` the row count. An
+  int8 ``emb`` is the JAX unit-int8 store's codes: they go into an int8
+  store as they are (``DenseIndex.add_quantized``), never through ``add``,
+  which would quantize the codes again as if they were unit floats;
 - ``impact``: [V_pad, N_pad] float32 BM25 impact matrix;
 - ``flat_ids``, ``flat_tfs``, ``offsets``, ``bm25_params``: the BM25 host
   CSR (per-doc term ids and tfs) and (k1, b, epsilon);
 - ``tok``, ``mask``: [n or capacity, L, dt] token store and [.., L] mask
-  (optional: without them the late channel is off). An int8 ``tok`` is
-  the JAX int8 store's payload and stays int8 as it is (no requantization).
+  (optional: without them and without ``codes_c`` the late channel is
+  off). An int8 ``tok`` is the JAX int8 store's payload and stays int8 as
+  it is (no requantization);
+- ``codes_c``, ``packed``, ``centroids``, ``scales``, ``mask``: a JAX nbit4
+  store (``Residual4TokenIndex``), carried as it is: the codes, packed
+  nibbles and codebook are not trained or encoded again.
 
 :func:`postings_from_arrays` carries the CSR triple of the JAX
 ``build_postings`` (the large-corpus mode's BM25) to the device.
@@ -37,8 +44,12 @@ import torch
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.index.bm25_index import BM25Index
 from legalrag_tpu_torch.index.bundle import BundleState, IndexBundle
+from legalrag_tpu_torch.index.dense_index import DenseIndex
 from legalrag_tpu_torch.models.hash_encoder import HashEncoder
-from legalrag_tpu_torch.index.token_index import TokenIndex
+from legalrag_tpu_torch.index.token_index import (
+    Residual4TokenIndex,
+    TokenIndex,
+)
 from legalrag_tpu_torch.schemas import LawChunk
 from legalrag_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -62,14 +73,27 @@ def bundle_from_arrays(arrays: Mapping[str, object],
     b = IndexBundle(lang, cfg, device)
     chunks = list(chunks)
     n = int(arrays["n"])
-    dense = b.dense  # the new bundle's empty stores, filled before publishing
-    dense.add(np.asarray(arrays["emb"], np.float32)[:n])
+    e = cfg.engine
+    emb = np.asarray(arrays["emb"])[:n]
+    if emb.dtype == np.int8:
+        dense = DenseIndex(emb.shape[1], "int8", e.capacity_round, b.device)
+        dense.add_quantized(emb)
+    else:
+        dense = b.dense  # the new bundle's empty store, filled before publishing
+        dense.add(np.asarray(emb, np.float32))
     tokens = b.tokens
-    if "tok" in arrays:
+    if "codes_c" in arrays:
+        tokens = Residual4TokenIndex(e.late_dim, e.late_doc_maxlen,
+                                     capacity_round=e.capacity_round,
+                                     device=b.device)
+        tokens.set_codebook(arrays["centroids"], arrays["scales"])
+        tokens.add_encoded(np.asarray(arrays["codes_c"])[:n],
+                           np.asarray(arrays["packed"])[:n],
+                           np.asarray(arrays["mask"], bool)[:n])
+    elif "tok" in arrays:
         tok = np.asarray(arrays["tok"])
         mask = np.asarray(arrays["mask"], bool)[:n]
         if tok.dtype == np.int8:
-            e = cfg.engine
             tokens = TokenIndex(e.late_dim, e.late_doc_maxlen, "int8",
                                 e.capacity_round, b.device)
             tokens.add_quantized(tok[:n], mask)

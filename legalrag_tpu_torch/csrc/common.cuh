@@ -8,8 +8,10 @@
 
 namespace lrt {
 
-// Element types the kernels take, as the wrappers pass them.
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// Element types the kernels take, as the wrappers pass them. kI8 is a
+// token store of round(v * 127) of unit vectors; kNbit4 the residual store
+// (a centroid id and two 4-bit residual codes a byte a token).
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kNbit4 = 3 };
 
 // Eight consecutive elements (16-byte aligned) widened to float32. A bf16
 // value converts to float32 exactly, so products of two widened bf16

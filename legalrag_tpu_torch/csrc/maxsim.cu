@@ -53,13 +53,29 @@
 //   a long query, masked slots add +0.0, which changes nothing), so a run
 //   gives the same bits every time. No scratch, no second launch.
 //
-// float32 (off the main path; TF32 would change its results): two
-// launches on the CUDA cores. maxsim_tokens_kernel writes best(b, i, n)
-// for every valid query token into scratch [N, B * Lq]; a block owns up to
-// THREADS valid query tokens (compacted in its prologue), each thread keeps
-// its token in DT registers, and for each doc of its strided set the block
-// stages the valid doc tokens in shared memory. maxsim_reduce_kernel sums
+// float32, int8 and nbit4 stores, float32 queries (TF32 would change the
+// float32 results; the quantized stores' queries stay float32, as in the
+// JAX package): two launches on the CUDA cores. maxsim_tokens_kernel writes
+// best(b, i, n) for every valid query token into scratch [N, B * Lq]; a
+// block owns up to THREADS valid query tokens (compacted in its prologue),
+// each thread keeps its token in DT registers, and for each doc of its
+// strided set the block stages the valid doc tokens in shared memory as
+// float32, decoding them on the way (decode8): an int8 token as
+// float(x) * (1 / 127), the dequant of legalrag_tpu/ops/maxsim.py:80-81; an
+// nbit4 token as centroids[codes_c] + (nibble - 8) * step with step =
+// scales / 7 divided once on the host, the product and the sum each rounded
+// (no FMA), as legalrag_tpu/ops/maxsim.py:69-79 computes it, so the staged
+// values equal the plain version's bit for bit. maxsim_reduce_kernel sums
 // each query's valid tokens in token order into out [B, N].
+//
+// What bounds the quantized routes: the same products as above, here on
+// the CUDA cores (67 TFLOP/s float32 on an H100 SXM): at the zh shapes 0.156
+// TFLOP, 2.3 ms. Their bytes are a quarter (int8) or about a sixth (nbit4:
+// 1 + dt / 2 bytes a token, plus the 128 KB of centroids) of the float32
+// rows'. The simple design re-decodes each staged doc in every block that
+// stages it (one block per THREADS valid query tokens) and keeps no tensor
+// core busy: a redesign on the tensor cores (int8 tokens are exact in
+// bf16; split-bf16 queries) is later work.
 
 #include <math.h>
 
@@ -580,11 +596,51 @@ __device__ int block_exclusive_scan(int v, int* total) {
   return before + inc - v;
 }
 
-template <typename T, int DT>
+// The doc store of the CUDA-core kernel: tok is float32 [N, L, DT], int8
+// [N, L, DT] or (nbit4) packed uint8 [N, L, DT / 2]; nbit4 also has codes
+// [N, L] uint8, centroids float32 [256, DT] and step float32 [DT].
+struct DocStore {
+  const void* tok;
+  const uint8_t* codes;
+  const float* centroids;
+  const float* step;
+};
+
+// Elements c .. c + 7 of token `row` (n * L + j) decoded to float32.
+template <int KIND, int DT>
+__device__ __forceinline__ void decode8(const DocStore& d, size_t row, int c,
+                                        float* f) {
+  if constexpr (KIND == lrt::kF32) {
+    lrt::load8(static_cast<const float*>(d.tok) + row * DT + c, f);
+  } else if constexpr (KIND == lrt::kI8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(
+        static_cast<const int8_t*>(d.tok) + row * DT + c);
+    const int8_t* x = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = __fmul_rn((float)x[j], 1.0f / 127.0f);
+  } else {
+    static_assert(KIND == lrt::kNbit4, "store kind");
+    // byte k of the 4 holds dims c + 2k (high nibble) and c + 2k + 1
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(
+        static_cast<const uint8_t*>(d.tok) + row * (DT / 2) + c / 2);
+    float cen[8], st[8];
+    lrt::load8(d.centroids + (size_t)d.codes[row] * DT + c, cen);
+    lrt::load8(d.step + c, st);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int byte = (v >> (8 * k)) & 0xFF;
+      f[2 * k] = __fadd_rn(cen[2 * k],
+                           __fmul_rn((float)((byte >> 4) - 8), st[2 * k]));
+      f[2 * k + 1] = __fadd_rn(
+          cen[2 * k + 1], __fmul_rn((float)((byte & 0xF) - 8), st[2 * k + 1]));
+    }
+  }
+}
+
+template <int KIND, int DT>
 __global__ void __launch_bounds__(THREADS, 1)
-maxsim_tokens_kernel(const T* __restrict__ doc_tok,
-                     const uint8_t* __restrict__ doc_mask,
-                     const T* __restrict__ q_tok,
+maxsim_tokens_kernel(const DocStore docs, const uint8_t* __restrict__ doc_mask,
+                     const float* __restrict__ q_tok,
                      const uint8_t* __restrict__ q_mask, int S, int N, int L,
                      float* __restrict__ tokbest) {
   extern __shared__ float smem[];
@@ -642,7 +698,7 @@ maxsim_tokens_kernel(const T* __restrict__ doc_tok,
     for (int e = tid; e < nv * (DT / 8); e += THREADS) {
       const int t = e / (DT / 8), c = (e - t * (DT / 8)) * 8;
       float f[8];
-      lrt::load8(doc_tok + ((size_t)n * L + vidx[t]) * DT + c, f);
+      decode8<KIND, DT>(docs, (size_t)n * L + vidx[t], c, f);
       float4* dst = reinterpret_cast<float4*>(dtok + t * DT + c);
       dst[0] = make_float4(f[0], f[1], f[2], f[3]);
       dst[1] = make_float4(f[4], f[5], f[6], f[7]);
@@ -683,21 +739,21 @@ __global__ void maxsim_reduce_kernel(const float* __restrict__ tokbest,
   out[(size_t)b * N + n] = s;
 }
 
-template <typename T, int DT>
-int launch(const void* doc_tok, const void* doc_mask, const void* q_tok,
+template <int KIND, int DT>
+int launch(const DocStore& docs, const void* doc_mask, const void* q_tok,
            const void* q_mask, int B, int Lq, int N, int L, int grid_docs,
            void* scratch, void* out, cudaStream_t stream) {
   const int S = B * Lq;
   const size_t smem = f32_smem_bytes(L, DT);
   cudaError_t err = cudaFuncSetAttribute(
-      maxsim_tokens_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      maxsim_tokens_kernel<KIND, DT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(grid_docs, (S + THREADS - 1) / THREADS);
-  maxsim_tokens_kernel<T, DT><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(doc_tok), static_cast<const uint8_t*>(doc_mask),
-      static_cast<const T*>(q_tok), static_cast<const uint8_t*>(q_mask), S, N,
-      L, static_cast<float*>(scratch));
+  maxsim_tokens_kernel<KIND, DT><<<grid, THREADS, smem, stream>>>(
+      docs, static_cast<const uint8_t*>(doc_mask),
+      static_cast<const float*>(q_tok), static_cast<const uint8_t*>(q_mask), S,
+      N, L, static_cast<float*>(scratch));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int total = B * N;
@@ -705,6 +761,23 @@ int launch(const void* doc_tok, const void* doc_mask, const void* q_tok,
       static_cast<const float*>(scratch), static_cast<const uint8_t*>(q_mask),
       B, Lq, N, static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+template <int KIND>
+int launch_kind(const DocStore& docs, const void* doc_mask, const void* q_tok,
+                const void* q_mask, int B, int Lq, int N, int L, int dt,
+                int grid, void* scratch, void* out, cudaStream_t s) {
+  switch (dt) {
+    case 32:
+      return launch<KIND, 32>(docs, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                              grid, scratch, out, s);
+    case 64:
+      return launch<KIND, 64>(docs, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                              grid, scratch, out, s);
+    default:
+      return launch<KIND, 128>(docs, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                               grid, scratch, out, s);
+  }
 }
 
 }  // namespace
@@ -724,24 +797,32 @@ long long maxsim_smem_bytes(int dtype, int L, int dt) {
     const int st = bf16_stages(L, dt);
     return L <= 32 * MAXCH && st ? (long long)bf16_smem_bytes(L, dt, st) : -1;
   }
-  if (dtype == lrt::kF32) {
+  if (dtype == lrt::kF32 || dtype == lrt::kI8 || dtype == lrt::kNbit4) {
     const size_t s = f32_smem_bytes(L, dt);
     return s <= (size_t)(SMEM_OPTIN - F32_STATIC) ? (long long)s : -1;
   }
   return -1;
 }
 
-// doc_tok [N, L, dt] and q_tok [B, Lq, dt] of one dtype (lrt::DType),
-// doc_mask [N, L] / q_mask [B, Lq] bool (1 byte), all contiguous, the token
-// tensors 16-byte aligned; maxsim_smem_bytes(dtype, L, dt) >= 0; out
-// float32 [B, N]. bf16: one launch of `grid` blocks, at least ceil(B /
-// QW), no scratch (pass NULL). float32: two launches, `grid` blocks on the doc
-// axis, scratch float32 [N, B * Lq]. Returns cudaGetLastError().
+// doc_tok [N, L, dt] of dtype (lrt::DType; for kNbit4 the packed residuals
+// [N, L, dt / 2] uint8, with codes [N, L] uint8, centroids float32
+// [256, dt] and step = scales / 7 float32 [dt], NULL for the other
+// dtypes), q_tok [B, Lq, dt] bf16 over a bf16 store and float32 over the
+// others, doc_mask [N, L] / q_mask [B, Lq] bool (1 byte), all contiguous,
+// the token tensors 16-byte aligned; maxsim_smem_bytes(dtype, L, dt) >= 0;
+// out float32 [B, N]. bf16: one launch of `grid` blocks, at least
+// ceil(B / QW), no scratch (pass NULL). float32, int8, nbit4: two launches,
+// `grid` blocks on the doc axis, scratch float32 [N, B * Lq]. Returns
+// cudaGetLastError().
 int maxsim(const void* doc_tok, const void* doc_mask, const void* q_tok,
-           const void* q_mask, int dtype, int B, int Lq, int N, int L, int dt,
+           const void* q_mask, const void* codes, const void* centroids,
+           const void* step, int dtype, int B, int Lq, int N, int L, int dt,
            int grid, void* scratch, void* out, void* stream) {
   if (B < 1 || Lq < 1 || N < 1 || grid < 1 ||
       (dtype == lrt::kBF16 && grid < (B + QW - 1) / QW) ||
+      (dtype != lrt::kBF16 && scratch == nullptr) ||
+      (dtype == lrt::kNbit4 &&
+       (codes == nullptr || centroids == nullptr || step == nullptr)) ||
       maxsim_smem_bytes(dtype, L, dt) < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -758,16 +839,19 @@ int maxsim(const void* doc_tok, const void* doc_mask, const void* q_tok,
                                 grid, out, s);
     }
   }
-  switch (dt) {
-    case 32:
-      return launch<float, 32>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                               grid, scratch, out, s);
-    case 64:
-      return launch<float, 64>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                               grid, scratch, out, s);
+  const DocStore docs{doc_tok, static_cast<const uint8_t*>(codes),
+                      static_cast<const float*>(centroids),
+                      static_cast<const float*>(step)};
+  switch (dtype) {
+    case lrt::kF32:
+      return launch_kind<lrt::kF32>(docs, doc_mask, q_tok, q_mask, B, Lq, N,
+                                    L, dt, grid, scratch, out, s);
+    case lrt::kI8:
+      return launch_kind<lrt::kI8>(docs, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                                   dt, grid, scratch, out, s);
     default:
-      return launch<float, 128>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                                grid, scratch, out, s);
+      return launch_kind<lrt::kNbit4>(docs, doc_mask, q_tok, q_mask, B, Lq,
+                                      N, L, dt, grid, scratch, out, s);
   }
 }
 

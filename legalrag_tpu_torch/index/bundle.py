@@ -46,7 +46,11 @@ from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.corpus.loader import iter_chunks_from_file, write_chunks_jsonl
 from legalrag_tpu_torch.index.bm25_index import BM25Index
 from legalrag_tpu_torch.index.dense_index import DenseIndex
-from legalrag_tpu_torch.index.token_index import TokenIndex
+from legalrag_tpu_torch.index.token_index import (
+    Residual4TokenIndex,
+    TokenIndex,
+    make_token_index,
+)
 from legalrag_tpu_torch.models.hash_encoder import HashEncoder
 from legalrag_tpu_torch.schemas import LawChunk
 from legalrag_tpu_torch.tokenize.tokenizers import TOKENIZE_FINGERPRINT
@@ -73,7 +77,7 @@ class BundleState:
     encoder: Optional[HashEncoder]
     dense: DenseIndex
     bm25: BM25Index
-    tokens: TokenIndex
+    tokens: TokenIndex | Residual4TokenIndex
     chunks: List[LawChunk]
     id2row: Dict[str, int]
     generation: int
@@ -113,9 +117,9 @@ class IndexBundle:
                              self.device),
             bm25=BM25Index(lang, r.bm25_k1, r.bm25_b, r.bm25_epsilon,
                            self.device),
-            tokens=TokenIndex(e.late_dim, e.late_doc_maxlen,
-                              e.token_dtype or e.dtype, e.capacity_round,
-                              self.device),
+            tokens=make_token_index(e.late_dim, e.late_doc_maxlen,
+                                    e.token_dtype or e.dtype,
+                                    e.capacity_round, self.device),
             chunks=[], id2row={}, generation=0)
         # one append at a time: each grows the state the last one published
         self._append_lock = threading.Lock()
@@ -241,8 +245,11 @@ class IndexBundle:
         tokens = b.tokens
         tok_path = d / "tokens.npz"
         if cfg.retrieval.enable_colbert and tok_path.exists():
-            tokens = TokenIndex.load(tok_path, e.token_dtype or e.dtype,
-                                     e.capacity_round, b.device)
+            # the payload decides, as in JAX (bundle.py:313-314): int8 and
+            # nbit4 payloads load as they were saved, a float one in
+            # engine.dtype
+            tokens = TokenIndex.load(tok_path, e.dtype, e.capacity_round,
+                                     b.device)
         # chunks.jsonl may lead payload rows after a crash (meta-first
         # write ordering); trim the view to the payload row count
         if dense.n < len(chunks):

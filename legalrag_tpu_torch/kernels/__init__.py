@@ -46,7 +46,8 @@ _SIGNATURES = {
     "score_select_tile": [],
     "score_select_queries": [],
     "score_select_scratch_bytes": [_I, _I, _I],
-    "maxsim": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "maxsim": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+               _P, _P],
     "maxsim_queries_per_block": [],
     "maxsim_smem_bytes": [_I, _I, _I],
     "bm25_sparse": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P],

@@ -9,7 +9,9 @@ Map mode (``impact`` a dense [V, N] matrix), in order:
 1. the hash sketch -> projection -> L2 norm (float32 matmul);
 2. the BM25 query term counts, scattered on the device (duplicate ids add);
 3. the dense channel's masked top-eff_k from the score+select kernel
-   (``ops.topk.score_select_topk``): the [B, N] dense map never exists;
+   (``ops.topk.score_select_topk``): the [B, N] dense map never exists.
+   Over an int8 store (which JAX sends to XLA, never to the kernel) the
+   quantized [B, N] map is computed and selected by ``stable_topk``;
 4. BM25 as one [B, V] x [V, N] float32 matmul;
 5. the late channel: the full-corpus MaxSim map from the MaxSim kernel
    (``ops.maxsim``), or, with ``late_candidates > 0``, MaxSim of the
@@ -26,9 +28,11 @@ post_w)`` of ``ops.bm25_sparse.build_postings``, ``qtf`` the pair
 (term_ids, term_counts)): each channel gives a top-eff_k LIST and the lists
 are fused (``fuse_candidate_lists``); no [B, N] fusion map exists.
 
-1. the dense map (float32, or bf16 with ``dense_map_bf16``) and its masked
-   top-eff_k, by the block-max two-pass selection from ``TWO_PASS_MIN_N``
-   columns on; a bf16 map's winners are rescored exactly in float32;
+1. the dense map (float32, or bf16 with ``dense_map_bf16`` over a bf16 or
+   f32 store; an int8 store's quantized map is float32 always) and its
+   masked top-eff_k, by the block-max two-pass selection from
+   ``TWO_PASS_MIN_N`` columns on; a bf16 map's winners are rescored
+   exactly in float32;
 2. BM25 from the postings (``ops.bm25_sparse.bm25_sparse_topk``, the
    hand-written CSR kernel on CUDA tensors);
 3. exact MaxSim of the top ``late_candidates`` (default 128) dense rows,
@@ -45,9 +49,14 @@ JAX's ``topk_large`` of the masked map); BM25: the impact matmul and
 
 Ranking semantics are the JAX program's, with every ``lax.top_k`` replaced
 by ``stable_topk`` (ties to the lower index). The map mode's packed
-``dense`` component at the final rows is the exact float32 dot of the
-store-dtype-rounded query with those rows, the value the JAX program
-gathers from its dense map.
+``dense`` component at the final rows is the value the JAX program gathers
+from its dense map: over a bf16 or f32 store the exact float32 dot of the
+store-dtype-rounded query with those rows, over an int8 store the
+quantized map itself (the query is never cast to int8).
+
+The token store may be a bf16, f32 or int8 tensor or an nbit4
+``ops.maxsim.Residual4Store``; the MaxSim kernel and ``maxsim_candidates``
+take each.
 """
 
 from __future__ import annotations
@@ -61,7 +70,11 @@ from legalrag_tpu_torch.models.hash_encoder import project_norm
 from legalrag_tpu_torch.ops import topk as topk_ops
 from legalrag_tpu_torch.ops.bm25 import bm25_scores_matmul, query_term_counts
 from legalrag_tpu_torch.ops.bm25_sparse import bm25_sparse_topk
-from legalrag_tpu_torch.ops.maxsim import maxsim_candidates, maxsim_full
+from legalrag_tpu_torch.ops.maxsim import (
+    TokenStore,
+    maxsim_candidates,
+    maxsim_full,
+)
 from legalrag_tpu_torch.ops.topk import (
     NEG_INF,
     dense_scores,
@@ -146,7 +159,7 @@ def channel_components(scores: torch.Tensor, eff_k: int, weight: float,
     return _components_from_top(top_s, top_i, n, weight, rrf_k)
 
 
-def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor],
+def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[TokenStore],
                       doc_mask: Optional[torch.Tensor], qvec, qtf,
                       q_tok: Optional[torch.Tensor],
                       q_mask: Optional[torch.Tensor], valid_n: int,
@@ -163,7 +176,8 @@ def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor]
     if isinstance(qvec, (tuple, list)):
         qvec = project_norm(*qvec)
     if isinstance(impact, (tuple, list)) and len(impact) == 3:
-        raw = (dense_scores_bf16(emb, qvec) if params.dense_map_bf16
+        raw = (dense_scores_bf16(emb, qvec)
+               if params.dense_map_bf16 and emb.dtype != torch.int8
                else dense_scores(emb, qvec))
         return _fused_lists(raw, valid_n, emb, qvec, impact, doc_tok,
                             doc_mask, qtf, q_tok, q_mask, params)
@@ -175,14 +189,22 @@ def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor]
               if doc_tok is not None and params.late_candidates > 0 else 0)
     # the dense channel is one selection of the full map at any width
     # (JAX's lax.top_k); the late candidates take dense_topk's route
-    # (JAX's topk_large of the masked map)
-    d_s, d_i = score_select_topk(emb, qvec, valid_n, eff_k)
+    # (JAX's topk_large of the masked map). An int8 store's map is made
+    # once here and serves the selection, the candidates and the packed
+    # component.
+    dense_map = None
+    if emb.dtype == torch.int8:
+        dense_map = mask_cols(dense_scores(emb, qvec), valid_n)
+        d_s, d_i = stable_topk(dense_map, eff_k)
+    else:
+        d_s, d_i = score_select_topk(emb, qvec, valid_n, eff_k)
     bm25_s = mask_cols(bm25_scores_matmul(impact, qtf), valid_n, n)
     comps = [_components_from_top(d_s, d_i, n, params.w_dense, params.rrf_k),
              channel_components(bm25_s, eff_k, params.w_bm25, params.rrf_k)]
     late_s = None
     if late_c:
-        cand = dense_topk(emb, qvec, valid_n, late_c)[1]
+        cand = (dense_topk(emb, qvec, valid_n, late_c)[1] if dense_map is None
+                else topk_large(dense_map, late_c)[1])
         late_s = torch.full((cand.shape[0], n), NEG_INF, dtype=torch.float32,
                             device=emb.device)
         late_s.scatter_(1, cand, maxsim_candidates(doc_tok, doc_mask, q_tok,
@@ -211,14 +233,16 @@ def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor]
         torch.full_like(rrf_norm, NEG_INF))
     top_s, top_i = stable_topk(final, min(params.final_k, n))
 
-    # the dense map at the final rows: exact f32 dots (B * final_k * d)
-    qf = qvec.to(emb.dtype).float()
-    dense_at = torch.einsum("bd,bkd->bk", qf, emb[top_i].float())
-    dense_at = torch.where(top_i < valid_n, dense_at,
-                           torch.full_like(dense_at, NEG_INF))
-
     def gather(s: torch.Tensor) -> torch.Tensor:
         return torch.gather(s, 1, top_i)
+
+    if dense_map is not None:
+        dense_at = gather(dense_map)
+    else:  # the dense map at the final rows: exact f32 dots (B * final_k * d)
+        qf = qvec.to(emb.dtype).float()
+        dense_at = torch.einsum("bd,bkd->bk", qf, emb[top_i].float())
+        dense_at = torch.where(top_i < valid_n, dense_at,
+                               torch.full_like(dense_at, NEG_INF))
 
     packed = [top_s, dense_at, gather(bm25_s), gather(rrf_norm),
               gather(weighted_sum)]
@@ -228,7 +252,7 @@ def fused_hybrid_topk(emb: torch.Tensor, impact, doc_tok: Optional[torch.Tensor]
 
 
 def fused_channels_topk(emb: torch.Tensor, impact: torch.Tensor,
-                        doc_tok: Optional[torch.Tensor],
+                        doc_tok: Optional[TokenStore],
                         doc_mask: Optional[torch.Tensor], qvec, qtf,
                         q_tok: Optional[torch.Tensor],
                         q_mask: Optional[torch.Tensor], valid_n: int,

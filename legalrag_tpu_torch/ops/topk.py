@@ -1,8 +1,11 @@
 """Dense scoring and top-k (port of ``legalrag_tpu/ops/topk.py:33-347``).
 
-- ``dense_scores``: [B, d] queries x [N, d] store -> [B, N] float32, the
-  query cast to the store dtype first and both widened to float32 for the
-  product (JAX's ``preferred_element_type=f32``).
+- ``dense_scores``: [B, d] queries x [N, d] store -> [B, N] float32. Over
+  a bf16 or f32 store the query is cast to the store dtype first and both
+  are widened to float32 for the product (JAX's
+  ``preferred_element_type=f32``). Over the unit-int8 store each query row
+  is quantized (``quantize_queries``) and the s8 x s8 product is summed
+  exactly in int32 (``int8_dot``), then rescaled, as JAX computes it.
 - ``stable_topk``: top-k ordered by (score desc, index asc). It stands in
   for every ``lax.top_k`` of the JAX package, whose ties fall to the lowest
   index; ``torch.topk`` leaves tie order undefined, so it runs over keys
@@ -15,14 +18,18 @@
   ``dense_topk_fused_plain``, which computes the same function.
 - ``dense_topk``: the dense channel's masked top-k, routed by size as JAX's
   ``default_backend`` routes it: ``score_select_topk`` below
-  ``TWO_PASS_MIN_N`` rows, ``dense_topk_2pass`` from there.
+  ``TWO_PASS_MIN_N`` rows, ``dense_topk_2pass`` from there. An int8 store
+  never reaches the score+select kernel (JAX sends it to XLA): below
+  ``TWO_PASS_MIN_N`` it is ``stable_topk`` of the masked quantized map.
 - ``mask_cols``: a score map aligned to a width, columns past ``valid_n``
   NEG_INF (the mask every channel applies before its selection).
 - ``topk_2pass``, ``topk_large``, ``topk_2pass_masked``,
   ``dense_topk_2pass``: the block-max two-pass selection of the
   large-corpus mode, step by step as in JAX (where XLA computes them), with
   ``stable_topk`` wherever JAX calls ``lax.top_k``, so the tie order is
-  JAX's.
+  JAX's. The bf16 map (``dense_scores_bf16``, ``rescore_exact``) is never
+  used over an int8 store: its quantized map is already the cheap one, and
+  ``q.to(torch.int8)`` would truncate a unit query to zeros.
 """
 
 from __future__ import annotations
@@ -46,6 +53,12 @@ SCORE_SELECT_TILE = 128
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+INT8_SCALE = 127.0
+# torch._int_mm (cuBLASLt's s8 x s8 -> s32 GEMM) takes more than 16 rows and
+# widths that are multiples of 8; the queries are zero-padded to this many
+# rows at least, on every device, so one route serves every batch size
+INT_MM_MIN_ROWS = 24
+
 
 def bucket_k(k: int, n: int) -> int:
     """Round k up to a small fixed set (the JAX package's compile buckets;
@@ -56,8 +69,48 @@ def bucket_k(k: int, n: int) -> int:
     return min(k, n) if n else k
 
 
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` rounded once, as numpy and XLA divide. A Python divisor
+    would let CUDA multiply by its reciprocal instead (one rounding more);
+    a tensor divisor is divided by on every device."""
+    return x / torch.full_like(x, c)
+
+
+def quantize_queries(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 query quantization of the int8 scorer
+    (``legalrag_tpu/ops/topk.py:84-88``): ``qs = max(amax, 1e-8) / 127``,
+    ``qq = round(q / qs)`` (half to even). Returns (qq [B, d] int8, qs
+    [B, 1] float32)."""
+    qf = q.float()
+    amax = qf.abs().amax(dim=-1, keepdim=True)
+    qs = true_div(torch.clamp(amax, min=1e-8), INT8_SCALE)
+    return torch.round(qf / qs).to(torch.int8), qs
+
+
+def int8_dot(qq: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """[B, d] int8 x [N, d] int8 -> [B, N] int32, the exact integer sums
+    (JAX's ``dot_general(..., preferred_element_type=int32)``), by
+    ``torch._int_mm`` with the rows zero-padded to ``INT_MM_MIN_ROWS`` or
+    the next multiple of 8: one route for every batch size and device."""
+    b, d = qq.shape
+    n = emb.shape[0]
+    if d % 8 or n % 8:
+        raise ValueError(f"the int8 scorer needs d and the store's rows to "
+                         f"be multiples of 8, got d {d}, N {n}")
+    rows = max(INT_MM_MIN_ROWS, round_up(b, 8))
+    qp = torch.zeros((rows, d), dtype=torch.int8, device=qq.device)
+    qp[:b] = qq
+    return torch._int_mm(qp, emb.T)[:b]
+
+
 def dense_scores(emb: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """[B, d] queries x [N, d] bf16/f32 embedding rows -> [B, N] float32."""
+    """[B, d] queries x [N, d] store rows -> [B, N] float32. An int8 store
+    holds ``round(127 * e)`` of unit rows: the query is quantized per row,
+    the s8 x s8 sums are exact, and ``acc * (qs / 127)`` restores the inner
+    products (``legalrag_tpu/ops/topk.py:69-94``)."""
+    if emb.dtype == torch.int8:
+        qq, qs = quantize_queries(q)
+        return int8_dot(qq, emb).float() * true_div(qs, INT8_SCALE)
     return torch.matmul(q.to(emb.dtype).float(), emb.float().T)
 
 
@@ -106,7 +159,12 @@ def score_select_topk(emb: torch.Tensor, q: torch.Tensor, valid_n: int,
                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked top-k inner products in one selection: ([B, k] float32
     scores, [B, k] int64 rows), rows >= ``valid_n`` scored NEG_INF. ``k``
-    is clamped to N."""
+    is clamped to N. An int8 store takes ``stable_topk`` of its masked
+    quantized map on every device (JAX routes int8 to XLA, never to the
+    score+select kernel, ``legalrag_tpu/ops/topk.py:364-368``)."""
+    if emb.dtype == torch.int8:
+        return stable_topk(mask_cols(dense_scores(emb, q), valid_n),
+                           min(k, emb.shape[0]))
     if emb.device.type == "cpu":
         return dense_topk_fused_plain(emb, q, valid_n, k)
     return _score_select(emb, q, valid_n, k)
@@ -269,7 +327,9 @@ def rescore_exact(emb: torch.Tensor, q: torch.Tensor, s_lp: torch.Tensor,
                   idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Winners of a bf16 map rescored in float32 from their rows (the query
     rounded to the store dtype, as in ``dense_scores``), NEG_INF slots kept,
-    then re-ordered by a stable descending sort (``jnp.argsort(-s)``)."""
+    then re-ordered by a stable descending sort (``jnp.argsort(-s)``). Not
+    for an int8 store, whose map is never written in bf16."""
+    _no_int8(emb, "rescore_exact")
     rows = emb[idx].float()                                    # [B, k, d]
     exact = torch.einsum("bd,bkd->bk", q.to(emb.dtype).float(), rows)
     exact = torch.where(s_lp.float() > NEG_INF / 2, exact, NEG_INF)
@@ -279,16 +339,24 @@ def rescore_exact(emb: torch.Tensor, q: torch.Tensor, s_lp: torch.Tensor,
 
 def dense_scores_bf16(emb: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """[B, N] dense map written in bf16 (products summed in float32 by the
-    matmul, rounded once)."""
+    matmul, rounded once). Not for an int8 store."""
+    _no_int8(emb, "dense_scores_bf16")
     return torch.matmul(q.to(torch.bfloat16), emb.to(torch.bfloat16).T)
+
+
+def _no_int8(emb: torch.Tensor, what: str) -> None:
+    if emb.dtype == torch.int8:
+        raise TypeError(f"{what} takes bf16/f32 stores: over an int8 store "
+                        f"the quantized map is the exact route")
 
 
 def dense_topk_2pass(emb: torch.Tensor, q: torch.Tensor, valid_n: int, k: int,
                      block: int = TWO_PASS_BLOCK, map_bf16: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k inner products by ``topk_2pass_masked``. ``map_bf16`` selects
-    on a bf16 map and rescores the k winners exactly (``rescore_exact``)."""
-    if map_bf16:
+    on a bf16 map and rescores the k winners exactly (``rescore_exact``);
+    an int8 store ignores it, as in JAX (``topk.py:255``)."""
+    if map_bf16 and emb.dtype != torch.int8:
         s_lp, idx = topk_2pass_masked(dense_scores_bf16(emb, q), valid_n, k,
                                       block=block)
         return rescore_exact(emb, q, s_lp, idx)

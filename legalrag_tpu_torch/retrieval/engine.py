@@ -51,7 +51,8 @@ class FusedQueryEngine:
             final_k=bucket_k(min(top_k, n), n),
             rrf_k=float(r.rrf_k), alpha=float(r.rrf_alpha),
             w_dense=float(r.dense_weight), w_bm25=float(r.bm25_weight),
-            w_late=float(r.colbert_weight))
+            w_late=float(r.colbert_weight),
+            dense_map_bf16=(self.cfg.engine.dense_map_dtype == "bfloat16"))
 
     def _use_late(self, st: BundleState) -> bool:
         return (self.cfg.retrieval.enable_colbert

@@ -360,9 +360,10 @@ def test_fused_hybrid_topk_matches_jax_on_synthetic_inputs():
 
 
 def test_fused_hybrid_topk_unported_modes_raise():
-    """What the port does not run yet raises NotImplementedError: the
-    full-corpus MaxSim over an int8 token store (the kernel has no
-    in-kernel dequant) and the int8 dense store."""
+    """What the port does not run raises NotImplementedError: a token or
+    dense store of a dtype outside bf16 / f32 / int8 (/ nbit4 for tokens).
+    The int8 stores now run (tests/test_torch_stores.py holds them to
+    JAX)."""
     from legalrag_tpu_torch.index.dense_index import store_dtype
 
     p = tfq.FusedParams(eff_k=8, final_k=8, rrf_k=60.0, alpha=0.5,
@@ -370,10 +371,11 @@ def test_fused_hybrid_topk_unported_modes_raise():
     emb = torch.zeros(16, 8)
     with pytest.raises(NotImplementedError):
         tfq.fused_hybrid_topk(emb, torch.zeros(4, 16),
-                              torch.zeros(16, 2, 8, dtype=torch.int8),
+                              torch.zeros(16, 2, 8, dtype=torch.float16),
                               torch.ones(16, 2, dtype=torch.bool),
                               torch.zeros(1, 8), torch.zeros(1, 4),
                               torch.zeros(1, 2, 8),
                               torch.ones(1, 2, dtype=torch.bool), 16, p)
     with pytest.raises(NotImplementedError):
-        store_dtype("int8")
+        store_dtype("float16")
+    assert store_dtype("int8") == torch.int8
