@@ -656,8 +656,9 @@ def kernel_label(mangled: str) -> str:
     args = (["bf16"] if "__nv_bfloat16" in head
             else ["f32"] if head.startswith("If") else [])
     ints = re.findall(r'Li(\d+)E', head)
-    if base == "maxsim_tokens_kernel":  # <store kind (lrt::DType), DT>
-        ints[0] = {"0": "f32", "2": "int8", "3": "nbit4"}[ints[0]]
+    if base in ("maxsim_tokens_kernel", "maxsim_bf16_kernel"):
+        # <store kind (lrt::DType), DT>
+        ints[0] = {"0": "f32", "1": "bf16", "2": "int8", "3": "nbit4"}[ints[0]]
     return f"{base}<{','.join(args + ints)}>"
 
 
@@ -709,22 +710,29 @@ def ptxas_report(text: str) -> dict:
 def phase_build() -> dict:
     """Compile the kernels, read ptxas's registers and spills and the SASS
     counts, and check that each instance multiplies where it should:
-    score_select<bf16> and every maxsim_bf16_kernel on the tensor cores,
-    the float32, int8 and nbit4 instances on the CUDA cores (FFMA, no
-    HMMA)."""
+    score_select<bf16> and every maxsim_bf16_kernel (the bf16 and int8
+    stores) on the tensor cores, with no spill; the float32 and nbit4
+    instances on the CUDA cores (FFMA, no HMMA)."""
     built = kernels.build(force=True)
     sass = sass_counts(built["path"])
-    want = {"score_select_kernel": 2, "maxsim_bf16_kernel": 3,
-            "maxsim_tokens_kernel": 9, "maxsim_reduce_kernel": 1}
+    ptxas = ptxas_report(built["ptxas"])
+    want = {"score_select_kernel": 2, "maxsim_bf16_kernel": 6,
+            "maxsim_tokens_kernel": 6, "maxsim_reduce_kernel": 1}
     got = {k: sum(n.startswith(k + "<") or n == k for n in sass) for k in want}
     check(got == want, f"kernel instances in the SASS: {list(sass)}")
+    check(sorted(n for n in sass if n.startswith("maxsim_bf16_kernel<")) == [
+        f"maxsim_bf16_kernel<{kind},{dt}>" for kind in ("bf16", "int8")
+        for dt in (128, 32, 64)], f"tensor-core MaxSim instances: {list(sass)}")
     for name, ops in sass.items():
         on_tc = name.startswith(ON_TENSOR_CORES)
         check(bool(ops["HMMA"]) == on_tc
               and (on_tc or ops["FFMA"] > 0 or "reduce" in name),
               f"SASS {name}: {ops}")
-    res = {"phase": "build", "seconds": built["seconds"],
-           "ptxas": ptxas_report(built["ptxas"]), "sass": sass}
+        if name.startswith("maxsim_bf16_kernel<"):
+            check(ptxas[name]["spill_stores"] == ptxas[name]["spill_loads"]
+                  == 0, f"ptxas {name} spills: {ptxas[name]}")
+    res = {"phase": "build", "seconds": built["seconds"], "ptxas": ptxas,
+           "sass": sass}
     emit(res)
     return res
 

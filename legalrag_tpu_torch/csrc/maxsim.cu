@@ -18,34 +18,33 @@
 // 989 TFLOP/s bf16 tensor-core peak. Its bytes (the valid doc tokens once,
 // 44.5 MB, 13 us at 3.35 TB/s) bound it far less.
 //
-// bf16 (the main path): one launch, maxsim_bf16_kernel, products on the
-// tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums: exact
-// products, so only the order of the sums differs from the reference).
-// - A block has QW consumer warps and a producer warpgroup (one working
-//   warp, which gives most of its registers to the consumers with
-//   setmaxnreg). The consumer warps take the batch's queries in order: a
-//   long query (Lq > 64) a warp, short ones packed by their valid tokens
-//   (below). Each group of QW warps is served by blocks/groups blocks, each
-//   walking a strided slice of the docs, the group fastest in the block
-//   index, so the blocks that read one doc run together and find it in L2
-//   (the wrapper launches about one block per SM).
-// - A consumer warp keeps its query slots as mma's A in registers, RG = 64
-//   slots (four m16 tiles, token_dim / 16 k-steps each), loaded once. For
-//   short queries the slots are their valid tokens, compacted and padded
-//   to a tile per query: a warp packs whole queries up to four tiles, so
-//   a batch of one-token queries costs a tile a query, not four. A tile
-//   that holds no valid slot issues no products. Long queries go through
-//   in groups of RG slots as they lie, reloaded for each doc.
-// - The producer ballots each doc's mask (its bytes loaded one doc ahead)
-//   and each valid token's lane issues one bulk copy (TMA) of its row,
-//   compacted in token order, into a ring of bf16 stages (3, or 2 where 3
-//   do not fit; rows padded to dt + 8 against bank conflicts). Per stage,
-//   an mbarrier `full` counts the doc's bytes in and one `empty` counts the
-//   consumers out, so no block barrier ties the warps after the prologue
-//   and no consumer issues a copy (issued by the consumers, as 16-byte
-//   cp.async or as bulk copies, the copies held up the products). Rows
-//   stored [token][dt] are mma's column-major B as they lie, so ldmatrix
-//   reads them without .trans.
+// bf16 and int8 stores: one launch, maxsim_bf16_kernel<KIND, DT>, products
+// on the tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums:
+// exact products, so only the order of the sums differs from the
+// reference).
+// - A block has QW consumer warps and a producer warpgroup (which gives
+//   most of its registers to the consumers with setmaxnreg). The consumer
+//   warps take the batch's queries in order: short queries packed by their
+//   valid tokens (below), a long query a warp. Each group of QW warps is
+//   served by blocks/groups blocks, each walking a strided slice of the
+//   docs, the group fastest in the block index, so the blocks that read
+//   one doc run together and find it in L2 (the wrapper launches about one
+//   block per SM).
+// - A consumer warp keeps its query slots as mma's A in registers, RG
+//   slots (RG / 16 m16 tiles, token_dim / 16 k-steps each), loaded once. A
+//   query is short when Lq <= 64 and it has at most RG valid tokens: its
+//   slots are its valid tokens, compacted and padded to a tile, and a warp
+//   packs whole short queries up to RG / 16 tiles, so a batch of one-token
+//   queries costs a tile a query. A tile that holds no valid slot issues no
+//   products. A long query goes through in groups of RG slots as they lie,
+//   reloaded for each doc.
+// - The stage ring holds each doc's valid tokens as bf16 rows, compacted
+//   in token order (3 stages, or 2 where 3 do not fit; rows padded to
+//   dt + 8 against bank conflicts). Per stage, an mbarrier `full` counts
+//   the doc in and one `empty` counts the consumers out, so no block
+//   barrier ties the warps after the prologue. Rows stored [token][dt] are
+//   mma's column-major B as they lie, so ldmatrix reads them without
+//   .trans.
 // - Two n8 token chunks a pass: columns past the doc's valid count are
 //   masked to -inf, each thread folds its C fragment into running row
 //   maxima, and a quad shuffle finishes the doc (max is order-free).
@@ -53,29 +52,49 @@
 //   a long query, masked slots add +0.0, which changes nothing), so a run
 //   gives the same bits every time. No scratch, no second launch.
 //
-// float32, int8 and nbit4 stores, float32 queries (TF32 would change the
-// float32 results; the quantized stores' queries stay float32, as in the
-// JAX package): two launches on the CUDA cores. maxsim_tokens_kernel writes
-// best(b, i, n) for every valid query token into scratch [N, B * Lq]; a
-// block owns up to THREADS valid query tokens (compacted in its prologue),
-// each thread keeps its token in DT registers, and for each doc of its
-// strided set the block stages the valid doc tokens in shared memory as
-// float32, decoding them on the way (decode8): an int8 token as
-// float(x) * (1 / 127), the dequant of legalrag_tpu/ops/maxsim.py:80-81; an
-// nbit4 token as centroids[codes_c] + (nibble - 8) * step with step =
-// scales / 7 divided once on the host, the product and the sum each rounded
-// (no FMA), as legalrag_tpu/ops/maxsim.py:69-79 computes it, so the staged
-// values equal the plain version's bit for bit. maxsim_reduce_kernel sums
-// each query's valid tokens in token order into out [B, N].
+// bf16 store, bf16 queries (the main path): RG = 64 (four tiles). One
+// producer warp works: it ballots each doc's mask (its bytes loaded one doc
+// ahead) and each valid token's lane issues one bulk copy (TMA) of its row
+// into the stage; `full` counts the bytes (issued by the consumers, as
+// 16-byte cp.async or as bulk copies, the copies held up the products).
 //
-// What bounds the quantized routes: the same products as above, here on
-// the CUDA cores (67 TFLOP/s float32 on an H100 SXM): at the zh shapes 0.156
-// TFLOP, 2.3 ms. Their bytes are a quarter (int8) or about a sixth (nbit4:
-// 1 + dt / 2 bytes a token, plus the 128 KB of centroids) of the float32
-// rows'. The simple design re-decodes each staged doc in every block that
+// int8 store (round(v * 127) of unit vectors), float32 queries: the same
+// kernel with the codes widened once a block. The four producer warps each
+// read a quarter of every valid token's row with plain loads, widen the
+// codes to bf16 (exact: |code| <= 127 needs 7 bits) and store them into
+// the stage; `full` counts the four warps. The float32 queries are split
+// as they are loaded, hi = bf16(q) and lo = bf16(q - hi), both rounded to
+// nearest even: |q - hi - lo| <= 2^-16 |q| per element (bf16 keeps 8
+// significant bits). Every product is issued twice into one float32
+// accumulator, lo * code and then hi * code, each exact (8 + 8 bits), so
+// the dot is q . code but for the split's residue and the order of the
+// sums. RG = 32 (two tiles, two A parts: the same 128 A registers at
+// token_dim 128 as bf16's 64 slots). Each finished row maximum is scaled by
+// 1 / 127, the dequant of legalrag_tpu/ops/maxsim.py:80-81 (the scale is
+// positive, so it commutes with the max).
+//
+// float32 and nbit4 stores, float32 queries (TF32 would change the float32
+// results; the nbit4 store's queries stay float32, as in the JAX package):
+// two launches on the CUDA cores. maxsim_tokens_kernel writes best(b, i, n)
+// for every valid query token into scratch [N, B * Lq]; a block owns up to
+// THREADS valid query tokens (compacted in its prologue), each thread keeps
+// its token in DT registers, and for each doc of its strided set the block
+// stages the valid doc tokens in shared memory as float32, decoding them on
+// the way (decode8): an nbit4 token as centroids[codes_c] + (nibble - 8) *
+// step with step = scales / 7 divided once on the host, the product and the
+// sum each rounded (no FMA), as legalrag_tpu/ops/maxsim.py:69-79 computes
+// it, so the staged values equal the plain version's bit for bit.
+// maxsim_reduce_kernel sums each query's valid tokens in token order into
+// out [B, N].
+//
+// What bounds the int8 route: twice the products above on the tensor cores
+// (0.316 ms at the zh shapes); its bytes are a quarter of the bf16 rows'
+// widened in shared memory. The nbit4 route: the same products on the CUDA
+// cores (67 TFLOP/s float32 on an H100 SXM): 0.156 TFLOP, 2.3 ms; its bytes
+// about a sixth of the float32 rows' (1 + dt / 2 bytes a token, plus the
+// 128 KB of centroids). It re-decodes each staged doc in every block that
 // stages it (one block per THREADS valid query tokens) and keeps no tensor
-// core busy: a redesign on the tensor cores (int8 tokens are exact in
-// bf16; split-bf16 queries) is later work.
+// core busy: its redesign on the tensor cores is later work.
 
 #include <math.h>
 
@@ -94,22 +113,37 @@ constexpr int QTHREADS = (QW + 4) * 32;  // and a producer warpgroup
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
 static_assert(4 * 32 * PRODUCER_REGS + QW * 32 * CONSUMER_REGS <= 65536,
               "register file");
-constexpr int RG = 64;            // query slots a warp holds at once
-constexpr int MT = RG / 16;       // m16 tiles in them
+constexpr int MAX_RG = 64;        // query slots a warp holds at once, at most
+constexpr int PACK_LQ = 64;       // queries this long or shorter may pack
 constexpr int MAX_STAGES = 3;     // doc stages a block, where they fit
 constexpr int MAXCH = 16;         // 32-token mask chunks a lane prefetches
 constexpr int MAXQ = 32;          // short queries a consumer warp packs
 constexpr unsigned FULL = 0xffffffffu;
 
+// The tensor-core kernel's operands by store kind: the doc tokens, the
+// queries, and RG, the query slots a consumer warp holds (int8 holds each
+// slot as two bf16 parts).
+template <int KIND> struct TC;
+template <> struct TC<lrt::kBF16> {
+  typedef __nv_bfloat16 doc;
+  typedef __nv_bfloat16 query;
+  static constexpr int RG = 64;
+};
+template <> struct TC<lrt::kI8> {
+  typedef int8_t doc;
+  typedef float query;
+  static constexpr int RG = 32;
+};
+
 __host__ __device__ constexpr int stage_rows(int L) { return (L + 7) / 8 * 8; }
 
 // Dynamic shared memory: the stages [stages][stage_rows(L)][dt + 8] bf16,
-// then per consumer warp its sum buffer [RG] float32, then per stage its
+// then per consumer warp its sum buffer [MAX_RG] float32, then per stage its
 // barriers full and empty (u64 each) and its doc's valid count (int), then
 // the packing: the number of consumer warps the batch takes and, per
 // consumer warp of the block, its first query and query count (int).
 size_t bf16_smem_bytes(int L, int dt, int stages) {
-  return (size_t)stages * stage_rows(L) * (dt + 8) * 2 + (size_t)QW * RG * 4 +
+  return (size_t)stages * stage_rows(L) * (dt + 8) * 2 + (size_t)QW * MAX_RG * 4 +
          stages * (2 * 8 + 4) + (1 + 2 * QW) * 4;
 }
 
@@ -187,57 +221,104 @@ __device__ __forceinline__ void mma_bf16_first(float (&c)[4],
         "f"(0.f));
 }
 
+// Two floats as a bf16 pair, each rounded to nearest even; lo in the low
+// half (the lower k of an mma fragment register).
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// Eight int8 codes (byte k of the two words is code k, k + 4 in b) as
+// eight bf16 values, exact.
+__device__ __forceinline__ uint4 widen8(unsigned a, unsigned b) {
+  auto pair = [](unsigned w, int k) {
+    return bf16x2((float)(int8_t)(w >> (8 * k)), (float)(int8_t)(w >> (8 * k + 8)));
+  };
+  return make_uint4(pair(a, 0), pair(a, 2), pair(b, 0), pair(b, 2));
+}
+
+// One of the four producer warps' quarter of an int8 row (DT / 4 codes)
+// widened into the stage row.
 template <int DT>
+__device__ __forceinline__ void widen_quarter(const int8_t* src,
+                                              __nv_bfloat16* dst) {
+  if constexpr (DT / 4 == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    *reinterpret_cast<uint4*>(dst) = widen8(v.x, v.y);
+  } else {
+#pragma unroll
+    for (int p = 0; p < DT / 64; ++p) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src + 16 * p);
+      *reinterpret_cast<uint4*>(dst + 16 * p) = widen8(v.x, v.y);
+      *reinterpret_cast<uint4*>(dst + 16 * p + 8) = widen8(v.z, v.w);
+    }
+  }
+}
+
+template <int KIND, int DT>
 __global__ void __launch_bounds__(QTHREADS, 1)
-maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
+maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
                    const uint8_t* __restrict__ doc_mask,
-                   const __nv_bfloat16* __restrict__ q_tok,
+                   const typename TC<KIND>::query* __restrict__ q_tok,
                    const uint8_t* __restrict__ q_mask, int B, int Lq, int N,
                    int L, int nst, float* __restrict__ out) {
   typedef __nv_bfloat16 bf16;
-  constexpr int LD = DT + 8;   // stage row (bf16), 16-byte multiple
-  constexpr int KS = DT / 16;  // k16 steps
+  constexpr bool I8 = KIND == lrt::kI8;
+  constexpr int RG = TC<KIND>::RG;  // query slots a consumer warp holds
+  constexpr int MT = RG / 16;       // m16 tiles in them
+  constexpr int NP = I8 ? 2 : 1;    // A parts a slot (int8: lo, then hi)
+  constexpr int LD = DT + 8;        // stage row (bf16), 16-byte multiple
+  constexpr int KS = DT / 16;       // k16 steps
   extern __shared__ __align__(16) unsigned char stage_smem[];
   const int rows = stage_rows(L);
   bf16* stages = reinterpret_cast<bf16*>(stage_smem);
   float* tail = reinterpret_cast<float*>(stages + (size_t)nst * rows * LD);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  uint64_t* full = reinterpret_cast<uint64_t*>(tail + QW * RG);  // doc landed
+  uint64_t* full = reinterpret_cast<uint64_t*>(tail + QW * MAX_RG);  // doc landed
   uint64_t* empty = full + nst;                                   // doc read
   int* nvs = reinterpret_cast<int*>(empty + nst);                // its valid tokens
   int* pack = nvs + nst;
 
-  // Queries to consumer warps. Short queries (Lq <= RG) are packed: a warp
-  // takes a run of whole queries whose valid tokens, compacted and padded
-  // to m16 tiles per query, fill at most MT tiles (and at most MAXQ
-  // queries), so a batch of one-token queries costs a tile a query, not
-  // four. A longer query takes a warp of its own. W warps in all make
+  // Queries to consumer warps. A short query (Lq <= PACK_LQ, at most RG
+  // valid tokens) is packed: a warp takes a run of whole short queries
+  // whose valid tokens, compacted and padded to m16 tiles per query, fill
+  // at most MT tiles (and at most MAXQ queries), so a batch of one-token
+  // queries costs a tile a query, not MT. A long query takes a warp of its
+  // own (its query count recorded as -1). W warps in all make
   // ceil(W / QW) groups of QW; block x serves group x % groups and the doc
   // slice x / groups, of blocks / groups slices (at most N). Warp 0 walks
-  // the batch twice, for W and then for the runs of this block's group.
-  const bool packed = Lq <= RG;
-  auto walk = [&](int lo) {  // records the runs of warps [lo, lo + QW)
+  // the batch twice, for W and then for the warps of this block's group.
+  auto walk = [&](int lo) {  // records the warps [lo, lo + QW)
     int w = 0, used = 0, nq = 0, begin = 0;
-    auto close = [&]() {
+    auto close = [&](int n) {
       if (lane == 0 && w >= lo && w < lo + QW) {
         pack[1 + 2 * (w - lo)] = begin;
-        pack[2 + 2 * (w - lo)] = nq;
+        pack[2 + 2 * (w - lo)] = n;
       }
       ++w;
     };
     for (int c0 = 0; c0 < B; c0 += 32) {
-      int tiles = 0;
-      if (c0 + lane < B) {
+      int tiles = -1;  // a long query
+      if (c0 + lane < B && Lq <= PACK_LQ) {
         const uint8_t* m = q_mask + (size_t)(c0 + lane) * Lq;
         int v = 0;
 #pragma unroll 16
         for (int k = 0; k < Lq; ++k) v += m[k] != 0;
-        tiles = (v + 15) / 16;
+        if (v <= RG) tiles = (v + 15) / 16;
       }
       for (int l = 0; l < 32 && c0 + l < B; ++l) {
         const int t = __shfl_sync(FULL, tiles, l);
+        if (t < 0) {
+          if (nq > 0) close(nq);
+          begin = c0 + l;
+          close(-1);
+          used = nq = 0;
+          begin = c0 + l + 1;
+          continue;
+        }
         if (nq > 0 && (used + t > MT || nq == MAXQ)) {
-          close();
+          close(nq);
           used = nq = 0;
           begin = c0 + l;
         }
@@ -245,25 +326,19 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
         ++nq;
       }
     }
-    close();
+    if (nq > 0) close(nq);
     return w;
   };
   if (warp == 0) {
     if (lane < QW) pack[2 + 2 * lane] = 0;  // warps past W hold no query
     __syncwarp();
-    const int nw = packed ? walk(B) : B;  // lo = B: records nothing
-    const int grp = blockIdx.x % ((nw + QW - 1) / QW);
-    if (packed) {
-      walk(grp * QW);
-    } else if (lane < QW && grp * QW + lane < B) {
-      pack[1 + 2 * lane] = grp * QW + lane;
-      pack[2 + 2 * lane] = 1;
-    }
+    const int nw = walk(B);  // lo = B: records nothing
+    walk(blockIdx.x % ((nw + QW - 1) / QW) * QW);
     if (lane == 0) pack[0] = nw;
   }
   if (threadIdx.x == 0) {
     for (int k = 0; k < nst; ++k) {
-      mbar_init(&full[k], 1);
+      mbar_init(&full[k], I8 ? 4 : 1);  // the producer warps that fill it
       mbar_init(&empty[k], QW);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -283,11 +358,14 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
   // consumers, which first wait on full.
   if (warp >= QW) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(PRODUCER_REGS));
-    if (warp > QW) return;
-    // the producer warp: each valid token's lane issues one bulk copy of its
-    // row, compacted in token order, into the stage; lane 0 announces the
-    // doc's bytes on full first. The mask of the next doc (bytes of tokens
-    // c * 32 + lane) is loaded while this one's copies fly.
+    const int pw = warp - QW;  // producer warp
+    if (!I8 && pw > 0) return;
+    // bf16: one warp; each valid token's lane issues one bulk copy of its
+    // row, compacted in token order, into the stage, and lane 0 announces
+    // the doc's bytes on full first. int8: four warps; each valid token's
+    // lane widens quarter pw of its row into the stage, and each warp
+    // arrives on full when its stores are done. The mask of the next doc
+    // (bytes of tokens c * 32 + lane) is loaded while this one's fly.
     const int chunks = (L + 31) / 32;
     unsigned mreg[MAXCH];
     auto fetch_mask = [&](int i) {
@@ -305,23 +383,34 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
       int nv = 0;
 #pragma unroll
       for (int c = 0; c < MAXCH; ++c) nv += __popc(__ballot_sync(FULL, mreg[c] != 0));
-      if (lane == 0) {
+      if (pw == 0 && lane == 0) {
         nvs[st] = nv;
-        mbar_arrive_expect(&full[st], (unsigned)nv * DT * 2);
+        if constexpr (!I8) mbar_arrive_expect(&full[st], (unsigned)nv * DT * 2);
       }
       __syncwarp();
-      // the stage was last read by ldmatrix (the generic proxy)
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      const bf16* src = doc_tok + (size_t)(n0 + i * dstep) * L * DT;
+      // bf16: the stage was last read by ldmatrix (the generic proxy); the
+      // int8 stores are generic too, ordered by the wait on empty
+      if constexpr (!I8) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      const typename TC<KIND>::doc* src = doc_tok + (size_t)(n0 + i * dstep) * L * DT;
       bf16* dst = stages + (size_t)st * rows * LD;
       int base = 0;
 #pragma unroll
       for (int c = 0; c < MAXCH; ++c) {
         const unsigned bal = __ballot_sync(FULL, mreg[c] != 0);
-        if (mreg[c])
-          bulk_copy(dst + (size_t)(base + __popc(bal & ((1u << lane) - 1u))) * LD,
-                    src + (size_t)(c * 32 + lane) * DT, DT * 2, &full[st]);
+        if (mreg[c]) {
+          const int r = base + __popc(bal & ((1u << lane) - 1u));
+          if constexpr (I8)
+            widen_quarter<DT>(src + (size_t)(c * 32 + lane) * DT + pw * (DT / 4),
+                              dst + (size_t)r * LD + pw * (DT / 4));
+          else
+            bulk_copy(dst + (size_t)r * LD, src + (size_t)(c * 32 + lane) * DT,
+                      DT * 2, &full[st]);
+        }
         base += __popc(bal);
+      }
+      if constexpr (I8) {
+        __syncwarp();  // the warp's stores, then its one arrival (release)
+        if (lane == 0) mbar_arrive(&full[st]);
       }
       fetch_mask(i + 1);
     }
@@ -330,8 +419,10 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
 
   // the consumers
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(CONSUMER_REGS));
-  float* sbuf = tail + warp * RG;
-  const int qb = pack[1 + 2 * warp], qn = pack[2 + 2 * warp];  // its queries
+  float* sbuf = tail + warp * MAX_RG;
+  const int qb = pack[1 + 2 * warp], qc = pack[2 + 2 * warp];  // its queries
+  const bool packed = qc >= 0;        // short queries, or one long one
+  const int qn = packed ? qc : 1;
   const bool has_q = qn > 0;
   const int groups = packed ? 1 : (Lq + RG - 1) / RG;
   const int g = lane >> 2, tq = lane & 3;
@@ -358,11 +449,36 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
     t0 -= tiles;
   }
 
-  // A fragments: a[t][ks] = (rows g, g + 8 of tile t) x (k 2 tq, 2 tq + 8
-  // of step ks). live: tiles that hold a valid slot; qbits: bit 2 t + h
-  // when this lane's slot t * 16 + g + 8 h is valid.
-  unsigned a[MT][KS][4];
+  // A fragments: a[p][t][ks] = (rows g, g + 8 of tile t) x (k 2 tq, 2 tq + 8
+  // of step ks), part p. live: tiles that hold a valid slot; qbits: bit
+  // 2 t + h when this lane's slot t * 16 + g + 8 h is valid.
+  unsigned a[NP][MT][KS][4];
   unsigned live = 0, qbits = 0;
+  // this lane's row h of tile t from query token `row` (zeros when !ok);
+  // int8: the float32 token split into its bf16 parts lo (a[0]), hi (a[1])
+  auto load_row = [&](int t, int h, size_t row, bool ok) {
+    if constexpr (I8) {
+      const float2* x2 = reinterpret_cast<const float2*>(q_tok + row * DT + 2 * tq);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // k 2 tq (+ 8 for e = 1)
+          const float2 x = ok ? x2[ks * 8 + 4 * e] : make_float2(0.f, 0.f);
+          const unsigned hi = bf16x2(x.x, x.y);
+          a[1][t][ks][2 * e + h] = hi;
+          a[0][t][ks][2 * e + h] = bf16x2(x.x - __uint_as_float(hi << 16),
+                                          x.y - __uint_as_float(hi & 0xffff0000u));
+        }
+      }
+    } else {
+      const unsigned* x2 = reinterpret_cast<const unsigned*>(q_tok + row * DT + 2 * tq);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        a[0][t][ks][h] = ok ? x2[ks * 8] : 0u;
+        a[0][t][ks][2 + h] = ok ? x2[ks * 8 + 4] : 0u;
+      }
+    }
+  };
   // packed: slot t0 * 16 + k of the warp is the k-th valid token of its
   // query (tiles of no query issue no products)
   auto load_packed = [&]() {
@@ -380,18 +496,11 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
         const int k = (t - ot0) * 16 + g + 8 * h;
         const bool ok = k < ov;
         if (ok) qbits |= 1u << (2 * t + h);
-        const unsigned* row = reinterpret_cast<const unsigned*>(
-            q_tok + ((size_t)(qb + o) * Lq + (ok ? nth_bit(m, k) : 0)) * DT +
-            2 * tq);
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          a[t][ks][h] = ok ? row[ks * 8] : 0u;
-          a[t][ks][2 + h] = ok ? row[ks * 8 + 4] : 0u;
-        }
+        load_row(t, h, (size_t)(qb + o) * Lq + (ok ? nth_bit(m, k) : 0), ok);
       }
     }
   };
-  // long queries (one a warp): its slots [r * RG, r * RG + RG) as they lie;
+  // a long query (one a warp): its slots [r * RG, r * RG + RG) as they lie;
   // slots past Lq are zero
   auto load_query = [&](int r) {
     live = 0;
@@ -400,28 +509,19 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
     for (int t = 0; t < MT; ++t) {
       const int s0 = r * RG + t * 16;
       const int sl = s0 + (lane & 15);
-      if (__ballot_sync(FULL, has_q && sl < Lq && q_mask[(size_t)qb * Lq + sl]))
+      if (__ballot_sync(FULL, sl < Lq && q_mask[(size_t)qb * Lq + sl]))
         live |= 1u << t;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int s = s0 + g + 8 * h;
-        const bool ok = has_q && s < Lq;
+        const bool ok = s < Lq;
         if (ok && q_mask[(size_t)qb * Lq + s]) qbits |= 1u << (2 * t + h);
-        const unsigned* row = reinterpret_cast<const unsigned*>(
-            q_tok + ((size_t)qb * Lq + (ok ? s : 0)) * DT + 2 * tq);
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          a[t][ks][h] = ok ? row[ks * 8] : 0u;
-          a[t][ks][2 + h] = ok ? row[ks * 8 + 4] : 0u;
-        }
+        load_row(t, h, (size_t)qb * Lq + (ok ? s : 0), ok);
       }
     }
   };
 
-  if (packed)
-    load_packed();
-  else if (groups == 1)
-    load_query(0);
+  if (packed) load_packed();
 
   for (int i = 0; i < count; ++i) {
     const int st = i % nst;
@@ -430,7 +530,7 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
     const bf16* bs = stages + (size_t)st * rows * LD;
     float total = 0.f;
     for (int r = 0; has_q && nv > 0 && r < groups; ++r) {
-      if (groups > 1) load_query(r);
+      if (!packed) load_query(r);
       float best[MT][2];
 #pragma unroll
       for (int t = 0; t < MT; ++t) best[t][0] = best[t][1] = -INFINITY;
@@ -450,20 +550,25 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
             if (two) lrt::ldmatrix_x4(b[cur ^ 1][1], p + 8 * LD + (kk + 1) * 32);
           }
           // the products are issued in order (asm volatile): keep each
-          // accumulator's two products of this pass apart
+          // accumulator's products of this pass apart (int8: a k-step's lo
+          // product, then its hi product)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
 #pragma unroll
-            for (int u = 0; u < 2; ++u) {
-              if (u == 1 && !two) continue;
+            for (int pt = 0; pt < NP; ++pt) {
 #pragma unroll
-              for (int t = 0; t < MT; ++t) {
-                if (!(live >> t & 1u)) continue;
-                if (kk == 0 && h == 0)
-                  mma_bf16_first(acc[u][t], a[t][0], b[cur][u][0], b[cur][u][1]);
-                else
-                  lrt::mma_bf16(acc[u][t], a[t][2 * kk + h], b[cur][u][2 * h],
-                                b[cur][u][2 * h + 1]);
+              for (int u = 0; u < 2; ++u) {
+                if (u == 1 && !two) continue;
+#pragma unroll
+                for (int t = 0; t < MT; ++t) {
+                  if (!(live >> t & 1u)) continue;
+                  if (kk == 0 && h == 0 && pt == 0)
+                    mma_bf16_first(acc[u][t], a[0][t][0], b[cur][u][0],
+                                   b[cur][u][1]);
+                  else
+                    lrt::mma_bf16(acc[u][t], a[pt][t][2 * kk + h],
+                                  b[cur][u][2 * h], b[cur][u][2 * h + 1]);
+                }
               }
             }
           }
@@ -505,7 +610,8 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
           float m = best[t][h];
           m = fmaxf(m, __shfl_xor_sync(FULL, m, 1));
           m = fmaxf(m, __shfl_xor_sync(FULL, m, 2));
-          best[t][h] = m;
+          // int8: the codes' scale, positive, so it commutes with the max
+          best[t][h] = I8 ? m * (1.0f / 127.0f) : m;
         }
       }
       __syncwarp();  // the summing lanes have read the last group's buffer
@@ -535,29 +641,47 @@ maxsim_bf16_kernel(const __nv_bfloat16* __restrict__ doc_tok,
       }
     }
     __syncwarp();  // every lane is done with the stage
-    if (packed ? lane < qn : lane == 0 && has_q)  // an empty doc scores 0
+    if (packed ? lane < qn : lane == 0)  // an empty doc scores 0
       out[(size_t)(qb + (packed ? lane : 0)) * N + n0 + i * dstep] = total;
     if (lane == 0) mbar_arrive(&empty[st]);
   }
 }
 
-template <int DT>
-int launch_bf16(const void* doc_tok, const void* doc_mask, const void* q_tok,
-                const void* q_mask, int B, int Lq, int N, int L,
-                int blocks, void* out, cudaStream_t stream) {
+template <int KIND, int DT>
+int launch_tc(const void* doc_tok, const void* doc_mask, const void* q_tok,
+              const void* q_mask, int B, int Lq, int N, int L, int blocks,
+              void* out, cudaStream_t stream) {
   const int nst = bf16_stages(L, DT);
   const size_t smem = bf16_smem_bytes(L, DT, nst);
   cudaError_t err = cudaFuncSetAttribute(
-      maxsim_bf16_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      maxsim_bf16_kernel<KIND, DT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  maxsim_bf16_kernel<DT><<<blocks, QTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(doc_tok),
+  maxsim_bf16_kernel<KIND, DT><<<blocks, QTHREADS, smem, stream>>>(
+      static_cast<const typename TC<KIND>::doc*>(doc_tok),
       static_cast<const uint8_t*>(doc_mask),
-      static_cast<const __nv_bfloat16*>(q_tok),
+      static_cast<const typename TC<KIND>::query*>(q_tok),
       static_cast<const uint8_t*>(q_mask), B, Lq, N, L, nst,
       static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+template <int KIND>
+int launch_tc_kind(const void* doc_tok, const void* doc_mask,
+                   const void* q_tok, const void* q_mask, int B, int Lq,
+                   int N, int L, int dt, int blocks, void* out,
+                   cudaStream_t s) {
+  switch (dt) {
+    case 32:
+      return launch_tc<KIND, 32>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N,
+                                 L, blocks, out, s);
+    case 64:
+      return launch_tc<KIND, 64>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N,
+                                 L, blocks, out, s);
+    default:
+      return launch_tc<KIND, 128>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N,
+                                  L, blocks, out, s);
+  }
 }
 
 // =================================================================== float32
@@ -596,9 +720,9 @@ __device__ int block_exclusive_scan(int v, int* total) {
   return before + inc - v;
 }
 
-// The doc store of the CUDA-core kernel: tok is float32 [N, L, DT], int8
-// [N, L, DT] or (nbit4) packed uint8 [N, L, DT / 2]; nbit4 also has codes
-// [N, L] uint8, centroids float32 [256, DT] and step float32 [DT].
+// The doc store of the CUDA-core kernel: tok is float32 [N, L, DT] or
+// (nbit4) packed uint8 [N, L, DT / 2]; nbit4 also has codes [N, L] uint8,
+// centroids float32 [256, DT] and step float32 [DT].
 struct DocStore {
   const void* tok;
   const uint8_t* codes;
@@ -612,12 +736,6 @@ __device__ __forceinline__ void decode8(const DocStore& d, size_t row, int c,
                                         float* f) {
   if constexpr (KIND == lrt::kF32) {
     lrt::load8(static_cast<const float*>(d.tok) + row * DT + c, f);
-  } else if constexpr (KIND == lrt::kI8) {
-    const uint2 v = *reinterpret_cast<const uint2*>(
-        static_cast<const int8_t*>(d.tok) + row * DT + c);
-    const int8_t* x = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) f[j] = __fmul_rn((float)x[j], 1.0f / 127.0f);
   } else {
     static_assert(KIND == lrt::kNbit4, "store kind");
     // byte k of the 4 holds dims c + 2k (high nibble) and c + 2k + 1
@@ -784,20 +902,20 @@ int launch_kind(const DocStore& docs, const void* doc_mask, const void* q_tok,
 
 extern "C" {
 
-// Consumer warps a block of the bf16 kernel has; a launch needs at least
-// ceil(B / this) blocks.
+// Consumer warps a block of the tensor-core kernel has; a launch needs at
+// least ceil(B / this) blocks.
 int maxsim_queries_per_block() { return QW; }
 
 // Dynamic shared memory a launch needs for doc_maxlen L and token_dim dt,
 // or -1 when the kernel does not take the shape (dt not in {32, 64, 128},
-// bf16 L above 32 * MAXCH, or more than a block may have).
+// bf16 or int8 L above 32 * MAXCH, or more than a block may have).
 long long maxsim_smem_bytes(int dtype, int L, int dt) {
   if ((dt != 32 && dt != 64 && dt != 128) || L < 1) return -1;
-  if (dtype == lrt::kBF16) {
+  if (dtype == lrt::kBF16 || dtype == lrt::kI8) {
     const int st = bf16_stages(L, dt);
     return L <= 32 * MAXCH && st ? (long long)bf16_smem_bytes(L, dt, st) : -1;
   }
-  if (dtype == lrt::kF32 || dtype == lrt::kI8 || dtype == lrt::kNbit4) {
+  if (dtype == lrt::kF32 || dtype == lrt::kNbit4) {
     const size_t s = f32_smem_bytes(L, dt);
     return s <= (size_t)(SMEM_OPTIN - F32_STATIC) ? (long long)s : -1;
   }
@@ -810,49 +928,36 @@ long long maxsim_smem_bytes(int dtype, int L, int dt) {
 // dtypes), q_tok [B, Lq, dt] bf16 over a bf16 store and float32 over the
 // others, doc_mask [N, L] / q_mask [B, Lq] bool (1 byte), all contiguous,
 // the token tensors 16-byte aligned; maxsim_smem_bytes(dtype, L, dt) >= 0;
-// out float32 [B, N]. bf16: one launch of `grid` blocks, at least
-// ceil(B / QW), no scratch (pass NULL). float32, int8, nbit4: two launches,
-// `grid` blocks on the doc axis, scratch float32 [N, B * Lq]. Returns
-// cudaGetLastError().
+// out float32 [B, N]. bf16 and int8: one launch of `grid` blocks on the
+// tensor cores, at least ceil(B / QW), no scratch (pass NULL). float32 and
+// nbit4: two launches, `grid` blocks on the doc axis, scratch float32
+// [N, B * Lq]. Returns cudaGetLastError().
 int maxsim(const void* doc_tok, const void* doc_mask, const void* q_tok,
            const void* q_mask, const void* codes, const void* centroids,
            const void* step, int dtype, int B, int Lq, int N, int L, int dt,
            int grid, void* scratch, void* out, void* stream) {
+  const bool tc = dtype == lrt::kBF16 || dtype == lrt::kI8;
   if (B < 1 || Lq < 1 || N < 1 || grid < 1 ||
-      (dtype == lrt::kBF16 && grid < (B + QW - 1) / QW) ||
-      (dtype != lrt::kBF16 && scratch == nullptr) ||
+      (tc && grid < (B + QW - 1) / QW) || (!tc && scratch == nullptr) ||
       (dtype == lrt::kNbit4 &&
        (codes == nullptr || centroids == nullptr || step == nullptr)) ||
       maxsim_smem_bytes(dtype, L, dt) < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == lrt::kBF16) {
-    switch (dt) {
-      case 32:
-        return launch_bf16<32>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                               grid, out, s);
-      case 64:
-        return launch_bf16<64>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                               grid, out, s);
-      default:
-        return launch_bf16<128>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                                grid, out, s);
-    }
-  }
+  if (dtype == lrt::kBF16)
+    return launch_tc_kind<lrt::kBF16>(doc_tok, doc_mask, q_tok, q_mask, B,
+                                      Lq, N, L, dt, grid, out, s);
+  if (dtype == lrt::kI8)
+    return launch_tc_kind<lrt::kI8>(doc_tok, doc_mask, q_tok, q_mask, B, Lq,
+                                    N, L, dt, grid, out, s);
   const DocStore docs{doc_tok, static_cast<const uint8_t*>(codes),
                       static_cast<const float*>(centroids),
                       static_cast<const float*>(step)};
-  switch (dtype) {
-    case lrt::kF32:
-      return launch_kind<lrt::kF32>(docs, doc_mask, q_tok, q_mask, B, Lq, N,
-                                    L, dt, grid, scratch, out, s);
-    case lrt::kI8:
-      return launch_kind<lrt::kI8>(docs, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                                   dt, grid, scratch, out, s);
-    default:
-      return launch_kind<lrt::kNbit4>(docs, doc_mask, q_tok, q_mask, B, Lq,
-                                      N, L, dt, grid, scratch, out, s);
-  }
+  if (dtype == lrt::kF32)
+    return launch_kind<lrt::kF32>(docs, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                                  dt, grid, scratch, out, s);
+  return launch_kind<lrt::kNbit4>(docs, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                                  dt, grid, scratch, out, s);
 }
 
 }  // extern "C"

@@ -14,11 +14,13 @@ bf16 over a bf16 store and float32 over the others.
 ``maxsim_full`` is the full-corpus [B, N] map of the late channel. On a CUDA
 tensor it launches the hand-written kernel ``csrc/maxsim.cu`` (which
 replaces the Pallas ``maxsim_scores_pallas`` / ``maxsim_scores_pallas2``):
-for bf16 tokens one launch with the products on the tensor cores; for
-float32, int8 and nbit4 stores two launches on the CUDA cores through a
-[N, B * Lq] scratch, the int8 and nbit4 tokens decoded as the kernel
-stages them (JAX leaves these stores to XLA's ``maxsim_full``). On a CPU
-tensor it runs the plain version ``maxsim_full_plain``.
+for bf16 and int8 tokens one launch with the products on the tensor cores
+(int8: the codes widened to bf16 as the kernel stages them, the float32
+queries split into two bf16 parts, two products each); for float32 and
+nbit4 stores two launches on the CUDA cores through a [N, B * Lq]
+scratch, the nbit4 tokens decoded as the kernel stages them (JAX leaves
+the quantized stores to XLA's ``maxsim_full``). On a CPU tensor it runs
+the plain version ``maxsim_full_plain``.
 
 ``maxsim_topk`` is the late channel's masked top-k over that map
 (``legalrag_tpu/ops/maxsim.py:135-142``): columns >= ``valid_n`` NEG_INF,
@@ -41,6 +43,7 @@ from legalrag_tpu_torch.ops.topk import INT8_SCALE, mask_cols, topk_large
 # the kernel's doc-store type ids (csrc/common.cuh lrt::DType)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _NBIT4 = 3
+_TENSOR_CORE_IDS = (1, 2)  # bf16 and int8: one launch, no scratch
 _KERNEL_DT = (32, 64, 128)
 NBIT4_CENTROIDS = 256
 
@@ -228,7 +231,7 @@ def _maxsim_kernel(doc_tok: TokenStore, doc_mask: torch.Tensor,
         raise ValueError(f"doc_maxlen {l_doc} x token_dim {dt} does not fit "
                          f"the kernel's shared-memory staging")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    if dtype_id == 1:
+    if dtype_id in _TENSOR_CORE_IDS:
         # one launch, about one block per SM; the kernel splits the blocks
         # among its query groups and doc slices
         grid = max(n_sm, -(-b // lib.maxsim_queries_per_block()))
