@@ -8,8 +8,10 @@ Phases, each printing one JSON line:
 2. ``build``: compiles the hand-written kernels (``legalrag_tpu_torch/csrc``)
    with nvcc for sm_90a, timed, with ptxas's registers and spills per
    kernel and the tensor-core (HMMA) and FMA instruction counts of the
-   score+select and MaxSim instances' SASS (the bf16 ones must multiply on
-   the tensor cores, the float32 ones must not); then ``kernel_edge_cases``
+   score+select and MaxSim instances' SASS (score+select's bf16 instance
+   and MaxSim's bf16 and int8 instances must multiply on the tensor cores,
+   the MaxSim ones with no spill; the float32 and nbit4 ones must not);
+   then ``kernel_edge_cases``
    holds each kernel against its plain version on inputs that the main path
    does not give it (float32, ragged tiles, k above the tile and k = N, 512
    tiles, bf16 rounding midpoints; bf16 MaxSim at every token_dim, ragged
@@ -104,14 +106,18 @@ Phases, each printing one JSON line:
    store) and N4 (``token_dtype="nbit4"``: bf16 dense, the residual token
    store). For each: the bytes of its stores; MaxSim's int8 or nbit4 route
    against its plain version on the zh store at batch sizes 1, 8 and 64,
-   with timings, the bound and the library chain; the map path (zh 16, en
+   the device operations of one call (int8: the tensor-core kernel alone;
+   nbit4: its kernel and reduce), with timings of the wrapper and the C
+   entry, the bound and the library chain, and for int8 the queries on
+   the kernel's long path; the map path (zh 16, en
    9 batches through ``FusedQueryEngine``: q/s, Recall@10 against the bf16
    bundle's, N4 within 0.02, exact launches per batch (Q8: MaxSim only;
    N4: both kernels), device busy and idle share, MaxSim's device ms a
    batch) with 32 questions against the bundle's CPU twin (saved and
-   loaded on the CPU: the same stores, no swap in the top 10); then 128
-   ``ByLangRetriever`` requests from 16 threads over the saved bundles
-   (requests/s, p50 / p99, launches per channels call, 8 against the CPU);
+   loaded on the CPU: the same stores, no swap in the top 10 given the
+   card's late map); then 128 ``ByLangRetriever`` requests from 16 threads
+   over the saved bundles (requests/s, p50 / p99, launches per channels
+   call, 8 against the CPU);
 10. ``large``: the large-corpus mode at the JAX repo's 1M-doc scale point
    (``legalrag_tpu_torch.scale``: N 1,048,576, V 65,536, d 768 bf16,
    64 x 128 int8 doc tokens, B 64, 32 term slots, 16 query tokens): the
@@ -241,11 +247,6 @@ STORES = {"q8": {"dtype": "int8"}, "n4": {"token_dtype": "nbit4"}}
 STORES_REQUESTS = 128       # ByLangRetriever requests per configuration
 STORES_CPU_CHECKS = 32      # map-path questions held against the CPU twin
 STORES_SERVE_CPU_CHECKS = 8  # ByLangRetriever requests against the CPU
-# configurations held to the CPU twin's own late map and channel lists,
-# with the 1e-5 tie of the other phases; N4 (its MaxSim route 2.67e-5 off
-# the plain version) is held given the card's late map and lists, with a
-# 1e-4 tie (ROADMAP C1)
-TWIN_OWN_LATE = ("q8",)
 STORE_BUCKETS = (1, 8, 64)  # batch sizes of the MaxSim route checks
 INT8_SLOTS = 32             # query slots of maxsim_bf16_kernel<int8>: a query
                             # with more valid tokens takes its long path
@@ -2253,10 +2254,9 @@ def store_map(name: str, lang: str, bundle, bf16_recall: float) -> dict:
     test's bound), exact launches, the card's busy and idle share and
     MaxSim's device ms a batch; the first ``STORES_CPU_CHECKS`` questions
     against the bundle's CPU twin (saved, then loaded on the CPU: the same
-    stores, the plain versions). ``TWIN_OWN_LATE`` (Q8): the late map
-    within 1e-5 of the twin's plain map, and the twin's own top 10 but for
-    rows tied within 1e-5. N4: the late map within 1e-4, and, given the
-    card's late map, the same top 10 with no swap."""
+    stores, the plain versions): the late map within 1e-4 of the plain
+    version's, and, given the card's late map, the same top 10 with no
+    swap."""
     engine = FusedQueryEngine(bundle)
     queries, gold = make_queries(bundle, N_QUERIES)
     batches = [queries[i:i + BATCH] for i in range(0, len(queries), BATCH)]
@@ -2303,14 +2303,12 @@ def store_map(name: str, lang: str, bundle, bf16_recall: float) -> dict:
     for a, b in pairs + [(tw.tokens.mask[:n], st.tokens.mask[:n])]:
         check(torch.equal(a, b.cpu()),
               f"stores {name} {lang}: the twin's token store differs")
-    # the card's late-channel map for the same questions, against the
-    # plain version on the twin's store. Q8: the twin's own fused ranking
-    # (its plain MaxSim too), rows tied within 1e-5 may swap. N4 (MaxSim's
-    # float32 sums within 1e-4 of the plain version's, which can swap a
-    # channel's near-ties and with them the RRF ranks): the twin's ranking
-    # given the card's late map, rows equal, no swap
+    # the twin's fused ranking, given the card's late-channel map for the
+    # same questions (MaxSim's float32 sums run in another order than the
+    # plain version's, within 1e-4, which can swap a channel's near-ties
+    # and with them the RRF ranks): rows equal, no swap; the map itself
+    # against the plain version on the twin's store
     m = STORES_CPU_CHECKS
-    own = name in TWIN_OWN_LATE
     card_map = {}
 
     def keep(*args):
@@ -2322,31 +2320,25 @@ def store_map(name: str, lang: str, bundle, bf16_recall: float) -> dict:
     fused_query.maxsim_full = keep
     try:
         gs, gr, _ = engine.search_batch(queries[:m], TOP_K)
-        fused_query.maxsim_full = orig if own else (
-            lambda *args: card_map["out"].cpu())
+        fused_query.maxsim_full = lambda *args: card_map["out"].cpu()
         ws, wr, _ = FusedQueryEngine(twin).search_batch(queries[:m], TOP_K)
     finally:
         fused_query.maxsim_full = orig
     q_tok, q_mask = (a.cpu() for a in card_map["args"][2:])
     plain = maxsim_full_plain(tw.tokens.tok, tw.tokens.mask, q_tok, q_mask)
     map_err = (card_map["out"].cpu() - plain).abs().max().item()
-    check(map_err <= 1e-5 if own else torch.allclose(
-        card_map["out"].cpu(), plain, rtol=1e-4, atol=1e-4),
+    check(torch.allclose(card_map["out"].cpu(), plain, rtol=1e-4, atol=1e-4),
           f"stores {name} {lang}: the late map differs from the twin's by "
           f"{map_err}")
     check(np.allclose(gs, ws, atol=1e-4),
           f"stores {name} {lang}: fused scores vs the CPU twin")
-    swaps = ties_only(ws, wr, gs, gr, 1e-5 if own else TIE)
-    check(own or swaps == 0, f"stores {name} {lang}: {swaps} swaps against "
-                             f"the CPU twin")
-    # N4: the twin on its own (plain MaxSim too): positions whose row
-    # differs, recorded, not checked (channel near-ties, above)
-    if own:
-        own_diffs = swaps
-    else:
-        _s, own_r, _c = FusedQueryEngine(twin).search_batch(queries[:m],
-                                                            TOP_K)
-        own_diffs = int((own_r != gr).sum())
+    swaps = ties_only(ws, wr, gs, gr, TIE)
+    check(swaps == 0, f"stores {name} {lang}: {swaps} swaps against the "
+                      f"CPU twin")
+    # the twin on its own (plain MaxSim too): positions whose row differs,
+    # recorded, not checked (channel near-ties, above)
+    _s, own_r, _c = FusedQueryEngine(twin).search_batch(queries[:m], TOP_K)
+    own_diffs = int((own_r != gr).sum())
     res = {"phase": "stores_map", "store": name, "lang": lang,
            "n_docs": bundle.n_docs, "queries": len(queries),
            "batches": len(batches), "qps": len(queries) / (t2 - t0),
@@ -2355,8 +2347,8 @@ def store_map(name: str, lang: str, bundle, bf16_recall: float) -> dict:
            "launches": launches, "profile": profile,
            "maxsim_device_ms_per_batch":
                profile["kernels_device_ms"]["maxsim"] / len(batches),
-           "cpu_twin_questions": m, "cpu_twin_own_late_map": own,
-           "cpu_twin_swaps": swaps, "cpu_twin_late_map_max_abs_err": map_err,
+           "cpu_twin_questions": m, "cpu_twin_swaps": swaps,
+           "cpu_twin_late_map_max_abs_err": map_err,
            "cpu_twin_own_late_map_row_diffs": own_diffs,
            "bytes": store_bytes(bundle)}
     emit(res)
@@ -2368,10 +2360,8 @@ def store_serve(name: str, bundles, cfg: AppConfig) -> dict:
     (with their law graphs): ``STORES_REQUESTS`` requests from
     ``SERVE_THREADS`` threads, exact launches per channels call (Q8:
     MaxSim only), Recall@10, device busy and idle share, and
-    ``STORES_SERVE_CPU_CHECKS`` requests against the CPU retriever: its
-    channel lists against the card's (near-ties within 1e-5 may swap for
-    ``TWIN_OWN_LATE``, 1e-4 for N4), and its hits (from its own channel
-    lists for ``TWIN_OWN_LATE``, from the card's for N4)."""
+    ``STORES_SERVE_CPU_CHECKS`` requests against the CPU retriever (its
+    channel lists; its hits from the card's channel lists)."""
     for lang, b in bundles.items():
         lc = cfg.with_lang(lang)
         b.save(lc.paths.lang_index_dir)
@@ -2407,10 +2397,9 @@ def store_serve(name: str, bundles, cfg: AppConfig) -> dict:
         for lang in bundles}
     profile = profile_device(lambda: threaded(reqs[:64]), 64)
     # requests against the CPU retriever: its channel lists against the
-    # card's, then its hits (host fusion, graph and rerank on the CPU; Q8
-    # from its own channel lists, N4 from the card's: late-channel
-    # near-ties within 1e-4 may swap there) against the card's hits
-    own = name in TWIN_OWN_LATE
+    # card's (late-channel near-ties within 1e-4 may swap), then its hits
+    # from the card's channel lists (host fusion, graph and rerank on the
+    # CPU) against the card's hits
     cpu = ByLangRetriever(cfg, device="cpu")
     swaps = chan_swaps = 0
     step = len(reqs) // STORES_SERVE_CPU_CHECKS
@@ -2419,12 +2408,11 @@ def store_serve(name: str, bundles, cfg: AppConfig) -> dict:
         thr, chr_ = card.retriever(lang), cpu.retriever(lang)
         lists = {}
 
-        def channels(question, eff_k, thr=thr, chr_=chr_, lists=lists):
+        def card_channels(question, eff_k, thr=thr, lists=lists):
             lists[eff_k] = thr._channels_topk_batch([question], eff_k)
-            return (chr_._channels_topk_batch([question], eff_k) if own
-                    else lists[eff_k])
+            return lists[eff_k]
 
-        chr_._channels_topk_all = channels
+        chr_._channels_topk_all = card_channels
         try:
             swaps += same_hits(cpu.search(q, decision=d), hits[i], 1e-4,
                                f"stores {name} serve vs CPU, request {i}")
@@ -2433,15 +2421,14 @@ def store_serve(name: str, bundles, cfg: AppConfig) -> dict:
         for eff_k, got in lists.items():
             chan_swaps += check_channel_rows(
                 chr_._channels_topk_batch([q], eff_k), got,
-                f"stores {name} serve channels, request {i}",
-                tie=1e-5 if own else 1e-4)
+                f"stores {name} serve channels, request {i}", tie=1e-4)
     res = {"phase": "stores_serve", "store": name, "requests": len(reqs),
            "threads": SERVE_THREADS, "seconds": seconds,
            "requests_per_s": len(reqs) / seconds,
            "p50_ms": float(np.percentile(ms, 50)),
            "p99_ms": float(np.percentile(ms, 99)), "channel_calls": calls,
            "launches": launches, "recall_at_10": recall, "profile": profile,
-           "cpu_own_channel_lists": own, "cpu_reference_tie_swaps": swaps,
+           "cpu_reference_tie_swaps": swaps,
            "cpu_channel_tie_swaps": chan_swaps}
     emit(res)
     return res
