@@ -2141,8 +2141,7 @@ def maxsim_entry(store, dmask, q_tok, q_mask):
         tok, dtype_id = store.packed, 3
         extra = (store.codes_c, store.centroids, store.step)
         grid = max(1, min(n, 2 * n_sm))
-        scratch = torch.empty((n, b * lq), dtype=torch.float32,
-                              device=dev).data_ptr()
+        scratch = torch.empty((n, b * lq), dtype=torch.float32, device=dev)
     else:                                   # one launch on the tensor cores
         tok, extra, dtype_id = store, (None, None, None), 2
         grid = max(n_sm, -(-b // lib.maxsim_queries_per_block()))
@@ -2150,10 +2149,11 @@ def maxsim_entry(store, dmask, q_tok, q_mask):
     args = (tok.data_ptr(), dmask.data_ptr(), q_tok.data_ptr(),
             q_mask.data_ptr(),
             *(None if t is None else t.data_ptr() for t in extra), dtype_id,
-            b, lq, n, l_doc, dt, grid, scratch, out.data_ptr(),
+            b, lq, n, l_doc, dt, grid,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
 
-    def run():
+    def run(_scratch=scratch):  # the scratch lives as long as run does
         check(lib.maxsim(*args) == 0, "maxsim launch")
 
     return run, out
