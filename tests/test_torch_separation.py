@@ -23,7 +23,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
         sys.modules["jax"] = None  # any import of jax now fails
         sys.path.insert(0, {str(REPO)!r})
         import importlib
-        for name in {PORT_MODULES!r} + ["chip_smoke"]:
+        for name in {PORT_MODULES!r} + ["chip_smoke", "maxsim_routes"]:
             importlib.import_module(name)
         bad = sorted(k for k in sys.modules
                      if k == "legalrag_tpu" or k.startswith("legalrag_tpu."))
