@@ -2194,8 +2194,9 @@ def phase_store_kernels(route: str, bundle, queries) -> dict:
         check(len(ops) == 1 and "maxsim_bf16_kernel<2," in ops[0],
               f"one int8 maxsim_full call issued {ops}")
     else:
-        check(len(ops) == 2 and "maxsim_tokens_kernel<3," in ops[0]
-              and "maxsim_reduce_kernel" in ops[1],
+        check(len(ops) == 2
+              and any("maxsim_tokens_kernel<3," in o for o in ops)
+              and any("maxsim_reduce_kernel" in o for o in ops),
               f"one nbit4 maxsim_full call issued {ops}")
     entry, entry_out = maxsim_entry(tok, dmask, q_tok, q_mask)
     entry()
