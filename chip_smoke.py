@@ -602,10 +602,18 @@ def check_store_routes(tok, dmask, q_tok, q_mask, what: str) -> dict:
     float32 queries into two bf16 parts, which leave at most 2**-16 of
     each element, and multiplies them by the exact codes; nbit4 stages the
     plain version's values bit for bit; both sum in float32 in another
-    order); an empty doc scores 0, two calls give the same bits."""
+    order); an empty doc scores 0, two calls give the same bits; one call
+    issues one device operation for int8 (the tensor-core kernel) and two
+    for nbit4 (its kernel and reduce)."""
     out = {}
     q = q_tok.float()
+    want_ops = {"int8": ["maxsim_bf16_kernel<2,"],
+                "nbit4": ["maxsim_reduce_kernel", "maxsim_tokens_kernel<3,"]}
     for route, store in quantized_stores(tok, dmask).items():
+        ops = device_ops(lambda: maxsim_full(store, dmask, q, q_mask))
+        check(len(ops) == len(want_ops[route]) and all(
+            w in o for w, o in zip(want_ops[route], sorted(ops))),
+              f"one {route} maxsim_full call at {what} issued {ops}")
         got = maxsim_full(store, dmask, q, q_mask)
         want = maxsim_full_plain(store, dmask, q, q_mask)
         err = (got - want).abs().max().item()
@@ -635,9 +643,12 @@ def check_maxsim_store_edges(dev) -> dict:
     return out
 
 
-def device_ops(fn) -> list:
+def device_ops(fn, calls: int = 4) -> list:
     """Names of the device operations (kernels, memsets, copies) that one
-    call of ``fn`` issues, by torch.profiler."""
+    call of ``fn`` issues, by torch.profiler's averages over ``calls``
+    calls (as ``profile_device`` reads them; late in a long run its raw
+    event list can come back without the device's events): each
+    operation's count must be a multiple of ``calls``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -645,9 +656,16 @@ def device_ops(fn) -> list:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            check(e.count % calls == 0,
+                  f"{e.key}: {e.count} device operations in {calls} calls")
+            ops += [e.key] * (e.count // calls)
+    return ops
 
 
 def kernel_label(mangled: str) -> str:
@@ -948,6 +966,9 @@ def profile_device(run, batches: int):
             "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / window_ms if busy_ms else None,
             "kernels_device_ms": mine,
+            "kernel_ops": {re.sub(r"\(.*", "", k.split("::", 1)[-1]): n
+                           for k, _ms, n in by_kernel
+                           if any(f"{name}_" in k for name in kernels.KERNELS)},
             "top": [[k[:70], ms, n] for k, ms, n in by_kernel[:8]]}
 
 
@@ -2164,9 +2185,8 @@ def phase_store_kernels(route: str, bundle, queries) -> dict:
     bundle's own store, with the path's queries at batch sizes
     ``STORE_BUCKETS`` (allclose, rtol and atol 1e-4: int8's split queries
     and nbit4's staged values as ``check_store_routes`` says, the float32
-    sums in another order; two calls give the same bits), the device
-    operations of one call (int8: the tensor-core kernel alone; nbit4: the
-    CUDA-core kernel and its reduce), then timings at B 64 of the wrapper
+    sums in another order; two calls give the same bits), then timings at
+    B 64 of the wrapper
     and the C entry alone beside the bound, the plain version and the
     library chain; for int8 also the queries on the kernel's long path
     (more than ``INT8_SLOTS`` valid tokens) and the time of the long and
@@ -2189,15 +2209,6 @@ def phase_store_kernels(route: str, bundle, queries) -> dict:
         check(torch.equal(got, maxsim_full(tok, dmask, q_tok, q_mask)),
               f"maxsim {route}: two calls differ")
         errs[b] = err
-    ops = device_ops(lambda: maxsim_full(tok, dmask, q_tok, q_mask))
-    if route == "int8":
-        check(len(ops) == 1 and "maxsim_bf16_kernel<2," in ops[0],
-              f"one int8 maxsim_full call issued {ops}")
-    else:
-        check(len(ops) == 2
-              and any("maxsim_tokens_kernel<3," in o for o in ops)
-              and any("maxsim_reduce_kernel" in o for o in ops),
-              f"one nbit4 maxsim_full call issued {ops}")
     entry, entry_out = maxsim_entry(tok, dmask, q_tok, q_mask)
     entry()
     check(torch.equal(entry_out, got),
@@ -2225,8 +2236,7 @@ def phase_store_kernels(route: str, bundle, queries) -> dict:
                       "valid_doc_tokens": nvd},
            "max_abs_err": max(errs.values()),
            "max_abs_err_by_batch": errs, "tolerance": 1e-4,
-           "bitwise_equal_calls": True, "device_ops_per_call": ops,
-           "ms": ms, "kernel_only_ms": cuda_ms(entry),
+           "bitwise_equal_calls": True, "ms": ms, "kernel_only_ms": cuda_ms(entry),
            "plain_ms": cuda_ms(lambda: maxsim_full_plain(tok, dmask, q_tok,
                                                          q_mask)),
            "library_ms": cuda_ms(lambda: library_quantized(
@@ -2284,6 +2294,17 @@ def store_map(name: str, lang: str, bundle, bf16_recall: float) -> dict:
               f"{bf16_recall}")
     profile = profile_device(lambda: [engine.execute(p) for p in prepared],
                              len(prepared))
+    # MaxSim's device operations: Q8 one int8 tensor-core kernel a batch,
+    # N4 the nbit4 kernel and its reduce
+    want = ({"maxsim_bf16_kernel<2,"} if name == "q8" else
+            {"maxsim_tokens_kernel<3,", "maxsim_reduce_kernel"})
+    ms_ops = {k: n for k, n in profile["kernel_ops"].items()
+              if "maxsim" in k}
+    check(len(ms_ops) == len(want) and all(
+        n == len(prepared) and any(w in k for w in want)
+        for k, n in ms_ops.items()),
+          f"stores {name} {lang}: MaxSim's device operations {ms_ops} for "
+          f"{len(prepared)} batches")
     with tempfile.TemporaryDirectory() as d:
         bundle.save(d)
         twin = IndexBundle.load(d, bundle.cfg, lang, device="cpu")
