@@ -17,7 +17,8 @@ Phases, each printing one JSON line:
    tiles, bf16 rounding midpoints; bf16 MaxSim at every token_dim, ragged
    and long docs, short and long queries, B 1, N 1, empty docs, masks that
    are not a prefix, negative similarities, ...; the int8 and nbit4 MaxSim
-   routes at the same shapes);
+   routes at the same shapes and on a batch that mixes short, long and
+   empty queries);
 3. ``index``: builds the zh (Civil Code) and en (UCC) bundles from
    ``data/raw`` on the card, at full width (d=768, sketch 16384, token_dim
    128, doc_maxlen 220);
@@ -623,6 +624,9 @@ def check_store_routes(tok, dmask, q_tok, q_mask, what: str) -> dict:
         empty = ~dmask.any(dim=1)
         check(bool((got[:, empty] == 0).all()),
               f"maxsim {route} {what}: an empty doc must score 0")
+        check(bool((got[~q_mask.any(dim=1)] == 0).all()),
+              f"maxsim {route} {what}: a query with no valid token must "
+              f"score 0")
         check(torch.equal(got, maxsim_full(store, dmask, q, q_mask)),
               f"maxsim {route} {what}: two calls differ")
         out[route] = err
@@ -632,7 +636,9 @@ def check_store_routes(tok, dmask, q_tok, q_mask, what: str) -> dict:
 def check_maxsim_store_edges(dev) -> dict:
     """The int8 and nbit4 routes at the bf16 edge shapes of every
     token_dim (``MAXSIM_EDGES``: ragged and long docs, empty, one-token and
-    non-prefix docs, short and long queries, B 1, N 1)."""
+    non-prefix docs, short and long queries, B 1, N 1), and the packing
+    of ``check_maxsim_edges``' short queries, which for int8 mixes short
+    queries with long ones (more than ``INT8_SLOTS`` valid tokens)."""
     g = torch.Generator().manual_seed(3)
     out = {}
     for n, b, lq, l_doc, dt in MAXSIM_EDGES:
@@ -640,33 +646,42 @@ def check_maxsim_store_edges(dev) -> dict:
         tok, dmask, q_tok, q_mask = maxsim_edge_inputs(
             g, n, b, lq, l_doc, dt, dev, torch.float32)
         out[name] = check_store_routes(tok, dmask, q_tok, q_mask, name)
+    tok, dmask, q_tok, _ = maxsim_edge_inputs(g, 500, 150, 64, 220, 128, dev,
+                                              torch.float32)
+    lens = torch.tensor([1, 2, 3, 0, 16, 17, 33, 48, 49, 64] * 5 + [0] * 40
+                        + [1] * 60)
+    q_mask = torch.rand(150, 64, generator=g).argsort(dim=1) < lens[:, None]
+    out["n500_b150_lq64_mixed_queries"] = check_store_routes(
+        tok, dmask, q_tok, q_mask.to(dev), "mixed queries")
     return out
 
 
-def device_ops(fn, calls: int = 8) -> list:
+def device_ops(fn, calls: int = 4, sessions: int = 4) -> list:
     """Names of the device operations (kernels, memsets, copies) that one
-    call of ``fn`` issues, by torch.profiler over ``calls`` calls. A
-    profiling session can drop one device event at its edge (on the H100:
-    3 of 4 memsets, or 3 of 4 launches of one kernel, with or without a
-    warm-up step), so an operation's count may fall one short of a
-    multiple of ``calls``, never more, and never above it."""
+    call of ``fn`` issues, by torch.profiler: ``sessions`` sessions of
+    ``calls`` calls each. A session can drop device events, never add them
+    (on the H100: 3 of 4 launches of one kernel, or every event of a short
+    session, warm-up step or not), so each operation's count is the most
+    that one session saw, and must be a multiple of ``calls``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    counts = {}
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                counts[e.key] = max(counts.get(e.key, 0), e.count)
     ops = []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            n = -(-e.count // calls)
-            check(n * calls - e.count <= 1,
-                  f"{e.key}: {e.count} device operations in {calls} calls")
-            ops += [e.key] * n
+    for key, n in counts.items():
+        check(n % calls == 0, f"{key}: {n} device operations in {calls} calls")
+        ops += [key] * (n // calls)
     return ops
 
 
@@ -968,9 +983,6 @@ def profile_device(run, batches: int):
             "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / window_ms if busy_ms else None,
             "kernels_device_ms": mine,
-            "kernel_ops": {re.sub(r"\(.*", "", k.split("::", 1)[-1]): n
-                           for k, _ms, n in by_kernel
-                           if any(f"{name}_" in k for name in kernels.KERNELS)},
             "top": [[k[:70], ms, n] for k, ms, n in by_kernel[:8]]}
 
 
@@ -2296,17 +2308,17 @@ def store_map(name: str, lang: str, bundle, bf16_recall: float) -> dict:
               f"{bf16_recall}")
     profile = profile_device(lambda: [engine.execute(p) for p in prepared],
                              len(prepared))
-    # MaxSim's device operations: Q8 one int8 tensor-core kernel a batch,
-    # N4 the nbit4 kernel and its reduce
-    want = ({"maxsim_bf16_kernel<2,"} if name == "q8" else
-            {"maxsim_tokens_kernel<3,", "maxsim_reduce_kernel"})
-    ms_ops = {k: n for k, n in profile["kernel_ops"].items()
-              if "maxsim" in k}
-    check(len(ms_ops) == len(want) and all(
-        len(prepared) - 1 <= n <= len(prepared) and any(w in k for w in want)
-        for k, n in ms_ops.items()),
-          f"stores {name} {lang}: MaxSim's device operations {ms_ops} for "
-          f"{len(prepared)} batches (a profiling session may drop one)")
+    # MaxSim's device operations in one batch: Q8 the int8 tensor-core
+    # kernel, N4 the nbit4 kernel and its reduce
+    want = (["maxsim_bf16_kernel<2,"] if name == "q8" else
+            ["maxsim_reduce_kernel", "maxsim_tokens_kernel<3,"])
+    ms_ops = sorted(o.split("::", 1)[-1] for o in
+                    device_ops(lambda: engine.execute(prepared[0]))
+                    if "maxsim" in o)
+    check(len(ms_ops) == len(want)
+          and all(w in o for w, o in zip(want, ms_ops)),
+          f"stores {name} {lang}: MaxSim's device operations in a batch: "
+          f"{ms_ops}")
     with tempfile.TemporaryDirectory() as d:
         bundle.save(d)
         twin = IndexBundle.load(d, bundle.cfg, lang, device="cpu")
@@ -2369,6 +2381,7 @@ def store_map(name: str, lang: str, bundle, bf16_recall: float) -> dict:
            "host_prepare_s": t1 - t0, "execute_collect_s": t2 - t1,
            "recall_at_10": recall, "bf16_recall_at_10": bf16_recall,
            "launches": launches, "profile": profile,
+           "maxsim_ops_per_batch": ms_ops,
            "maxsim_device_ms_per_batch":
                profile["kernels_device_ms"]["maxsim"] / len(batches),
            "cpu_twin_questions": m, "cpu_twin_swaps": swaps,
