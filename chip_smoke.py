@@ -656,10 +656,12 @@ def check_maxsim_store_edges(dev) -> dict:
     return out
 
 
-def device_ops(fn, calls: int = 4, sessions: int = 4) -> list:
-    """Names of the device operations (kernels, memsets, copies) that one
-    call of ``fn`` issues, by torch.profiler: ``sessions`` sessions of
-    ``calls`` calls each. On the H100 a session drops the first event of
+def device_ops(fn, calls: int = 4, sessions: int = 4, only: str = "") -> list:
+    """Names of the device operations (kernels, memsets, copies) whose
+    names hold ``only`` that one call of ``fn`` issues, by torch.profiler:
+    ``sessions`` sessions of ``calls`` calls each (a library call may pick
+    another kernel from one call to the next, so a caller that runs one
+    names what it counts). On the H100 a session drops the first event of
     an operation, often (score+select's memset 3 times in 4 calls in every
     session, a clamp kernel 23 times in 24), and once lost all of its
     events; it never adds one. So each operation's count is the most that
@@ -677,7 +679,7 @@ def device_ops(fn, calls: int = 4, sessions: int = 4) -> list:
                 fn()
             torch.cuda.synchronize()
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
+            if e.device_type == DeviceType.CUDA and only in e.key:
                 counts[e.key] = max(counts.get(e.key, 0), e.count)
     ops = []
     for key, n in counts.items():
@@ -2315,9 +2317,8 @@ def store_map(name: str, lang: str, bundle, bf16_recall: float) -> dict:
     # kernel, N4 the nbit4 kernel and its reduce
     want = (["maxsim_bf16_kernel<2,"] if name == "q8" else
             ["maxsim_reduce_kernel", "maxsim_tokens_kernel<3,"])
-    ms_ops = sorted(o.split("::", 1)[-1] for o in
-                    device_ops(lambda: engine.execute(prepared[0]))
-                    if "maxsim" in o)
+    ms_ops = sorted(o.split("::", 1)[-1] for o in device_ops(
+        lambda: engine.execute(prepared[0]), only="maxsim"))
     check(len(ms_ops) == len(want)
           and all(w in o for w, o in zip(want, ms_ops)),
           f"stores {name} {lang}: MaxSim's device operations in a batch: "
