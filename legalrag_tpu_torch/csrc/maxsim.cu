@@ -18,8 +18,8 @@
 // 989 TFLOP/s bf16 tensor-core peak. Its bytes (the valid doc tokens once,
 // 44.5 MB, 13 us at 3.35 TB/s) bound it far less.
 //
-// bf16 and int8 stores: one launch, maxsim_bf16_kernel<KIND, DT>, products
-// on the tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums:
+// bf16 and int8 stores: one launch, maxsim_tc_kernel<KIND, DT>, products on
+// the tensor cores (mma.sync m16n8k16, bf16 or fp16 operands, float32 sums:
 // exact products, so only the order of the sums differs from the
 // reference).
 // - A block has QW consumer warps and a producer warpgroup (which gives
@@ -61,17 +61,24 @@
 // int8 store (round(v * 127) of unit vectors), float32 queries: the same
 // kernel with the codes widened once a block. The four producer warps each
 // read a quarter of every valid token's row with plain loads, widen the
-// codes to bf16 (exact: |code| <= 127 needs 7 bits) and store them into
+// codes to fp16 (exact: |code| <= 127 needs 7 bits) and store them into
 // the stage; `full` counts the four warps. The float32 queries are split
-// as they are loaded, hi = bf16(q) and lo = bf16(q - hi), both rounded to
-// nearest even: |q - hi - lo| <= 2^-16 |q| per element (bf16 keeps 8
-// significant bits). Every product is issued twice into one float32
-// accumulator, lo * code and then hi * code, each exact (8 + 8 bits), so
-// the dot is q . code but for the split's residue and the order of the
-// sums. RG = 32 (two tiles, two A parts: the same 128 A registers at
-// token_dim 128 as bf16's 64 slots). Each finished row maximum is scaled by
-// 1 / 127, the dequant of legalrag_tpu/ops/maxsim.py:80-81 (the scale is
-// positive, so it commutes with the max).
+// as they are loaded: each query's x is scaled by the power of two 2^e that
+// brings the largest |x| of its valid tokens into [2^14, 2^15) (exact;
+// found by one pass of the warp over the query before the docs; fp16's
+// exponent range is narrow, and without it the low part of a small element
+// would go subnormal, or a large one overflow), then hi = fp16(x 2^e) and lo =
+// fp16(x 2^e - hi), both rounded to nearest even: |x 2^e - hi - lo| <=
+// 2^-22 |x 2^e| per element (fp16 keeps 11 significant bits). Every
+// product is issued twice into one float32 accumulator, lo * code and then
+// hi * code, each exact (11 + 8 bits), so the dot is 2^e (q . code) but
+// for the split's residue and the order of the sums. RG = 32 (two tiles,
+// two A parts: the same 128 A registers at token_dim 128 as bf16's 64
+// slots). Each finished row maximum is scaled by 2^-e / 127, the dequant of
+// legalrag_tpu/ops/maxsim.py:80-81 (positive, so it commutes with the
+// max). A query's best matches are summed in float64 and rounded once: a
+// float32 sum in token order is itself up to ~2e-5 off the exact sum at
+// the zh shapes (55 terms near 1), more than the split leaves.
 //
 // float32 and nbit4 stores, float32 queries (TF32 would change the float32
 // results; the nbit4 store's queries stay float32, as in the JAX package):
@@ -121,17 +128,19 @@ constexpr int MAXQ = 32;          // short queries a consumer warp packs
 constexpr unsigned FULL = 0xffffffffu;
 
 // The tensor-core kernel's operands by store kind: the doc tokens, the
-// queries, and RG, the query slots a consumer warp holds (int8 holds each
-// slot as two bf16 parts).
+// queries, RG, the query slots a consumer warp holds (int8 holds each slot
+// as two fp16 parts), and the type a query's best matches are summed in.
 template <int KIND> struct TC;
 template <> struct TC<lrt::kBF16> {
   typedef __nv_bfloat16 doc;
   typedef __nv_bfloat16 query;
+  typedef float sum;
   static constexpr int RG = 64;
 };
 template <> struct TC<lrt::kI8> {
   typedef int8_t doc;
   typedef float query;
+  typedef double sum;
   static constexpr int RG = 32;
 };
 
@@ -221,28 +230,59 @@ __device__ __forceinline__ void mma_bf16_first(float (&c)[4],
         "f"(0.f));
 }
 
-// Two floats as a bf16 pair, each rounded to nearest even; lo in the low
+// c = a * b with fp16 operands and float32 sums, accumulating (mma_f16)
+// or from a zero C (mma_f16_first).
+__device__ __forceinline__ void mma_f16(float (&c)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_f16_first(float (&c)[4],
+                                              const unsigned (&a)[4],
+                                              unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// Two floats as an fp16 pair, each rounded to nearest even; lo in the low
 // half (the lower k of an mma fragment register).
-__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+__device__ __forceinline__ unsigned f16x2(float lo, float hi) {
   unsigned r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// An fp16 pair as two floats (low half first), exact.
+__device__ __forceinline__ float2 f16x2_float2(unsigned p) {
+  float2 r;
+  asm("{\n .reg .f16 l, h;\n mov.b32 {l, h}, %2;\n"
+      " cvt.f32.f16 %0, l;\n cvt.f32.f16 %1, h;\n}"
+      : "=f"(r.x), "=f"(r.y) : "r"(p));
   return r;
 }
 
 // Eight int8 codes (byte k of the two words is code k, k + 4 in b) as
-// eight bf16 values, exact.
+// eight fp16 values, exact.
 __device__ __forceinline__ uint4 widen8(unsigned a, unsigned b) {
   auto pair = [](unsigned w, int k) {
-    return bf16x2((float)(int8_t)(w >> (8 * k)), (float)(int8_t)(w >> (8 * k + 8)));
+    return f16x2((float)(int8_t)(w >> (8 * k)), (float)(int8_t)(w >> (8 * k + 8)));
   };
   return make_uint4(pair(a, 0), pair(a, 2), pair(b, 0), pair(b, 2));
 }
 
 // One of the four producer warps' quarter of an int8 row (DT / 4 codes)
-// widened into the stage row.
+// widened into the stage row (fp16).
 template <int DT>
 __device__ __forceinline__ void widen_quarter(const int8_t* src,
-                                              __nv_bfloat16* dst) {
+                                              uint16_t* dst) {
   if constexpr (DT / 4 == 8) {
     const uint2 v = *reinterpret_cast<const uint2*>(src);
     *reinterpret_cast<uint4*>(dst) = widen8(v.x, v.y);
@@ -258,21 +298,21 @@ __device__ __forceinline__ void widen_quarter(const int8_t* src,
 
 template <int KIND, int DT>
 __global__ void __launch_bounds__(QTHREADS, 1)
-maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
-                   const uint8_t* __restrict__ doc_mask,
-                   const typename TC<KIND>::query* __restrict__ q_tok,
-                   const uint8_t* __restrict__ q_mask, int B, int Lq, int N,
-                   int L, int nst, float* __restrict__ out) {
-  typedef __nv_bfloat16 bf16;
+maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
+                 const uint8_t* __restrict__ doc_mask,
+                 const typename TC<KIND>::query* __restrict__ q_tok,
+                 const uint8_t* __restrict__ q_mask, int B, int Lq, int N,
+                 int L, int nst, float* __restrict__ out) {
   constexpr bool I8 = KIND == lrt::kI8;
+  constexpr bool SPLIT = KIND != lrt::kBF16;  // fp16 operands, split queries
   constexpr int RG = TC<KIND>::RG;  // query slots a consumer warp holds
   constexpr int MT = RG / 16;       // m16 tiles in them
-  constexpr int NP = I8 ? 2 : 1;    // A parts a slot (int8: lo, then hi)
-  constexpr int LD = DT + 8;        // stage row (bf16), 16-byte multiple
+  constexpr int NP = SPLIT ? 2 : 1;  // A parts a slot (split: lo, then hi)
+  constexpr int LD = DT + 8;        // stage row (16-bit), 16-byte multiple
   constexpr int KS = DT / 16;       // k16 steps
   extern __shared__ __align__(16) unsigned char stage_smem[];
   const int rows = stage_rows(L);
-  bf16* stages = reinterpret_cast<bf16*>(stage_smem);
+  uint16_t* stages = reinterpret_cast<uint16_t*>(stage_smem);
   float* tail = reinterpret_cast<float*>(stages + (size_t)nst * rows * LD);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   uint64_t* full = reinterpret_cast<uint64_t*>(tail + QW * MAX_RG);  // doc landed
@@ -338,7 +378,7 @@ maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
   }
   if (threadIdx.x == 0) {
     for (int k = 0; k < nst; ++k) {
-      mbar_init(&full[k], I8 ? 4 : 1);  // the producer warps that fill it
+      mbar_init(&full[k], SPLIT ? 4 : 1);  // the producer warps that fill it
       mbar_init(&empty[k], QW);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -359,13 +399,13 @@ maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
   if (warp >= QW) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(PRODUCER_REGS));
     const int pw = warp - QW;  // producer warp
-    if (!I8 && pw > 0) return;
+    if (!SPLIT && pw > 0) return;
     // bf16: one warp; each valid token's lane issues one bulk copy of its
     // row, compacted in token order, into the stage, and lane 0 announces
     // the doc's bytes on full first. int8: four warps; each valid token's
-    // lane widens quarter pw of its row into the stage, and each warp
-    // arrives on full when its stores are done. The mask of the next doc
-    // (bytes of tokens c * 32 + lane) is loaded while this one's fly.
+    // lane widens quarter pw of its row into the stage (fp16), and each
+    // warp arrives on full when its stores are done. The mask of the next
+    // doc (bytes of tokens c * 32 + lane) is loaded while this one's fly.
     const int chunks = (L + 31) / 32;
     unsigned mreg[MAXCH];
     auto fetch_mask = [&](int i) {
@@ -385,14 +425,14 @@ maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
       for (int c = 0; c < MAXCH; ++c) nv += __popc(__ballot_sync(FULL, mreg[c] != 0));
       if (pw == 0 && lane == 0) {
         nvs[st] = nv;
-        if constexpr (!I8) mbar_arrive_expect(&full[st], (unsigned)nv * DT * 2);
+        if constexpr (!SPLIT) mbar_arrive_expect(&full[st], (unsigned)nv * DT * 2);
       }
       __syncwarp();
       // bf16: the stage was last read by ldmatrix (the generic proxy); the
       // int8 stores are generic too, ordered by the wait on empty
-      if constexpr (!I8) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      if constexpr (!SPLIT) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       const typename TC<KIND>::doc* src = doc_tok + (size_t)(n0 + i * dstep) * L * DT;
-      bf16* dst = stages + (size_t)st * rows * LD;
+      uint16_t* dst = stages + (size_t)st * rows * LD;
       int base = 0;
 #pragma unroll
       for (int c = 0; c < MAXCH; ++c) {
@@ -408,7 +448,7 @@ maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
         }
         base += __popc(bal);
       }
-      if constexpr (I8) {
+      if constexpr (SPLIT) {
         __syncwarp();  // the warp's stores, then its one arrival (release)
         if (lane == 0) mbar_arrive(&full[st]);
       }
@@ -454,21 +494,61 @@ maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
   // 2 t + h when this lane's slot t * 16 + g + 8 h is valid.
   unsigned a[NP][MT][KS][4];
   unsigned live = 0, qbits = 0;
+  // split: each query is scaled by the power of two 2^e that brings the
+  // largest |x| of its valid tokens' elements into [2^14, 2^15) (x = q);
+  // qex: the exponent e of this lane's query (packed: query qb + lane;
+  // long: qb); rs: per tile, the factor that undoes its query's scale
+  // (and, for int8, the codes' 1 / 127) on the row maxima
+  int qex = 0;
+  float rs[SPLIT ? MT : 1];
+  if constexpr (SPLIT) {
+    // warp-wide over query b's valid tokens; at most 126 (m zero or
+    // subnormal), so that 2^e and 2^-e are normal floats
+    auto query_exponent = [&](int b) {
+      float m = 0.f;
+      for (int c0 = 0; c0 < Lq; c0 += 32) {
+        unsigned bal = __ballot_sync(
+            FULL, c0 + lane < Lq && q_mask[(size_t)b * Lq + c0 + lane]);
+        for (; bal; bal &= bal - 1u) {
+          const float* x = q_tok + ((size_t)b * Lq + c0 + __ffs(bal) - 1) * DT;
+          for (int k = 4 * lane; k < DT; k += 128) {
+            const float4 v = *reinterpret_cast<const float4*>(x + k);
+            m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                               fmaxf(fabsf(v.z), fabsf(v.w))));
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+      return min(126, 141 - (int)(__float_as_uint(m) >> 23));  // 14 - floor(log2 m)
+    };
+    for (int o = 0; o < qn; ++o) {
+      const int e = query_exponent(qb + o);
+      if (!packed || lane == o) qex = e;
+    }
+  }
   // this lane's row h of tile t from query token `row` (zeros when !ok);
-  // int8: the float32 token split into its bf16 parts lo (a[0]), hi (a[1])
-  auto load_row = [&](int t, int h, size_t row, bool ok) {
-    if constexpr (I8) {
+  // split: the float32 token x, scaled by 2^ex, split into its fp16 parts
+  // lo (a[0]) and hi (a[1])
+  auto load_row = [&](int t, int h, size_t row, bool ok, int ex) {
+    if constexpr (SPLIT) {
       const float2* x2 = reinterpret_cast<const float2*>(q_tok + row * DT + 2 * tq);
+      const float sc = __uint_as_float((unsigned)(127 + ex) << 23);
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {  // k 2 tq (+ 8 for e = 1)
           const float2 x = ok ? x2[ks * 8 + 4 * e] : make_float2(0.f, 0.f);
-          const unsigned hi = bf16x2(x.x, x.y);
+          const float2 y = make_float2(x.x * sc, x.y * sc);
+          const unsigned hi = f16x2(y.x, y.y);
+          const float2 hf = f16x2_float2(hi);
           a[1][t][ks][2 * e + h] = hi;
-          a[0][t][ks][2 * e + h] = bf16x2(x.x - __uint_as_float(hi << 16),
-                                          x.y - __uint_as_float(hi & 0xffff0000u));
+          a[0][t][ks][2 * e + h] = f16x2(y.x - hf.x, y.y - hf.y);
         }
+      }
+      if (h == 0) {  // exact: a power of two (times 1 / 127)
+        const float back = __uint_as_float((unsigned)(127 - ex) << 23);
+        rs[t] = I8 ? back * (1.0f / 127.0f) : back;
       }
     } else {
       const unsigned* x2 = reinterpret_cast<const unsigned*>(q_tok + row * DT + 2 * tq);
@@ -496,7 +576,8 @@ maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
         const int k = (t - ot0) * 16 + g + 8 * h;
         const bool ok = k < ov;
         if (ok) qbits |= 1u << (2 * t + h);
-        load_row(t, h, (size_t)(qb + o) * Lq + (ok ? nth_bit(m, k) : 0), ok);
+        load_row(t, h, (size_t)(qb + o) * Lq + (ok ? nth_bit(m, k) : 0), ok,
+                 SPLIT ? __shfl_sync(FULL, qex, o) : 0);
       }
     }
   };
@@ -516,7 +597,7 @@ maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
         const int s = s0 + g + 8 * h;
         const bool ok = s < Lq;
         if (ok && q_mask[(size_t)qb * Lq + s]) qbits |= 1u << (2 * t + h);
-        load_row(t, h, (size_t)qb * Lq + (ok ? s : 0), ok);
+        load_row(t, h, (size_t)qb * Lq + (ok ? s : 0), ok, qex);
       }
     }
   };
@@ -527,8 +608,8 @@ maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
     const int st = i % nst;
     mbar_wait(&full[st], (unsigned)(i / nst) & 1u);  // doc i has landed
     const int nv = nvs[st];
-    const bf16* bs = stages + (size_t)st * rows * LD;
-    float total = 0.f;
+    const uint16_t* bs = stages + (size_t)st * rows * LD;
+    typename TC<KIND>::sum total = 0;
     for (int r = 0; has_q && nv > 0 && r < groups; ++r) {
       if (!packed) load_query(r);
       float best[MT][2];
@@ -537,7 +618,7 @@ maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
 
       for (int j = 0; j < nv; j += 16) {  // token chunks j and j + 8
         const bool two = j + 8 < nv;
-        const bf16* p = bs + (j + (lane & 7)) * LD + (lane >> 3) * 8;
+        const uint16_t* p = bs + (j + (lane & 7)) * LD + (lane >> 3) * 8;
         float acc[2][MT][4];
         unsigned b[2][2][4];  // [buffer][chunk]: k-steps 2 kk and 2 kk + 1
         lrt::ldmatrix_x4(b[0][0], p);
@@ -562,12 +643,21 @@ maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
 #pragma unroll
                 for (int t = 0; t < MT; ++t) {
                   if (!(live >> t & 1u)) continue;
-                  if (kk == 0 && h == 0 && pt == 0)
-                    mma_bf16_first(acc[u][t], a[0][t][0], b[cur][u][0],
-                                   b[cur][u][1]);
-                  else
-                    lrt::mma_bf16(acc[u][t], a[pt][t][2 * kk + h],
-                                  b[cur][u][2 * h], b[cur][u][2 * h + 1]);
+                  if (kk == 0 && h == 0 && pt == 0) {
+                    if constexpr (SPLIT)
+                      mma_f16_first(acc[u][t], a[0][t][0], b[cur][u][0],
+                                    b[cur][u][1]);
+                    else
+                      mma_bf16_first(acc[u][t], a[0][t][0], b[cur][u][0],
+                                     b[cur][u][1]);
+                  } else {
+                    if constexpr (SPLIT)
+                      mma_f16(acc[u][t], a[pt][t][2 * kk + h],
+                              b[cur][u][2 * h], b[cur][u][2 * h + 1]);
+                    else
+                      lrt::mma_bf16(acc[u][t], a[pt][t][2 * kk + h],
+                                    b[cur][u][2 * h], b[cur][u][2 * h + 1]);
+                  }
                 }
               }
             }
@@ -610,8 +700,10 @@ maxsim_bf16_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
           float m = best[t][h];
           m = fmaxf(m, __shfl_xor_sync(FULL, m, 1));
           m = fmaxf(m, __shfl_xor_sync(FULL, m, 2));
-          // int8: the codes' scale, positive, so it commutes with the max
-          best[t][h] = I8 ? m * (1.0f / 127.0f) : m;
+          // int8: the row's scale back and the codes' 1 / 127, positive,
+          // so they commute with the max
+          if constexpr (I8) m *= rs[t];
+          best[t][h] = m;
         }
       }
       __syncwarp();  // the summing lanes have read the last group's buffer
@@ -654,10 +746,10 @@ int launch_tc(const void* doc_tok, const void* doc_mask, const void* q_tok,
   const int nst = bf16_stages(L, DT);
   const size_t smem = bf16_smem_bytes(L, DT, nst);
   cudaError_t err = cudaFuncSetAttribute(
-      maxsim_bf16_kernel<KIND, DT>,
+      maxsim_tc_kernel<KIND, DT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  maxsim_bf16_kernel<KIND, DT><<<blocks, QTHREADS, smem, stream>>>(
+  maxsim_tc_kernel<KIND, DT><<<blocks, QTHREADS, smem, stream>>>(
       static_cast<const typename TC<KIND>::doc*>(doc_tok),
       static_cast<const uint8_t*>(doc_mask),
       static_cast<const typename TC<KIND>::query*>(q_tok),

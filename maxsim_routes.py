@@ -1,5 +1,6 @@
-"""Time MaxSim's bf16 and int8 routes on the card, on one synthetic batch
-at the zh main path's shapes, in the checkout of the working directory.
+"""Time MaxSim's bf16, int8 and nbit4 routes on the card, on one synthetic
+batch at the zh main path's shapes, in the checkout of the working
+directory.
 
     python3 maxsim_routes.py TAG
 
@@ -7,11 +8,15 @@ B 64 queries of Lq 64 with 30 to 64 valid tokens (most above the int8
 kernel's 32 query slots, so on its long path), N 2048 docs of L 220 of
 which 1,260 hold 60 to 219 valid tokens, token_dim 128, unit tokens from
 seed 0; the bf16 route over their bf16 rows and queries, the int8 route
-over their int8 codes (``round(127 v)``) and float32 queries, and the int8
+over their int8 codes (``round(127 v)``) and float32 queries, the int8
 route again with every query cut to 32 valid tokens (the short path
-alone). Prints one JSON line: per route the median ms of 50 calls (CUDA
-events), the max abs err against ``maxsim_full_plain`` and a digest of the
-output bits. It reads only what the checkout's own package offers, so the
+alone), and the nbit4 route over a ``Residual4TokenIndex`` trained and
+encoded from the same tokens. Prints one JSON line: per route the median
+ms of 50 calls (CUDA events), the max abs err against
+``maxsim_full_plain`` and a digest of the output bits; and per MaxSim
+instance of the checkout's kernel library a digest of its SASS (the
+instructions, without the function's name), so that two checkouts show
+whether an instance compiled to the same code. It reads only what the checkout's own package offers, so the
 same script can time a parent commit: unpack it with ``git archive`` into
 a directory that ``.gitignore`` lists and, in one call on one card, run
 parent, change, change, parent::
@@ -25,8 +30,11 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import statistics
+import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -56,12 +64,36 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def sass_digests(lib_path: str, nvcc: str) -> dict:
+    """sha256 (16 hex digits) of each MaxSim kernel's SASS in the library,
+    keyed by its mangled name with the kernel's own name cut out."""
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", lib_path],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    out, name, lines = {}, None, []
+    for line in sass.splitlines() + ["Function : end"]:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if name and "maxsim" in name:
+                key = re.sub(r"\d+maxsim_\w+?_kernel", "K", name)
+                out[key] = hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
+            name, lines = m.group(1), []
+        elif name and re.search(r"/\*[0-9a-f]{4}\*/", line):
+            lines.append(line.strip())
+    return out
+
+
 def main(tag: str) -> int:
     if not torch.cuda.is_available():
         print("maxsim_routes: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ".")
-    from legalrag_tpu_torch.index.token_index import quantize_int8
+    from legalrag_tpu_torch import kernels
+    from legalrag_tpu_torch.index.token_index import (
+        Residual4TokenIndex,
+        quantize_int8,
+    )
     from legalrag_tpu_torch.ops.maxsim import maxsim_full, maxsim_full_plain
 
     dev = torch.device("cuda")
@@ -75,19 +107,24 @@ def main(tag: str) -> int:
     qmask = (torch.arange(LQ)[None, :] < qlens[:, None]).to(dev)
     short = qmask.clone()
     short[:, SHORT:] = False
-    i8 = torch.from_numpy(quantize_int8(tok.cpu().numpy())).to(dev)
+    host = tok.cpu().numpy()
+    i8 = torch.from_numpy(quantize_int8(host)).to(dev)
+    n4 = Residual4TokenIndex(DT, L_DOC, capacity_round=N, device=dev)
+    n4.add(host, dmask.cpu().numpy())
     out = {"tag": tag, "device": torch.cuda.get_device_name(0),
            "queries_over_32_valid": int((qlens > SHORT).sum())}
     for name, args in (
             ("bf16", (tok.to(torch.bfloat16), dmask, q.to(torch.bfloat16),
                       qmask)),
             ("int8", (i8, dmask, q, qmask)),
-            ("int8_short", (i8, dmask, q, short))):
+            ("int8_short", (i8, dmask, q, short)),
+            ("nbit4", (n4.tok, dmask, q, qmask))):
         got = maxsim_full(*args)
         out[name] = {
             "ms": cuda_ms(lambda: maxsim_full(*args)),
             "max_abs_err": (got - maxsim_full_plain(*args)).abs().max().item(),
             "sha256": hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]}
+    out["sass"] = sass_digests(kernels.build()["path"], kernels._nvcc())
     print(json.dumps(out), flush=True)
     return 0
 

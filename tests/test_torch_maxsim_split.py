@@ -1,28 +1,33 @@
 """The arithmetic of MaxSim's int8 route on the tensor cores
-(``legalrag_tpu_torch/csrc/maxsim.cu``, ``maxsim_bf16_kernel<int8, DT>``),
+(``legalrag_tpu_torch/csrc/maxsim.cu``, ``maxsim_tc_kernel<int8, DT>``),
 emulated here on the CPU and held against the JAX package's
 ``maxsim_full`` (XLA: ``x * (1/127)`` widened, float32 einsum) over the same
 int8 store, with inputs made from a numpy seed.
 
-The kernel splits each float32 query element into two bf16 parts, both
-rounded to nearest even: ``hi = bf16(q)``, ``lo = bf16(q - hi)``. Each
-product ``lo * code`` and ``hi * code`` is exact in float32 (8 + 8
+The kernel scales each float32 query by the power of two ``2**e`` that
+brings the largest magnitude among its valid tokens' elements into
+``[2**14, 2**15)``, and splits each scaled element into two fp16 parts, both rounded
+to nearest even: ``hi = fp16(x 2**e)``, ``lo = fp16(x 2**e - hi)``. Each
+product ``lo * code`` and ``hi * code`` is exact in float32 (11 + 8
 significant bits), the two go into one float32 sum, each row maximum over a
-doc's valid tokens is scaled by ``1/127``, masked query slots add 0, an
-empty doc scores 0, and one lane sums a query's best matches in token
-order. The emulation below does the same with torch's bf16 casts (round to
-nearest even) and float32 sums in another order.
+doc's valid tokens is scaled by ``2**-e / 127``, masked query slots add 0,
+an empty doc scores 0, and one lane sums a query's best matches in float64
+and rounds once. The emulation below does the same with torch's fp16 casts
+(round to nearest even, subnormals kept) and float32 sums in another
+order.
 
-Tolerances: ``hi + lo`` is ``q`` within ``2**-16 * |q|`` per element (bf16
-keeps 8 significant bits, so each rounding leaves at most ``2**-8`` of
-what it rounds); the emulated map is JAX's within atol 1e-5 (the split's
-residue, at most ``2**-16`` of a unit dot, and float32 sums in another
-order) and so is the port's plain version on the CPU, which the kernel is
-held to on the card. The hash encoder's tokens are sparse (one to a few
-entries of +-1/sqrt(k)), so their residues repeat and add up over a
-query's tokens instead of cancelling: there the emulated map is held to
-the split's own bound, which exceeds 1e-5 (on an H100 the Civil Code
-store's map is 6.1e-5 off the plain version)."""
+Tolerances: ``hi + lo`` is ``x 2**e`` within ``2**-22 * |x 2**e|`` per
+element where ``lo`` is a normal fp16 value (fp16 keeps 11 significant bits,
+so each rounding leaves at most ``2**-11`` of what it rounds), and within
+fp16's subnormal spacing ``2**-24`` (``2**-38`` of the query's largest
+element) below; the emulated map is JAX's within atol 1e-5 on dense unit
+tokens and on the hash encoder's sparse ones (one to a few entries of
++-1/sqrt(k)), whose residues repeat with one sign over a query's tokens:
+there a split into two bf16 parts (8 significant bits, the kernel before
+it took fp16) leaves ``2**-16`` of each element and, on an H100, put the
+Civil Code store's map 6.1e-5 off the plain version. Summing the best
+matches in float32 in token order would itself leave up to ~1e-5 at these
+scores (near 30); JAX's own float32 sum is ~5e-6 off the exact one."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +38,7 @@ from legalrag_tpu.ops import maxsim as jm
 from legalrag_tpu_torch.index.token_index import quantize_int8
 from legalrag_tpu_torch.ops import maxsim as tm
 
-SPLIT_SLOTS = 32  # query slots the int8 instance holds: longer queries take its long path
+SPLIT_SLOTS = 32  # query slots a split instance holds: longer queries take its long path
 
 
 def unit(rng, *shape):
@@ -41,31 +46,55 @@ def unit(rng, *shape):
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
 
-def split_bf16(q: torch.Tensor):
-    """The kernel's split of float32 queries: (hi, lo) as float32 values
-    that bf16 holds exactly."""
-    hi = q.to(torch.bfloat16).float()
-    lo = (q - hi).to(torch.bfloat16).float()
-    return hi, lo
+def query_exponent(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The kernel's exponent e of each query (int32 [..., 1, 1]) from x
+    [..., Lq, dt] and its token mask [..., Lq]: 14 - floor(log2 m) for the
+    largest magnitude m of its valid tokens' elements, at most 126 (m zero
+    or subnormal)."""
+    m = torch.where(mask[..., None], x.abs(), 0.0).amax(dim=(-2, -1),
+                                                         keepdim=True)
+    return torch.clamp(141 - (m.view(torch.int32) >> 23), max=126)
+
+
+def split_f16(x: torch.Tensor, mask: torch.Tensor):
+    """The kernel's split of float32 queries x [..., Lq, dt] with token
+    mask [..., Lq]: (hi, lo, back) with hi and lo float32 values that fp16
+    holds exactly, hi + lo ~ x * 2**e, and back = 2**-e per query."""
+    e = query_exponent(x, mask).float()
+    y = x * torch.pow(2.0, e)
+    hi = y.half().float()
+    lo = (y - hi).half().float()
+    return hi, lo, torch.pow(2.0, -e)
+
+
+def split_rows(x: torch.Tensor):
+    """``split_f16`` of rows [n, dt], each row a one-token query."""
+    hi, lo, back = split_f16(x[:, None, :], torch.ones(x.shape[0], 1,
+                                                       dtype=torch.bool))
+    return hi[:, 0], lo[:, 0], back[:, 0]
+
+
+def sum_tokens(best: torch.Tensor) -> torch.Tensor:
+    """[B, N, Lq] best matches (0 where masked) -> [B, N] float32, summed in
+    float64 and rounded once, as the split instances sum them."""
+    return best.double().sum(dim=-1).float()
 
 
 def split_maxsim(codes: torch.Tensor, dmask: torch.Tensor, q: torch.Tensor,
                  qmask: torch.Tensor) -> torch.Tensor:
     """[B, N] MaxSim as the int8 instance computes it: exact lo and hi
-    products summed in float32, the row max scaled by 1/127, each query's
-    best matches summed in token order."""
-    hi, lo = split_bf16(q)
+    products summed in float32, the row max scaled by 2**-e / 127 (e the
+    query's exponent), each query's best matches summed in float64."""
+    hi, lo, back = split_f16(q, qmask)
     c = codes.float()
     dots = (torch.einsum("bqd,nld->bnql", lo, c)
             + torch.einsum("bqd,nld->bnql", hi, c))
     dots = dots.masked_fill(~dmask[None, :, None, :], float("-inf"))
-    best = dots.amax(dim=-1) * np.float32(1.0 / 127.0)       # [B, N, Lq]
+    scale = back[:, None, :, 0] * np.float32(1.0 / 127.0)    # [B, 1, 1]
+    best = dots.amax(dim=-1) * scale                         # [B, N, Lq]
     best = torch.where(dmask.any(dim=1)[None, :, None], best, 0.0)
     best = torch.where(qmask[:, None, :], best, 0.0)
-    total = torch.zeros(best.shape[:2], dtype=torch.float32)
-    for i in range(best.shape[2]):                           # token order
-        total = total + best[:, :, i]
-    return total
+    return sum_tokens(best)
 
 
 def int8_inputs(dt: int, long_query: bool, seed: int):
@@ -96,22 +125,54 @@ def int8_inputs(dt: int, long_query: bool, seed: int):
 
 @pytest.mark.parametrize("dt", [32, 64, 128])
 def test_split_parts_reconstruct_the_query(dt):
-    """hi and lo are bf16 values (a second cast changes nothing) and
-    ``hi + lo`` is ``q`` within ``2**-16 * |q|`` per element; the products
-    of either part with an int8 code are exact in float32."""
+    """hi and lo are fp16 values (a second cast changes nothing), the
+    scaled row's largest element lies in [2**14, 2**15], ``hi + lo`` is
+    ``x 2**e`` within ``2**-22 * |x 2**e|`` per element (or fp16's
+    subnormal spacing, for elements 2**17 below the row's largest), and
+    the products of either part with an int8 code are exact in float32."""
     rng = np.random.default_rng(dt)
     q = torch.from_numpy(np.concatenate([
         unit(rng, 64, dt), 100.0 * unit(rng, 4, dt),
         1e-3 * unit(rng, 4, dt)]))
-    hi, lo = split_bf16(q)
+    hi, lo, back = split_rows(q)
     for part in (hi, lo):
-        assert torch.equal(part.to(torch.bfloat16).float(), part)
-    assert bool(((q - (hi + lo)).abs() <= 2.0 ** -16 * q.abs()).all())
+        assert torch.equal(part.half().float(), part)
+    y = q / back
+    top = y.abs().amax(dim=-1)
+    assert bool(((top >= 2.0 ** 14) & (top <= 2.0 ** 15)).all())
+    assert bool(((y - (hi + lo)).abs()
+                 <= torch.maximum(2.0 ** -22 * y.abs(),
+                                  torch.full_like(y, 2.0 ** -25))).all())
     codes = torch.arange(-127, 128, dtype=torch.float32)
     for part in (hi, lo):
         prod = part.reshape(-1, 1) * codes
         assert torch.equal(prod.double(),
                            part.double().reshape(-1, 1) * codes.double())
+
+
+@pytest.mark.parametrize("log2_mag", [None, -140, -100, -30, 30, 100])
+def test_split_scale_keeps_rows_of_any_magnitude_in_fp16_range(log2_mag):
+    """The row scale's range edges: rows of unit tokens times 2**k (k = -140
+    is below float32's smallest normal, so e stops at 126; None is a row of
+    zeros) scale to finite fp16 parts, the largest scaled element at most
+    2**15 (fp16's largest finite value is 65504), and ``(hi + lo) * 2**-e``
+    is the row within 2**-22 of each element or 2**-38 of the row's
+    largest; 2**e and 2**-e are normal floats."""
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(unit(rng, 16, 128))
+    q = q * 0.0 if log2_mag is None else q * 2.0 ** log2_mag
+    e = query_exponent(q[:, None, :], torch.ones(16, 1, dtype=torch.bool))
+    assert bool(((e >= -126) & (e <= 126)).all())
+    hi, lo, back = split_rows(q)
+    assert bool(torch.isfinite(hi).all() and torch.isfinite(lo).all())
+    assert bool((hi.abs().amax(dim=-1) <= 2.0 ** 15).all())
+    assert bool((back > 0).all() and torch.isfinite(1 / back).all())
+    top = q.abs().amax(dim=-1, keepdim=True)
+    err = ((hi + lo).double() * back.double() - q.double()).abs()
+    assert bool((err <= 2.0 ** -22 * q.double().abs()
+                 + 2.0 ** -38 * top.double()).all())
+    if log2_mag is None:
+        assert bool((hi == 0).all() and (lo == 0).all())
 
 
 @pytest.mark.parametrize("long_query", [False, True],
@@ -145,13 +206,10 @@ def sparse_tokens(rng, n: int, dt: int) -> np.ndarray:
     return out / np.linalg.norm(out, axis=1, keepdims=True)
 
 
-@pytest.mark.parametrize("dt", [32, 64, 128])
-def test_split_residue_stays_within_its_bound_on_sparse_tokens(dt):
-    """Queries made of a doc's own sparse tokens (self-retrieval): the
-    emulated int8 instance is the exact map within the split's bound,
-    sum over valid query tokens of 2**-16 * max_j sum_c |q_c| |code_jc| /
-    127 (each part's rounding leaves 2**-8 of what it rounds) plus float32
-    rounding, and JAX's map is the exact one within float32 rounding."""
+def sparse_inputs(dt: int):
+    """An int8 store of the hash encoder's sparse tokens (48 docs x 24,
+    doc 5 empty) and 6 queries of Lq 48 made of two docs' own tokens
+    (self-retrieval), normalized."""
     rng = np.random.default_rng(100 + dt)
     n, l_doc, b = 48, 24, 6
     vocab = sparse_tokens(rng, 200, dt)
@@ -162,6 +220,19 @@ def test_split_residue_stays_within_its_bound_on_sparse_tokens(dt):
                   for i in range(b)]).astype(np.float32)       # Lq 48
     q /= np.linalg.norm(q, axis=-1, keepdims=True)
     qmask = rng.random(q.shape[:2]) < 0.9
+    return codes, dmask, q, qmask
+
+
+@pytest.mark.parametrize("dt", [32, 64, 128])
+def test_split_residue_stays_within_its_bound_on_sparse_tokens(dt):
+    """Queries made of a doc's own sparse tokens (self-retrieval): the
+    emulated int8 instance is the exact map within the split's bound, sum
+    over valid query tokens of 2**-22 * max_j sum_c |q_c| |code_jc| / 127
+    plus float32 rounding, and JAX's map within atol 1e-5 (which the
+    bf16 split missed on these tokens); JAX's map is the exact one within
+    float32 rounding."""
+    codes, dmask, q, qmask = sparse_inputs(dt)
+    n = codes.shape[0]
     got = split_maxsim(torch.from_numpy(codes), torch.from_numpy(dmask),
                        torch.from_numpy(q), torch.from_numpy(qmask)).double()
     want = np.asarray(jm.maxsim_full(jnp.asarray(codes), jnp.asarray(dmask),
@@ -175,8 +246,9 @@ def test_split_residue_stays_within_its_bound_on_sparse_tokens(dt):
     exact = torch.where(qm[:, None, :], exact, 0.0).sum(-1)
     mag = torch.einsum("bqd,nld->bnql", q64.abs(), c64.abs()) / 127.0
     mag = mag.masked_fill(~dm[None, :, None, :], 0.0).amax(-1)
-    bound = (torch.where(qm[:, None, :], mag, 0.0).sum(-1) * 2.0 ** -16
+    bound = (torch.where(qm[:, None, :], mag, 0.0).sum(-1) * 2.0 ** -22
              + 1e-6 * (1.0 + exact.abs()))
     assert bool(((got - exact).abs() <= bound).all())
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
     np.testing.assert_allclose(want, exact.numpy(), rtol=1e-6, atol=1e-6)
     assert (got[:, 5] == 0).all()
