@@ -9,8 +9,9 @@ Phases, each printing one JSON line:
    with nvcc for sm_90a, timed, with ptxas's registers and spills per
    kernel and the tensor-core (HMMA) and FMA instruction counts of the
    score+select and MaxSim instances' SASS (score+select's bf16 instance
-   and MaxSim's bf16 and int8 instances must multiply on the tensor cores,
-   the MaxSim ones with no spill; the float32 and nbit4 ones must not);
+   and MaxSim's bf16, int8 and nbit4 instances must multiply on the tensor
+   cores, the MaxSim ones with no spill; the float32 ones and nbit4's
+   centroid table must not);
    then ``kernel_edge_cases``
    holds each kernel against its plain version on inputs that the main path
    does not give it (float32, ragged tiles, k above the tile and k = N, 512
@@ -18,7 +19,7 @@ Phases, each printing one JSON line:
    and long docs, short and long queries, B 1, N 1, empty docs, masks that
    are not a prefix, negative similarities, ...; the int8 and nbit4 MaxSim
    routes at the same shapes and on a batch that mixes short, long and
-   empty queries);
+   empty queries, within 1e-5);
 3. ``index``: builds the zh (Civil Code) and en (UCC) bundles from
    ``data/raw`` on the card, at full width (d=768, sketch 16384, token_dim
    128, doc_maxlen 220);
@@ -31,7 +32,8 @@ Phases, each printing one JSON line:
    operations one ``score_select_topk`` call issues (at most the ticket
    memset and the kernel); for MaxSim the device operations of one
    ``maxsim_full`` call (the kernel alone) and two calls compared bit for
-   bit;
+   bit; and MaxSim's float32 route (no path takes it) on the same tokens
+   widened, with its timings;
 5. ``e2e`` (zh, then en): 1024 self-retrieval queries (sampled as bench.py
    samples them), batch 64, top 10, through ``FusedQueryEngine`` (map
    mode): queries/s, Recall@10, the kernels' launch counts on that run
@@ -106,19 +108,23 @@ Phases, each printing one JSON line:
    from its quantized map, never by score+select, and an int8 token
    store) and N4 (``token_dtype="nbit4"``: bf16 dense, the residual token
    store). For each: the bytes of its stores; MaxSim's int8 or nbit4 route
-   against its plain version on the zh store at batch sizes 1, 8 and 64,
-   the device operations of one call (int8: the tensor-core kernel alone;
-   nbit4: its kernel and reduce), with timings of the wrapper and the C
-   entry, the bound and the library chain, and for int8 the queries on
-   the kernel's long path; the map path (zh 16, en
+   against its plain version on the zh store at batch sizes 1, 8 and 64
+   (atol 1e-5), the device operations of one call (int8: the tensor-core
+   kernel alone; nbit4: its centroid table and the tensor-core kernel),
+   with timings of the wrapper and the C entry, the bound and the library
+   chain; for int8 the queries on the kernel's long path; for nbit4 the
+   table's share of the device time and the table gathers' share of the C
+   entry's time (against a copy of the kernel whose gathers return 0,
+   built under ``build/``); the map path (zh 16, en
    9 batches through ``FusedQueryEngine``: q/s, Recall@10 against the bf16
    bundle's, N4 within 0.02, exact launches per batch (Q8: MaxSim only;
    N4: both kernels), device busy and idle share, MaxSim's device ms a
    batch) with 32 questions against the bundle's CPU twin (saved and
-   loaded on the CPU: the same stores, no swap in the top 10 given the
-   card's late map); then 128 ``ByLangRetriever`` requests from 16 threads
-   over the saved bundles (requests/s, p50 / p99, launches per channels
-   call, 8 against the CPU);
+   loaded on the CPU: the same stores, the late map within 1e-5, no swap
+   in the top 10 given the card's late map); then 128 ``ByLangRetriever``
+   requests from 16 threads over the saved bundles (requests/s, p50 /
+   p99, launches per channels call, 8 against the CPU, channel rows
+   swapping only at near-ties within 1e-5);
 10. ``large``: the large-corpus mode at the JAX repo's 1M-doc scale point
    (``legalrag_tpu_torch.scale``: N 1,048,576, V 65,536, d 768 bf16,
    64 x 128 int8 doc tokens, B 64, 32 term slots, 16 query tokens): the
@@ -190,6 +196,7 @@ from legalrag_tpu_torch.ops.bm25_sparse import (
 )
 from legalrag_tpu_torch.ops import fused_query
 from legalrag_tpu_torch.ops.maxsim import (
+    NBIT4_CENTROIDS,
     Residual4Store,
     dequant,
     doc_len,
@@ -249,10 +256,7 @@ STORES_REQUESTS = 128       # ByLangRetriever requests per configuration
 STORES_CPU_CHECKS = 32      # map-path questions held against the CPU twin
 STORES_SERVE_CPU_CHECKS = 8  # ByLangRetriever requests against the CPU
 STORE_BUCKETS = (1, 8, 64)  # batch sizes of the MaxSim route checks
-# atol of MaxSim's quantized routes against the plain version, and the
-# near-tie within which their channel rows may swap against the CPU
-ROUTE_ATOL = {"int8": 1e-5, "nbit4": 1e-4}
-STORE_TIE = {"q8": 1e-5, "n4": 1e-4}
+ROUTE_ATOL = 1e-5           # MaxSim's int8 and nbit4 routes against the plain version
 INT8_SLOTS = 32             # query slots of maxsim_tc_kernel<int8>: a query
                             # with more valid tokens takes its long path
 RECALL_DOCS = 65536         # the nbit4 scale run (bench_scale.py's default)
@@ -603,18 +607,19 @@ def quantized_stores(tok, dmask) -> dict:
 
 def check_store_routes(tok, dmask, q_tok, q_mask, what: str) -> dict:
     """MaxSim's int8 and nbit4 routes against ``maxsim_full_plain`` on the
-    same card tensors (atol ``ROUTE_ATOL``: int8 splits each float32
-    query, scaled by a power of two, into two fp16 parts, which leave at
-    most 2**-22 of each element, multiplies them by the exact codes and
-    sums each query's best matches in float64; nbit4 stages the plain
-    version's values bit for bit and sums in float32 in another order,
-    which leaves up to ~3e-5 at scores near 40); an empty doc scores 0, two calls give the same bits; one call
+    same card tensors (atol ``ROUTE_ATOL``: each float32 query, scaled by
+    a power of two, is split into two fp16 parts, which leave at most
+    2**-22 of each element, times the exact int8 codes or nibble factors;
+    nbit4 adds its centroid term from the table; each query's best matches
+    are summed in float64, so what is left is mostly the plain version's
+    own float32 sum); an empty doc scores 0, two calls give the same bits; one call
     issues one device operation for int8 (the tensor-core kernel) and two
-    for nbit4 (its kernel and reduce)."""
+    for nbit4 (its centroid table and the tensor-core kernel)."""
     out = {}
     q = q_tok.float()
     want_ops = {"int8": ["maxsim_tc_kernel<2,"],
-                "nbit4": ["maxsim_reduce_kernel", "maxsim_tokens_kernel<3,"]}
+                "nbit4": ["maxsim_centroid_table_kernel<",
+                          "maxsim_tc_kernel<3,"]}
     for route, store in quantized_stores(tok, dmask).items():
         ops = device_ops(lambda: maxsim_full(store, dmask, q, q_mask))
         check(len(ops) == len(want_ops[route]) and all(
@@ -624,7 +629,7 @@ def check_store_routes(tok, dmask, q_tok, q_mask, what: str) -> dict:
         want = maxsim_full_plain(store, dmask, q, q_mask)
         err = (got - want).abs().max().item()
         check(got.shape == want.shape and torch.allclose(
-            got, want, rtol=0, atol=ROUTE_ATOL[route]),
+            got, want, rtol=0, atol=ROUTE_ATOL),
               f"maxsim {route} {what} differs by {err}")
         empty = ~dmask.any(dim=1)
         check(bool((got[:, empty] == 0).all()),
@@ -711,7 +716,7 @@ def kernel_label(mangled: str) -> str:
     args = (["bf16"] if "__nv_bfloat16" in head
             else ["f32"] if head.startswith("If") else [])
     ints = re.findall(r'Li(\d+)E', head)
-    if base in ("maxsim_tokens_kernel", "maxsim_tc_kernel"):
+    if base == "maxsim_tc_kernel":
         # <store kind (lrt::DType), DT>
         ints[0] = {"0": "f32", "1": "bf16", "2": "int8", "3": "nbit4"}[ints[0]]
     return f"{base}<{','.join(args + ints)}>"
@@ -720,7 +725,8 @@ def kernel_label(mangled: str) -> str:
 # kernels whose SASS the build line counts, and which of their instances
 # must multiply on the tensor cores (HMMA) and which on the CUDA cores
 SASS_KERNELS = ("score_select_kernel", "maxsim_tc_kernel",
-                "maxsim_tokens_kernel", "maxsim_reduce_kernel")
+                "maxsim_centroid_table_kernel", "maxsim_tokens_kernel",
+                "maxsim_reduce_kernel")
 ON_TENSOR_CORES = ("score_select_kernel<bf16>", "maxsim_tc_kernel<")
 
 
@@ -765,21 +771,23 @@ def ptxas_report(text: str) -> dict:
 def phase_build() -> dict:
     """Compile the kernels, read ptxas's registers and spills and the SASS
     counts, and check that each instance multiplies where it should:
-    score_select<bf16> and every maxsim_tc_kernel (the bf16 and int8
-    stores) on the tensor cores, with no spill; the float32 and nbit4
-    instances on the CUDA cores (FFMA, no HMMA)."""
+    score_select<bf16> and every maxsim_tc_kernel (the bf16, int8 and
+    nbit4 stores) on the tensor cores, with no spill; the float32 store's
+    instances and nbit4's centroid table on the CUDA cores (FFMA, no
+    HMMA)."""
     built = kernels.build(force=True)
     sass = sass_counts(built["path"])
     ptxas = ptxas_report(built["ptxas"])
     res = {"phase": "build", "seconds": built["seconds"], "ptxas": ptxas,
            "sass": sass}
     emit(res)
-    want = {"score_select_kernel": 2, "maxsim_tc_kernel": 6,
-            "maxsim_tokens_kernel": 6, "maxsim_reduce_kernel": 1}
+    want = {"score_select_kernel": 2, "maxsim_tc_kernel": 9,
+            "maxsim_centroid_table_kernel": 3, "maxsim_tokens_kernel": 3,
+            "maxsim_reduce_kernel": 1}
     got = {k: sum(n.startswith(k + "<") or n == k for n in sass) for k in want}
     check(got == want, f"kernel instances in the SASS: {list(sass)}")
     check(sorted(n for n in sass if n.startswith("maxsim_tc_kernel<")) == [
-        f"maxsim_tc_kernel<{kind},{dt}>" for kind in ("bf16", "int8")
+        f"maxsim_tc_kernel<{kind},{dt}>" for kind in ("bf16", "int8", "nbit4")
         for dt in (128, 32, 64)], f"tensor-core MaxSim instances: {list(sass)}")
     for name, ops in sass.items():
         on_tc = name.startswith(ON_TENSOR_CORES)
@@ -929,6 +937,32 @@ def phase_kernels(zh, queries):
         "valid_tflop_per_s": 2 * dt * nvq * nvd / 1e9 / ms2,
         "padded_tflop": padded_flop / 1e12,
         "padded_bound_ms": padded_flop / BF16_FLOP_PER_S * 1e3}
+    # the float32 store's route (no path takes it): the zh tokens widened,
+    # float32 queries (allclose, atol 1e-4: float32 sums in another order)
+    tok32, q32 = tok.float(), q_tok.float()
+    got32 = maxsim_full(tok32, dmask, q32, q_mask)
+    want32 = maxsim_full_plain(tok32, dmask, q32, q_mask)
+    err32 = (got32 - want32).abs().max().item()
+    check(torch.allclose(got32, want32, rtol=0, atol=1e-4),
+          f"maxsim float32 route differs by {err32}")
+    ops32 = device_ops(lambda: maxsim_full(tok32, dmask, q32, q_mask))
+    check(sorted(o.split("::", 1)[-1][:20] for o in ops32) == [
+        "maxsim_reduce_kernel", "maxsim_tokens_kernel"],
+          f"one float32 maxsim_full call issued {ops32}")
+    bms32, by32 = bound((nvd + nvq) * dt * 4 + n * l_doc + q_mask.numel()
+                        + b * n * 4, 2 * dt * nvq * nvd, F32_FLOP_PER_S)
+    out["maxsim"]["float32_route"] = {
+        "dtype": "float32", "max_abs_err": err32, "tolerance": 1e-4,
+        "device_ops_per_call": ops32,
+        "ms": cuda_ms(lambda: maxsim_full(tok32, dmask, q32, q_mask)),
+        "plain_ms": cuda_ms(lambda: maxsim_full_plain(tok32, dmask, q32,
+                                                      q_mask)),
+        "library_ms": cuda_ms(lambda: library_quantized(tok32, dmask, q32,
+                                                        q_mask)),
+        "library": "chunked einsum + amax + sum",
+        "bound_ms": bms32, "bound_by": by32,
+        "bound_basis": "float32 on the CUDA cores (67 TFLOP/s)"}
+    del tok32, got32, want32
     for v in out.values():
         emit({"phase": "kernels", **v})
     return out
@@ -2172,24 +2206,24 @@ def library_quantized(store, dmask, q_tok, q_mask):
     return res
 
 
-def maxsim_entry(store, dmask, q_tok, q_mask):
-    """The C entry ``maxsim`` alone over a quantized store, with the grid
-    and scratch the wrapper gives it: (a function that launches it, its
-    output)."""
-    lib = kernels.lib()
+def maxsim_entry(store, dmask, q_tok, q_mask, lib=None):
+    """The C entry ``maxsim`` alone over a quantized store (of ``lib``, the
+    port's kernel library unless given), with the grid and scratch the
+    wrapper gives it: (a function that launches it, its output)."""
+    lib = lib or kernels.lib()
     dev = dmask.device
     b, lq, dt = q_tok.shape
     n, l_doc = n_docs(store), doc_len(store)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
-    if isinstance(store, Residual4Store):   # two launches through scratch
+    grid = max(n_sm, -(-b // kernels.lib().maxsim_queries_per_block()))
+    if isinstance(store, Residual4Store):   # the centroid table, then the kernel
         tok, dtype_id = store.packed, 3
         extra = (store.codes_c, store.centroids, store.step)
-        grid = max(1, min(n, 2 * n_sm))
-        scratch = torch.empty((n, b * lq), dtype=torch.float32, device=dev)
+        scratch = torch.empty((NBIT4_CENTROIDS, b * lq), dtype=torch.float32,
+                              device=dev)
     else:                                   # one launch on the tensor cores
         tok, extra, dtype_id = store, (None, None, None), 2
-        grid = max(n_sm, -(-b // lib.maxsim_queries_per_block()))
         scratch = None
     args = (tok.data_ptr(), dmask.data_ptr(), q_tok.data_ptr(),
             q_mask.data_ptr(),
@@ -2202,6 +2236,53 @@ def maxsim_entry(store, dmask, q_tok, q_mask):
         check(lib.maxsim(*args) == 0, "maxsim launch")
 
     return run, out
+
+
+# the centroid-table gather of the nbit4 epilogue (csrc/maxsim.cu,
+# table_at), and what a copy of the kernel returns in its place to time
+# the route without the gathers
+TABLE_GATHER = ("  return __ldg(table + (size_t)c * S + row);", "  return 0.f;")
+
+
+def kernel_copy(name: str, old: str, new: str):
+    """``csrc/maxsim.cu`` with ``old`` (once in it) replaced by ``new``,
+    built by nvcc into a library of its own under the build directory
+    (``build/legalrag_tpu_torch/variants/<name>``), and loaded with the
+    port's C signature of ``maxsim``."""
+    import ctypes
+
+    src = (kernels.CSRC / "maxsim.cu").read_text()
+    check(src.count(old) == 1, f"kernel copy {name}: {old!r} not found once")
+    d = kernels.BUILD_DIR / "variants" / name
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "maxsim.cu").write_text(src.replace(old, new))
+    lib_path = d / "libmaxsim.so"
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
+                    str(kernels.CSRC), "-shared", "-o", str(lib_path),
+                    str(d / "maxsim.cu")], check=True, capture_output=True,
+                   timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.maxsim.argtypes = kernels._SIGNATURES["maxsim"]
+    lib.maxsim.restype = ctypes.c_int
+    return lib
+
+
+def device_ms_by_op(fn, calls: int = 8) -> dict:
+    """Device milliseconds a call of ``fn`` spends in each device operation
+    (torch.profiler over ``calls`` calls after one warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("::", 1)[-1][:60]: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
 def phase_store_kernels(route: str, bundle, queries) -> dict:
@@ -2226,7 +2307,7 @@ def phase_store_kernels(route: str, bundle, queries) -> dict:
         want = maxsim_full_plain(tok, dmask, q_tok, q_mask)
         err = (got - want).abs().max().item()
         check(got.shape == (b, n_docs(tok)) and torch.allclose(
-            got, want, rtol=0, atol=ROUTE_ATOL[route]),
+            got, want, rtol=0, atol=ROUTE_ATOL),
               f"maxsim {route} at B {b} differs by {err}")
         check(bool(torch.isfinite(got).all()), f"maxsim {route} not finite")
         check(torch.equal(got, maxsim_full(tok, dmask, q_tok, q_mask)),
@@ -2247,18 +2328,22 @@ def phase_store_kernels(route: str, bundle, queries) -> dict:
             t.numel() * t.element_size() for t in tok[2:])
     io_b = store_b + n * l_doc + nvq * dt * 4 + q_mask.numel() + b * n * 4
     f32_bms, f32_by = bound(io_b, flop, F32_FLOP_PER_S)
-    if route == "int8":  # two bf16 products (lo, hi) on the tensor cores
-        bms, by = bound(io_b, 2 * flop, BF16_FLOP_PER_S)
-        basis = "2 bf16 products on the tensor cores (989 TFLOP/s)"
-    else:
-        bms, by, basis = f32_bms, f32_by, "float32 on the CUDA cores (67 TFLOP/s)"
+    # two fp16 products (lo, hi) on the tensor cores; nbit4 also the
+    # centroid table of the valid query tokens on the CUDA cores
+    table_flop = 2 * nvq * NBIT4_CENTROIDS * dt if route == "nbit4" else 0
+    t_ops = (2 * flop / BF16_FLOP_PER_S + table_flop / F32_FLOP_PER_S) * 1e3
+    t_bytes = io_b / HBM_BYTES_PER_S * 1e3
+    bms, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    basis = ("2 fp16 products on the tensor cores (989 TFLOP/s)"
+             + (" + the centroid table in float32 on the CUDA cores "
+                "(67 TFLOP/s)" if table_flop else ""))
     ms = cuda_ms(lambda: maxsim_full(tok, dmask, q_tok, q_mask))
     res = {"dtype": route,
            "shapes": {"B": b, "Lq": q_tok.shape[1], "N": n, "L": l_doc,
                       "dt": dt, "valid_query_tokens": nvq,
                       "valid_doc_tokens": nvd},
            "max_abs_err": max(errs.values()),
-           "max_abs_err_by_batch": errs, "tolerance": ROUTE_ATOL[route],
+           "max_abs_err_by_batch": errs, "tolerance": ROUTE_ATOL,
            "bitwise_equal_calls": True, "ms": ms, "kernel_only_ms": cuda_ms(entry),
            "plain_ms": cuda_ms(lambda: maxsim_full_plain(tok, dmask, q_tok,
                                                          q_mask)),
@@ -2268,6 +2353,22 @@ def phase_store_kernels(route: str, bundle, queries) -> dict:
            "bound_ms": bms, "bound_by": by, "bound_basis": basis,
            "f32_cuda_core_bound_ms": f32_bms,
            "valid_tflop_per_s": flop / 1e9 / ms}
+    if route == "nbit4":
+        # the centroid table's share of the device time, and the table
+        # gathers' share of the C entry's time: the same entry of a copy of
+        # the kernel whose gathers return 0 (its output is not the map)
+        by_op = device_ms_by_op(lambda: maxsim_full(tok, dmask, q_tok, q_mask))
+        table_ms = sum(v for k, v in by_op.items()
+                       if k.startswith("maxsim_centroid_table_kernel"))
+        copy_run, _ = maxsim_entry(tok, dmask, q_tok, q_mask,
+                                   kernel_copy("no_table_gather", *TABLE_GATHER))
+        copy_ms = cuda_ms(copy_run)
+        res["centroid_table"] = {
+            "device_ms_by_op": by_op, "table_ms": table_ms,
+            "table_share": table_ms / sum(by_op.values()),
+            "no_gather_copy_ms": copy_ms,
+            "gather_share": 1 - copy_ms / res["kernel_only_ms"],
+            "table_flop": table_flop}
     if route == "int8":
         lng = q_mask.sum(dim=1) > INT8_SLOTS
         part_ms = {
@@ -2318,9 +2419,9 @@ def store_map(name: str, lang: str, bundle, bf16_recall: float) -> dict:
     profile = profile_device(lambda: [engine.execute(p) for p in prepared],
                              len(prepared))
     # MaxSim's device operations in one batch: Q8 the int8 tensor-core
-    # kernel, N4 the nbit4 kernel and its reduce
+    # kernel, N4 the centroid table and the nbit4 tensor-core kernel
     want = (["maxsim_tc_kernel<2,"] if name == "q8" else
-            ["maxsim_reduce_kernel", "maxsim_tokens_kernel<3,"])
+            ["maxsim_centroid_table_kernel<", "maxsim_tc_kernel<3,"])
     ms_ops = sorted(o.split("::", 1)[-1] for o in device_ops(
         lambda: engine.execute(prepared[0]), only="maxsim"))
     check(len(ms_ops) == len(want)
@@ -2371,9 +2472,8 @@ def store_map(name: str, lang: str, bundle, bf16_recall: float) -> dict:
     q_tok, q_mask = (a.cpu() for a in card_map["args"][2:])
     plain = maxsim_full_plain(tw.tokens.tok, tw.tokens.mask, q_tok, q_mask)
     map_err = (card_map["out"].cpu() - plain).abs().max().item()
-    route = "int8" if name == "q8" else "nbit4"
     check(torch.allclose(card_map["out"].cpu(), plain, rtol=0,
-                         atol=ROUTE_ATOL[route]),
+                         atol=ROUTE_ATOL),
           f"stores {name} {lang}: the late map differs from the twin's by "
           f"{map_err}")
     check(np.allclose(gs, ws, atol=1e-4),
@@ -2444,7 +2544,7 @@ def store_serve(name: str, bundles, cfg: AppConfig) -> dict:
         for lang in bundles}
     profile = profile_device(lambda: threaded(reqs[:64]), 64)
     # requests against the CPU retriever: its channel lists against the
-    # card's (near-ties within STORE_TIE may swap), then its hits
+    # card's (near-ties within 1e-5 may swap), then its hits
     # from the card's channel lists (host fusion, graph and rerank on the
     # CPU) against the card's hits
     cpu = ByLangRetriever(cfg, device="cpu")
@@ -2468,8 +2568,7 @@ def store_serve(name: str, bundles, cfg: AppConfig) -> dict:
         for eff_k, got in lists.items():
             chan_swaps += check_channel_rows(
                 chr_._channels_topk_batch([q], eff_k), got,
-                f"stores {name} serve channels, request {i}",
-                tie=STORE_TIE[name])
+                f"stores {name} serve channels, request {i}")
     res = {"phase": "stores_serve", "store": name, "requests": len(reqs),
            "threads": SERVE_THREADS, "seconds": seconds,
            "requests_per_s": len(reqs) / seconds,
@@ -2874,6 +2973,9 @@ def main() -> int:
                        "maxsim"]}
         routes[route] |= {"launches": sum(by_path.values()),
                           "launches_by_path": by_path}
+    # the float32 store's route: no path launches it
+    routes["float32"] = kres["maxsim"].pop("float32_route") | {
+        "launches": 0, "launches_by_path": dict.fromkeys(runs, 0)}
     kres["maxsim"]["routes"] = routes
     summary = []
     for name, k in kres.items():

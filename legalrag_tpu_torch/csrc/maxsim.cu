@@ -18,10 +18,10 @@
 // 989 TFLOP/s bf16 tensor-core peak. Its bytes (the valid doc tokens once,
 // 44.5 MB, 13 us at 3.35 TB/s) bound it far less.
 //
-// bf16 and int8 stores: one launch, maxsim_tc_kernel<KIND, DT>, products on
+// bf16, int8 and nbit4 stores: maxsim_tc_kernel<KIND, DT>, products on
 // the tensor cores (mma.sync m16n8k16, bf16 or fp16 operands, float32 sums:
 // exact products, so only the order of the sums differs from the
-// reference).
+// reference); nbit4 first fills a table with maxsim_centroid_table_kernel.
 // - A block has QW consumer warps and a producer warpgroup (which gives
 //   most of its registers to the consumers with setmaxnreg). The consumer
 //   warps take the batch's queries in order: short queries packed by their
@@ -38,19 +38,21 @@
 //   queries costs a tile a query. A tile that holds no valid slot issues no
 //   products. A long query goes through in groups of RG slots as they lie,
 //   reloaded for each doc.
-// - The stage ring holds each doc's valid tokens as bf16 rows, compacted
+// - The stage ring holds each doc's valid tokens as 16-bit rows (bf16;
+//   fp16 for int8 and nbit4), compacted
 //   in token order (3 stages, or 2 where 3 do not fit; rows padded to
 //   dt + 8 against bank conflicts). Per stage, an mbarrier `full` counts
 //   the doc in and one `empty` counts the consumers out, so no block
 //   barrier ties the warps after the prologue. Rows stored [token][dt] are
 //   mma's column-major B as they lie, so ldmatrix reads them without
 //   .trans.
-// - Two n8 token chunks a pass: columns past the doc's valid count are
+// - Two n8 token chunks a pass (nbit4: one, its registers holding the
+//   centroid terms): columns past the doc's valid count are
 //   masked to -inf, each thread folds its C fragment into running row
 //   maxima, and a quad shuffle finishes the doc (max is order-free).
 // - Each query's best matches are summed by one lane in token order (for
 //   a long query, masked slots add +0.0, which changes nothing), so a run
-//   gives the same bits every time. No scratch, no second launch.
+//   gives the same bits every time. No scratch (bf16, int8).
 //
 // bf16 store, bf16 queries (the main path): RG = 64 (four tiles). One
 // producer warp works: it ballots each doc's mask (its bytes loaded one doc
@@ -80,28 +82,43 @@
 // float32 sum in token order is itself up to ~2e-5 off the exact sum at
 // the zh shapes (55 terms near 1), more than the split leaves.
 //
-// float32 and nbit4 stores, float32 queries (TF32 would change the float32
-// results; the nbit4 store's queries stay float32, as in the JAX package):
+// nbit4 store (a centroid id c and 4-bit codes n a token, decoded by
+// legalrag_tpu/ops/maxsim.py:69-79 as centroids[c] + (n - 8) * step, step
+// = scales / 7), float32 queries: the dot splits into a centroid term and
+// a residual term,
+//   q . d = T[q, c] + sum_k (q_k step_k) (n_k - 8),  T = q . centroids^T,
+// and the residual term runs on the tensor cores as int8's does: the four
+// producer warps widen each staged token's packed nibbles to the fp16
+// values n - 8 (exact) and store its centroid id beside the stage; the
+// queries' x = q * step (rounded once) are scaled and split into fp16 lo
+// and hi as above, two exact products each. T [256, B * Lq] float32
+// (centroid-major) is computed per call by maxsim_centroid_table_kernel
+// (float32 FMAs on the CUDA cores, 2 * 256 * dt flops a query token,
+// 4 MB at the zh shapes: it does not fit shared memory beside the
+// stages, so the epilogue reads it through L2). Each thread gathers the
+// centroid terms of its C-fragment elements ahead of a pass's products
+// (a tile's 16 slots are consecutive query tokens where the query's mask is
+// a prefix, so a warp's gather then touches 4 sectors, not 32), then adds T + 2^-e * acc,
+// rounded once, before the row maximum. The loss against the reference:
+// the split's residue (2^-22 of |x| * 8 an element), the rounding of x and
+// of the sum, where JAX rounds each decoded value; and the order of the
+// float32 sums.
+//
+// float32 store, float32 queries (TF32 would change the float32 results):
 // two launches on the CUDA cores. maxsim_tokens_kernel writes best(b, i, n)
 // for every valid query token into scratch [N, B * Lq]; a block owns up to
 // THREADS valid query tokens (compacted in its prologue), each thread keeps
 // its token in DT registers, and for each doc of its strided set the block
-// stages the valid doc tokens in shared memory as float32, decoding them on
-// the way (decode8): an nbit4 token as centroids[codes_c] + (nibble - 8) *
-// step with step = scales / 7 divided once on the host, the product and the
-// sum each rounded (no FMA), as legalrag_tpu/ops/maxsim.py:69-79 computes
-// it, so the staged values equal the plain version's bit for bit.
-// maxsim_reduce_kernel sums each query's valid tokens in token order into
-// out [B, N].
+// stages the valid doc tokens in shared memory. maxsim_reduce_kernel sums
+// each query's valid tokens in token order into out [B, N]. No path of the
+// system takes it (the float32 token store is built only on request).
 //
-// What bounds the int8 route: twice the products above on the tensor cores
-// (0.316 ms at the zh shapes); its bytes are a quarter of the bf16 rows'
-// widened in shared memory. The nbit4 route: the same products on the CUDA
-// cores (67 TFLOP/s float32 on an H100 SXM): 0.156 TFLOP, 2.3 ms; its bytes
-// about a sixth of the float32 rows' (1 + dt / 2 bytes a token, plus the
-// 128 KB of centroids). It re-decodes each staged doc in every block that
-// stages it (one block per THREADS valid query tokens) and keeps no tensor
-// core busy: its redesign on the tensor cores is later work.
+// What bounds the int8 and nbit4 routes: twice the products above on the
+// tensor cores (0.316 ms at the zh shapes; nbit4 adds the table, 0.27
+// GFLOP at 67 TFLOP/s on the CUDA cores, 4 us); their bytes are a quarter (int8) and an
+// eighth (nbit4) of the bf16 rows' in device memory, widened in shared
+// memory. The float32 route: the products on the CUDA cores (67 TFLOP/s
+// float32 on an H100 SXM): 0.156 TFLOP, 2.3 ms.
 
 #include <math.h>
 
@@ -111,7 +128,7 @@ namespace {
 
 constexpr int SMEM_OPTIN = 232448;  // sm_90's per-block opt-in shared memory
 
-// ====================================================================== bf16
+// ============================================================ tensor cores
 
 constexpr int QW = 8;             // consumer warps a block
 constexpr int QTHREADS = (QW + 4) * 32;  // and a producer warpgroup
@@ -143,23 +160,44 @@ template <> struct TC<lrt::kI8> {
   typedef double sum;
   static constexpr int RG = 32;
 };
+template <> struct TC<lrt::kNbit4> {
+  typedef uint8_t doc;  // the packed nibbles
+  typedef float query;
+  typedef double sum;
+  static constexpr int RG = 32;
+};
+
+// The nbit4 store's other tensors, for the tensor-core kernel: codes_c
+// [N, L] uint8, step = scales / 7 float32 [dt], and the centroid table
+// float32 [256, B * Lq] (centroid-major) that maxsim_centroid_table_kernel
+// writes before it; all NULL for the other kinds.
+struct Nbit4Args {
+  const uint8_t* codes;
+  const float* step;
+  const float* table;
+};
+
+constexpr int NCENT = 256;  // the nbit4 codebook's centroids
 
 __host__ __device__ constexpr int stage_rows(int L) { return (L + 7) / 8 * 8; }
 
-// Dynamic shared memory: the stages [stages][stage_rows(L)][dt + 8] bf16,
-// then per consumer warp its sum buffer [MAX_RG] float32, then per stage its
-// barriers full and empty (u64 each) and its doc's valid count (int), then
-// the packing: the number of consumer warps the batch takes and, per
-// consumer warp of the block, its first query and query count (int).
-size_t bf16_smem_bytes(int L, int dt, int stages) {
+// Dynamic shared memory: the stages [stages][stage_rows(L)][dt + 8] of
+// 16-bit values, then per consumer warp its sum buffer [MAX_RG] float32,
+// then per stage its barriers full and empty (u64 each) and its doc's valid
+// count (int), then the packing: the number of consumer warps the batch
+// takes and, per consumer warp of the block, its first query and query
+// count (int); nbit4 then per stage its doc's centroid ids
+// [stage_rows(L)] uint8.
+size_t tc_smem_bytes(int kind, int L, int dt, int stages) {
   return (size_t)stages * stage_rows(L) * (dt + 8) * 2 + (size_t)QW * MAX_RG * 4 +
-         stages * (2 * 8 + 4) + (1 + 2 * QW) * 4;
+         stages * (2 * 8 + 4) + (1 + 2 * QW) * 4 +
+         (kind == lrt::kNbit4 ? (size_t)stages * stage_rows(L) : 0);
 }
 
 // The most stages (of MAX_STAGES, at least 2) that fit a block, or 0.
-int bf16_stages(int L, int dt) {
+int tc_stages(int kind, int L, int dt) {
   for (int st = MAX_STAGES; st >= 2; --st)
-    if (bf16_smem_bytes(L, dt, st) <= (size_t)SMEM_OPTIN) return st;
+    if (tc_smem_bytes(kind, L, dt, st) <= (size_t)SMEM_OPTIN) return st;
   return 0;
 }
 
@@ -296,20 +334,65 @@ __device__ __forceinline__ void widen_quarter(const int8_t* src,
   }
 }
 
+// Four packed nibble bytes (byte k: dim 2k in the high nibble, 2k + 1 in
+// the low one, each biased by +8) as eight fp16 values n - 8, exact: each
+// half is built as the bits of 1024 + n (0x6400 | n), less 1032.
+__device__ __forceinline__ uint4 widen_nibbles(unsigned v) {
+  const unsigned hi = (v >> 4) & 0x0f0f0f0fu, lo = v & 0x0f0f0f0fu;
+  const unsigned p01 = __byte_perm(hi, lo, 0x5140);  // hi0 lo0 hi1 lo1
+  const unsigned p23 = __byte_perm(hi, lo, 0x7362);  // hi2 lo2 hi3 lo3
+  auto pair = [](unsigned p, unsigned sel) {  // two bytes, each to a half
+    unsigned r;
+    asm("sub.f16x2 %0, %1, %2;"
+        : "=r"(r) : "r"(__byte_perm(p, 0u, sel) | 0x64006400u), "r"(0x64086408u));
+    return r;
+  };
+  return make_uint4(pair(p01, 0x4140), pair(p01, 0x4342), pair(p23, 0x4140),
+                    pair(p23, 0x4342));
+}
+
+// One of the four producer warps' quarter of an nbit4 row (DT / 8 packed
+// bytes, DT / 4 dims) widened into the stage row (fp16).
+template <int DT>
+__device__ __forceinline__ void widen_nibble_quarter(const uint8_t* src,
+                                                     uint16_t* dst) {
+  if constexpr (DT / 8 == 4) {
+    *reinterpret_cast<uint4*>(dst) = widen_nibbles(*reinterpret_cast<const unsigned*>(src));
+  } else {
+#pragma unroll
+    for (int p = 0; p < DT / 64; ++p) {
+      const uint2 v = *reinterpret_cast<const uint2*>(src + 8 * p);
+      *reinterpret_cast<uint4*>(dst + 16 * p) = widen_nibbles(v.x);
+      *reinterpret_cast<uint4*>(dst + 16 * p + 8) = widen_nibbles(v.y);
+    }
+  }
+}
+
+// The centroid term of one C-fragment element: the table's entry for
+// centroid c and query token `row` (S = B * Lq), read through L2 (the
+// table is 4 MB at the zh shapes; a block's rows span 256 KB of it).
+__device__ __forceinline__ float table_at(const float* __restrict__ table,
+                                          unsigned c, int S, int row) {
+  return __ldg(table + (size_t)c * S + row);
+}
+
 template <int KIND, int DT>
 __global__ void __launch_bounds__(QTHREADS, 1)
 maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
                  const uint8_t* __restrict__ doc_mask,
                  const typename TC<KIND>::query* __restrict__ q_tok,
                  const uint8_t* __restrict__ q_mask, int B, int Lq, int N,
-                 int L, int nst, float* __restrict__ out) {
+                 int L, int nst, float* __restrict__ out, const Nbit4Args nb) {
   constexpr bool I8 = KIND == lrt::kI8;
+  constexpr bool NB4 = KIND == lrt::kNbit4;
   constexpr bool SPLIT = KIND != lrt::kBF16;  // fp16 operands, split queries
+  constexpr int TW = NB4 ? DT / 2 : DT;       // a doc token's elements
   constexpr int RG = TC<KIND>::RG;  // query slots a consumer warp holds
   constexpr int MT = RG / 16;       // m16 tiles in them
   constexpr int NP = SPLIT ? 2 : 1;  // A parts a slot (split: lo, then hi)
   constexpr int LD = DT + 8;        // stage row (16-bit), 16-byte multiple
   constexpr int KS = DT / 16;       // k16 steps
+  constexpr int NU = NB4 ? 1 : 2;   // n8 token chunks a pass
   extern __shared__ __align__(16) unsigned char stage_smem[];
   const int rows = stage_rows(L);
   uint16_t* stages = reinterpret_cast<uint16_t*>(stage_smem);
@@ -319,6 +402,7 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
   uint64_t* empty = full + nst;                                   // doc read
   int* nvs = reinterpret_cast<int*>(empty + nst);                // its valid tokens
   int* pack = nvs + nst;
+  uint8_t* cids = reinterpret_cast<uint8_t*>(pack + 1 + 2 * QW);  // nbit4: centroid ids
 
   // Queries to consumer warps. A short query (Lq <= PACK_LQ, at most RG
   // valid tokens) is packed: a warp takes a run of whole short queries
@@ -402,10 +486,11 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
     if (!SPLIT && pw > 0) return;
     // bf16: one warp; each valid token's lane issues one bulk copy of its
     // row, compacted in token order, into the stage, and lane 0 announces
-    // the doc's bytes on full first. int8: four warps; each valid token's
-    // lane widens quarter pw of its row into the stage (fp16), and each
-    // warp arrives on full when its stores are done. The mask of the next
-    // doc (bytes of tokens c * 32 + lane) is loaded while this one's fly.
+    // the doc's bytes on full first. int8 and nbit4: four warps; each valid
+    // token's lane widens quarter pw of its row into the stage (fp16; nbit4
+    // also stores the token's centroid id from warp 0), and each warp
+    // arrives on full when its stores are done. The mask of the next doc
+    // (bytes of tokens c * 32 + lane) is loaded while this one's fly.
     const int chunks = (L + 31) / 32;
     unsigned mreg[MAXCH];
     auto fetch_mask = [&](int i) {
@@ -429,9 +514,10 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
       }
       __syncwarp();
       // bf16: the stage was last read by ldmatrix (the generic proxy); the
-      // int8 stores are generic too, ordered by the wait on empty
+      // int8 and nbit4 stores are generic too, ordered by the wait on empty
       if constexpr (!SPLIT) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      const typename TC<KIND>::doc* src = doc_tok + (size_t)(n0 + i * dstep) * L * DT;
+      const size_t doc = (size_t)(n0 + i * dstep) * L;
+      const typename TC<KIND>::doc* src = doc_tok + doc * TW;
       uint16_t* dst = stages + (size_t)st * rows * LD;
       int base = 0;
 #pragma unroll
@@ -439,10 +525,14 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
         const unsigned bal = __ballot_sync(FULL, mreg[c] != 0);
         if (mreg[c]) {
           const int r = base + __popc(bal & ((1u << lane) - 1u));
-          if constexpr (I8)
+          if constexpr (I8) {
             widen_quarter<DT>(src + (size_t)(c * 32 + lane) * DT + pw * (DT / 4),
                               dst + (size_t)r * LD + pw * (DT / 4));
-          else
+          } else if constexpr (NB4) {
+            widen_nibble_quarter<DT>(src + (size_t)(c * 32 + lane) * TW + pw * (DT / 8),
+                                     dst + (size_t)r * LD + pw * (DT / 4));
+            if (pw == 0) cids[st * rows + r] = nb.codes[doc + c * 32 + lane];
+          } else
             bulk_copy(dst + (size_t)r * LD, src + (size_t)(c * 32 + lane) * DT,
                       DT * 2, &full[st]);
         }
@@ -495,12 +585,14 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
   unsigned a[NP][MT][KS][4];
   unsigned live = 0, qbits = 0;
   // split: each query is scaled by the power of two 2^e that brings the
-  // largest |x| of its valid tokens' elements into [2^14, 2^15) (x = q);
-  // qex: the exponent e of this lane's query (packed: query qb + lane;
-  // long: qb); rs: per tile, the factor that undoes its query's scale
-  // (and, for int8, the codes' 1 / 127) on the row maxima
+  // largest |x| of its valid tokens' elements into [2^14, 2^15) (x = q;
+  // nbit4: q * step, rounded); qex: the exponent e of this lane's query
+  // (packed: query qb + lane; long: qb); rs: per tile, the factor that
+  // undoes its query's scale (and, for int8, the codes' 1 / 127); nbit4:
+  // trow, the query token (its table row) of this lane's row h of tile t
   int qex = 0;
   float rs[SPLIT ? MT : 1];
+  int trow[NB4 ? MT : 1][2];
   if constexpr (SPLIT) {
     // warp-wide over query b's valid tokens; at most 126 (m zero or
     // subnormal), so that 2^e and 2^-e are normal floats
@@ -512,7 +604,11 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
         for (; bal; bal &= bal - 1u) {
           const float* x = q_tok + ((size_t)b * Lq + c0 + __ffs(bal) - 1) * DT;
           for (int k = 4 * lane; k < DT; k += 128) {
-            const float4 v = *reinterpret_cast<const float4*>(x + k);
+            float4 v = *reinterpret_cast<const float4*>(x + k);
+            if constexpr (NB4) {
+              const float4 w = *reinterpret_cast<const float4*>(nb.step + k);
+              v = make_float4(v.x * w.x, v.y * w.y, v.z * w.z, v.w * w.w);
+            }
             m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
                                fmaxf(fabsf(v.z), fabsf(v.w))));
           }
@@ -528,17 +624,23 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
     }
   }
   // this lane's row h of tile t from query token `row` (zeros when !ok);
-  // split: the float32 token x, scaled by 2^ex, split into its fp16 parts
-  // lo (a[0]) and hi (a[1])
+  // split: the float32 token x (nbit4: q * step), scaled by 2^ex, split
+  // into its fp16 parts lo (a[0]) and hi (a[1])
   auto load_row = [&](int t, int h, size_t row, bool ok, int ex) {
     if constexpr (SPLIT) {
       const float2* x2 = reinterpret_cast<const float2*>(q_tok + row * DT + 2 * tq);
       const float sc = __uint_as_float((unsigned)(127 + ex) << 23);
+      if constexpr (NB4) trow[t][h] = (int)row;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {  // k 2 tq (+ 8 for e = 1)
-          const float2 x = ok ? x2[ks * 8 + 4 * e] : make_float2(0.f, 0.f);
+          float2 x = ok ? x2[ks * 8 + 4 * e] : make_float2(0.f, 0.f);
+          if constexpr (NB4) {
+            const float2 w = *reinterpret_cast<const float2*>(
+                nb.step + ks * 16 + 8 * e + 2 * tq);
+            x = make_float2(x.x * w.x, x.y * w.y);
+          }
           const float2 y = make_float2(x.x * sc, x.y * sc);
           const unsigned hi = f16x2(y.x, y.y);
           const float2 hf = f16x2_float2(hi);
@@ -609,6 +711,7 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
     mbar_wait(&full[st], (unsigned)(i / nst) & 1u);  // doc i has landed
     const int nv = nvs[st];
     const uint16_t* bs = stages + (size_t)st * rows * LD;
+    const uint8_t* cs = cids + st * rows;  // nbit4: the doc's centroid ids
     typename TC<KIND>::sum total = 0;
     for (int r = 0; has_q && nv > 0 && r < groups; ++r) {
       if (!packed) load_query(r);
@@ -616,29 +719,50 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
 #pragma unroll
       for (int t = 0; t < MT; ++t) best[t][0] = best[t][1] = -INFINITY;
 
-      for (int j = 0; j < nv; j += 16) {  // token chunks j and j + 8
-        const bool two = j + 8 < nv;
+      // NU n8 token chunks a pass: two (bf16, int8), or one (nbit4, whose
+      // centroid terms take the registers of the second)
+      for (int j = 0; j < nv; j += 8 * NU) {  // token chunks j (and j + 8)
+        const bool two = NU == 2 && j + 8 < nv;
         const uint16_t* p = bs + (j + (lane & 7)) * LD + (lane >> 3) * 8;
-        float acc[2][MT][4];
-        unsigned b[2][2][4];  // [buffer][chunk]: k-steps 2 kk and 2 kk + 1
+        float acc[NU][MT][4];
+        unsigned b[2][NU][4];  // [buffer][chunk]: k-steps 2 kk and 2 kk + 1
         lrt::ldmatrix_x4(b[0][0], p);
-        if (two) lrt::ldmatrix_x4(b[0][1], p + 8 * LD);
+        if constexpr (NU == 2) {
+          if (two) lrt::ldmatrix_x4(b[0][1], p + 8 * LD);
+        }
+        // nbit4: the centroid terms of this thread's C-fragment elements,
+        // (rows g, g + 8) x (tokens j + 2 tq, j + 2 tq + 1), gathered ahead
+        // of the products (columns past nv read a stale id, masked below)
+        float tv[NB4 ? MT : 1][4];
+        if constexpr (NB4) {
+          const unsigned ids = *reinterpret_cast<const uint16_t*>(cs + j + 2 * tq);
+#pragma unroll
+          for (int t = 0; t < MT; ++t) {
+            if (!(live >> t & 1u)) continue;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              tv[t][e] = table_at(nb.table, e & 1 ? ids >> 8 : ids & 0xffu,
+                                  B * Lq, trow[t][e >> 1]);
+          }
+        }
 #pragma unroll
         for (int kk = 0; kk < KS / 2; ++kk) {
           const int cur = kk & 1;
           if (kk + 1 < KS / 2) {  // the next fragments, ahead of the products
             lrt::ldmatrix_x4(b[cur ^ 1][0], p + (kk + 1) * 32);
-            if (two) lrt::ldmatrix_x4(b[cur ^ 1][1], p + 8 * LD + (kk + 1) * 32);
+            if constexpr (NU == 2) {
+              if (two) lrt::ldmatrix_x4(b[cur ^ 1][1], p + 8 * LD + (kk + 1) * 32);
+            }
           }
           // the products are issued in order (asm volatile): keep each
-          // accumulator's products of this pass apart (int8: a k-step's lo
+          // accumulator's products of this pass apart (split: a k-step's lo
           // product, then its hi product)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
 #pragma unroll
             for (int pt = 0; pt < NP; ++pt) {
 #pragma unroll
-              for (int u = 0; u < 2; ++u) {
+              for (int u = 0; u < NU; ++u) {
                 if (u == 1 && !two) continue;
 #pragma unroll
                 for (int t = 0; t < MT; ++t) {
@@ -663,11 +787,22 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
             }
           }
         }
+        // nbit4: the residual term scaled back (exact), plus the centroid
+        // term, rounded once
+        if constexpr (NB4) {
+#pragma unroll
+          for (int t = 0; t < MT; ++t) {
+            if (!(live >> t & 1u)) continue;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[0][t][e] = __fmaf_rn(acc[0][t][e], rs[t], tv[t][e]);
+          }
+        }
         // accumulator (t, e): slot t * 16 + g (+ 8 for e >= 2), token
         // j + 8 u + 2 tq + e % 2; only the last pass has columns to mask
-        if (j + 16 <= nv) {
+        if (j + 8 * NU <= nv) {
 #pragma unroll
-          for (int u = 0; u < 2; ++u) {
+          for (int u = 0; u < NU; ++u) {
 #pragma unroll
             for (int t = 0; t < MT; ++t) {
               if (!(live >> t & 1u)) continue;
@@ -677,7 +812,7 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
           }
         } else {
 #pragma unroll
-          for (int u = 0; u < 2; ++u) {
+          for (int u = 0; u < NU; ++u) {
             if (u == 1 && !two) break;
             const int c0 = j + 8 * u + 2 * tq;
             const bool v0 = c0 < nv, v1 = c0 + 1 < nv;
@@ -742,9 +877,9 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
 template <int KIND, int DT>
 int launch_tc(const void* doc_tok, const void* doc_mask, const void* q_tok,
               const void* q_mask, int B, int Lq, int N, int L, int blocks,
-              void* out, cudaStream_t stream) {
-  const int nst = bf16_stages(L, DT);
-  const size_t smem = bf16_smem_bytes(L, DT, nst);
+              const Nbit4Args& nb, void* out, cudaStream_t stream) {
+  const int nst = tc_stages(KIND, L, DT);
+  const size_t smem = tc_smem_bytes(KIND, L, DT, nst);
   cudaError_t err = cudaFuncSetAttribute(
       maxsim_tc_kernel<KIND, DT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -754,26 +889,79 @@ int launch_tc(const void* doc_tok, const void* doc_mask, const void* q_tok,
       static_cast<const uint8_t*>(doc_mask),
       static_cast<const typename TC<KIND>::query*>(q_tok),
       static_cast<const uint8_t*>(q_mask), B, Lq, N, L, nst,
-      static_cast<float*>(out));
+      static_cast<float*>(out), nb);
   return (int)cudaGetLastError();
 }
 
 template <int KIND>
 int launch_tc_kind(const void* doc_tok, const void* doc_mask,
                    const void* q_tok, const void* q_mask, int B, int Lq,
-                   int N, int L, int dt, int blocks, void* out,
-                   cudaStream_t s) {
+                   int N, int L, int dt, int blocks, const Nbit4Args& nb,
+                   void* out, cudaStream_t s) {
   switch (dt) {
     case 32:
       return launch_tc<KIND, 32>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N,
-                                 L, blocks, out, s);
+                                 L, blocks, nb, out, s);
     case 64:
       return launch_tc<KIND, 64>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N,
-                                 L, blocks, out, s);
+                                 L, blocks, nb, out, s);
     default:
       return launch_tc<KIND, 128>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N,
-                                  L, blocks, out, s);
+                                  L, blocks, nb, out, s);
   }
+}
+
+// ============================================================ nbit4's table
+
+constexpr int TT = 64;   // the table kernel's tile: query tokens and centroids
+constexpr int TK = 32;   // and dims staged at a time
+
+// table[c, s] = sum_k q_tok[s, k] * centroids[c, k] for every query token s
+// of the batch (S = B * Lq, masked ones too) and centroid c: float32 FMAs in
+// k order. A block of 256 threads takes TT tokens x TT centroids, each
+// thread one token and 16 centroids; the tokens run along a warp, so the
+// table's rows are written 128 bytes at a time.
+template <int DT>
+__global__ void __launch_bounds__(256)
+maxsim_centroid_table_kernel(const float* __restrict__ q_tok,
+                             const float* __restrict__ centroids, int S,
+                             float* __restrict__ table) {
+  __shared__ float qs[TT][TK + 1];
+  __shared__ float cs[TT][TK + 1];
+  const int tid = threadIdx.x, sl = tid % TT, cg = tid / TT;
+  const int s0 = blockIdx.x * TT, c0 = blockIdx.y * TT;
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  for (int k0 = 0; k0 < DT; k0 += TK) {
+    for (int e = tid; e < TT * TK; e += 256) {
+      const int r = e / TK, k = e % TK;
+      qs[r][k] = s0 + r < S ? q_tok[(size_t)(s0 + r) * DT + k0 + k] : 0.f;
+      cs[r][k] = centroids[(size_t)(c0 + r) * DT + k0 + k];
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < TK; ++k) {
+      const float x = qs[sl][k];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] = fmaf(x, cs[cg * 16 + i][k], acc[i]);
+    }
+    __syncthreads();
+  }
+  if (s0 + sl < S) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      table[(size_t)(c0 + cg * 16 + i) * S + s0 + sl] = acc[i];
+  }
+}
+
+template <int DT>
+int launch_table(const float* q_tok, const float* centroids, int S,
+                 float* table, cudaStream_t stream) {
+  const dim3 grid((S + TT - 1) / TT, NCENT / TT);
+  maxsim_centroid_table_kernel<DT><<<grid, 256, 0, stream>>>(q_tok, centroids,
+                                                             S, table);
+  return (int)cudaGetLastError();
 }
 
 // =================================================================== float32
@@ -812,44 +1000,10 @@ __device__ int block_exclusive_scan(int v, int* total) {
   return before + inc - v;
 }
 
-// The doc store of the CUDA-core kernel: tok is float32 [N, L, DT] or
-// (nbit4) packed uint8 [N, L, DT / 2]; nbit4 also has codes [N, L] uint8,
-// centroids float32 [256, DT] and step float32 [DT].
-struct DocStore {
-  const void* tok;
-  const uint8_t* codes;
-  const float* centroids;
-  const float* step;
-};
-
-// Elements c .. c + 7 of token `row` (n * L + j) decoded to float32.
-template <int KIND, int DT>
-__device__ __forceinline__ void decode8(const DocStore& d, size_t row, int c,
-                                        float* f) {
-  if constexpr (KIND == lrt::kF32) {
-    lrt::load8(static_cast<const float*>(d.tok) + row * DT + c, f);
-  } else {
-    static_assert(KIND == lrt::kNbit4, "store kind");
-    // byte k of the 4 holds dims c + 2k (high nibble) and c + 2k + 1
-    const uint32_t v = *reinterpret_cast<const uint32_t*>(
-        static_cast<const uint8_t*>(d.tok) + row * (DT / 2) + c / 2);
-    float cen[8], st[8];
-    lrt::load8(d.centroids + (size_t)d.codes[row] * DT + c, cen);
-    lrt::load8(d.step + c, st);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int byte = (v >> (8 * k)) & 0xFF;
-      f[2 * k] = __fadd_rn(cen[2 * k],
-                           __fmul_rn((float)((byte >> 4) - 8), st[2 * k]));
-      f[2 * k + 1] = __fadd_rn(
-          cen[2 * k + 1], __fmul_rn((float)((byte & 0xF) - 8), st[2 * k + 1]));
-    }
-  }
-}
-
-template <int KIND, int DT>
+template <int DT>
 __global__ void __launch_bounds__(THREADS, 1)
-maxsim_tokens_kernel(const DocStore docs, const uint8_t* __restrict__ doc_mask,
+maxsim_tokens_kernel(const float* __restrict__ doc_tok,
+                     const uint8_t* __restrict__ doc_mask,
                      const float* __restrict__ q_tok,
                      const uint8_t* __restrict__ q_mask, int S, int N, int L,
                      float* __restrict__ tokbest) {
@@ -905,13 +1059,10 @@ maxsim_tokens_kernel(const DocStore docs, const uint8_t* __restrict__ doc_mask,
     }
     __syncthreads();
     const int nv = nvalid;
-    for (int e = tid; e < nv * (DT / 8); e += THREADS) {
-      const int t = e / (DT / 8), c = (e - t * (DT / 8)) * 8;
-      float f[8];
-      decode8<KIND, DT>(docs, (size_t)n * L + vidx[t], c, f);
-      float4* dst = reinterpret_cast<float4*>(dtok + t * DT + c);
-      dst[0] = make_float4(f[0], f[1], f[2], f[3]);
-      dst[1] = make_float4(f[4], f[5], f[6], f[7]);
+    for (int e = tid; e < nv * (DT / 4); e += THREADS) {
+      const int t = e / (DT / 4), c = (e - t * (DT / 4)) * 4;
+      *reinterpret_cast<float4*>(dtok + t * DT + c) =
+          *reinterpret_cast<const float4*>(doc_tok + ((size_t)n * L + vidx[t]) * DT + c);
     }
     __syncthreads();
     if (active) {
@@ -949,19 +1100,19 @@ __global__ void maxsim_reduce_kernel(const float* __restrict__ tokbest,
   out[(size_t)b * N + n] = s;
 }
 
-template <int KIND, int DT>
-int launch(const DocStore& docs, const void* doc_mask, const void* q_tok,
-           const void* q_mask, int B, int Lq, int N, int L, int grid_docs,
-           void* scratch, void* out, cudaStream_t stream) {
+template <int DT>
+int launch_f32(const void* doc_tok, const void* doc_mask, const void* q_tok,
+               const void* q_mask, int B, int Lq, int N, int L, int grid_docs,
+               void* scratch, void* out, cudaStream_t stream) {
   const int S = B * Lq;
   const size_t smem = f32_smem_bytes(L, DT);
   cudaError_t err = cudaFuncSetAttribute(
-      maxsim_tokens_kernel<KIND, DT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      maxsim_tokens_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(grid_docs, (S + THREADS - 1) / THREADS);
-  maxsim_tokens_kernel<KIND, DT><<<grid, THREADS, smem, stream>>>(
-      docs, static_cast<const uint8_t*>(doc_mask),
+  maxsim_tokens_kernel<DT><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(doc_tok), static_cast<const uint8_t*>(doc_mask),
       static_cast<const float*>(q_tok), static_cast<const uint8_t*>(q_mask), S,
       N, L, static_cast<float*>(scratch));
   err = cudaGetLastError();
@@ -973,23 +1124,6 @@ int launch(const DocStore& docs, const void* doc_mask, const void* q_tok,
   return (int)cudaGetLastError();
 }
 
-template <int KIND>
-int launch_kind(const DocStore& docs, const void* doc_mask, const void* q_tok,
-                const void* q_mask, int B, int Lq, int N, int L, int dt,
-                int grid, void* scratch, void* out, cudaStream_t s) {
-  switch (dt) {
-    case 32:
-      return launch<KIND, 32>(docs, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                              grid, scratch, out, s);
-    case 64:
-      return launch<KIND, 64>(docs, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                              grid, scratch, out, s);
-    default:
-      return launch<KIND, 128>(docs, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                               grid, scratch, out, s);
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -998,16 +1132,17 @@ extern "C" {
 // least ceil(B / this) blocks.
 int maxsim_queries_per_block() { return QW; }
 
-// Dynamic shared memory a launch needs for doc_maxlen L and token_dim dt,
-// or -1 when the kernel does not take the shape (dt not in {32, 64, 128},
-// bf16 or int8 L above 32 * MAXCH, or more than a block may have).
+// Dynamic shared memory a launch of the main kernel needs for doc_maxlen L
+// and token_dim dt, or -1 when the kernel does not take the shape (dt not in
+// {32, 64, 128}, bf16, int8 or nbit4 L above 32 * MAXCH, or more than a
+// block may have).
 long long maxsim_smem_bytes(int dtype, int L, int dt) {
   if ((dt != 32 && dt != 64 && dt != 128) || L < 1) return -1;
-  if (dtype == lrt::kBF16 || dtype == lrt::kI8) {
-    const int st = bf16_stages(L, dt);
-    return L <= 32 * MAXCH && st ? (long long)bf16_smem_bytes(L, dt, st) : -1;
+  if (dtype == lrt::kBF16 || dtype == lrt::kI8 || dtype == lrt::kNbit4) {
+    const int st = tc_stages(dtype, L, dt);
+    return L <= 32 * MAXCH && st ? (long long)tc_smem_bytes(dtype, L, dt, st) : -1;
   }
-  if (dtype == lrt::kF32 || dtype == lrt::kNbit4) {
+  if (dtype == lrt::kF32) {
     const size_t s = f32_smem_bytes(L, dt);
     return s <= (size_t)(SMEM_OPTIN - F32_STATIC) ? (long long)s : -1;
   }
@@ -1020,36 +1155,53 @@ long long maxsim_smem_bytes(int dtype, int L, int dt) {
 // dtypes), q_tok [B, Lq, dt] bf16 over a bf16 store and float32 over the
 // others, doc_mask [N, L] / q_mask [B, Lq] bool (1 byte), all contiguous,
 // the token tensors 16-byte aligned; maxsim_smem_bytes(dtype, L, dt) >= 0;
-// out float32 [B, N]. bf16 and int8: one launch of `grid` blocks on the
-// tensor cores, at least ceil(B / QW), no scratch (pass NULL). float32 and
-// nbit4: two launches, `grid` blocks on the doc axis, scratch float32
-// [N, B * Lq]. Returns cudaGetLastError().
+// out float32 [B, N]. bf16, int8 and nbit4: `grid` blocks of the
+// tensor-core kernel, at least ceil(B / QW); nbit4 first launches the
+// centroid table kernel into scratch float32 [256, B * Lq] (NULL for bf16
+// and int8). float32: two launches, `grid` blocks on the doc axis,
+// scratch float32 [N, B * Lq]. Returns cudaGetLastError().
 int maxsim(const void* doc_tok, const void* doc_mask, const void* q_tok,
            const void* q_mask, const void* codes, const void* centroids,
            const void* step, int dtype, int B, int Lq, int N, int L, int dt,
            int grid, void* scratch, void* out, void* stream) {
-  const bool tc = dtype == lrt::kBF16 || dtype == lrt::kI8;
+  const bool nbit4 = dtype == lrt::kNbit4;
   if (B < 1 || Lq < 1 || N < 1 || grid < 1 ||
-      (tc && grid < (B + QW - 1) / QW) || (!tc && scratch == nullptr) ||
-      (dtype == lrt::kNbit4 &&
-       (codes == nullptr || centroids == nullptr || step == nullptr)) ||
+      (dtype != lrt::kF32 && grid < (B + QW - 1) / QW) ||
+      ((dtype == lrt::kF32 || nbit4) && scratch == nullptr) ||
+      (nbit4 && (codes == nullptr || centroids == nullptr || step == nullptr)) ||
       maxsim_smem_bytes(dtype, L, dt) < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == lrt::kF32) {
+    switch (dt) {
+      case 32:
+        return launch_f32<32>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                              grid, scratch, out, s);
+      case 64:
+        return launch_f32<64>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                              grid, scratch, out, s);
+      default:
+        return launch_f32<128>(doc_tok, doc_mask, q_tok, q_mask, B, Lq, N, L,
+                               grid, scratch, out, s);
+    }
+  }
   if (dtype == lrt::kBF16)
     return launch_tc_kind<lrt::kBF16>(doc_tok, doc_mask, q_tok, q_mask, B,
-                                      Lq, N, L, dt, grid, out, s);
+                                      Lq, N, L, dt, grid, Nbit4Args{}, out, s);
   if (dtype == lrt::kI8)
     return launch_tc_kind<lrt::kI8>(doc_tok, doc_mask, q_tok, q_mask, B, Lq,
-                                    N, L, dt, grid, out, s);
-  const DocStore docs{doc_tok, static_cast<const uint8_t*>(codes),
-                      static_cast<const float*>(centroids),
-                      static_cast<const float*>(step)};
-  if (dtype == lrt::kF32)
-    return launch_kind<lrt::kF32>(docs, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                                  dt, grid, scratch, out, s);
-  return launch_kind<lrt::kNbit4>(docs, doc_mask, q_tok, q_mask, B, Lq, N, L,
-                                  dt, grid, scratch, out, s);
+                                    N, L, dt, grid, Nbit4Args{}, out, s);
+  const float* q = static_cast<const float*>(q_tok);
+  const float* cent = static_cast<const float*>(centroids);
+  float* table = static_cast<float*>(scratch);
+  const int err = dt == 32   ? launch_table<32>(q, cent, B * Lq, table, s)
+                  : dt == 64 ? launch_table<64>(q, cent, B * Lq, table, s)
+                             : launch_table<128>(q, cent, B * Lq, table, s);
+  if (err != 0) return err;
+  const Nbit4Args nb{static_cast<const uint8_t*>(codes),
+                     static_cast<const float*>(step), table};
+  return launch_tc_kind<lrt::kNbit4>(doc_tok, doc_mask, q_tok, q_mask, B, Lq,
+                                     N, L, dt, grid, nb, out, s);
 }
 
 }  // extern "C"

@@ -13,14 +13,17 @@ bf16 over a bf16 store and float32 over the others.
 
 ``maxsim_full`` is the full-corpus [B, N] map of the late channel. On a CUDA
 tensor it launches the hand-written kernel ``csrc/maxsim.cu`` (which
-replaces the Pallas ``maxsim_scores_pallas`` / ``maxsim_scores_pallas2``):
-for bf16 and int8 tokens one launch with the products on the tensor cores
-(int8: the codes widened to bf16 as the kernel stages them, the float32
-queries split into two bf16 parts, two products each); for float32 and
-nbit4 stores two launches on the CUDA cores through a [N, B * Lq]
-scratch, the nbit4 tokens decoded as the kernel stages them (JAX leaves
-the quantized stores to XLA's ``maxsim_full``). On a CPU tensor it runs
-the plain version ``maxsim_full_plain``.
+replaces the Pallas ``maxsim_scores_pallas`` / ``maxsim_scores_pallas2``),
+its products on the tensor cores for bf16, int8 and nbit4 stores: bf16 in
+one launch; int8 in one launch, the codes widened to fp16 as the kernel
+stages them and each float32 query, scaled by a power of two, split into
+two fp16 parts, two products each; nbit4 as a centroid term, read from a
+[256, B * Lq] table of ``q . centroids`` that a first launch computes,
+plus a residual term ``(q * step) . (nibble - 8)`` on the tensor cores as
+int8's. A float32 store takes two launches on the CUDA cores through a
+[N, B * Lq] scratch. (JAX leaves the quantized stores to XLA's
+``maxsim_full``.) On a CPU tensor it runs the plain version
+``maxsim_full_plain``.
 
 ``maxsim_topk`` is the late channel's masked top-k over that map
 (``legalrag_tpu/ops/maxsim.py:135-142``): columns >= ``valid_n`` NEG_INF,
@@ -43,7 +46,7 @@ from legalrag_tpu_torch.ops.topk import INT8_SCALE, mask_cols, topk_large
 # the kernel's doc-store type ids (csrc/common.cuh lrt::DType)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _NBIT4 = 3
-_TENSOR_CORE_IDS = (1, 2)  # bf16 and int8: one launch, no scratch
+_TENSOR_CORE_IDS = (1, 2, _NBIT4)  # bf16, int8 and nbit4: the tensor-core kernel
 _KERNEL_DT = (32, 64, 128)
 NBIT4_CENTROIDS = 256
 
@@ -232,10 +235,11 @@ def _maxsim_kernel(doc_tok: TokenStore, doc_mask: torch.Tensor,
                          f"the kernel's shared-memory staging")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     if dtype_id in _TENSOR_CORE_IDS:
-        # one launch, about one block per SM; the kernel splits the blocks
-        # among its query groups and doc slices
+        # about one block per SM; the kernel splits the blocks among its
+        # query groups and doc slices. nbit4: the centroid table first.
         grid = max(n_sm, -(-b // lib.maxsim_queries_per_block()))
-        scratch = None
+        scratch = (torch.empty((NBIT4_CENTROIDS, b * lq), dtype=torch.float32,
+                               device=dev) if nbit4 else None)
     else:
         grid = max(1, min(n, 2 * n_sm))
         scratch = torch.empty((n, b * lq), dtype=torch.float32, device=dev)

@@ -15,8 +15,9 @@ encoded from the same tokens. Prints one JSON line: per route the median
 ms of 50 calls (CUDA events), the max abs err against
 ``maxsim_full_plain`` and a digest of the output bits; and per MaxSim
 instance of the checkout's kernel library a digest of its SASS (the
-instructions, without the function's name), so that two checkouts show
-whether an instance compiled to the same code. It reads only what the checkout's own package offers, so the
+instructions' text, without the function's name, the addresses and the
+encodings), so that two checkouts show whether an instance compiled to
+the same instructions. It reads only what the checkout's own package offers, so the
 same script can time a parent commit: unpack it with ``git archive`` into
 a directory that ``.gitignore`` lists and, in one call on one card, run
 parent, change, change, parent::
@@ -24,7 +25,8 @@ parent, change, change, parent::
     (cd build/parent && python3 ../../maxsim_routes.py parent)
     python3 maxsim_routes.py change
 
-It exits 2 without a CUDA device."""
+``--sass-dir DIR`` also writes each MaxSim kernel's SASS under DIR/TAG/,
+for a diff of two checkouts. It exits 2 without a CUDA device."""
 
 from __future__ import annotations
 
@@ -64,9 +66,11 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def sass_digests(lib_path: str, nvcc: str) -> dict:
+def sass_digests(lib_path: str, nvcc: str, out_dir=None) -> dict:
     """sha256 (16 hex digits) of each MaxSim kernel's SASS in the library,
-    keyed by its mangled name with the kernel's own name cut out."""
+    keyed by its mangled name with the kernel's own name and the file's
+    anonymous namespace cut out; with ``out_dir``, each kernel's SASS is
+    also written there, one file per key."""
     cuobjdump = Path(nvcc).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", lib_path],
                           capture_output=True, text=True, timeout=120,
@@ -76,11 +80,16 @@ def sass_digests(lib_path: str, nvcc: str) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             if name and "maxsim" in name:
-                key = re.sub(r"\d+maxsim_\w+?_kernel", "K", name)
-                out[key] = hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
+                key = re.sub(r"_GLOBAL__N_\w*?\d+maxsim_\w+?_kernel", "K", name)
+                text = "\n".join(lines)
+                out[key] = hashlib.sha256(text.encode()).hexdigest()[:16]
+                if out_dir:
+                    Path(out_dir, key[:120] + ".sass").write_text(text)
             name, lines = m.group(1), []
         elif name and re.search(r"/\*[0-9a-f]{4}\*/", line):
-            lines.append(line.strip())
+            # the instruction alone: its address and encoding (which
+            # differ between builds of one instruction) cut out
+            lines.append(" ".join(re.sub(r"/\*.*?\*/", "", line).split()))
     return out
 
 
@@ -124,7 +133,12 @@ def main(tag: str) -> int:
             "ms": cuda_ms(lambda: maxsim_full(*args)),
             "max_abs_err": (got - maxsim_full_plain(*args)).abs().max().item(),
             "sha256": hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]}
-    out["sass"] = sass_digests(kernels.build()["path"], kernels._nvcc())
+    sass_dir = None
+    if "--sass-dir" in sys.argv:
+        sass_dir = Path(sys.argv[sys.argv.index("--sass-dir") + 1], tag)
+        sass_dir.mkdir(parents=True, exist_ok=True)
+    out["sass"] = sass_digests(kernels.build()["path"], kernels._nvcc(),
+                               sass_dir)
     print(json.dumps(out), flush=True)
     return 0
 

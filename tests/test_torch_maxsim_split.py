@@ -35,7 +35,10 @@ import pytest
 import torch
 
 from legalrag_tpu.ops import maxsim as jm
-from legalrag_tpu_torch.index.token_index import quantize_int8
+from legalrag_tpu_torch.index.token_index import (
+    Residual4TokenIndex,
+    quantize_int8,
+)
 from legalrag_tpu_torch.ops import maxsim as tm
 
 SPLIT_SLOTS = 32  # query slots a split instance holds: longer queries take its long path
@@ -252,3 +255,164 @@ def test_split_residue_stays_within_its_bound_on_sparse_tokens(dt):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
     np.testing.assert_allclose(want, exact.numpy(), rtol=1e-6, atol=1e-6)
     assert (got[:, 5] == 0).all()
+
+
+# ------------------------------------------------------------------ nbit4
+#
+# The nbit4 instance (``maxsim_tc_kernel<nbit4, DT>``) splits each dot
+# with a decoded token ``centroids[c] + (n - 8) * step`` (``step = scales /
+# 7``) into a centroid term and a residual term:
+#
+#     q . d = T[q, c] + sum_k (q_k step_k) (n_k - 8),   T = q . centroids^T.
+#
+# T [256, B * Lq] is computed per call by ``maxsim_centroid_table_kernel``
+# (float32 FMAs in k order). The residual term runs as the int8 instance's
+# products: x = q * step (rounded once), scaled per query and split into
+# fp16 parts, times the nibble factors n - 8 (exact in fp16: the producer
+# warps build each as the fp16 bits of 1024 + n less 1032); each element of
+# a doc's token columns is then T + 2**-e * acc, rounded once, before the
+# row maximum. JAX instead rounds each decoded value (its product and its
+# sum) and takes float32 dots.
+
+
+def nbit4_store(rng, n: int, l_doc: int, dt: int, dmask: np.ndarray):
+    """The port's ``Residual4TokenIndex`` store (trained and encoded on the
+    CPU) of n docs of unit tokens."""
+    idx = Residual4TokenIndex(dt, l_doc, capacity_round=n, device="cpu")
+    idx.add(unit(rng, n, l_doc, dt), dmask)
+    return idx.tok
+
+
+def jax_store(store):
+    return jm.Residual4Store(*(jnp.asarray(t.numpy()) for t in (
+        store.codes_c, store.packed, store.centroids, store.scales)))
+
+
+def nbit4_maxsim(store, dmask: torch.Tensor, q: torch.Tensor,
+                 qmask: torch.Tensor) -> torch.Tensor:
+    """[B, N] MaxSim as the nbit4 instance computes it."""
+    x = q * store.step                                   # [B, Lq, dt]
+    hi, lo, back = split_f16(x, qmask)
+    nib = tm.unpack_nibbles(store.packed)                # [N, L, dt], n - 8
+    acc = (torch.einsum("bqd,nld->bnql", lo, nib)
+           + torch.einsum("bqd,nld->bnql", hi, nib))     # [B, N, Lq, L]
+    table = torch.einsum("bqd,cd->bqc", q, store.centroids)  # [B, Lq, 256]
+    cent = table[:, :, store.codes_c.long()]             # [B, Lq, N, L]
+    val = cent.permute(0, 2, 1, 3) + acc * back[:, :, :, None]
+    val = val.masked_fill(~dmask[None, :, None, :], float("-inf"))
+    best = val.amax(dim=-1)                              # [B, N, Lq]
+    best = torch.where(dmask.any(dim=1)[None, :, None], best, 0.0)
+    best = torch.where(qmask[:, None, :], best, 0.0)
+    return sum_tokens(best)
+
+
+def nbit4_inputs(dt: int, long_query: bool, seed: int):
+    """An nbit4 store of 64 docs x 20 tokens built by the port's
+    ``Residual4TokenIndex`` (doc 2 empty, doc 3's valid tokens not a
+    prefix, doc 4 with one token, masked tokens with arbitrary centroid
+    ids) and 5 float32 unit queries as ``int8_inputs`` makes them."""
+    rng = np.random.default_rng(seed)
+    n, l_doc, b, lq = 64, 20, 5, 40
+    dmask = rng.random((n, l_doc)) < 0.7
+    dmask[:, 0] = True
+    dmask[2] = False
+    dmask[3] = np.arange(l_doc) % 3 == 1
+    dmask[4] = np.arange(l_doc) == 11
+    store = nbit4_store(rng, n, l_doc, dt, dmask)
+    codes = store.codes_c.clone()
+    pad = torch.from_numpy(~dmask)
+    codes[pad] = torch.from_numpy(
+        rng.integers(0, 256, int(pad.sum()))).to(torch.uint8)
+    store = store._replace(codes_c=codes)
+    _, _, q, qmask = int8_inputs(dt, long_query, seed)
+    return store, dmask, q, qmask
+
+
+def check_nbit4(store, dmask, q, qmask, atol=1e-5):
+    """The emulated nbit4 instance against JAX's ``maxsim_full`` and the
+    port's plain version on the same store; returns the emulated map."""
+    want = np.asarray(jm.maxsim_full(jax_store(store), jnp.asarray(dmask),
+                                     jnp.asarray(q), jnp.asarray(qmask),
+                                     tile_n=dmask.shape[0]))
+    dm, qt, qm = (torch.from_numpy(a) for a in (dmask, q, qmask))
+    got = nbit4_maxsim(store, dm, qt, qm).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    plain = tm.maxsim_full(store, dm, qt, qm).numpy()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=atol)
+    return got
+
+
+def test_nbit4_nibble_factors_are_exact_in_fp16():
+    """Every packed byte widens to the nibble factors n - 8 of its two
+    dims (high nibble first) through the fp16 bits of 1024 + n less 1032,
+    exactly; and the product of either fp16 part of a split element with
+    any factor is exact in float32."""
+    byte = torch.arange(256, dtype=torch.int32)
+    for nib, dim in ((byte >> 4, 0), (byte & 0xF, 1)):
+        h = (0x6400 | nib).to(torch.int16).view(torch.float16)
+        got = (h - torch.tensor(1032.0, dtype=torch.float16)).float()
+        assert torch.equal(got, nib.float() - 8)
+        want = tm.unpack_nibbles(byte.to(torch.uint8)[:, None])[:, dim]
+        assert torch.equal(got, want)
+    rng = np.random.default_rng(3)
+    hi, lo, _ = split_rows(torch.from_numpy(unit(rng, 32, 128)))
+    f = torch.arange(-8, 8, dtype=torch.float64)
+    for part in (hi, lo):
+        prod = part.reshape(-1, 1) * f.float()
+        assert torch.equal(prod.double(), part.double().reshape(-1, 1) * f)
+
+
+@pytest.mark.parametrize("long_query", [False, True],
+                         ids=["short_queries", "long_query"])
+@pytest.mark.parametrize("dt", [32, 64, 128])
+def test_nbit4_split_matches_jax_on_a_residual4_store(dt, long_query):
+    """The emulated nbit4 instance against JAX's ``maxsim_full`` and the
+    port's plain version over a store from ``Residual4TokenIndex``, atol
+    1e-5, at every token_dim, with and without queries longer than the
+    instance's 32 slots; masked tokens' centroid ids change nothing; the
+    empty doc and the query with no valid token score 0."""
+    store, dmask, q, qmask = nbit4_inputs(dt, long_query, seed=30 + dt)
+    got = check_nbit4(store, dmask, q, qmask)
+    assert (got[:, 2] == 0).all() and (got[2] == 0).all()
+    zeroed = store._replace(codes_c=torch.where(
+        torch.from_numpy(dmask), store.codes_c, torch.zeros_like(store.codes_c)))
+    again = nbit4_maxsim(zeroed, *(torch.from_numpy(a)
+                                   for a in (dmask, q, qmask))).numpy()
+    assert np.array_equal(got, again)
+    assert (qmask.sum(axis=1) > SPLIT_SLOTS).any() == long_query
+
+
+@pytest.mark.parametrize("dt", [32, 64, 128])
+def test_nbit4_zero_scale_dims_match_jax(dt):
+    """Dimensions whose residual scale is 0 (their step 0, so the nibbles
+    add nothing there) and the hash encoder's sparse queries, whose
+    elements q * step are zero off one to three dims: the emulated instance
+    is JAX's map within atol 1e-5."""
+    store, dmask, _q, qmask = nbit4_inputs(dt, True, seed=60 + dt)
+    dead = torch.arange(dt) % 5 == 2
+    store = store._replace(scales=torch.where(dead, 0.0, store.scales),
+                           step=torch.where(dead, 0.0, store.step))
+    rng = np.random.default_rng(dt)
+    vocab = sparse_tokens(rng, 100, dt)
+    q = vocab[rng.integers(0, 100, qmask.shape)]
+    check_nbit4(store, dmask, q, qmask)
+
+
+@pytest.mark.parametrize("log2_mag", [-100, -30, 30, 60])
+def test_nbit4_scale_range_edges_match_jax(log2_mag):
+    """Queries of unit tokens times 2**k: the per-query scale keeps the
+    fp16 parts finite and normal where it matters, so the emulated map over
+    2**k is JAX's over 2**k within 1e-5 (both scale exactly by powers of
+    two); one query mixes a unit token with tokens 2**-30 smaller."""
+    store, dmask, q, qmask = nbit4_inputs(64, True, seed=90)
+    q = q.copy()
+    q[3, 1:] *= 2.0 ** -30
+    qmask[3, :4] = True
+    s = 2.0 ** log2_mag
+    want = np.asarray(jm.maxsim_full(jax_store(store), jnp.asarray(dmask),
+                                     jnp.asarray(q * s), jnp.asarray(qmask),
+                                     tile_n=dmask.shape[0]), np.float64)
+    got = nbit4_maxsim(store, *(torch.from_numpy(a) for a in (
+        dmask, (q * s).astype(np.float32), qmask))).double().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got / s, want / s, rtol=0, atol=1e-5)
