@@ -2267,24 +2267,6 @@ def kernel_copy(name: str, old: str, new: str):
     return lib
 
 
-def device_ms_by_op(fn, calls: int = 8) -> dict:
-    """Device milliseconds a call of ``fn`` spends in each device operation
-    (torch.profiler over ``calls`` calls after one warm-up call)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key.split("::", 1)[-1][:60]: e.self_device_time_total / 1e3 / calls
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
-
-
 def phase_store_kernels(route: str, bundle, queries) -> dict:
     """MaxSim's int8 or nbit4 route against its plain version on the
     bundle's own store, with the path's queries at batch sizes
@@ -2357,15 +2339,20 @@ def phase_store_kernels(route: str, bundle, queries) -> dict:
         # the centroid table's share of the device time, and the table
         # gathers' share of the C entry's time: the same entry of a copy of
         # the kernel whose gathers return 0 (its output is not the map)
-        by_op = device_ms_by_op(lambda: maxsim_full(tok, dmask, q_tok, q_mask))
-        table_ms = sum(v for k, v in by_op.items()
-                       if k.startswith("maxsim_centroid_table_kernel"))
+        # (device ms an event of each: a profiling session may drop events)
+        prof = profile_device(lambda: [maxsim_full(tok, dmask, q_tok, q_mask)
+                                       for _ in range(8)], 8)
+        per_event = {name: sum(ms for k, ms, _n in prof["top"] if name in k)
+                     / max(1, sum(n for k, _ms, n in prof["top"] if name in k))
+                     for name in ("maxsim_centroid_table_kernel",
+                                  "maxsim_tc_kernel")}
+        table_ms = per_event["maxsim_centroid_table_kernel"]
         copy_run, _ = maxsim_entry(tok, dmask, q_tok, q_mask,
                                    kernel_copy("no_table_gather", *TABLE_GATHER))
         copy_ms = cuda_ms(copy_run)
         res["centroid_table"] = {
-            "device_ms_by_op": by_op, "table_ms": table_ms,
-            "table_share": table_ms / sum(by_op.values()),
+            "table_ms": table_ms, "tc_kernel_ms": per_event["maxsim_tc_kernel"],
+            "table_share": table_ms / sum(per_event.values()),
             "no_gather_copy_ms": copy_ms,
             "gather_share": 1 - copy_ms / res["kernel_only_ms"],
             "table_flop": table_flop}

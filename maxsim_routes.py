@@ -25,8 +25,7 @@ parent, change, change, parent::
     (cd build/parent && python3 ../../maxsim_routes.py parent)
     python3 maxsim_routes.py change
 
-``--sass-dir DIR`` also writes each MaxSim kernel's SASS under DIR/TAG/,
-for a diff of two checkouts. It exits 2 without a CUDA device."""
+It exits 2 without a CUDA device."""
 
 from __future__ import annotations
 
@@ -66,11 +65,10 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def sass_digests(lib_path: str, nvcc: str, out_dir=None) -> dict:
+def sass_digests(lib_path: str, nvcc: str) -> dict:
     """sha256 (16 hex digits) of each MaxSim kernel's SASS in the library,
     keyed by its mangled name with the kernel's own name and the file's
-    anonymous namespace cut out; with ``out_dir``, each kernel's SASS is
-    also written there, one file per key."""
+    anonymous namespace cut out."""
     cuobjdump = Path(nvcc).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", lib_path],
                           capture_output=True, text=True, timeout=120,
@@ -81,10 +79,8 @@ def sass_digests(lib_path: str, nvcc: str, out_dir=None) -> dict:
         if m:
             if name and "maxsim" in name:
                 key = re.sub(r"_GLOBAL__N_\w*?\d+maxsim_\w+?_kernel", "K", name)
-                text = "\n".join(lines)
-                out[key] = hashlib.sha256(text.encode()).hexdigest()[:16]
-                if out_dir:
-                    Path(out_dir, key[:120] + ".sass").write_text(text)
+                out[key] = hashlib.sha256(
+                    "\n".join(lines).encode()).hexdigest()[:16]
             name, lines = m.group(1), []
         elif name and re.search(r"/\*[0-9a-f]{4}\*/", line):
             # the instruction alone: its address and encoding (which
@@ -133,12 +129,7 @@ def main(tag: str) -> int:
             "ms": cuda_ms(lambda: maxsim_full(*args)),
             "max_abs_err": (got - maxsim_full_plain(*args)).abs().max().item(),
             "sha256": hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]}
-    sass_dir = None
-    if "--sass-dir" in sys.argv:
-        sass_dir = Path(sys.argv[sys.argv.index("--sass-dir") + 1], tag)
-        sass_dir.mkdir(parents=True, exist_ok=True)
-    out["sass"] = sass_digests(kernels.build()["path"], kernels._nvcc(),
-                               sass_dir)
+    out["sass"] = sass_digests(kernels.build()["path"], kernels._nvcc())
     print(json.dumps(out), flush=True)
     return 0
 
