@@ -200,6 +200,8 @@ from legalrag_tpu_torch.ops.maxsim import (
     Residual4Store,
     dequant,
     doc_len,
+    kernel_type_id,
+    launch_plan,
     maxsim_full,
     maxsim_full_plain,
     n_docs,
@@ -272,6 +274,10 @@ PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "stores_n4": ("score_select", "maxsim"),
                 "large": ("bm25_sparse",),
                 "recall": ("maxsim",)}
+# MaxSim's route (the store kind, as the wrapper counts it) on each path
+# that launches it; the recall path's is its token store's
+PATH_ROUTES = {"map": "bf16", "serve": "bf16", "http": "bf16",
+               "ingest": "bf16", "stores_q8": "int8", "stores_n4": "nbit4"}
 
 
 def emit(obj) -> None:
@@ -989,13 +995,21 @@ def cpu_reference(bundle, queries, got_s, got_r):
     return ties_only(ws, wr, got_s, got_r, 1e-5)
 
 
-def check_launches(path: str, launches, batches: int) -> None:
-    """The path's kernels launched once per batch, the others not at all."""
+def check_launches(path: str, launches, batches: int, route=None) -> None:
+    """The path's kernels launched once per batch, the others not at all;
+    MaxSim's launches all on the path's route (``route``, else
+    ``PATH_ROUTES[path]``), none on the others."""
     for name in kernels.KERNELS:
         want = batches if name in PATH_KERNELS[path] else 0
         check(launches[name] == want,
               f"{path}: {name} launched {launches[name]} times for "
               f"{batches} batches (want {want})")
+    route = route or PATH_ROUTES.get(path)
+    for r in kernels.ROUTES["maxsim"]:
+        want = launches["maxsim"] if r == route else 0
+        check(launches[f"maxsim/{r}"] == want,
+              f"{path}: maxsim's {r} route launched "
+              f"{launches[f'maxsim/{r}']} times (want {want})")
 
 
 def profile_device(run, batches: int):
@@ -1044,7 +1058,7 @@ def phase_e2e(lang, bundle):
     results = [engine.collect(engine.execute(p)) for p in prepared]
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = kernels.launch_counts()
+    launches = kernels.launch_counts(routes=True)
     check_launches("map", launches, len(batches))
 
     scores = np.concatenate([r[0] for r in results])
@@ -1304,7 +1318,7 @@ def phase_serve(bundles, cfg: AppConfig):
     out = threaded(reqs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    launches = kernels.launch_counts(routes=True)
     stages = stage_log.medians()
     check(all(card.retriever(lang) is hr for lang, hr in hrs.items()),
           "serve: a retriever was rebuilt during the run")
@@ -1377,7 +1391,7 @@ def phase_serve(bundles, cfg: AppConfig):
             check(len(got) > 0, f"search_{api} {lang}: no hits")
             api_swaps += same_hits(getattr(cpu_hr, f"search_{api}")(*args),
                                    got, 1e-4, f"search_{api} {lang}")
-    api_launches = kernels.launch_counts()
+    api_launches = kernels.launch_counts(routes=True)
     check(api_launches == {"score_select": len(hrs), "maxsim": len(hrs),
                            "bm25_sparse": 0},
           f"serve per-channel APIs launched {api_launches}")
@@ -1508,7 +1522,7 @@ def launches_of(run, calls_of=None):
     kernels.reset_launch_counts()
     out = run()
     torch.cuda.synchronize()
-    return out, kernels.launch_counts(), \
+    return out, kernels.launch_counts(routes=True), \
         sum(b.executions for b in calls_of or []) - e0
 
 
@@ -1641,7 +1655,7 @@ def phase_http(bundles, cfg: AppConfig):
         (status, ans), answer_launches, _ = launches_of(
             lambda: http_json(base, "/rag/answer",
                               {"retrieval_id": bodies[0]["retrieval_id"]}))
-        check(status == 200 and answer_launches == {k: 0 for k in kernels.KERNELS},
+        check(status == 200 and not any(answer_launches.values()),
               f"http /rag/answer: {status} {answer_launches}")
         check(ans["hits"] == bodies[0]["hits"] and ans["citations"]["supported"],
               f"http /rag/answer: {ans['citations']}")
@@ -1713,7 +1727,7 @@ def phase_http(bundles, cfg: AppConfig):
                          "events": sse_answer},
            "launches": {k: retrieve_launches[k] + serial_launches[k]
                         + batch_launches[k] + query_launches[k]
-                        + sse_launches[k] for k in kernels.KERNELS},
+                        + sse_launches[k] for k in retrieve_launches},
            "launches_by_endpoint": {
                "retrieve_threaded": retrieve_launches,
                "retrieve_serial": serial_launches,
@@ -2026,7 +2040,7 @@ def phase_ingest():
             finally:
                 rec.stop()
             torch.cuda.synchronize()
-            launches = kernels.launch_counts()
+            launches = kernels.launch_counts(routes=True)
             calls = sum(b.executions for b in batchers) - e0
             check_launches("ingest", launches, calls)
 
@@ -2208,23 +2222,20 @@ def library_quantized(store, dmask, q_tok, q_mask):
 
 def maxsim_entry(store, dmask, q_tok, q_mask, lib=None):
     """The C entry ``maxsim`` alone over a quantized store (of ``lib``, the
-    port's kernel library unless given), with the grid and scratch the
-    wrapper gives it: (a function that launches it, its output)."""
+    port's kernel library unless given), with the grid and scratch that
+    the wrapper's ``launch_plan`` gives it: (a function that launches it,
+    its output)."""
     lib = lib or kernels.lib()
     dev = dmask.device
     b, lq, dt = q_tok.shape
     n, l_doc = n_docs(store), doc_len(store)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
-    grid = max(n_sm, -(-b // kernels.lib().maxsim_queries_per_block()))
+    dtype_id = kernel_type_id(store)
+    grid, scratch = launch_plan(dtype_id, n, b, lq, dev)
     if isinstance(store, Residual4Store):   # the centroid table, then the kernel
-        tok, dtype_id = store.packed, 3
-        extra = (store.codes_c, store.centroids, store.step)
-        scratch = torch.empty((NBIT4_CENTROIDS, b * lq), dtype=torch.float32,
-                              device=dev)
+        tok, extra = store.packed, (store.codes_c, store.centroids, store.step)
     else:                                   # one launch on the tensor cores
-        tok, extra, dtype_id = store, (None, None, None), 2
-        scratch = None
+        tok, extra = store, (None, None, None)
     args = (tok.data_ptr(), dmask.data_ptr(), q_tok.data_ptr(),
             q_mask.data_ptr(),
             *(None if t is None else t.data_ptr() for t in extra), dtype_id,
@@ -2242,15 +2253,24 @@ def maxsim_entry(store, dmask, q_tok, q_mask, lib=None):
 # table_at), and what a copy of the kernel returns in its place to time
 # the route without the gathers
 TABLE_GATHER = ("  return __ldg(table + (size_t)c * S + row);", "  return 0.f;")
+# each query's power-of-two exponent (the split routes' prologue), and what
+# a copy of the kernel takes in its place to time the routes without it
+EXPONENT_PROLOGUE = ("    qex = packed ? packed_exponent() : query_exponent(qb);",
+                     "    qex = 0;")
+
+
+_KERNEL_COPIES = {}
 
 
 def kernel_copy(name: str, old: str, new: str):
     """``csrc/maxsim.cu`` with ``old`` (once in it) replaced by ``new``,
     built by nvcc into a library of its own under the build directory
     (``build/legalrag_tpu_torch/variants/<name>``), and loaded with the
-    port's C signature of ``maxsim``."""
+    port's C signature of ``maxsim`` (once a run)."""
     import ctypes
 
+    if name in _KERNEL_COPIES:
+        return _KERNEL_COPIES[name]
     src = (kernels.CSRC / "maxsim.cu").read_text()
     check(src.count(old) == 1, f"kernel copy {name}: {old!r} not found once")
     d = kernels.BUILD_DIR / "variants" / name
@@ -2264,7 +2284,56 @@ def kernel_copy(name: str, old: str, new: str):
     lib = ctypes.CDLL(str(lib_path))
     lib.maxsim.argtypes = kernels._SIGNATURES["maxsim"]
     lib.maxsim.restype = ctypes.c_int
+    _KERNEL_COPIES[name] = lib
     return lib
+
+
+def store_route_costs(route: str, bundle, queries) -> dict:
+    """Where the time of MaxSim's int8 or nbit4 route goes on the bundle's
+    own store, at B ``BATCH`` of the path's queries: the C entry; the C
+    entry over the first 8 queries alone (one query group, so each block
+    walks a slice of the docs ``BATCH / 8`` times shorter when the batch
+    takes more than one group); a copy of the kernel without the exponent
+    prologue; for nbit4 the centroid table's and the tensor-core kernel's
+    device ms per profiler event (a profiling session may drop events) and
+    a copy without the table gathers. The copies' outputs are not the map."""
+    st = bundle.state
+    tok, dmask = st.tokens.tok, st.tokens.mask
+    qt, qm = st.encoder.encode_tokens(
+        queries[:BATCH], bundle.cfg.engine.max_query_tokens, query=True)
+    q_tok = torch.from_numpy(qt).to(bundle.device).to(st.tokens.query_dtype)
+    q_mask = torch.from_numpy(qm).to(bundle.device)
+    entry, _ = maxsim_entry(tok, dmask, q_tok, q_mask)
+    first8, _ = maxsim_entry(tok, dmask, q_tok[:8].contiguous(),
+                             q_mask[:8].contiguous())
+    ms = cuda_ms(entry)
+    vq = q_mask.sum(dim=1)
+    res = {"B": q_tok.shape[0], "N": n_docs(tok),
+           "valid_query_tokens": int(vq.sum()),
+           "valid_tokens_per_query": [int(vq.min()), int(vq.max())],
+           "queries_over_32_valid": int((vq > INT8_SLOTS).sum()),
+           "valid_doc_tokens": int(dmask.sum()),
+           "docs_with_tokens": int(dmask.any(dim=1).sum()),
+           "kernel_only_ms": ms, "first8_kernel_only_ms": cuda_ms(first8)}
+    copy_run, _ = maxsim_entry(tok, dmask, q_tok, q_mask,
+                               kernel_copy("no_exponent", *EXPONENT_PROLOGUE))
+    res["no_exponent_copy_ms"] = cuda_ms(copy_run)
+    res["exponent_share"] = 1 - res["no_exponent_copy_ms"] / ms
+    if route == "nbit4":
+        prof = profile_device(lambda: [entry() for _ in range(8)], 8)
+        per_event = {name: sum(t for k, t, _n in prof["top"] if name in k)
+                     / max(1, sum(n for k, _t, n in prof["top"] if name in k))
+                     for name in ("maxsim_centroid_table_kernel",
+                                  "maxsim_tc_kernel")}
+        copy_run, _ = maxsim_entry(tok, dmask, q_tok, q_mask,
+                                   kernel_copy("no_table_gather", *TABLE_GATHER))
+        res |= {"table_ms": per_event["maxsim_centroid_table_kernel"],
+                "tc_kernel_ms": per_event["maxsim_tc_kernel"],
+                "table_share": per_event["maxsim_centroid_table_kernel"]
+                / sum(per_event.values()),
+                "no_gather_copy_ms": cuda_ms(copy_run)}
+        res["gather_share"] = 1 - res["no_gather_copy_ms"] / ms
+    return res
 
 
 def phase_store_kernels(route: str, bundle, queries) -> dict:
@@ -2335,27 +2404,6 @@ def phase_store_kernels(route: str, bundle, queries) -> dict:
            "bound_ms": bms, "bound_by": by, "bound_basis": basis,
            "f32_cuda_core_bound_ms": f32_bms,
            "valid_tflop_per_s": flop / 1e9 / ms}
-    if route == "nbit4":
-        # the centroid table's share of the device time, and the table
-        # gathers' share of the C entry's time: the same entry of a copy of
-        # the kernel whose gathers return 0 (its output is not the map)
-        # (device ms an event of each: a profiling session may drop events)
-        prof = profile_device(lambda: [maxsim_full(tok, dmask, q_tok, q_mask)
-                                       for _ in range(8)], 8)
-        per_event = {name: sum(ms for k, ms, _n in prof["top"] if name in k)
-                     / max(1, sum(n for k, _ms, n in prof["top"] if name in k))
-                     for name in ("maxsim_centroid_table_kernel",
-                                  "maxsim_tc_kernel")}
-        table_ms = per_event["maxsim_centroid_table_kernel"]
-        copy_run, _ = maxsim_entry(tok, dmask, q_tok, q_mask,
-                                   kernel_copy("no_table_gather", *TABLE_GATHER))
-        copy_ms = cuda_ms(copy_run)
-        res["centroid_table"] = {
-            "table_ms": table_ms, "tc_kernel_ms": per_event["maxsim_tc_kernel"],
-            "table_share": table_ms / sum(per_event.values()),
-            "no_gather_copy_ms": copy_ms,
-            "gather_share": 1 - copy_ms / res["kernel_only_ms"],
-            "table_flop": table_flop}
     if route == "int8":
         lng = q_mask.sum(dim=1) > INT8_SLOTS
         part_ms = {
@@ -2391,7 +2439,7 @@ def store_map(name: str, lang: str, bundle, bf16_recall: float) -> dict:
     results = [engine.collect(engine.execute(p)) for p in prepared]
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = kernels.launch_counts()
+    launches = kernels.launch_counts(routes=True)
     check_launches(f"stores_{name}", launches, len(batches))
     scores = np.concatenate([r[0] for r in results])
     rows = np.concatenate([r[1] for r in results])
@@ -2594,6 +2642,9 @@ def phase_stores(e2e) -> tuple:
             zh_queries, _ = make_queries(bundles["zh"], BATCH)
             routes[route] = phase_store_kernels(route, bundles["zh"],
                                                 zh_queries)
+            routes[route]["costs"] = {
+                lang: store_route_costs(route, b, make_queries(b, BATCH)[0])
+                for lang, b in bundles.items()}
             emit({"phase": "kernels", "name": "maxsim", "store": name,
                   **routes[route]})
             for lang, b in bundles.items():
@@ -2745,7 +2796,7 @@ def phase_large():
     outs = run_all()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    launches = kernels.launch_counts(routes=True)
     check_launches("large", launches, len(batches))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for out in outs:
@@ -2875,7 +2926,7 @@ def phase_large_stores():
                  "cpu_reference_1m": ref}
     emit({"phase": "large_int8_dense", **dense_res})
 
-    recall, recall_launches = {}, {k: 0 for k in kernels.KERNELS}
+    recall, recall_launches = {}, {}
     for td in ("int8", "nbit4"):
         t0 = time.perf_counter()
         idx = scale.synthesize_index(**dict(LARGE, n_docs=RECALL_DOCS),
@@ -2885,7 +2936,7 @@ def phase_large_stores():
         synth_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         r, launches, _ = launches_of(lambda: scale.late_recall(idx, BATCH))
-        check_launches("recall", launches, RECALL_QUERIES // BATCH)
+        check_launches("recall", launches, RECALL_QUERIES // BATCH, td)
         recall_s = time.perf_counter() - t0
         q = scale.synthesize_queries(idx, LARGE["vocab"], BATCH, seed=1)
         check_large_out(scale.run_hybrid(idx, q, scale.scale_params()),
@@ -2894,8 +2945,8 @@ def phase_large_stores():
                       "recall_s": recall_s,
                       "token_store_bytes": idx.nbytes["tokens"],
                       "launches": launches}
-        recall_launches = {k: recall_launches[k] + launches[k]
-                           for k in kernels.KERNELS}
+        recall_launches = {k: recall_launches.get(k, 0) + v
+                           for k, v in launches.items()}
         del idx
         torch.cuda.empty_cache()
     res = {"phase": "large_stores", "int8_dense_1m": dense_res,
@@ -2951,18 +3002,14 @@ def main() -> int:
     runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
             "ingest": [ingest], "stores": store_runs,
             "large": [large] + large_store_runs}
-    # MaxSim's quantized routes: their launches are the stores runs' (Q8
-    # int8, N4 nbit4) and the scale point's recall runs'
-    for route, store in (("int8", "q8"), ("nbit4", "n4")):
-        by_path = {"stores": sum(r["launches"]["maxsim"] for r in store_runs
-                                 if r["store"] == store),
-                   "large": large_stores["late_recall"][route]["launches"][
-                       "maxsim"]}
+    # MaxSim's launches per route, as the wrapper counts them on each path
+    # (the kernel's own row: all its routes; bf16 is the map path's)
+    routes["float32"] = kres["maxsim"].pop("float32_route")
+    for route in routes:
+        by_path = {p: sum(r["launches"][f"maxsim/{route}"] for r in rs)
+                   for p, rs in runs.items()}
         routes[route] |= {"launches": sum(by_path.values()),
                           "launches_by_path": by_path}
-    # the float32 store's route: no path launches it
-    routes["float32"] = kres["maxsim"].pop("float32_route") | {
-        "launches": 0, "launches_by_path": dict.fromkeys(runs, 0)}
     kres["maxsim"]["routes"] = routes
     summary = []
     for name, k in kres.items():
@@ -2975,7 +3022,11 @@ def main() -> int:
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "routes") if key in k}
             | {"launches": sum(by_path.values()),
-               "launches_by_path": by_path})
+               "launches_by_path": by_path}
+            | ({"launches_by_route": {
+                r: sum(run["launches"][f"{name}/{r}"] for rs in runs.values()
+                       for run in rs) for r in kernels.ROUTES[name]}}
+               if name in kernels.ROUTES else {}))
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

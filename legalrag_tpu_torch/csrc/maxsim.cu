@@ -33,11 +33,14 @@
 // - A consumer warp keeps its query slots as mma's A in registers, RG
 //   slots (RG / 16 m16 tiles, token_dim / 16 k-steps each), loaded once. A
 //   query is short when Lq <= 64 and it has at most RG valid tokens: its
-//   slots are its valid tokens, compacted and padded to a tile, and a warp
-//   packs whole short queries up to RG / 16 tiles, so a batch of one-token
-//   queries costs a tile a query. A tile that holds no valid slot issues no
-//   products. A long query goes through in groups of RG slots as they lie,
-//   reloaded for each doc.
+//   slots are its valid tokens, compacted, and a warp packs whole short
+//   queries up to RG slots. bf16 pads each query to a tile, so a batch of
+//   one-token queries costs it a tile a query; int8 and nbit4 pack the
+//   slots back to back (a row keeps its own query's scale), so up to 32
+//   one-token queries share a warp, and fewer warps mean fewer query groups
+//   and longer doc slices for the blocks. A tile that holds no valid slot
+//   issues no products. A long query goes through in groups of RG slots as
+//   they lie, reloaded for each doc.
 // - The stage ring holds each doc's valid tokens as 16-bit rows (bf16;
 //   fp16 for int8 and nbit4), compacted
 //   in token order (3 stages, or 2 where 3 do not fit; rows padded to
@@ -67,7 +70,9 @@
 // the stage; `full` counts the four warps. The float32 queries are split
 // as they are loaded: each query's x is scaled by the power of two 2^e that
 // brings the largest |x| of its valid tokens into [2^14, 2^15) (exact;
-// found by one pass of the warp over the query before the docs; fp16's
+// found before the docs: for a long query by a pass of the warp over its
+// valid tokens, four tokens' loads in flight at a time; for packed queries
+// a lane a slot, then a lane a query; fp16's
 // exponent range is narrow, and without it the low part of a small element
 // would go subnormal, or a large one overflow), then hi = fp16(x 2^e) and lo =
 // fp16(x 2^e - hi), both rounded to nearest even: |x 2^e - hi - lo| <=
@@ -76,7 +81,8 @@
 // hi * code, each exact (11 + 8 bits), so the dot is 2^e (q . code) but
 // for the split's residue and the order of the sums. RG = 32 (two tiles,
 // two A parts: the same 128 A registers at token_dim 128 as bf16's 64
-// slots). Each finished row maximum is scaled by 2^-e / 127, the dequant of
+// slots). Each finished row maximum is scaled by 2^-e / 127 (e of the
+// row's own query), the dequant of
 // legalrag_tpu/ops/maxsim.py:80-81 (positive, so it commutes with the
 // max). A query's best matches are summed in float64 and rounded once: a
 // float32 sum in token order is itself up to ~2e-5 off the exact sum at
@@ -93,12 +99,12 @@
 // queries' x = q * step (rounded once) are scaled and split into fp16 lo
 // and hi as above, two exact products each. T [256, B * Lq] float32
 // (centroid-major) is computed per call by maxsim_centroid_table_kernel
-// (float32 FMAs on the CUDA cores, 2 * 256 * dt flops a query token,
-// 4 MB at the zh shapes: it does not fit shared memory beside the
+// (float32 FMAs on the CUDA cores, 2 * 256 * dt flops a valid query
+// token, 4 MB at the zh shapes: it does not fit shared memory beside the
 // stages, so the epilogue reads it through L2). Each thread gathers the
 // centroid terms of its C-fragment elements ahead of a pass's products
-// (a tile's 16 slots are consecutive query tokens where the query's mask is
-// a prefix, so a warp's gather then touches 4 sectors, not 32), then adds T + 2^-e * acc,
+// (a tile's 16 slots are consecutive query tokens where the masks are
+// prefixes, so a warp's gather then touches 4 sectors, not 32), then adds T + 2^-e * acc,
 // rounded once, before the row maximum. The loss against the reference:
 // the split's residue (2^-22 of |x| * 8 an element), the rounding of x and
 // of the sum, where JAX rounds each decoded value; and the order of the
@@ -406,9 +412,11 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
 
   // Queries to consumer warps. A short query (Lq <= PACK_LQ, at most RG
   // valid tokens) is packed: a warp takes a run of whole short queries
-  // whose valid tokens, compacted and padded to m16 tiles per query, fill
-  // at most MT tiles (and at most MAXQ queries), so a batch of one-token
-  // queries costs a tile a query, not MT. A long query takes a warp of its
+  // whose valid tokens, compacted, fill at most RG slots (and at most MAXQ
+  // queries). bf16 pads each query's slots to m16 tiles (at most MT), so a
+  // batch of one-token queries costs it a tile a query; the split kinds
+  // pack the slots back to back (a row's scale is its query's), so 32
+  // one-token queries share a warp. A long query takes a warp of its
   // own (its query count recorded as -1). W warps in all make
   // ceil(W / QW) groups of QW; block x serves group x % groups and the doc
   // slice x / groups, of blocks / groups slices (at most N). Warp 0 walks
@@ -423,13 +431,13 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
       ++w;
     };
     for (int c0 = 0; c0 < B; c0 += 32) {
-      int tiles = -1;  // a long query
+      int tiles = -1;  // a long query; else its units: tiles (bf16), slots
       if (c0 + lane < B && Lq <= PACK_LQ) {
         const uint8_t* m = q_mask + (size_t)(c0 + lane) * Lq;
         int v = 0;
 #pragma unroll 16
         for (int k = 0; k < Lq; ++k) v += m[k] != 0;
-        if (v <= RG) tiles = (v + 15) / 16;
+        if (v <= RG) tiles = SPLIT ? v : (v + 15) / 16;
       }
       for (int l = 0; l < 32 && c0 + l < B; ++l) {
         const int t = __shfl_sync(FULL, tiles, l);
@@ -441,7 +449,7 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
           begin = c0 + l + 1;
           continue;
         }
-        if (nq > 0 && (used + t > MT || nq == MAXQ)) {
+        if (nq > 0 && (used + t > (SPLIT ? RG : MT) || nq == MAXQ)) {
           close(nq);
           used = nq = 0;
           begin = c0 + l;
@@ -558,7 +566,7 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
   const int g = lane >> 2, tq = lane & 3;
 
   // packed: lane j < qn holds query qb + j's valid-token mask, their count
-  // and the query's first tile
+  // and the query's first unit t0 (bf16: tile; split: slot)
   unsigned long long qm64 = 0;
   int vq = 0, t0 = 0;
   if (packed) {
@@ -569,7 +577,7 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
         qm64 |= (unsigned long long)(m[k] != 0) << k;
       vq = __popcll(qm64);
     }
-    const int tiles = (vq + 15) / 16;
+    const int tiles = SPLIT ? vq : (vq + 15) / 16;
     t0 = tiles;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -587,30 +595,64 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
   // split: each query is scaled by the power of two 2^e that brings the
   // largest |x| of its valid tokens' elements into [2^14, 2^15) (x = q;
   // nbit4: q * step, rounded); qex: the exponent e of this lane's query
-  // (packed: query qb + lane; long: qb); rs: per tile, the factor that
-  // undoes its query's scale (and, for int8, the codes' 1 / 127); nbit4:
-  // trow, the query token (its table row) of this lane's row h of tile t
+  // (packed: query qb + lane; long: qb); rex: byte 2 t + h holds the
+  // float exponent field 127 - e of 2^-e, the factor that undoes the
+  // scale of this lane's row h of tile t (the rows of one tile may belong
+  // to different queries; a float a row, or two bf16 a register, spill in
+  // the nbit4 instance at token_dim 128); nbit4: trow, the query token
+  // (its table row) of this lane's row h of tile t
+  static_assert(!SPLIT || MT <= 2, "rex holds four rows");
   int qex = 0;
-  float rs[SPLIT ? MT : 1];
+  unsigned rex = 0;
   int trow[NB4 ? MT : 1][2];
+  auto row_back = [&](int t, int h) {  // 2^-e of row h of tile t, exact
+    const int sh = 8 * (2 * t + h);
+    return __uint_as_float((sh <= 23 ? rex << (23 - sh) : rex >> (sh - 23))
+                           & 0x7f800000u);
+  };
+  // split, packed: the lane whose query holds slot sl (its slots are
+  // [t0, t0 + vq) of that lane), or -1
+  auto slot_owner = [&](int sl) {
+    int o = -1;
+    for (int p = 0; p < qn; ++p) {
+      const int so = __shfl_sync(FULL, t0, p), vo = __shfl_sync(FULL, vq, p);
+      if (sl >= so && sl < so + vo) o = p;
+    }
+    return o;
+  };
   if constexpr (SPLIT) {
     // warp-wide over query b's valid tokens; at most 126 (m zero or
     // subnormal), so that 2^e and 2^-e are normal floats
+    // (lane: elements 4 lane .. 4 lane + 3 of a token, DT <= 128; four
+    // tokens' loads in flight at a time)
     auto query_exponent = [&](int b) {
+      const bool mine = 4 * lane < DT;
+      float4 w = make_float4(1.f, 1.f, 1.f, 1.f);
+      if constexpr (NB4) {
+        if (mine) w = *reinterpret_cast<const float4*>(nb.step + 4 * lane);
+      }
       float m = 0.f;
       for (int c0 = 0; c0 < Lq; c0 += 32) {
         unsigned bal = __ballot_sync(
             FULL, c0 + lane < Lq && q_mask[(size_t)b * Lq + c0 + lane]);
-        for (; bal; bal &= bal - 1u) {
-          const float* x = q_tok + ((size_t)b * Lq + c0 + __ffs(bal) - 1) * DT;
-          for (int k = 4 * lane; k < DT; k += 128) {
-            float4 v = *reinterpret_cast<const float4*>(x + k);
-            if constexpr (NB4) {
-              const float4 w = *reinterpret_cast<const float4*>(nb.step + k);
-              v = make_float4(v.x * w.x, v.y * w.y, v.z * w.z, v.w * w.w);
-            }
-            m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
-                               fmaxf(fabsf(v.z), fabsf(v.w))));
+        while (bal) {
+          float4 v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int j = bal ? __ffs(bal) - 1 : -1;
+            bal &= bal - 1u;
+            v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (j >= 0 && mine)
+              v[u] = *reinterpret_cast<const float4*>(
+                  q_tok + ((size_t)b * Lq + c0 + j) * DT + 4 * lane);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if constexpr (NB4)
+              v[u] = make_float4(v[u].x * w.x, v[u].y * w.y, v[u].z * w.z,
+                                 v[u].w * w.w);
+            m = fmaxf(m, fmaxf(fmaxf(fabsf(v[u].x), fabsf(v[u].y)),
+                               fmaxf(fabsf(v[u].z), fabsf(v[u].w))));
           }
         }
       }
@@ -618,10 +660,37 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
       for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
       return min(126, 141 - (int)(__float_as_uint(m) >> 23));  // 14 - floor(log2 m)
     };
-    for (int o = 0; o < qn; ++o) {
-      const int e = query_exponent(qb + o);
-      if (!packed || lane == o) qex = e;
-    }
+    // packed: lane s takes slot s (its query's (s - t0)-th valid token,
+    // all its loads in flight), then lane j < qn the largest over its
+    // query's slots [t0, t0 + vq)
+    auto packed_exponent = [&]() {
+      const int o = slot_owner(lane);
+      const int src = max(o, 0);
+      const unsigned long long m = __shfl_sync(FULL, qm64, src);
+      const int k = lane - __shfl_sync(FULL, t0, src);
+      float ms = 0.f;
+      if (o >= 0) {
+        const float* x = q_tok + ((size_t)(qb + o) * Lq + nth_bit(m, k)) * DT;
+#pragma unroll 8
+        for (int c = 0; c < DT; c += 4) {
+          float4 v = *reinterpret_cast<const float4*>(x + c);
+          if constexpr (NB4) {
+            const float4 w = *reinterpret_cast<const float4*>(nb.step + c);
+            v = make_float4(v.x * w.x, v.y * w.y, v.z * w.z, v.w * w.w);
+          }
+          ms = fmaxf(ms, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                               fmaxf(fabsf(v.z), fabsf(v.w))));
+        }
+      }
+      float mq = 0.f;
+      for (int j = 0; j < RG; ++j) {
+        const float v = __shfl_sync(FULL, ms, (t0 + j) & 31);
+        if (j < vq) mq = fmaxf(mq, v);
+      }
+      return min(126, 141 - (int)(__float_as_uint(mq) >> 23));
+    };
+    static_assert(!SPLIT || RG == 32, "a lane a slot");
+    qex = packed ? packed_exponent() : query_exponent(qb);
   }
   // this lane's row h of tile t from query token `row` (zeros when !ok);
   // split: the float32 token x (nbit4: q * step), scaled by 2^ex, split
@@ -648,10 +717,8 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
           a[0][t][ks][2 * e + h] = f16x2(y.x - hf.x, y.y - hf.y);
         }
       }
-      if (h == 0) {  // exact: a power of two (times 1 / 127)
-        const float back = __uint_as_float((unsigned)(127 - ex) << 23);
-        rs[t] = I8 ? back * (1.0f / 127.0f) : back;
-      }
+      const int sh = 8 * (2 * t + h);  // 127 - ex in [1, 240]: a byte
+      rex = (rex & ~(0xffu << sh)) | (unsigned)(127 - ex) << sh;
     } else {
       const unsigned* x2 = reinterpret_cast<const unsigned*>(q_tok + row * DT + 2 * tq);
 #pragma unroll
@@ -661,25 +728,42 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
       }
     }
   };
-  // packed: slot t0 * 16 + k of the warp is the k-th valid token of its
-  // query (tiles of no query issue no products)
+  // packed, bf16: slot t0 * 16 + k of the warp is the k-th valid token of
+  // its query (tiles of no query issue no products); split: slot t0 + k
   auto load_packed = [&]() {
+    if constexpr (SPLIT) {
 #pragma unroll
-    for (int t = 0; t < MT; ++t) {
-      const unsigned own = __ballot_sync(
-          FULL, lane < qn && t0 <= t && t < t0 + (vq + 15) / 16);
-      if (!own) continue;
-      live |= 1u << t;
-      const int o = __ffs(own) - 1;
-      const unsigned long long m = __shfl_sync(FULL, qm64, o);
-      const int ov = __shfl_sync(FULL, vq, o), ot0 = __shfl_sync(FULL, t0, o);
+      for (int t = 0; t < MT; ++t) {
+        const int own[2] = {slot_owner(t * 16 + g), slot_owner(t * 16 + g + 8)};
+        if (__ballot_sync(FULL, own[0] >= 0 || own[1] >= 0)) live |= 1u << t;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = (t - ot0) * 16 + g + 8 * h;
-        const bool ok = k < ov;
-        if (ok) qbits |= 1u << (2 * t + h);
-        load_row(t, h, (size_t)(qb + o) * Lq + (ok ? nth_bit(m, k) : 0), ok,
-                 SPLIT ? __shfl_sync(FULL, qex, o) : 0);
+        for (int h = 0; h < 2; ++h) {
+          const bool ok = own[h] >= 0;
+          const int o = ok ? own[h] : 0;
+          const unsigned long long m = __shfl_sync(FULL, qm64, o);
+          const int k = t * 16 + g + 8 * h - __shfl_sync(FULL, t0, o);
+          if (ok) qbits |= 1u << (2 * t + h);
+          load_row(t, h, (size_t)(qb + o) * Lq + (ok ? nth_bit(m, k) : 0), ok,
+                   __shfl_sync(FULL, qex, o));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        const unsigned own = __ballot_sync(
+            FULL, lane < qn && t0 <= t && t < t0 + (vq + 15) / 16);
+        if (!own) continue;
+        live |= 1u << t;
+        const int o = __ffs(own) - 1;
+        const unsigned long long m = __shfl_sync(FULL, qm64, o);
+        const int ov = __shfl_sync(FULL, vq, o), ot0 = __shfl_sync(FULL, t0, o);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = (t - ot0) * 16 + g + 8 * h;
+          const bool ok = k < ov;
+          if (ok) qbits |= 1u << (2 * t + h);
+          load_row(t, h, (size_t)(qb + o) * Lq + (ok ? nth_bit(m, k) : 0), ok, 0);
+        }
       }
     }
   };
@@ -795,7 +879,7 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
             if (!(live >> t & 1u)) continue;
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              acc[0][t][e] = __fmaf_rn(acc[0][t][e], rs[t], tv[t][e]);
+              acc[0][t][e] = __fmaf_rn(acc[0][t][e], row_back(t, e >> 1), tv[t][e]);
           }
         }
         // accumulator (t, e): slot t * 16 + g (+ 8 for e >= 2), token
@@ -837,7 +921,7 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
           m = fmaxf(m, __shfl_xor_sync(FULL, m, 2));
           // int8: the row's scale back and the codes' 1 / 127, positive,
           // so they commute with the max
-          if constexpr (I8) m *= rs[t];
+          if constexpr (I8) m *= row_back(t, h) * (1.0f / 127.0f);
           best[t][h] = m;
         }
       }
@@ -851,19 +935,25 @@ maxsim_tc_kernel(const typename TC<KIND>::doc* __restrict__ doc_tok,
         }
       }
       __syncwarp();
-      // lane j sums query qb + j's slots (packed: its valid tokens, then
-      // zeros to the next 4; long: all RG) in token order; a masked slot
-      // holds 0 and adds +0.0, which changes nothing
+      // lane j sums query qb + j's slots (packed: its valid tokens, then,
+      // bf16, zeros to the next 4; long: all RG) in token order; a masked
+      // slot holds 0 and adds +0.0, which changes nothing
       if (packed ? lane < qn : lane == 0) {
-        const float4* s4 = reinterpret_cast<const float4*>(sbuf + t0 * 16);
-        const int n4 = packed ? (vq + 3) / 4 : RG / 4;
+        if constexpr (SPLIT) {
+          const float* s1 = sbuf + (packed ? t0 : 0);
+          const int n1 = packed ? vq : RG;
+          for (int s = 0; s < n1; ++s) total += s1[s];
+        } else {
+          const float4* s4 = reinterpret_cast<const float4*>(sbuf + t0 * 16);
+          const int n4 = packed ? (vq + 3) / 4 : RG / 4;
 #pragma unroll 4
-        for (int s = 0; s < n4; ++s) {
-          const float4 v = s4[s];
-          total += v.x;
-          total += v.y;
-          total += v.z;
-          total += v.w;
+          for (int s = 0; s < n4; ++s) {
+            const float4 v = s4[s];
+            total += v.x;
+            total += v.y;
+            total += v.z;
+            total += v.w;
+          }
         }
       }
     }
@@ -916,20 +1006,31 @@ int launch_tc_kind(const void* doc_tok, const void* doc_mask,
 constexpr int TT = 64;   // the table kernel's tile: query tokens and centroids
 constexpr int TK = 32;   // and dims staged at a time
 
-// table[c, s] = sum_k q_tok[s, k] * centroids[c, k] for every query token s
-// of the batch (S = B * Lq, masked ones too) and centroid c: float32 FMAs in
-// k order. A block of 256 threads takes TT tokens x TT centroids, each
-// thread one token and 16 centroids; the tokens run along a warp, so the
-// table's rows are written 128 bytes at a time.
+// table[c, s] = sum_k q_tok[s, k] * centroids[c, k] for every valid query
+// token s of the batch (S = B * Lq; the rows of masked tokens, which the
+// main kernel never keeps, may hold 0): float32 FMAs in k order. A block of
+// 256 threads takes TT tokens x TT centroids, each thread one token and 16
+// centroids; the tokens run along a warp, so the table's rows are written
+// 128 bytes at a time, and a warp whose 32 tokens are all masked skips its
+// products. The centroids are staged k-major, so a thread reads its 16
+// centroids' values of one k as four 16-byte words (one broadcast a warp);
+// their 4-float groups are XOR-swizzled by k & 7 against bank conflicts in
+// the transposing stores.
+__device__ __forceinline__ int table_col(int k, int c) {
+  return (((c >> 2) ^ (k & 7)) << 2) | (c & 3);
+}
+
 template <int DT>
 __global__ void __launch_bounds__(256)
 maxsim_centroid_table_kernel(const float* __restrict__ q_tok,
+                             const uint8_t* __restrict__ q_mask,
                              const float* __restrict__ centroids, int S,
                              float* __restrict__ table) {
   __shared__ float qs[TT][TK + 1];
-  __shared__ float cs[TT][TK + 1];
+  __shared__ __align__(16) float cs[TK][TT];
   const int tid = threadIdx.x, sl = tid % TT, cg = tid / TT;
   const int s0 = blockIdx.x * TT, c0 = blockIdx.y * TT;
+  const bool busy = __any_sync(FULL, s0 + sl < S && q_mask[s0 + sl]);
   float acc[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) acc[i] = 0.f;
@@ -937,14 +1038,23 @@ maxsim_centroid_table_kernel(const float* __restrict__ q_tok,
     for (int e = tid; e < TT * TK; e += 256) {
       const int r = e / TK, k = e % TK;
       qs[r][k] = s0 + r < S ? q_tok[(size_t)(s0 + r) * DT + k0 + k] : 0.f;
-      cs[r][k] = centroids[(size_t)(c0 + r) * DT + k0 + k];
+      cs[k][table_col(k, r)] = centroids[(size_t)(c0 + r) * DT + k0 + k];
     }
     __syncthreads();
+    if (busy) {
 #pragma unroll 8
-    for (int k = 0; k < TK; ++k) {
-      const float x = qs[sl][k];
+      for (int k = 0; k < TK; ++k) {
+        const float x = qs[sl][k];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) acc[i] = fmaf(x, cs[cg * 16 + i][k], acc[i]);
+        for (int i4 = 0; i4 < 4; ++i4) {
+          const float4 c = *reinterpret_cast<const float4*>(
+              &cs[k][table_col(k, cg * 16 + 4 * i4)]);
+          acc[4 * i4] = fmaf(x, c.x, acc[4 * i4]);
+          acc[4 * i4 + 1] = fmaf(x, c.y, acc[4 * i4 + 1]);
+          acc[4 * i4 + 2] = fmaf(x, c.z, acc[4 * i4 + 2]);
+          acc[4 * i4 + 3] = fmaf(x, c.w, acc[4 * i4 + 3]);
+        }
+      }
     }
     __syncthreads();
   }
@@ -956,11 +1066,12 @@ maxsim_centroid_table_kernel(const float* __restrict__ q_tok,
 }
 
 template <int DT>
-int launch_table(const float* q_tok, const float* centroids, int S,
-                 float* table, cudaStream_t stream) {
+int launch_table(const float* q_tok, const uint8_t* q_mask,
+                 const float* centroids, int S, float* table,
+                 cudaStream_t stream) {
   const dim3 grid((S + TT - 1) / TT, NCENT / TT);
-  maxsim_centroid_table_kernel<DT><<<grid, 256, 0, stream>>>(q_tok, centroids,
-                                                             S, table);
+  maxsim_centroid_table_kernel<DT><<<grid, 256, 0, stream>>>(
+      q_tok, q_mask, centroids, S, table);
   return (int)cudaGetLastError();
 }
 
@@ -1192,11 +1303,13 @@ int maxsim(const void* doc_tok, const void* doc_mask, const void* q_tok,
     return launch_tc_kind<lrt::kI8>(doc_tok, doc_mask, q_tok, q_mask, B, Lq,
                                     N, L, dt, grid, Nbit4Args{}, out, s);
   const float* q = static_cast<const float*>(q_tok);
+  const uint8_t* qm = static_cast<const uint8_t*>(q_mask);
   const float* cent = static_cast<const float*>(centroids);
   float* table = static_cast<float*>(scratch);
-  const int err = dt == 32   ? launch_table<32>(q, cent, B * Lq, table, s)
-                  : dt == 64 ? launch_table<64>(q, cent, B * Lq, table, s)
-                             : launch_table<128>(q, cent, B * Lq, table, s);
+  const int S = B * Lq;
+  const int err = dt == 32   ? launch_table<32>(q, qm, cent, S, table, s)
+                  : dt == 64 ? launch_table<64>(q, qm, cent, S, table, s)
+                             : launch_table<128>(q, qm, cent, S, table, s);
   if (err != 0) return err;
   const Nbit4Args nb{static_cast<const uint8_t*>(codes),
                      static_cast<const float*>(step), table};

@@ -17,7 +17,8 @@ port, and a machine without a card has no ``nvcc``.
 
 Each kernel has a launch count (:func:`launch_counts`), raised by one in
 :func:`launch` and nowhere else, so a run can show that the main path went
-through the kernels.
+through the kernels. A kernel with routes (:data:`ROUTES`: MaxSim's store
+kinds) also counts each launch under the route its wrapper names.
 """
 
 from __future__ import annotations
@@ -57,10 +58,14 @@ _RESTYPES = {"score_select_scratch_bytes": ctypes.c_longlong,
              "maxsim_smem_bytes": ctypes.c_longlong}
 # kernels counted by launch(): name -> the C entry that launches it
 KERNELS = ("score_select", "maxsim", "bm25_sparse")
+# kernels whose launches are also counted per route, as "name/route"
+ROUTES = {"maxsim": ("float32", "bf16", "int8", "nbit4")}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
+_route_launches: Dict[str, int] = {f"{k}/{r}": 0 for k, rs in ROUTES.items()
+                                   for r in rs}
 
 
 def _nvcc() -> str:
@@ -144,23 +149,32 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, route: Optional[str] = None) -> None:
     """Call the C entry ``name`` (one of :data:`KERNELS`), raise if the
-    launch failed, and count it."""
+    launch failed, and count it (and under ``route``, one of
+    ``ROUTES[name]``, where the kernel has routes)."""
+    key = None if route is None else f"{name}/{route}"
+    if key is not None and key not in _route_launches:
+        raise ValueError(f"{name} has no route {route!r}")
     rc = getattr(lib(), name)(*args)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
     with _lock:  # request threads launch concurrently on the serving path
         _launches[name] += 1
+        if key is not None:
+            _route_launches[key] += 1
 
 
-def launch_counts() -> Dict[str, int]:
+def launch_counts(routes: bool = False) -> Dict[str, int]:
+    """Launches per kernel since the last reset; with ``routes`` also per
+    route, keyed "name/route"."""
     with _lock:
-        return dict(_launches)
+        return {**_launches, **(_route_launches if routes else {})}
 
 
 def reset_launch_counts() -> None:
     with _lock:
-        for k in _launches:
-            _launches[k] = 0
+        for counts in (_launches, _route_launches):
+            for k in counts:
+                counts[k] = 0

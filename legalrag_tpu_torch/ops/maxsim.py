@@ -36,7 +36,7 @@ computes it in JAX, over every store.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -47,6 +47,7 @@ from legalrag_tpu_torch.ops.topk import INT8_SCALE, mask_cols, topk_large
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _NBIT4 = 3
 _TENSOR_CORE_IDS = (1, 2, _NBIT4)  # bf16, int8 and nbit4: the tensor-core kernel
+_ROUTES = ("float32", "bf16", "int8", "nbit4")  # by type id (kernels.ROUTES)
 _KERNEL_DT = (32, 64, 128)
 NBIT4_CENTROIDS = 256
 
@@ -187,18 +188,7 @@ def _maxsim_kernel(doc_tok: TokenStore, doc_mask: torch.Tensor,
     if dev.type != "cuda" or any(t.device != dev
                                  for t in (*store, q_tok, q_mask)):
         raise ValueError("maxsim needs every tensor on one CUDA device")
-    if nbit4:
-        dtype_id = _NBIT4
-        if (doc_tok.codes_c.dtype != torch.uint8
-                or doc_tok.packed.dtype != torch.uint8
-                or any(t.dtype != torch.float32 for t in doc_tok[2:])):
-            raise TypeError("an nbit4 store is uint8 codes_c and packed, "
-                            "float32 centroids, scales and step")
-    elif doc_tok.dtype in _KERNEL_DTYPES:
-        dtype_id = _KERNEL_DTYPES[doc_tok.dtype]
-    else:
-        raise TypeError(f"maxsim takes bf16/f32/int8/nbit4 stores, got "
-                        f"{doc_tok.dtype}")
+    dtype_id = kernel_type_id(doc_tok)
     want_q = torch.bfloat16 if dtype_id == 1 else torch.float32
     if q_tok.dtype != want_q:
         raise TypeError(f"maxsim over a {'nbit4' if nbit4 else doc_tok.dtype}"
@@ -233,16 +223,7 @@ def _maxsim_kernel(doc_tok: TokenStore, doc_mask: torch.Tensor,
     if lib.maxsim_smem_bytes(dtype_id, l_doc, dt) < 0:
         raise ValueError(f"doc_maxlen {l_doc} x token_dim {dt} does not fit "
                          f"the kernel's shared-memory staging")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    if dtype_id in _TENSOR_CORE_IDS:
-        # about one block per SM; the kernel splits the blocks among its
-        # query groups and doc slices. nbit4: the centroid table first.
-        grid = max(n_sm, -(-b // lib.maxsim_queries_per_block()))
-        scratch = (torch.empty((NBIT4_CENTROIDS, b * lq), dtype=torch.float32,
-                               device=dev) if nbit4 else None)
-    else:
-        grid = max(1, min(n, 2 * n_sm))
-        scratch = torch.empty((n, b * lq), dtype=torch.float32, device=dev)
+    grid, scratch = launch_plan(dtype_id, n, b, lq, dev)
     # the store's tensors: the tokens (nbit4: packed), then nbit4's codes_c,
     # centroids and step (NULL otherwise)
     tok, codes, cents, step = ((doc_tok.packed, doc_tok.codes_c,
@@ -254,5 +235,39 @@ def _maxsim_kernel(doc_tok: TokenStore, doc_mask: torch.Tensor,
                      for t in (codes, cents, step)),
                    dtype_id, b, lq, n, l_doc, dt, grid,
                    None if scratch is None else scratch.data_ptr(),
-                   out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                   out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                   route=_ROUTES[dtype_id])
     return out
+
+
+def kernel_type_id(doc_tok: TokenStore) -> int:
+    """The C entry ``maxsim``'s type id of a token store (raises for a
+    store it does not take)."""
+    if isinstance(doc_tok, Residual4Store):
+        if (doc_tok.codes_c.dtype != torch.uint8
+                or doc_tok.packed.dtype != torch.uint8
+                or any(t.dtype != torch.float32 for t in doc_tok[2:])):
+            raise TypeError("an nbit4 store is uint8 codes_c and packed, "
+                            "float32 centroids, scales and step")
+        return _NBIT4
+    if doc_tok.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"maxsim takes bf16/f32/int8/nbit4 stores, got "
+                        f"{doc_tok.dtype}")
+    return _KERNEL_DTYPES[doc_tok.dtype]
+
+
+def launch_plan(dtype_id: int, n: int, b: int, lq: int,
+                dev: torch.device) -> Tuple[int, Optional[torch.Tensor]]:
+    """The C entry ``maxsim``'s grid and scratch for a store of kernel type
+    ``dtype_id`` (N docs) and a batch of B queries of Lq tokens."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if dtype_id in _TENSOR_CORE_IDS:
+        # about one block per SM; the kernel splits the blocks among its
+        # query groups and doc slices. nbit4: the centroid table first.
+        grid = max(n_sm, -(-b // kernels.lib().maxsim_queries_per_block()))
+        scratch = (torch.empty((NBIT4_CENTROIDS, b * lq), dtype=torch.float32,
+                               device=dev) if dtype_id == _NBIT4 else None)
+    else:
+        grid = max(1, min(n, 2 * n_sm))
+        scratch = torch.empty((n, b * lq), dtype=torch.float32, device=dev)
+    return grid, scratch

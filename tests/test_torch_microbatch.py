@@ -267,3 +267,41 @@ def test_launch_counts_hold_under_threads(monkeypatch):
     assert counts == {"score_select": 32000, "maxsim": 32000,
                       "bm25_sparse": 0}
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def test_launch_counts_by_route(monkeypatch):
+    """A launch named with a route counts under the kernel and the route;
+    an unknown route raises before the launch and counts nothing; MaxSim's
+    wrapper names each store kind's route (``kernels.ROUTES``)."""
+    import torch
+
+    from legalrag_tpu_torch.ops import maxsim as ms
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return lambda *args: 0  # cudaSuccess
+
+    monkeypatch.setattr(kernels, "lib", lambda: FakeLib())
+    kernels.reset_launch_counts()
+    for route in ("nbit4", "nbit4", "int8"):
+        kernels.launch("maxsim", route=route)
+    kernels.launch("score_select")
+    with pytest.raises(ValueError):
+        kernels.launch("maxsim", route="fp8")
+    counts = kernels.launch_counts(routes=True)
+    kernels.reset_launch_counts()
+    assert counts == {"score_select": 1, "maxsim": 3, "bm25_sparse": 0,
+                      "maxsim/float32": 0, "maxsim/bf16": 0,
+                      "maxsim/int8": 1, "maxsim/nbit4": 2}
+    assert kernels.launch_counts(routes=True) == dict.fromkeys(counts, 0)
+    stores = {"float32": torch.zeros(2, 3, 32),
+              "bf16": torch.zeros(2, 3, 32, dtype=torch.bfloat16),
+              "int8": torch.zeros(2, 3, 32, dtype=torch.int8),
+              "nbit4": ms.Residual4Store(
+                  torch.zeros(2, 3, dtype=torch.uint8),
+                  torch.zeros(2, 3, 16, dtype=torch.uint8),
+                  torch.zeros(256, 32), torch.zeros(32), torch.zeros(32))}
+    assert {r: ms._ROUTES[ms.kernel_type_id(s)] for r, s in stores.items()} \
+        == {r: r for r in kernels.ROUTES["maxsim"]}
+    with pytest.raises(TypeError):
+        ms.kernel_type_id(torch.zeros(2, 3, 32, dtype=torch.float16))
