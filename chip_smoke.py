@@ -2251,6 +2251,10 @@ def maxsim_entry(store, dmask, q_tok, q_mask, lib=None):
 # table_at), and what a copy of the kernel returns in its place to time
 # the route without the gathers
 TABLE_GATHER = ("  return __ldg(table + (size_t)c * S + row);", "  return 0.f;")
+# the C entry's launch of the nbit4 centroid table, and what a copy of the
+# kernel takes in its place to time the route without the table
+TABLE_LAUNCH = ("  const int err = launch_table_dt(dt, q_tok, q_mask, centroids, B * Lq, table, s);",
+                "  const int err = 0;")
 # each query's power-of-two exponent (the split routes' prologue), and what
 # a copy of the kernel takes in its place to time the routes without it
 EXPONENT_PROLOGUE = ("    qex = packed ? packed_exponent() : query_exponent(qb);",
@@ -2292,9 +2296,9 @@ def store_route_costs(route: str, bundle, queries) -> dict:
     entry over the first 8 queries alone (one query group, so each block
     walks a slice of the docs ``BATCH / 8`` times shorter when the batch
     takes more than one group); a copy of the kernel without the exponent
-    prologue; for nbit4 the centroid table's and the tensor-core kernel's
-    device ms per profiler event (a profiling session may drop events) and
-    a copy without the table gathers. The copies' outputs are not the map."""
+    prologue; for nbit4 copies without the centroid table's launch (the
+    table's time is the C entry's less this copy's) and without the table
+    gathers. The copies' outputs are not the map."""
     st = bundle.state
     tok, dmask = st.tokens.tok, st.tokens.mask
     qt, qm = st.encoder.encode_tokens(
@@ -2318,18 +2322,14 @@ def store_route_costs(route: str, bundle, queries) -> dict:
     res["no_exponent_copy_ms"] = cuda_ms(copy_run)
     res["exponent_share"] = 1 - res["no_exponent_copy_ms"] / ms
     if route == "nbit4":
-        prof = profile_device(lambda: [entry() for _ in range(8)], 8)
-        per_event = {name: sum(t for k, t, _n in prof["top"] if name in k)
-                     / max(1, sum(n for k, _t, n in prof["top"] if name in k))
-                     for name in ("maxsim_centroid_table_kernel",
-                                  "maxsim_tc_kernel")}
-        copy_run, _ = maxsim_entry(tok, dmask, q_tok, q_mask,
-                                   kernel_copy("no_table_gather", *TABLE_GATHER))
-        res |= {"table_ms": per_event["maxsim_centroid_table_kernel"],
-                "tc_kernel_ms": per_event["maxsim_tc_kernel"],
-                "table_share": per_event["maxsim_centroid_table_kernel"]
-                / sum(per_event.values()),
-                "no_gather_copy_ms": cuda_ms(copy_run)}
+        no_table, _ = maxsim_entry(tok, dmask, q_tok, q_mask,
+                                   kernel_copy("no_table", *TABLE_LAUNCH))
+        no_gather, _ = maxsim_entry(tok, dmask, q_tok, q_mask,
+                                    kernel_copy("no_table_gather", *TABLE_GATHER))
+        res |= {"no_table_copy_ms": cuda_ms(no_table),
+                "no_gather_copy_ms": cuda_ms(no_gather)}
+        res["table_ms"] = ms - res["no_table_copy_ms"]
+        res["table_share"] = res["table_ms"] / ms
         res["gather_share"] = 1 - res["no_gather_copy_ms"] / ms
     return res
 

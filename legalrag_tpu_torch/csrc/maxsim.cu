@@ -1075,6 +1075,22 @@ int launch_table(const float* q_tok, const uint8_t* q_mask,
   return (int)cudaGetLastError();
 }
 
+int launch_table_dt(int dt, const void* q_tok, const void* q_mask,
+                    const void* centroids, int S, float* table,
+                    cudaStream_t s) {
+  const float* q = static_cast<const float*>(q_tok);
+  const uint8_t* qm = static_cast<const uint8_t*>(q_mask);
+  const float* c = static_cast<const float*>(centroids);
+  switch (dt) {
+    case 32:
+      return launch_table<32>(q, qm, c, S, table, s);
+    case 64:
+      return launch_table<64>(q, qm, c, S, table, s);
+    default:
+      return launch_table<128>(q, qm, c, S, table, s);
+  }
+}
+
 // =================================================================== float32
 
 constexpr int THREADS = 256;
@@ -1302,14 +1318,8 @@ int maxsim(const void* doc_tok, const void* doc_mask, const void* q_tok,
   if (dtype == lrt::kI8)
     return launch_tc_kind<lrt::kI8>(doc_tok, doc_mask, q_tok, q_mask, B, Lq,
                                     N, L, dt, grid, Nbit4Args{}, out, s);
-  const float* q = static_cast<const float*>(q_tok);
-  const uint8_t* qm = static_cast<const uint8_t*>(q_mask);
-  const float* cent = static_cast<const float*>(centroids);
   float* table = static_cast<float*>(scratch);
-  const int S = B * Lq;
-  const int err = dt == 32   ? launch_table<32>(q, qm, cent, S, table, s)
-                  : dt == 64 ? launch_table<64>(q, qm, cent, S, table, s)
-                             : launch_table<128>(q, qm, cent, S, table, s);
+  const int err = launch_table_dt(dt, q_tok, q_mask, centroids, B * Lq, table, s);
   if (err != 0) return err;
   const Nbit4Args nb{static_cast<const uint8_t*>(codes),
                      static_cast<const float*>(step), table};
