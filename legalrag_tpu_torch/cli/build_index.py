@@ -4,7 +4,10 @@
 Loads every processed chunk (``load_chunks_from_dir``), groups them by
 language and builds each language's bundle (dense, BM25 and, unless
 ``--no-colbert``, the token store) on ``--device``: ``cuda`` by default
-(without a card that raises), ``cpu`` when asked. The JAX script builds on
+(without a card that raises), ``cpu`` when asked. The encoder is the
+config's, as in JAX: ``retrieval.embedding_backend`` "hash", or "bert"
+with ``retrieval.embedding_model_zh`` / ``_en`` and the query
+instructions. The JAX script builds on
 the CPU to avoid one XLA compile per shape; nothing compiles per shape
 here. The bundle goes to ``index/<lang>/``, or with ``--index-version V``
 to ``index/<lang>/versions/V/``, which ``--activate`` makes the active

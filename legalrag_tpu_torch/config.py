@@ -19,8 +19,9 @@ on the defaults as pydantic's ``model_validate`` does: keys the port does
 not have (the decoder knobs) are ignored.
 
 Left out on purpose: ``engine.kernel_backend``, ``engine.dense_tile_n``,
-``retrieval.graph_weight`` and ``pdf.ingest_rebuild_colbert`` (declared in
-the JAX package, read nowhere).
+``retrieval.graph_weight``, ``retrieval.colbert_model`` and
+``pdf.ingest_rebuild_colbert`` (declared in the JAX package, read
+nowhere).
 The port picks a kernel by the device of its tensors: a CUDA tensor goes to
 the hand-written kernel, a CPU tensor to its plain PyTorch version. There is
 no routing knob.
@@ -101,8 +102,16 @@ class EngineConfig:
 
 @dataclass
 class RetrievalConfig:
-    embedding_backend: str = "hash"  # the bert backend is not ported yet
+    # embedding backends: "hash" (self-contained, deterministic) or "bert":
+    # the language's model, a local HF checkpoint directory or a name in
+    # the offline HF cache (BGE semantics: the query instruction for
+    # queries only, L2-normalized)
+    embedding_backend: str = "hash"
+    embedding_model_zh: str = "BAAI/bge-base-zh-v1.5"
+    embedding_model_en: str = "BAAI/bge-base-en-v1.5"
     embedding_dim: int = 768
+    query_instruction_zh: str = "为这个法律问题生成表示以用于检索相关条文："
+    query_instruction_en: str = "Represent this legal question for retrieving relevant provisions: "
 
     top_k: int = 10
     oversample_factor: int = 4  # per-channel candidate depth = top_k * factor
@@ -142,11 +151,13 @@ class RetrievalConfig:
     # HyDE: expand the dense query with an LLM-written hypothetical answer
     enable_hyde: bool = False
 
-    # rerank (reference config.py:119-124); reranker_model comes with the
-    # cross-encoder it names
+    # rerank (reference config.py:119-124); the cross-encoder serves bert
+    # bundles when reranker_model loads (a WordPiece checkpoint), MaxSim
+    # otherwise
     enable_rerank: bool = True
     rerank_top_n: int = 30
     rerank_beta: float = 0.35
+    reranker_model: str = "BAAI/bge-reranker-v2-m3"
     rerank_use_llm: bool = False
     rerank_llm_top_k_threshold: int = 30
     rerank_norm: str = "minmax"  # minmax | sigmoid | none

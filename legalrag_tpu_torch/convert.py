@@ -29,6 +29,11 @@ package.
 :func:`postings_from_arrays` carries the CSR triple of the JAX
 ``build_postings`` (the large-corpus mode's BM25) to the device.
 
+:func:`bert_params_from_jax` and :func:`cross_encoder_head_from_jax` carry
+the JAX BERT param tree and cross-encoder head (numpy arrays; a linear
+layer's ``kernel`` is ``[in, out]``) into the port's state dicts (HF names;
+``weight`` is ``[out, in]``), so both packages run one set of weights.
+
 bf16 arrays may come as float32 (bf16 values widen exactly) or as
 ``ml_dtypes.bfloat16``; either way they are rounded to the store dtype,
 which leaves bf16 values unchanged.
@@ -36,7 +41,7 @@ which leaves bf16 values unchanged.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -108,6 +113,50 @@ def bundle_from_arrays(arrays: Mapping[str, object],
         encoder_from_jax(state, arrays["proj"], b.device), dense, bm25,
         tokens, chunks, {c.id: i for i, c in enumerate(chunks)}, 1)
     return b
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def linear_from_jax(p: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A JAX linear layer ``{"kernel": [in, out], "bias": [out]}`` as
+    ``{"weight": [out, in], "bias": [out]}`` float32."""
+    return {"weight": _f32(np.asarray(p["kernel"]).T), "bias": _f32(p["bias"])}
+
+
+def bert_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``bert_forward`` param tree as the port's ``BertModel``
+    state dict."""
+    def put(prefix: str, p: Mapping) -> Dict[str, torch.Tensor]:
+        p = (linear_from_jax(p) if "kernel" in p
+             else {k: _f32(v) for k, v in p.items()})
+        return {f"{prefix}.{k}": v for k, v in p.items()}
+
+    emb = tree["embeddings"]
+    state = {f"embeddings.{name}.weight": _f32(emb[name])
+             for name in ("word_embeddings", "position_embeddings",
+                          "token_type_embeddings")}
+    state |= put("embeddings.LayerNorm", emb["LayerNorm"])
+    for i, layer in enumerate(tree["layers"]):
+        p, att = f"encoder.layer.{i}", layer["attention"]
+        for part in ("query", "key", "value"):
+            state |= put(f"{p}.attention.self.{part}", att[part])
+        state |= put(f"{p}.attention.output.dense", att["output"])
+        state |= put(f"{p}.attention.output.LayerNorm", att["output_LayerNorm"])
+        state |= put(f"{p}.intermediate.dense", layer["intermediate"])
+        state |= put(f"{p}.output.dense", layer["output"])
+        state |= put(f"{p}.output.LayerNorm", layer["output_LayerNorm"])
+    return state
+
+
+def cross_encoder_head_from_jax(head: Mapping
+                                ) -> Dict[str, Optional[Dict[str, torch.Tensor]]]:
+    """The JAX cross-encoder head ``{"dense": linear or None, "out":
+    linear}`` as the port's (``TorchBertCrossEncoder``'s ``head``)."""
+    dense = head.get("dense")
+    return {"dense": None if dense is None else linear_from_jax(dense),
+            "out": linear_from_jax(head["out"])}
 
 
 def postings_from_arrays(offsets: np.ndarray, post_docs: np.ndarray,

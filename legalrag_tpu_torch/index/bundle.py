@@ -8,7 +8,9 @@ formats, so a bundle saved by either package loads in the other:
   generation counter
 - ``chunks.jsonl``  — row-ordered LawChunk records (row id = line number)
 - ``dense.npz`` / ``bm25.npz`` / ``tokens.npz`` — channel payloads
-- ``encoder.npz``  — hash-encoder state (sketch df table)
+- ``encoder.npz``  — hash-encoder state (sketch df table); a bert bundle
+  has none: its encoder is the configured checkpoint
+  (``models/encoder.py:get_encoder``), named in the config, not the bundle
 
 Host featurization depends on whether jieba is installed
 (``tokenize/tokenizers.py``) and the fingerprint does not record it, so a
@@ -51,6 +53,7 @@ from legalrag_tpu_torch.index.token_index import (
     TokenIndex,
     make_token_index,
 )
+from legalrag_tpu_torch.models.encoder import EncoderBackend, get_encoder
 from legalrag_tpu_torch.models.hash_encoder import HashEncoder
 from legalrag_tpu_torch.schemas import LawChunk
 from legalrag_tpu_torch.tokenize.tokenizers import TOKENIZE_FINGERPRINT
@@ -74,7 +77,7 @@ class BundleState:
     """One generation of a bundle, which a reader takes at once. Nothing in
     a published state changes (a store's rows past its ``n`` aside)."""
 
-    encoder: Optional[HashEncoder]
+    encoder: Optional[EncoderBackend]
     dense: DenseIndex
     bm25: BM25Index
     tokens: TokenIndex | Residual4TokenIndex
@@ -87,12 +90,6 @@ def _published(name: str) -> property:
     """A read-only field of the bundle's current ``BundleState``."""
     return property(lambda self: getattr(self.state, name),
                     doc=f"``state.{name}``")
-
-
-def _check_backend(cfg: AppConfig) -> None:
-    if cfg.retrieval.embedding_backend != "hash":
-        raise NotImplementedError("only the hash embedding backend is "
-                                  "ported yet")
 
 
 class IndexBundle:
@@ -128,22 +125,34 @@ class IndexBundle:
     @classmethod
     def build_from_chunks(cls, chunks: Sequence[LawChunk], cfg: AppConfig,
                           lang: str, device: DeviceLike = None,
-                          encoder: Optional[HashEncoder] = None
+                          encoder: Optional[EncoderBackend] = None
                           ) -> "IndexBundle":
-        _check_backend(cfg)
+        """A bundle of ``chunks`` built with ``encoder``, else the
+        configured one (``get_encoder``). The encoder's dims win over the
+        config's (a bert model's hidden size need not be
+        ``retrieval.embedding_dim``), as in JAX."""
         b = cls(lang, cfg, device)
-        b.state = dataclasses.replace(b.state, encoder=encoder or HashEncoder(
-            lang=lang, dim=cfg.retrieval.embedding_dim,
-            token_dim=cfg.engine.late_dim, device=b.device))
+        enc = encoder or get_encoder(cfg, lang, b.device)
+        st, e = b.state, cfg.engine
+        dense, tokens = st.dense, st.tokens
+        if enc.dim != dense.dim:
+            dense = DenseIndex(enc.dim, e.dtype, e.capacity_round, b.device)
+        if enc.token_dim != tokens.token_dim:
+            tokens = make_token_index(enc.token_dim, e.late_doc_maxlen,
+                                      e.token_dtype or e.dtype,
+                                      e.capacity_round, b.device)
+        b.state = dataclasses.replace(st, encoder=enc, dense=dense,
+                                      tokens=tokens)
         b.add_chunks(chunks)
         return b
 
     def add_chunks(self, chunks: Sequence[LawChunk]) -> int:
         """Append the chunks new to this bundle (deduplicated by chunk id)
-        and publish the grown state; returns the number added. The
+        and publish the grown state; returns the number added. The hash
         encoder's idf takes in the fresh chunks first
         (``legalrag_tpu/index/bundle.py:135-142``); at build time they are
-        the whole corpus. The grown encoder and stores are built aside:
+        the whole corpus. A bert encoder has no corpus statistics and
+        serves on unchanged. The grown encoder and stores are built aside:
         requests served meanwhile read the state from before the append."""
         with self._append_lock:
             cur = self.state
@@ -151,7 +160,8 @@ class IndexBundle:
             if not fresh:
                 return 0
             texts = [c.text for c in fresh]
-            enc = cur.encoder.with_idf(texts)
+            enc = (cur.encoder.with_idf(texts)
+                   if isinstance(cur.encoder, HashEncoder) else cur.encoder)
             colbert = self.cfg.retrieval.enable_colbert
             t0 = time.time()
             vecs = enc.encode_passages(texts)
@@ -202,7 +212,8 @@ class IndexBundle:
             st.bm25.save(d / "bm25.npz")
             if self.cfg.retrieval.enable_colbert:
                 st.tokens.save(d / "tokens.npz")
-            np.savez_compressed(d / "encoder.npz", **st.encoder.state())
+            if isinstance(st.encoder, HashEncoder):
+                np.savez_compressed(d / "encoder.npz", **st.encoder.state())
             manifest = {
                 "schema_version": SCHEMA_VERSION,
                 "tokenize_fingerprint": TOKENIZE_FINGERPRINT,
@@ -223,7 +234,6 @@ class IndexBundle:
     @classmethod
     def load(cls, index_dir: str | Path, cfg: AppConfig, lang: str,
              device: DeviceLike = None) -> "IndexBundle":
-        _check_backend(cfg)
         d = Path(index_dir)
         manifest = json.loads((d / "manifest.json").read_text(encoding="utf-8"))
         stored = manifest.get("tokenize_fingerprint", "v1")
@@ -231,14 +241,18 @@ class IndexBundle:
             raise StaleIndexError(
                 f"index {d} was built with tokenize fingerprint '{stored}' "
                 f"but this code emits '{TOKENIZE_FINGERPRINT}': rebuild it")
-        if manifest.get("embedding_backend", "hash") != "hash":
-            raise NotImplementedError("only hash-encoder bundles load in the "
-                                      "port yet")
         b = cls(lang, cfg, device)
         chunks = list(iter_chunks_from_file(d / "chunks.jsonl"))
-        z = np.load(d / "encoder.npz", allow_pickle=False)
-        encoder = HashEncoder.from_state({k: z[k] for k in z.files},
-                                         device=b.device)
+        enc_path = d / "encoder.npz"
+        # as JAX decides (legalrag_tpu/index/bundle.py:305-313): a hash
+        # bundle's saved encoder, else the configured one
+        if (manifest.get("embedding_backend", "hash") == "hash"
+                and enc_path.exists()):
+            z = np.load(enc_path, allow_pickle=False)
+            encoder = HashEncoder.from_state({k: z[k] for k in z.files},
+                                             device=b.device)
+        else:
+            encoder = get_encoder(cfg, lang, b.device)
         e = cfg.engine
         dense = DenseIndex.load(d / "dense.npz", e.dtype, e.capacity_round,
                                 b.device)

@@ -139,6 +139,22 @@ class HashEncoder:
                       ) -> torch.Tensor:
         return torch.from_numpy(self._sketch(texts, query)).to(self.device)
 
+    def query_inputs(self, texts: List[str], maxlen: int, late: bool):
+        """Host work of a query batch, copied to the device: the sketch and
+        projection pair (the fused query projects and normalizes it) and,
+        when ``late``, the token view at ``maxlen`` and its mask."""
+        qvec = (self.sketch_tensor(texts, query=True), self.projection())
+        if not late:
+            return qvec, None, None
+        qt, qm = self.encode_tokens(texts, maxlen, query=True)
+        return (qvec, torch.from_numpy(qt).to(self.device),
+                torch.from_numpy(qm).to(self.device))
+
+    def query_views(self, inputs):
+        """``(qvec, q_tok, q_mask)``: the query inputs as they are (no
+        device work before the fused query)."""
+        return inputs
+
     def _project(self, sketch: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(sketch).to(self.device)
         return project_norm(x, self.projection()).cpu().numpy()

@@ -1,9 +1,13 @@
 """FusedQueryEngine: batched serving facade over one IndexBundle (port of
-``legalrag_tpu/retrieval/engine.py:23-198``, hash backend).
+``legalrag_tpu/retrieval/engine.py:23-198``).
 
-The host tokenizes and hashes the queries (``prepare``), the device runs the
-fused hybrid query (``execute``, asynchronous on CUDA), the host fetches the
-rows and components and hydrates chunks (``collect``, ``search_hits``).
+The host tokenizes the queries and copies them to the device (``prepare``:
+the hash encoder's sketches and token vectors, or the bert encoder's
+instructed and bare token ids); the device runs the encoder's forward
+passes, if any, and the fused hybrid query (``execute``: one stream of
+launches, asynchronous on CUDA, where JAX runs one program); the host
+fetches the rows and components and hydrates chunks (``collect``,
+``search_hits``).
 Batch sizes are bucketed as in the JAX package: padded rows are empty
 queries whose results are dropped.
 """
@@ -59,36 +63,34 @@ class FusedQueryEngine:
                 and st.tokens.n == st.dense.n and st.tokens.n > 0)
 
     def prepare(self, questions: Sequence[str], top_k: int = 10):
-        """Host encode + host-to-device copies only (no device work), over
-        one generation of the bundle (``BundleState``), which ``execute``
-        then runs on."""
+        """Host work and host-to-device copies only, over one generation of
+        the bundle (``BundleState``), which ``execute`` then runs on: the
+        BM25 term ids, and the encoder's query inputs (the hash sketch and
+        token view, or the bert ids)."""
         b = len(questions)
         qs = list(questions) + [""] * (bucket_batch(b) - b)
         st = self.bundle.state
         dev = self.bundle.device
-        enc = st.encoder
-        term_ids, term_mask = st.bm25.query_term_ids(
-            qs, self.cfg.engine.max_query_tokens)
+        maxq = self.cfg.engine.max_query_tokens
+        term_ids, term_mask = st.bm25.query_term_ids(qs, maxq)
         qtf = (torch.from_numpy(term_ids).to(dev),
                torch.from_numpy(term_mask).to(dev))
-        qvec = (enc.sketch_tensor(qs, query=True), enc.projection())
-        q_tok = q_mask = None
-        if self._use_late(st):
-            qt, qm = enc.encode_tokens(qs, self.cfg.engine.max_query_tokens,
-                                       query=True)
-            q_tok = torch.from_numpy(qt).to(dev).to(st.tokens.query_dtype)
-            q_mask = torch.from_numpy(qm).to(dev)
-        return (qvec, qtf, q_tok, q_mask), st, b, top_k
+        inputs = st.encoder.query_inputs(qs, maxq, self._use_late(st))
+        return (inputs, qtf), st, b, top_k
 
     def execute(self, prepared):
-        """Launch the fused query on prepared inputs (asynchronous on CUDA)."""
-        (qvec, qtf, q_tok, q_mask), st, b, top_k = prepared
+        """The encoder's device work (the bert forward passes) and the
+        fused query on prepared inputs, one stream of launches
+        (asynchronous on CUDA)."""
+        (inputs, qtf), st, b, top_k = prepared
+        qvec, q_tok, q_mask = st.encoder.query_views(inputs)
         late = q_tok is not None
         out = fused_hybrid_topk(
             st.dense.emb, st.bm25.impact,
             st.tokens.tok if late else None,
             st.tokens.mask if late else None,
-            qvec, qtf, q_tok, q_mask, st.dense.n, self._params(top_k, st))
+            qvec, qtf, q_tok.to(st.tokens.query_dtype) if late else None,
+            q_mask, st.dense.n, self._params(top_k, st))
         return out, b, top_k
 
     def dispatch(self, questions: Sequence[str], top_k: int = 10):

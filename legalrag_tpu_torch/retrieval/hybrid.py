@@ -1,5 +1,6 @@
 """HybridRetriever: the single-query serving path's retrieval layer (port of
-``legalrag_tpu/retrieval/hybrid.py``, hash encoder, one device).
+``legalrag_tpu/retrieval/hybrid.py``, one device; the sharded branches come
+with the multi-GPU slice).
 
 ``search`` runs: every channel's top ``top_k × oversample_factor`` list
 from one device call (``ops.fused_query.fused_channels_topk``, through the
@@ -10,8 +11,11 @@ with the β blend → dedup-keep-best with provenance union → the per-stage ms
 log line → top-k. With HyDE on and an LLM present, the dense query is
 expanded and the channels run one by one instead.
 
-On the card one channels call launches the score+select kernel once (the
-dense list) and the MaxSim kernel once (the late list). A channels call
+On the card one channels call runs the encoder's device work (for a bert
+bundle the forward passes of both query views), then launches the
+score+select kernel once (the dense list) and the MaxSim kernel once (the
+late list). The per-channel APIs and HyDE encode through
+``encode_queries`` / ``encode_tokens``. A channels call
 reads one ``BundleState`` of the bundle, so an ingest that grows the bundle
 meanwhile gives it the lists from before or from after the append.
 """
@@ -84,7 +88,6 @@ class HybridRetriever:
         st = self.bundle.state
         if st.dense.n == 0:
             return None
-        enc = st.encoder
         dev = self.bundle.device
         use_late = (self.late is not None
                     and st.tokens.n == st.dense.n
@@ -94,19 +97,18 @@ class HybridRetriever:
         nb = len(questions)
         qs = list(questions) + [""] * (bucket_batch(nb) - nb)
         maxlen = self.cfg.engine.max_query_tokens
-        qvec = (enc.sketch_tensor(qs, query=True), enc.projection())
         ids, mask = st.bm25.query_term_ids(qs, maxlen)
         qtf = (torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev))
-        q_tok = q_mask = None
-        if use_late:
-            qt, qm = enc.encode_tokens(qs, maxlen, query=True)
-            q_tok = torch.from_numpy(qt).to(dev).to(st.tokens.query_dtype)
-            q_mask = torch.from_numpy(qm).to(dev)
+        # both query views from one encoder call (bert: one forward pass of
+        # the instructed batch and one of the bare batch)
+        qvec, q_tok, q_mask = st.encoder.query_views(
+            st.encoder.query_inputs(qs, maxlen, use_late))
         out = fused_channels_topk(
             st.dense.emb, st.bm25.impact,
             st.tokens.tok if use_late else None,
             st.tokens.mask if use_late else None,
-            qvec, qtf, q_tok, q_mask, st.dense.n, kb)
+            qvec, qtf, q_tok.to(st.tokens.query_dtype) if use_late else None,
+            q_mask, st.dense.n, kb)
         res = {"qvec": out.pop("qvec")[:nb].cpu().numpy()}
         for name, (s, i) in out.items():
             res[name] = (s[:nb, :eff_k].cpu().numpy(),

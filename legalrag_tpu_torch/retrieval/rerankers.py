@@ -1,9 +1,11 @@
-"""Second-stage rerankers (port of ``legalrag_tpu/retrieval/rerankers.py``,
-without the cross-encoder, which waits for the BERT encoders).
+"""Second-stage rerankers (port of ``legalrag_tpu/retrieval/rerankers.py``).
 
 The reranker rescores the top-N fused candidates and the final score is
 ``(1−β)·fused + β·norm(rerank)``. Backends:
 
+- ``CrossEncoderReranker``: a BERT-family pair classifier
+  (``models/bert.py:TorchBertCrossEncoder``) over the candidates in
+  batches of 32, for bert bundles whose ``reranker_model`` loads;
 - ``MaxSimReranker``: exact token-level MaxSim between the query and each
   candidate, from the token store (``TokenIndex.score_candidates``, one
   gather + product on the device) or, for a hit outside the store, from
@@ -25,6 +27,9 @@ import numpy as np
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.index.bundle import IndexBundle
 from legalrag_tpu_torch.schemas import RetrievalHit
+from legalrag_tpu_torch.utils import get_logger
+
+log = get_logger("torch.retrieval.rerankers")
 
 
 class Reranker(Protocol):
@@ -71,6 +76,27 @@ class MaxSimReranker:
         return best.sum(axis=-1).astype(float).tolist()
 
 
+class CrossEncoderReranker:
+    name = "cross_encoder"
+
+    def __init__(self, model_name: str, device=None, max_length: int = 512,
+                 batch_size: int = 32):
+        from legalrag_tpu_torch.models.bert import TorchBertCrossEncoder
+
+        self.model = TorchBertCrossEncoder.from_pretrained(model_name,
+                                                           device=device)
+        self.max_length = max_length
+        self.batch_size = batch_size
+
+    def score(self, question: str, docs: List[str]) -> List[float]:
+        out: List[float] = []
+        for i in range(0, len(docs), self.batch_size):
+            out.extend(self.model.score_pairs(
+                [(question, d) for d in docs[i:i + self.batch_size]],
+                max_length=self.max_length))
+        return out
+
+
 class LLMReranker:
     name = "llm"
 
@@ -101,10 +127,16 @@ class LLMReranker:
 
 
 class RerankerFactory:
-    """Backend selection: the LLM when configured and the candidate count
-    is within its threshold, else the MaxSim reranker. (The JAX package
-    tries its BERT cross-encoder first on bert bundles; the port has no bert
-    bundle yet.)"""
+    """Backend selection (``legalrag_tpu/retrieval/rerankers.py:141-158``):
+    the LLM when configured and the candidate count is within its
+    threshold; else, for the bert backend, the cross-encoder of
+    ``reranker_model``, cached per model and device (a CPU twin in the
+    process of a card's retriever gets its own); else, or when that
+    checkpoint does not load (missing files or keys, a tokenizer the port
+    does not have), the MaxSim reranker. An error while scoring reaches
+    the caller."""
+
+    _cache: dict = {}
 
     @classmethod
     def create(cls, cfg: AppConfig, bundle: IndexBundle, llm=None,
@@ -113,6 +145,18 @@ class RerankerFactory:
         if (r.rerank_use_llm and llm is not None
                 and (top_k or r.rerank_top_n) <= r.rerank_llm_top_k_threshold):
             return LLMReranker(llm)
+        if r.embedding_backend == "bert":
+            key = ("ce", r.reranker_model, str(bundle.device))
+            if key in cls._cache:
+                return cls._cache[key]
+            try:
+                ce = CrossEncoderReranker(r.reranker_model,
+                                          device=bundle.device)
+            except (OSError, KeyError, NotImplementedError) as e:
+                log.warning("cross-encoder unavailable (%s); using MaxSim", e)
+            else:
+                cls._cache[key] = ce
+                return ce
         return MaxSimReranker(bundle)
 
 
