@@ -142,7 +142,25 @@ Phases, each printing one JSON line:
    late channel's self-retrieval Recall@10 of 256 noisy queries over
    65,536 docs with int8 and with nbit4 tokens (``scale.py --token-dtype
    nbit4 --recall-queries 256``: MaxSim's nbit4 route at scale, and the
-   compression's recall cost).
+   compression's recall cost);
+11. ``bert``: the bert embedding backend at BGE-base's shape (12 x 768, 12
+   heads, FFN 3072, 512 positions; vocab 21128 zh, 30522 en), random
+   weights from a seed (``BERT_LAYER_SCALE``), written as checkpoints by
+   the port's safetensors writer with a WordPiece ``vocab.txt`` of each
+   corpus's words, and a BERT-style cross-encoder of the same width; first
+   a record of whether ``transformers``, ``tokenizers`` and
+   ``safetensors`` import here (the port uses none). The zh and en bert
+   bundles built on the card (seconds, passages/s; en's last 91 chunks by
+   ``add_chunks``); the map path (1024 zh / 576 en questions, batch 64,
+   top 10: q/s, the encoder's ms a batch, device busy and idle share, one
+   score_select and one bf16 MaxSim launch a batch) with 16 questions
+   against the bundle's CPU twin (saved, loaded on the CPU: its query
+   views within 1e-4 of the card's, and, given the card's views, the
+   card's top 10 but for near-ties); 256 ``ByLangRetriever`` requests
+   (128 a language, the cross-encoder reranking each one's top 30):
+   requests/s, p50 / p99, stages, launches per channels call; the
+   cross-encoder on 30 candidates at 512 tokens (ms a call, logits within
+   1e-4 of the CPU's).
 
 Each path checks its own kernels: every kernel of the path launched once
 per batch, every other kernel not at all. Then the ``{"kernels": [...]}``
@@ -188,7 +206,9 @@ from legalrag_tpu_torch.index.token_index import (
     quantize_int8,
 )
 from legalrag_tpu_torch.ingest.minipdf import build_pdf
+from legalrag_tpu_torch.models.bert import BertConfig, random_init_bert_params
 from legalrag_tpu_torch.models.hash_encoder import project_norm
+from legalrag_tpu_torch.models.safetensors_io import save_file
 from legalrag_tpu_torch.ops.bm25_sparse import (
     bm25_sparse_map,
     bm25_sparse_scores,
@@ -218,6 +238,10 @@ from legalrag_tpu_torch.ops.topk import (
 )
 from legalrag_tpu_torch.graph import GraphBuilder, LawGraphStore
 from legalrag_tpu_torch.retrieval.by_lang import ByLangRetriever
+from legalrag_tpu_torch.retrieval.rerankers import (
+    CrossEncoderReranker,
+    RerankerFactory,
+)
 from legalrag_tpu_torch.retrieval.engine import FusedQueryEngine
 from legalrag_tpu_torch.schemas import (
     IssueType,
@@ -227,6 +251,7 @@ from legalrag_tpu_torch.schemas import (
     TaskType,
 )
 from legalrag_tpu_torch.tokenize import tokenizers
+from legalrag_tpu_torch.tokenize.wordpiece import SPECIAL, WordPieceTokenizer
 
 REPO = Path(__file__).resolve().parent
 BATCH, N_QUERIES, TOP_K = 64, 1024, 10
@@ -261,12 +286,31 @@ STORE_BUCKETS = (1, 8, 64)  # batch sizes of the MaxSim route checks
 ROUTE_ATOL = 1e-5           # MaxSim's int8 and nbit4 routes against the plain version
 INT8_SLOTS = 32             # query slots of maxsim_tc_kernel<int8>: a query
                             # with more valid tokens takes its long path
+# bert phase: BGE-base's shape (BAAI/bge-base-zh-v1.5, bge-base-en-v1.5:
+# 12 x 768, 12 heads, FFN 3072, 512 positions), random weights from a seed
+BGE_BASE = dict(model_type="bert", hidden_size=768, num_hidden_layers=12,
+                num_attention_heads=12, intermediate_size=3072,
+                max_position_embeddings=512, type_vocab_size=2,
+                layer_norm_eps=1e-12, pad_token_id=0)
+BGE_VOCAB = {"zh": 21128, "en": 30522}
+# the layers' weights at 4x random init's 0.02: at 0.02 the model gives
+# nearly the same CLS vector to every text, so rankings would be noise
+# (``bert_map`` prints the dense scores' spread). The shapes, and so the
+# cost, are BGE-base's either way.
+BERT_LAYER_SCALE = 4.0
+BERT_APPEND = 91            # en chunks appended to the built bert bundle
+BERT_TWIN_QUERIES = 16      # map questions held against the CPU twin
+BERT_SERVE_REQUESTS = 256   # ByLangRetriever requests (128 per language)
+BERT_CE_DOCS = 30           # cross-encoder candidates a call (rerank_top_n)
+BERT_VIEW_ATOL = 1e-4       # the card's query views against the CPU twin's
+BERT_CE_ATOL = 1e-4         # cross-encoder logits against the CPU twin's
 RECALL_DOCS = 65536         # the nbit4 scale run (bench_scale.py's default)
 RECALL_QUERIES = 256
 # the kernels each path must launch once per batch (and no other); the
 # serve path's batch is one channels call of the micro-batcher. An int8
 # dense store never reaches score+select (JAX sends it to XLA).
 PATH_KERNELS = {"map": ("score_select", "maxsim"),
+                "bert": ("score_select", "maxsim"),
                 "serve": ("score_select", "maxsim"),
                 "http": ("score_select", "maxsim"),
                 "ingest": ("score_select", "maxsim"),
@@ -276,7 +320,7 @@ PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "recall": ("maxsim",)}
 # MaxSim's route (the store kind, as the wrapper counts it) on each path
 # that launches it; the recall path's is its token store's
-PATH_ROUTES = {"map": "bf16", "serve": "bf16", "http": "bf16",
+PATH_ROUTES = {"map": "bf16", "bert": "bf16", "serve": "bf16", "http": "bf16",
                "ingest": "bf16", "stores_q8": "int8", "stores_n4": "nbit4"}
 
 
@@ -383,6 +427,50 @@ def load_chunks(lang: str):
             chunks += [r.to_chunk() for r in parse_auto(text, source=p.name)
                        if r.lang == lang]
     return chunks
+
+
+def corpus_vocab(texts) -> list:
+    """A WordPiece vocabulary for ``texts``: the special tokens, then every
+    word the port's tokenizer splits them into (zh: each CJK character and
+    punctuation mark; en: each lowercased word and punctuation mark),
+    sorted."""
+    split = WordPieceTokenizer({t: i for i, t in enumerate(SPECIAL)})
+    return list(SPECIAL) + sorted({w for t in texts for w in split.words(t)}
+                                  - set(SPECIAL))
+
+
+def write_bert_checkpoint(d: Path, vocab, seed: int, head: bool = False,
+                          layer_scale: float = 1.0, **config) -> Path:
+    """A random-init BERT checkpoint directory, by the port's own writer:
+    ``config.json`` (BGE-base's shape unless ``config`` overrides it),
+    ``model.safetensors`` (float32, ``random_init_bert_params`` with the
+    layers' weight matrices times ``layer_scale``; with ``head`` a
+    BERT-style cross-encoder's pooler and one-logit classifier),
+    ``vocab.txt`` and ``tokenizer_config.json`` (lowercasing, as BGE's)."""
+    conf = BGE_BASE | config
+    cfg = BertConfig(**conf)
+    tensors = {"bert." + k: v * layer_scale
+               if ".layer." in k and k.endswith(".weight")
+               and "LayerNorm" not in k else v
+               for k, v in random_init_bert_params(cfg, seed).items()}
+    if head:
+        # unit-variance pre-activations, so that the logits spread as a
+        # trained reranker's do (0.02-scaled heads give near-equal logits)
+        g = torch.Generator().manual_seed(seed)
+        h = cfg.hidden_size
+        tensors |= {
+            "bert.pooler.dense.weight": torch.randn(h, h, generator=g) / h ** 0.5,
+            "bert.pooler.dense.bias": torch.zeros(h),
+            "classifier.weight": torch.randn(1, h, generator=g) / h ** 0.5,
+            "classifier.bias": torch.zeros(1)}
+    d.mkdir(parents=True, exist_ok=True)
+    save_file(tensors, d / "model.safetensors")
+    (d / "config.json").write_text(json.dumps(conf), encoding="utf-8")
+    (d / "vocab.txt").write_text("\n".join(vocab), encoding="utf-8")
+    (d / "tokenizer_config.json").write_text(json.dumps(
+        {"do_lower_case": True, "tokenizer_class": "BertTokenizer"}),
+        encoding="utf-8")
+    return d
 
 
 def make_queries(bundle, n: int, seed: int = 0):
@@ -2657,6 +2745,292 @@ def phase_stores(e2e) -> tuple:
     return routes, runs
 
 
+# ------------------------------------------------------- bert backend
+
+def tokenizer_packages() -> dict:
+    """Whether ``transformers``, ``tokenizers`` and ``safetensors`` import
+    here (a record: the port uses none of them), from a child process so
+    that this one stays without them."""
+    code = ("import importlib, json\nout = {}\n"
+            "for name in ('transformers', 'tokenizers', 'safetensors'):\n"
+            "    try:\n        importlib.import_module(name)\n"
+            "        out[name] = True\n"
+            "    except Exception as e:\n"
+            "        out[name] = type(e).__name__\n"
+            "print(json.dumps(out))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def bert_config(root: Path, models: dict, reranker: Path) -> AppConfig:
+    """``AppConfig()`` with the bert backend on the checkpoints in
+    ``models`` and the cross-encoder ``reranker``, serving from ``root``."""
+    cfg = AppConfig()
+    r = cfg.retrieval
+    r.embedding_backend = "bert"
+    r.embedding_model_zh, r.embedding_model_en = (str(models["zh"]),
+                                                  str(models["en"]))
+    r.reranker_model = str(reranker)
+    cfg.paths.index_dir = root / "index"
+    cfg.paths.graph_dir = root / "graph"
+    return cfg
+
+
+def bert_append(bundle, chunks) -> dict:
+    """``add_chunks`` of ``chunks`` on the card: the encoder is kept (no
+    corpus statistics), the new rows are the encoder's passages, the
+    generation moves by one."""
+    enc, gen, n = bundle.encoder, bundle.generation, bundle.n_docs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    added = bundle.add_chunks(chunks)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(added == len(chunks) and bundle.n_docs == n + added
+          and bundle.encoder is enc and bundle.generation == gen + 1,
+          "bert append: rows, encoder or generation")
+    want = torch.from_numpy(enc.encode_passages(
+        [c.text for c in chunks])).to(bundle.dense.emb.dtype)
+    check(torch.equal(bundle.dense.emb[n:n + added].cpu(), want),
+          "bert append: the appended rows are not the encoder's")
+    return {"chunks": added, "seconds": seconds,
+            "passages_per_s": added / seconds}
+
+
+def bert_map(lang: str, bundle, tmp: Path) -> dict:
+    """The map path over a bert bundle (``FusedQueryEngine``: prepare
+    tokenizes and copies the ids, execute runs the encoder's two forward
+    passes, then the fused query): q/s, the encoder's ms a batch (CUDA
+    events around ``query_views``), device busy and idle share, exact
+    launches; then the bundle's CPU twin (saved, loaded on the CPU): its
+    query views within ``BERT_VIEW_ATOL`` of the card's, and, given the
+    card's views, the card's top 10 but for near-ties."""
+    engine = FusedQueryEngine(bundle)
+    queries, gold = make_queries(bundle, N_QUERIES)
+    batches = [queries[i:i + BATCH] for i in range(0, len(queries), BATCH)]
+    engine.search_batch(batches[0], TOP_K)           # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    prepared = [engine.prepare(b, TOP_K) for b in batches]
+    t1 = time.perf_counter()
+    results = [engine.collect(engine.execute(p)) for p in prepared]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = kernels.launch_counts(routes=True)
+    check_launches("bert", launches, len(batches))
+    scores = np.concatenate([r[0] for r in results])
+    rows = np.concatenate([r[1] for r in results])
+    check(rows.shape == (len(queries), TOP_K), f"bert {lang}: rows shape")
+    check(np.isfinite(scores).all(), f"bert {lang}: non-finite scores")
+    check(((rows >= 0) & (rows < bundle.n_docs)).all(),
+          f"bert {lang}: row out of range")
+    recall = float(np.mean([g in set(r.tolist()) for r, g in zip(rows, gold)]))
+    enc = bundle.encoder
+    ev = []
+    for (inputs, _qtf), *_rest in prepared:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        enc.query_views(inputs)
+        b.record()
+        ev.append((a, b))
+    torch.cuda.synchronize()
+    encoder_ms = statistics.median(a.elapsed_time(b) for a, b in ev)
+    profile = profile_device(lambda: [engine.execute(p) for p in prepared],
+                             len(prepared))
+
+    # the CPU twin
+    m = BERT_TWIN_QUERIES
+    qs = queries[:m]
+    d = tmp / f"twin_{lang}"
+    bundle.save(d)
+    t3 = time.perf_counter()
+    twin = IndexBundle.load(d, bundle.cfg, lang, device="cpu")
+    load_s = time.perf_counter() - t3
+    maxq = bundle.cfg.engine.max_query_tokens
+    card_views = [t.cpu() for t in enc.query_views(
+        enc.query_inputs(qs, maxq, late=True))]
+    t3 = time.perf_counter()
+    twin_views = twin.encoder.query_views(
+        twin.encoder.query_inputs(qs, maxq, late=True))
+    twin_encode_s = time.perf_counter() - t3
+    check(torch.equal(twin_views[2], card_views[2]), f"bert {lang}: masks")
+    valid = card_views[2][..., None]
+    qvec_err = (twin_views[0] - card_views[0]).abs().max().item()
+    tok_err = ((twin_views[1] - card_views[1]).abs() * valid).max().item()
+    check(max(qvec_err, tok_err) <= BERT_VIEW_ATOL,
+          f"bert {lang}: the card's query views differ from the CPU "
+          f"twin's by {max(qvec_err, tok_err)}")
+    gs, gr, _ = engine.search_batch(qs, TOP_K)
+    twin.encoder.query_views = lambda inputs: card_views
+    try:
+        ws, wr, _ = FusedQueryEngine(twin).search_batch(qs, TOP_K)
+    finally:
+        del twin.encoder.query_views
+    check(np.allclose(gs, ws, atol=1e-4),
+          f"bert {lang}: fused scores vs the CPU twin differ by "
+          f"{float(np.abs(gs - ws).max())}")
+    swaps = ties_only(ws, wr, gs, gr, 1e-5)
+    # the twin on its own encodings: positions whose row differs, recorded
+    _s, own_r, _c = FusedQueryEngine(twin).search_batch(qs, TOP_K)
+    st = bundle.state
+    dense = (st.dense.emb[:st.dense.n].float()
+             @ card_views[0].to(st.dense.emb.device).T)
+    res = {"phase": "bert_map", "lang": lang, "n_docs": bundle.n_docs,
+           "queries": len(queries), "batch": BATCH, "batches": len(batches),
+           "qps": len(queries) / (t2 - t0), "host_prepare_s": t1 - t0,
+           "execute_collect_s": t2 - t1, "encoder_ms_per_batch": encoder_ms,
+           "query_tokens": [enc.max_length, maxq], "profile": profile,
+           "launches": launches, "recall_at_10": recall,
+           "dense_score_spread": [float(dense.min()), float(dense.max())],
+           "cpu_twin_questions": m, "cpu_twin_load_s": load_s,
+           "cpu_twin_encode_s": twin_encode_s,
+           "cpu_twin_qvec_max_abs_err": qvec_err,
+           "cpu_twin_token_view_max_abs_err": tok_err,
+           "cpu_twin_tie_swaps": swaps,
+           "cpu_twin_own_view_row_diffs": int((own_r != gr).sum())}
+    emit(res)
+    return res
+
+
+def bert_serve(bundles, cfg: AppConfig) -> dict:
+    """``ByLangRetriever`` on the card over the saved bert bundles (with
+    their law graphs; the cross-encoder reranks each request's top 30):
+    ``BERT_SERVE_REQUESTS`` requests from ``SERVE_THREADS`` threads,
+    requests/s, p50 / p99, exact launches per channels call."""
+    for lang, b in bundles.items():
+        lc = cfg.with_lang(lang)
+        b.save(lc.paths.lang_index_dir)
+        GraphBuilder().build_to_file(b.chunks, lc.paths.graph_file)
+    reqs = serve_requests(bundles)[:BERT_SERVE_REQUESTS]
+    stage_log = StageLog()
+    logging.getLogger("torch.retrieval.hybrid").handlers = [stage_log]
+    card = ByLangRetriever(cfg, device="cuda")
+    for _lang, q, _g, d in reqs[:4]:         # warm-up: load, build
+        card.search(q, decision=d)
+    hrs = [card.retriever(lang) for lang in bundles]
+
+    def timed(req):
+        t0 = time.perf_counter()
+        hits = card.search(req[1], decision=req[3])
+        return hits, (time.perf_counter() - t0) * 1e3
+
+    stage_log.stages.clear()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_THREADS) as pool:
+        out, launches, calls = launches_of(
+            lambda: list(pool.map(timed, reqs)), [hr._batcher for hr in hrs])
+    seconds = time.perf_counter() - t0
+    check_launches("serve", launches, calls)
+    hits = [h for h, _ms in out]
+    ms = np.array([m for _h, m in out])
+    for hs in hits:
+        check(0 < len(hs) <= TOP_K and all(np.isfinite(h.score) for h in hs),
+              "bert serve: hits")
+        check(all(h.score_breakdown.get("reranker") == "cross_encoder"
+                  for h in hs if h.source == "rerank"),
+              "bert serve: reranked by another reranker")
+    check(any(h.source == "rerank" for hs in hits for h in hs),
+          "bert serve: nothing reranked")
+    res = {"phase": "bert_serve", "requests": len(reqs),
+           "threads": SERVE_THREADS, "seconds": seconds,
+           "requests_per_s": len(reqs) / seconds,
+           "p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)), "channel_calls": calls,
+           "mean_batch": len(reqs) / calls,
+           "stage_median_ms": stage_log.medians(), "launches": launches}
+    emit(res)
+    return res
+
+
+def bert_cross_encoder(bundle, cfg: AppConfig) -> dict:
+    """``CrossEncoderReranker.score`` (``RerankerFactory``'s pick for a
+    bert bundle) on ``BERT_CE_DOCS`` candidates at 512 tokens: ms a call,
+    and the logits against the same checkpoint on the CPU within
+    ``BERT_CE_ATOL``."""
+    reranker = RerankerFactory.create(cfg.with_lang("zh"), bundle)
+    check(isinstance(reranker, CrossEncoderReranker),
+          f"bert: the factory picked {reranker.name}")
+    q = make_queries(bundle, BATCH)[0][0]
+    docs = [c.text for c in bundle.chunks[:BERT_CE_DOCS]]
+    got = reranker.score(q, docs)
+    ms = cuda_ms(lambda: reranker.score(q, docs), reps=10, warmup=2)
+    t0 = time.perf_counter()
+    want = CrossEncoderReranker(cfg.retrieval.reranker_model,
+                                device="cpu").score(q, docs)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+    check(len(got) == BERT_CE_DOCS and np.isfinite(got).all(),
+          "bert: cross-encoder logits")
+    check(err <= BERT_CE_ATOL, f"bert: cross-encoder logits differ from "
+                               f"the CPU twin's by {err}")
+    res = {"phase": "bert_cross_encoder", "docs": len(docs),
+           "max_length": reranker.max_length, "ms_per_call": ms,
+           "logit_range": [min(got), max(got)], "cpu_twin_max_abs_err": err,
+           "cpu_twin_s": cpu_s}
+    emit(res)
+    return res
+
+
+def phase_bert() -> list:
+    """The bert backend at BGE-base width (``BGE_BASE``; random weights
+    from a seed, written as checkpoints by the port's safetensors writer,
+    with a WordPiece vocabulary of each corpus's words): the zh and en
+    bundles built on the card, the map path (``bert_map``), the serving
+    path (``bert_serve``) and the cross-encoder (``bert_cross_encoder``).
+    Returns the runs with launches."""
+    t_phase = time.perf_counter()
+    emit({"phase": "bert_packages", "import": tokenizer_packages()})
+    tmp = Path(tempfile.mkdtemp(prefix="bert_"))
+    try:
+        chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
+        t0 = time.perf_counter()
+        models = {lang: write_bert_checkpoint(
+            tmp / f"bge_{lang}", corpus_vocab(c.text for c in cs), seed,
+            layer_scale=BERT_LAYER_SCALE, vocab_size=BGE_VOCAB[lang])
+            for seed, (lang, cs) in enumerate(chunks.items(), start=1)}
+        reranker = write_bert_checkpoint(
+            tmp / "reranker", corpus_vocab(
+                c.text for cs in chunks.values() for c in cs), 3, head=True,
+            layer_scale=BERT_LAYER_SCALE, vocab_size=BGE_VOCAB["zh"])
+        emit({"phase": "bert_checkpoints", "seconds": time.perf_counter() - t0,
+              "bytes": {d.name: (d / "model.safetensors").stat().st_size
+                        for d in (*models.values(), reranker)},
+              "vocab": {d.name: len((d / "vocab.txt").read_text(
+                  encoding="utf-8").split("\n"))
+                        for d in (*models.values(), reranker)}})
+        cfg = bert_config(tmp, models, reranker)
+        bundles = {}
+        for lang, cs in chunks.items():
+            # en's last BERT_APPEND chunks come in by add_chunks
+            first = cs[:-BERT_APPEND] if lang == "en" else cs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bundles[lang] = b = IndexBundle.build_from_chunks(
+                first, cfg.with_lang(lang), lang, device="cuda")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            check(b.dense.dim == BGE_BASE["hidden_size"]
+                  and b.encoder.max_length == 512, f"bert {lang}: dims")
+            res = {"phase": "bert_index", "lang": lang, "built": len(first),
+                   "seconds": seconds, "passages_per_s": len(first) / seconds}
+            if len(first) < len(cs):
+                res["append"] = bert_append(b, cs[len(first):])
+            emit(res | {"n_docs": b.n_docs, "emb": list(b.dense.emb.shape),
+                        "tok": [b.tokens.capacity, b.tokens.doc_maxlen,
+                                b.tokens.token_dim]})
+        runs = [bert_map(lang, b, tmp) for lang, b in bundles.items()]
+        runs.append(bert_serve(bundles, cfg))
+        bert_cross_encoder(bundles["zh"], cfg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "bert", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": nvidia_smi()})
+    return runs
+
+
 def check_bm25_kernel(index, q, params):
     """Kernel 4 (CSR BM25) against its plain version on the same card
     tensors, at the scale point's shapes, with timings and the bound."""
@@ -2997,9 +3371,10 @@ def main() -> int:
     routes, store_runs = phase_stores(e2e)
     kres["bm25_sparse"], large = phase_large()
     large_store_runs, large_stores = phase_large_stores()
+    bert_runs = phase_bert()
     runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
             "ingest": [ingest], "stores": store_runs,
-            "large": [large] + large_store_runs}
+            "large": [large] + large_store_runs, "bert": bert_runs}
     # MaxSim's launches per route, as the wrapper counts them on each path
     # (the kernel's own row: all its routes; bf16 is the map path's)
     routes["float32"] = kres["maxsim"].pop("float32_route")
