@@ -160,7 +160,31 @@ Phases, each printing one JSON line:
    (128 a language, the cross-encoder reranking each one's top 30):
    requests/s, p50 / p99, stages, launches per channels call; the
    cross-encoder on 30 candidates at 512 tokens (ms a call, logits within
-   1e-4 of the CPU's).
+   1e-4 of the CPU's);
+12. ``decoder``: local generation (``local-jax`` served by the port) at
+   Qwen2.5-0.5B-Instruct's published shape (24 x 896, 14 / 2 heads of 64,
+   FFN 4864, vocab 151,936, rope_theta 1e6, tied embeddings), random bf16
+   weights from a seed with the layers at ``DECODER_LAYER_SCALE`` times
+   HF's init, written by the port's safetensors writer beside a byte-level
+   BPE ``tokenizer.json`` of the script's own (the 256 byte symbols,
+   merges counted from the statutes, ChatML's special tokens at Qwen2.5's
+   ids 151643-151645) and a ChatML ``chat_template``; nothing downloaded.
+   ``TorchDecoderLM`` on the card against a CPU twin on float32 copies of
+   the same weights: the prefill's last-row logits on the pipeline's own
+   zh RAG prompt within ``DECODER_LOGIT_ATOL``, and the card's first 64
+   greedy tokens fed to the twin, each its argmax wherever its top-2 gap
+   exceeds that atol (the smallest gap printed); on the card, greedy
+   streams token-identical for chunked prefill against one shot (a
+   1,500-token prompt), decode_chunk 8 against 1, and a prefix-cache hit
+   against a cold prefill; prefill tokens/s at 512, 2,048 and 4,096
+   tokens, decode ms a token greedy and at 0.3 / 0.9, the card's busy and
+   idle share of a decode run, peak card memory, and the bound of a decode
+   step (its weights and filled KV rows at 3.35 TB/s); then ``/rag/answer``
+   with ``stream: true`` through the port's HTTP server with ``local-jax``
+   on the checkpoint (the zh bundle built on the card): events ending in
+   ``done`` with non-empty token text, time to the first token and to the
+   end, and one score+select and one MaxSim launch per request (the
+   ``answer`` path).
 
 Each path checks its own kernels: every kernel of the path launched once
 per batch, every other kernel not at all. Then the ``{"kernels": [...]}``
@@ -172,7 +196,9 @@ jax and nothing of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import copy
+import heapq
 import itertools
 import json
 import logging
@@ -185,6 +211,7 @@ import tempfile
 import threading
 import time
 import types
+import unicodedata
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -207,6 +234,11 @@ from legalrag_tpu_torch.index.token_index import (
 )
 from legalrag_tpu_torch.ingest.minipdf import build_pdf
 from legalrag_tpu_torch.models.bert import BertConfig, random_init_bert_params
+from legalrag_tpu_torch.models.decoder import (
+    DecoderModel,
+    TorchDecoderLM,
+    load_hf_decoder_params,
+)
 from legalrag_tpu_torch.models.hash_encoder import project_norm
 from legalrag_tpu_torch.models.safetensors_io import save_file
 from legalrag_tpu_torch.ops.bm25_sparse import (
@@ -237,6 +269,7 @@ from legalrag_tpu_torch.ops.topk import (
     stable_topk,
 )
 from legalrag_tpu_torch.graph import GraphBuilder, LawGraphStore
+from legalrag_tpu_torch.pipeline.rag_pipeline import RagPipeline
 from legalrag_tpu_torch.retrieval.by_lang import ByLangRetriever
 from legalrag_tpu_torch.retrieval.rerankers import (
     CrossEncoderReranker,
@@ -251,7 +284,13 @@ from legalrag_tpu_torch.schemas import (
     TaskType,
 )
 from legalrag_tpu_torch.tokenize import tokenizers
+from legalrag_tpu_torch.tokenize.bpe import (
+    QWEN2_PATTERN,
+    bytes_to_unicode,
+    split_words,
+)
 from legalrag_tpu_torch.tokenize.wordpiece import SPECIAL, WordPieceTokenizer
+from legalrag_tpu_torch.utils.metrics import METRICS
 
 REPO = Path(__file__).resolve().parent
 BATCH, N_QUERIES, TOP_K = 64, 1024, 10
@@ -306,6 +345,42 @@ BERT_VIEW_ATOL = 1e-4       # the card's query views against the CPU twin's
 BERT_CE_ATOL = 1e-4         # cross-encoder logits against the CPU twin's
 RECALL_DOCS = 65536         # the nbit4 scale run (bench_scale.py's default)
 RECALL_QUERIES = 256
+# decoder phase: Qwen/Qwen2.5-0.5B-Instruct's published config.json (its
+# shape, rope and dtype; random weights from a seed)
+QWEN25_05B = dict(architectures=["Qwen2ForCausalLM"], model_type="qwen2",
+                  vocab_size=151936, hidden_size=896, num_hidden_layers=24,
+                  num_attention_heads=14, num_key_value_heads=2,
+                  intermediate_size=4864, max_position_embeddings=32768,
+                  rms_norm_eps=1e-6, rope_theta=1000000.0,
+                  tie_word_embeddings=True, sliding_window=32768,
+                  use_sliding_window=False, max_window_layers=21,
+                  hidden_act="silu", torch_dtype="bfloat16",
+                  bos_token_id=151643, eos_token_id=151645)
+QWEN_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+QWEN_SPECIAL_ID0 = 151643   # Qwen2.5's id of <|endoftext|>
+CHATML = ("{% for m in messages %}<|im_start|>{{ m['role'] }}\n"
+          "{{ m['content'] }}<|im_end|>\n{% endfor %}"
+          "{% if add_generation_prompt %}<|im_start|>assistant\n{% endif %}")
+DECODER_MERGES = 20000      # BPE merges counted from the statutes
+# the layers' weights at 1.5x HF's 0.02 init: the greedy stream stays
+# diverse (a random model at 0.02 repeats a few tokens) and bf16's rounding
+# stays below most of the logits' top-2 gaps. At 4x attention is so sharp
+# that on an H100 the card's bf16 logits were 0.32 off the float32 twin's
+# (range +-2.7) and 16 of 64 greedy steps flipped.
+DECODER_LAYER_SCALE = 1.5
+# the card's bf16 logits against the float32 twin's: at 1.5x an H100's
+# were 0.093 off (range +-2.5), so 0.15 leaves a margin; a greedy step whose
+# top-2 gap is within it may pick either token
+DECODER_LOGIT_ATOL = 0.15
+DECODER_GREEDY = 64         # greedy tokens held against the CPU twin
+DECODER_MAX_LEN = 4096 + 1024   # max_context_tokens + max_new_tokens
+DECODER_QUESTION = "合同在什么情况下可以解除？"
+DECODER_HITS = 8            # statute chunks in the twin's RAG prompt
+DECODER_PREFILL_LENS = (512, 2048, 4096)
+DECODER_DECODE_TOKENS = 128
+DECODER_PROFILE_TOKENS = 40  # a profiled decode run (~1,300 events a token)
+DECODER_ANSWERS = 3         # timed /rag/answer streams
+DECODER_ANSWER_TOKENS = 128  # their max_new_tokens
 # the kernels each path must launch once per batch (and no other); the
 # serve path's batch is one channels call of the micro-batcher. An int8
 # dense store never reaches score+select (JAX sends it to XLA).
@@ -317,11 +392,13 @@ PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "stores_q8": ("maxsim",),
                 "stores_n4": ("score_select", "maxsim"),
                 "large": ("bm25_sparse",),
-                "recall": ("maxsim",)}
+                "recall": ("maxsim",),
+                "answer": ("score_select", "maxsim")}
 # MaxSim's route (the store kind, as the wrapper counts it) on each path
 # that launches it; the recall path's is its token store's
 PATH_ROUTES = {"map": "bf16", "bert": "bf16", "serve": "bf16", "http": "bf16",
-               "ingest": "bf16", "stores_q8": "int8", "stores_n4": "nbit4"}
+               "ingest": "bf16", "stores_q8": "int8", "stores_n4": "nbit4",
+               "answer": "bf16"}
 
 
 def emit(obj) -> None:
@@ -3031,6 +3108,445 @@ def phase_bert() -> list:
     return runs
 
 
+# ------------------------------------------------------- decoder engine
+
+def train_bpe(texts, n_merges: int):
+    """Byte-level BPE merges counted from ``texts``: each text split by
+    Qwen2's pattern (the port's scanner) into byte-level words, then, until
+    ``n_merges`` merges or no pair is left, the most frequent adjacent pair
+    (ties: the smaller pair) merged in every word. The pair counts are
+    kept up to date per word, so a merge costs the words that hold it."""
+    bmap = bytes_to_unicode()
+    counts = collections.Counter(
+        "".join(bmap[b] for b in piece.encode("utf-8"))
+        for t in texts for piece in split_words(unicodedata.normalize("NFC", t)))
+    words = [list(w) for w in counts]
+    freq = list(counts.values())
+    pairs = collections.Counter()
+    where = collections.defaultdict(set)
+    for i, w in enumerate(words):
+        for p in zip(w, w[1:]):
+            pairs[p] += freq[i]
+            where[p].add(i)
+    heap = [(-c, p) for p, c in pairs.items()]
+    heapq.heapify(heap)
+    merges = []
+    while heap and len(merges) < n_merges:
+        c, p = heapq.heappop(heap)
+        if pairs.get(p, 0) != -c:
+            continue                       # a stale count
+        merges.append(p)
+        a, b = p
+        touched = set()
+        for i in where.pop(p, ()):
+            w, out, j = words[i], [], 0
+            while j < len(w):
+                if j + 1 < len(w) and w[j] == a and w[j + 1] == b:
+                    out.append(a + b)
+                    j += 2
+                else:
+                    out.append(w[j])
+                    j += 1
+            if len(out) == len(w):
+                continue
+            words[i] = out
+            delta = collections.Counter(zip(out, out[1:]))
+            delta.subtract(collections.Counter(zip(w, w[1:])))
+            for q, dq in delta.items():
+                if dq:
+                    pairs[q] += dq * freq[i]
+                    touched.add(q)
+                    if dq > 0:
+                        where[q].add(i)
+        pairs.pop(p, None)
+        for q in touched:
+            if pairs.get(q, 0) > 0:
+                heapq.heappush(heap, (-pairs[q], q))
+    return merges
+
+
+def write_bpe_tokenizer(d: Path, texts) -> dict:
+    """A Qwen2-layout byte-level BPE tokenizer of the script's own:
+    ``tokenizer.json`` with the 256 byte symbols (ids 0-255), the merges
+    ``train_bpe`` counts from ``texts`` (ids from 256 on), and the ChatML
+    special tokens at Qwen2.5's ids 151643-151645; ``tokenizer_config.json``
+    with a ChatML ``chat_template`` and ``eos_token`` ``<|im_end|>``."""
+    bmap = bytes_to_unicode()
+    vocab = {c: i for i, c in enumerate(sorted(bmap.values()))}
+    merges = train_bpe(texts, DECODER_MERGES)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    check(len(vocab) < QWEN_SPECIAL_ID0, "bpe: vocabulary overlaps the specials")
+    level = {"add_prefix_space": False, "trim_offsets": False,
+             "use_regex": False}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": QWEN_SPECIAL_ID0 + i, "content": s,
+                          "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False,
+                          "special": True}
+                         for i, s in enumerate(QWEN_SPECIALS)],
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", **level}]},
+        "post_processor": {"type": "ByteLevel", **level},
+        "decoder": {"type": "ByteLevel", **level},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                  "fuse_unk": False, "byte_fallback": False,
+                  "ignore_merges": False, "vocab": vocab,
+                  "merges": [f"{a} {b}" for a, b in merges]}}
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False),
+                                      encoding="utf-8")
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "Qwen2Tokenizer", "chat_template": CHATML,
+        "eos_token": "<|im_end|>", "pad_token": "<|endoftext|>",
+        "bos_token": None, "unk_token": None,
+        "clean_up_tokenization_spaces": False,
+        "model_max_length": 131072}), encoding="utf-8")
+    return {"merges": len(merges), "tokens": len(vocab) + len(QWEN_SPECIALS)}
+
+
+def write_decoder_checkpoint(d: Path, seed: int,
+                             layer_scale: float = DECODER_LAYER_SCALE,
+                             conf=None) -> Path:
+    """A random Qwen2 checkpoint at ``conf``'s shape (Qwen2.5-0.5B-Instruct's
+    by default): ``config.json`` and a bf16 ``model.safetensors`` by the
+    port's writer. The weights are drawn in numpy from ``seed``: the
+    embedding (tied head) at HF's init 0.02, every layer's projections and
+    q/k/v biases at 0.02 * ``layer_scale``, norms at 1."""
+    conf = conf or QWEN25_05B
+    rng = np.random.default_rng(seed)
+    h, ff = conf["hidden_size"], conf["intermediate_size"]
+    q_out = conf["num_attention_heads"] * (h // conf["num_attention_heads"])
+    kv_out = conf["num_key_value_heads"] * (h // conf["num_attention_heads"])
+    s = 0.02 * layer_scale
+
+    def draw(shape, scale):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * np.float32(scale)).to(torch.bfloat16)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16)
+
+    t = {"model.embed_tokens.weight": draw((conf["vocab_size"], h), 0.02),
+         "model.norm.weight": ones(h)}
+    for i in range(conf["num_hidden_layers"]):
+        p = f"model.layers.{i}"
+        t |= {f"{p}.input_layernorm.weight": ones(h),
+              f"{p}.post_attention_layernorm.weight": ones(h),
+              f"{p}.self_attn.q_proj.weight": draw((q_out, h), s),
+              f"{p}.self_attn.q_proj.bias": draw((q_out,), s),
+              f"{p}.self_attn.k_proj.weight": draw((kv_out, h), s),
+              f"{p}.self_attn.k_proj.bias": draw((kv_out,), s),
+              f"{p}.self_attn.v_proj.weight": draw((kv_out, h), s),
+              f"{p}.self_attn.v_proj.bias": draw((kv_out,), s),
+              f"{p}.self_attn.o_proj.weight": draw((h, q_out), s),
+              f"{p}.mlp.gate_proj.weight": draw((ff, h), s),
+              f"{p}.mlp.up_proj.weight": draw((ff, h), s),
+              f"{p}.mlp.down_proj.weight": draw((h, ff), s)}
+    d.mkdir(parents=True, exist_ok=True)
+    save_file(t, d / "model.safetensors")
+    (d / "config.json").write_text(json.dumps(conf), encoding="utf-8")
+    return d
+
+
+def decoder_messages(chunks, question: str = DECODER_QUESTION):
+    """The pipeline's own messages (``RagPipeline._build_messages``) for a
+    zh question over the statute chunks that hold its key term."""
+    hits = [RetrievalHit(chunk=c, score=1.0 / (i + 1), rank=i + 1)
+            for i, c in enumerate(c for c in chunks if "解除" in c.text)]
+    pipe = RagPipeline(AppConfig(), llm=object(), retriever=object())
+    return pipe._build_messages(question, hits[:DECODER_HITS], None)
+
+
+def decoder_bytes(model, positions) -> float:
+    """Bytes one decode step must move: every weight read once (the tied
+    head is the embedding, counted once) and the filled KV rows, on
+    average over ``positions``."""
+    cfg = model.cfg
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    kv_row = (2 * cfg.num_hidden_layers * cfg.num_key_value_heads
+              * cfg.head_dim * model.dtype.itemsize)
+    return weights + kv_row * float(np.mean(positions))
+
+
+def decoder_twin(card, twin, ids) -> dict:
+    """The card's engine (bf16) against its CPU twin (float32 copies of the
+    same weights) on one prompt: the prefill's last-row logits within
+    ``DECODER_LOGIT_ATOL``; then the card's first ``DECODER_GREEDY`` greedy
+    tokens fed to the twin one by one, each equal to the twin's argmax
+    wherever the twin's top-2 gap exceeds the atol (a step below it may
+    pick either)."""
+    card_last, _ = card._prefill_prompt(ids)
+    t0 = time.perf_counter()
+    twin_last, twin_cache = twin._prefill_prompt(ids)
+    twin_prefill_s = time.perf_counter() - t0
+    err = float((card_last.float().cpu() - twin_last).abs().max())
+    check(err <= DECODER_LOGIT_ATOL,
+          f"decoder: prefill logits {err} off the CPU twin's")
+    toks = list(card.generate_stream(ids, DECODER_GREEDY, temperature=0.0))
+    check(len(toks) == DECODER_GREEDY, f"decoder: {len(toks)} greedy tokens")
+    gaps, ties, last = [], [], twin_last
+    t0 = time.perf_counter()
+    for i, tok in enumerate(toks):
+        top = torch.topk(last[0], 2).values
+        gaps.append(float(top[0] - top[1]))
+        if int(last[0].argmax()) != tok:
+            check(gaps[-1] <= DECODER_LOGIT_ATOL,
+                  f"decoder: greedy token {i} is {tok} on the card, "
+                  f"{int(last[0].argmax())} on the twin (gap {gaps[-1]})")
+            ties.append(i)
+        last = twin._step(torch.tensor([tok]), len(ids) + i, twin_cache)
+    return {"prompt_tokens": len(ids), "prefill_logits_max_abs_err": err,
+            "logit_range": [float(twin_last.min()), float(twin_last.max())],
+            "greedy_tokens": len(toks), "distinct_tokens": len(set(toks)),
+            "near_tie_steps": ties, "min_top2_gap": min(gaps),
+            "median_top2_gap": float(np.median(gaps)),
+            "twin_prefill_s": twin_prefill_s,
+            "twin_step_s": (time.perf_counter() - t0) / len(toks)}
+
+
+def top2_gap_after(engine, prompt, tokens) -> float:
+    """The top-2 logit gap of ``engine`` after ``prompt`` and ``tokens``
+    (fed one by one)."""
+    last, cache = engine._prefill_prompt(prompt)
+    for i, tok in enumerate(tokens):
+        last = engine._step(torch.tensor([tok], device=engine.device),
+                            len(prompt) + i, cache)
+    top = torch.topk(last[0], 2).values
+    return float(top[0] - top[1])
+
+
+def decoder_identities(card, ids, long_ids) -> dict:
+    """Greedy streams of the card's engine that must agree: chunked
+    prefill (1024) of a prompt above 1024 tokens against one shot,
+    decode_chunk 1 against 8, and a prefix-cache hit (a donor prompt
+    sharing the system template first) against a cold prefill. With a
+    float32 copy of the weights on the card they must be token-identical
+    (the engine's offsets, chunks and reused rows). In bf16 cuBLAS rounds
+    a [1, T] product by T's kernel, so a stream may diverge, but only at a
+    step where the reference's top-2 gap is within DECODER_LOGIT_ATOL."""
+    f32 = DecoderModel.from_state_dict(
+        copy.copy(card.cfg), {k: v.float() for k, v in
+                              card.model.state_dict().items()})
+    donor = card.tokenizer(card.tokenizer.apply_chat_template(
+        decoder_messages(load_chunks("zh"), "借款合同的利息如何计算？"),
+        add_generation_prompt=True))["input_ids"]
+    check(len(long_ids) > 1024, "decoder: the long prompt")
+    out = {"long_prompt_tokens": len(long_ids),
+           "prefix_shared_tokens": next(i for i, (a, b) in enumerate(
+               zip(donor, ids)) if a != b)}
+    for dtype, model in (("float32", f32), ("bfloat16", card.model)):
+        def engine(**kw):
+            return TorchDecoderLM(model, card.tokenizer, device=card.device,
+                                  max_len=card.max_len, **kw)
+
+        def greedy(lm, prompt, n=32):
+            return list(lm.generate_stream(prompt, n, temperature=0.0))
+
+        hot = engine(prefix_cache=2)
+        greedy(hot, donor, n=1)
+        pairs = {"chunked_prefill": (engine(prefill_chunk=1024),
+                                     engine(prefill_chunk=4096), long_ids),
+                 "decode_chunk_1": (engine(decode_chunk=1),
+                                    engine(decode_chunk=8), ids),
+                 "prefix_hit": (hot, engine(), ids)}
+        for name, (lm, ref, prompt) in pairs.items():
+            got, want = greedy(lm, prompt), greedy(ref, prompt)
+            i = next((j for j, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+            res = {"identical": i is None}
+            if i is not None:
+                res["first_difference"] = i
+                res["reference_top2_gap"] = gap = top2_gap_after(
+                    ref, prompt, want[:i])
+                check(dtype == "bfloat16" and gap <= DECODER_LOGIT_ATOL,
+                      f"decoder {dtype}: {name} differs at token {i} "
+                      f"(top-2 gap {gap})")
+            out[f"{dtype}_{name}"] = res
+        check(hot.prefix_stats["hits"] == 1, f"decoder: {hot.prefix_stats}")
+        out[f"{dtype}_prefix_stats"] = hot.prefix_stats
+    return out
+
+
+def decoder_speed(card, corpus_ids) -> dict:
+    """Prefill tokens/s at DECODER_PREFILL_LENS (CUDA-synchronised host
+    clock, median of 3 after one warm-up); decode ms a token, greedy and
+    at the default sampling (0.3 / 0.9), after a 512-token prompt: the
+    host clock from the first chunk's tokens to the last's over
+    DECODER_DECODE_TOKENS tokens (each chunk ends in its host read), the
+    median of 3 runs; the device's busy and idle share of a greedy run of
+    DECODER_PROFILE_TOKENS (``torch.profiler``, the prompt's prefill
+    included); the bound of one decode step."""
+    out = {}
+    for n in DECODER_PREFILL_LENS:
+        ids = corpus_ids[:n]
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card._prefill_prompt(ids)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[f"prefill_{n}_ms"] = statistics.median(times[1:]) * 1e3
+        out[f"prefill_{n}_tokens_per_s"] = n / statistics.median(times[1:])
+    ids = corpus_ids[:512]
+    n = card.decode_chunk + DECODER_DECODE_TOKENS
+    for name, kw in (("greedy", dict(temperature=0.0)),
+                     ("sampled", dict(temperature=0.3, top_p=0.9, seed=1))):
+        per_token = []
+        for _ in range(3):
+            stamps = [time.perf_counter() for _tok in card.generate_stream(
+                ids, n, **kw)]
+            check(len(stamps) == n, f"decoder: {len(stamps)} of {n} tokens")
+            per_token.append((stamps[-1] - stamps[card.decode_chunk - 1])
+                             / DECODER_DECODE_TOKENS * 1e3)
+        out[f"decode_{name}_ms_per_token"] = statistics.median(per_token)
+    out["decode_profile"] = profile_device(
+        lambda: list(card.generate_stream(ids, DECODER_PROFILE_TOKENS,
+                                          temperature=0.0)),
+        DECODER_PROFILE_TOKENS)
+    n_bytes = decoder_bytes(card.model, range(512, 512 + n))
+    n_flop = 2 * sum(p.numel() for p in card.model.parameters())
+    out["decode_bound_ms"], out["decode_bound_by"] = bound(
+        n_bytes, n_flop, BF16_FLOP_PER_S)
+    out["decode_bound_bytes"] = n_bytes
+    out["peak_card_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def decoder_answer(ckpt: Path, tmp: Path) -> dict:
+    """``/rag/answer`` with ``stream: true`` through the port's HTTP server
+    on the card, ``llm.provider`` ``local-jax`` on ``ckpt`` (the default
+    sampling, 0.3 / 0.9): the zh bundle and its law graph saved under
+    ``tmp``, one warm-up answer (the engine's load), then
+    ``DECODER_ANSWERS`` answers: events ending in ``done`` with non-empty
+    token text, time to the first token and to the end, tokens, and the
+    retrieval's launches (one score_select and one MaxSim per channels
+    call)."""
+    cfg = AppConfig()
+    cfg.paths.index_dir, cfg.paths.graph_dir = tmp / "index", tmp / "graph"
+    cfg.llm.provider, cfg.llm.model = "local-jax", str(ckpt)
+    cfg.llm.max_new_tokens = DECODER_ANSWER_TOKENS
+    cfg.server.prewarm_buckets = 1
+    chunks = load_chunks("zh")
+    lc = cfg.with_lang("zh")
+    IndexBundle.build_from_chunks(chunks, lc, "zh", device="cuda").save(
+        lc.paths.lang_index_dir)
+    GraphBuilder().build_to_file(chunks, lc.paths.graph_file)
+    for name in ("torch.webcore", "torch.api.server", "torch.rag_pipeline",
+                 "torch.llm.client", "torch.llm.gateway"):
+        logging.getLogger(name).setLevel(logging.WARNING)
+    app = create_app(cfg, build_async=False)
+    st = app.state
+    check(st.error is None, f"decoder answer: build {st.error}")
+    server = app.serve("127.0.0.1", 0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    key = ("legalrag_llm_tokens", (("provider", "local-jax"),))
+    try:
+        t0 = time.perf_counter()
+        http_sse(base, "/rag/answer", {"question": DECODER_QUESTION,
+                                       "stream": True})
+        warm_s = time.perf_counter() - t0
+        batchers = [st.pipeline.retriever.retriever("zh")._batcher]
+        questions = [DECODER_QUESTION, "借款合同的利息如何计算？",
+                     "租赁期限届满后承租人应当如何返还租赁物？"]
+        tok0 = METRICS._counters[key]
+        out, launches, calls = launches_of(
+            lambda: [http_sse(base, "/rag/answer", {"question": q,
+                                                    "stream": True})
+                     for q in questions[:DECODER_ANSWERS]], batchers)
+        generated = METRICS._counters[key] - tok0
+    finally:
+        shutdown_gracefully(st, server, 0.0)
+    check_launches("answer", launches, calls)
+    check(calls == DECODER_ANSWERS, f"decoder answer: {calls} channels calls")
+    texts = []
+    for events, first, _total in out:
+        kinds = [e for e, _ in events]
+        text = "".join(p["text"] for e, p in events if e == "token")
+        check(kinds[0] == "meta" and kinds[-1] == "done"
+              and "error" not in kinds and text and first is not None,
+              f"decoder answer: events {kinds[:3]} ... {kinds[-3:]}")
+        texts.append(text)
+    return {"phase": "decoder_answer", "answers": len(out),
+            "warmup_s": warm_s,
+            "ttft_ms": [first for _e, first, _t in out],
+            "total_ms": [total for _e, _f, total in out],
+            "token_events": [sum(e == "token" for e, _ in ev)
+                             for ev, _f, _t in out],
+            "generated_tokens": generated, "text_chars": [len(t) for t in texts],
+            "text_head": texts[0][:60], "launches": launches,
+            "channel_calls": calls}
+
+
+def phase_decoder() -> dict:
+    """Local generation at Qwen2.5-0.5B-Instruct's width (module docstring,
+    phase 12). Returns the answer run with its launches."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="decoder_"))
+    try:
+        ckpt = tmp / "qwen25_05b"
+        chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
+        t0 = time.perf_counter()
+        bpe = write_bpe_tokenizer(ckpt, [c.text for cs in chunks.values()
+                                         for c in cs])
+        bpe_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_decoder_checkpoint(ckpt, seed=5)
+        ckpt_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card = TorchDecoderLM.from_pretrained(str(ckpt), device="cuda",
+                                              max_len=DECODER_MAX_LEN)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, cfg = load_hf_decoder_params(ckpt)
+        twin = TorchDecoderLM(
+            DecoderModel.from_state_dict(
+                cfg, {k: v.float() for k, v in state.items()}),
+            card.tokenizer, device="cpu", max_len=DECODER_MAX_LEN)
+        del state
+        tok = card.tokenizer
+        emit({"phase": "decoder_setup", "bpe": bpe, "bpe_s": bpe_s,
+              "checkpoint_s": ckpt_s, "card_load_s": load_s,
+              "twin_load_s": time.perf_counter() - t0,
+              "checkpoint_bytes": (ckpt / "model.safetensors").stat().st_size,
+              "layer_scale": DECODER_LAYER_SCALE, "max_len": card.max_len})
+        prompt = tok.apply_chat_template(decoder_messages(chunks["zh"]),
+                                         add_generation_prompt=True)
+        ids = tok(prompt, truncation=True, max_length=4096)["input_ids"]
+        t0 = time.perf_counter()
+        twin_res = decoder_twin(card, twin, ids)
+        emit({"phase": "decoder_twin", **twin_res,
+              "seconds": time.perf_counter() - t0})
+        del twin
+        t0 = time.perf_counter()
+        corpus_ids = tok("\n".join(c.text for c in chunks["zh"]))["input_ids"]
+        ident = decoder_identities(card, ids, corpus_ids[:1500])
+        emit({"phase": "decoder_identities", **ident,
+              "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        speed = decoder_speed(card, corpus_ids)
+        emit({"phase": "decoder_speed", **speed,
+              "seconds": time.perf_counter() - t0})
+        del card
+        t0 = time.perf_counter()
+        answer = decoder_answer(ckpt, tmp)
+        emit(answer | {"seconds": time.perf_counter() - t0,
+                       "peak_card_bytes": torch.cuda.max_memory_allocated()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "decoder", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": nvidia_smi()})
+    return answer
+
+
 def check_bm25_kernel(index, q, params):
     """Kernel 4 (CSR BM25) against its plain version on the same card
     tensors, at the scale point's shapes, with timings and the bound."""
@@ -3372,9 +3888,11 @@ def main() -> int:
     kres["bm25_sparse"], large = phase_large()
     large_store_runs, large_stores = phase_large_stores()
     bert_runs = phase_bert()
+    answer = phase_decoder()
     runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
             "ingest": [ingest], "stores": store_runs,
-            "large": [large] + large_store_runs, "bert": bert_runs}
+            "large": [large] + large_store_runs, "bert": bert_runs,
+            "answer": [answer]}
     # MaxSim's launches per route, as the wrapper counts them on each path
     # (the kernel's own row: all its routes; bf16 is the map path's)
     routes["float32"] = kres["maxsim"].pop("float32_route")

@@ -141,7 +141,7 @@ class ServerState:
     # ----------------------------------------------------------- lifecycle
     def build(self) -> None:
         try:
-            client = LLMClient.from_config(self.cfg)
+            client = LLMClient.from_config(self.cfg, device=self.device)
             gateway = LLMGateway(client)
             cache = BundleCache(self.cfg, device=self.device)
             retriever = ByLangRetriever(self.cfg, llm=gateway, cache=cache)

@@ -12,11 +12,12 @@ one package means the same in the other. ``with_lang`` resolves a
 language's index directory through the registry's ``ACTIVE`` pointer
 (``index/registry.py``), as the JAX package does.
 
-``LLMConfig`` keeps the fields of the API providers (``openai``, ``local``,
-``disabled``); the local decoder engines' knobs come with those engines.
-``AppConfig.load`` overlays a JSON (or, where ``yaml`` imports, YAML) file
-on the defaults as pydantic's ``model_validate`` does: keys the port does
-not have (the decoder knobs) are ignored.
+``LLMConfig`` has every field of the JAX package's, the knobs of the local
+decoder engines included: the single-stream engine's are read, and the
+others' make the ``local-jax`` engine's load fail when set (the port lacks
+those engines), so that none is ignored. ``AppConfig.load`` overlays a
+JSON (or, where ``yaml`` imports, YAML) file on the defaults as pydantic's
+``model_validate`` does: keys the port does not have are ignored.
 
 Left out on purpose: ``engine.kernel_backend``, ``engine.dense_tile_n``,
 ``retrieval.graph_weight``, ``retrieval.colbert_model`` and
@@ -165,7 +166,7 @@ class RetrievalConfig:
 
 @dataclass
 class LLMConfig:
-    provider: str = "disabled"  # openai | local | disabled
+    provider: str = "disabled"  # openai | local | local-jax | disabled
     model: str = "gpt-4o-mini"
     api_key: Optional[str] = field(
         default_factory=lambda: os.environ.get("OPENAI_API_KEY"))
@@ -173,12 +174,45 @@ class LLMConfig:
         default_factory=lambda: os.environ.get("OPENAI_BASE_URL"))
     temperature: float = 0.3
     top_p: float = 0.9
+    # local-jax sampling warpers, in HF's order temperature -> top_k ->
+    # top_p -> min_p; 0 turns each off (top_k 1 or min_p 1.0 is greedy)
+    top_k: int = 0
+    min_p: float = 0.0
+    # local-jax: HF's repetition penalty over prompt and output; 1.0 = off
+    repetition_penalty: float = 1.0
     max_new_tokens: int = 1024
-    # local provider: the prompt is truncated to this many tokens
+    # local providers: the prompt is truncated to this many tokens
     max_context_tokens: int = 4096
     request_timeout: float = 30.0
     max_retries: int = 2
     retry_backoff: float = 0.6
+    # local-jax, the single-stream engine (models/decoder.py): tokens
+    # decoded per host round trip; prompts longer than prefill_chunk
+    # prefill in chunks at cache offsets; the KV rows of prefix_cache
+    # recent prompts kept for exact prefix reuse (0 = off)
+    decode_chunk: int = 8
+    prefill_chunk: int = 1024
+    prefix_cache: int = 0
+    # local-jax knobs of the JAX package's other engines, read so that a
+    # config tuned for it means the same here: the port has none of those
+    # engines yet, and a knob that would select or shape one makes the
+    # engine's load fail (llm/client.py: unported_engine_knobs), so the
+    # answer degrades instead of ignoring it
+    batch_slots: int = 0            # > 1: the continuous-batching engine
+    paged_kv: bool = False          # the paged KV pool
+    kv_block_size: int = 64
+    kv_pool_blocks: int = 0
+    spec_k: int = 0                 # > 0: speculative decoding
+    spec_adaptive: float = 2.0
+    draft_model: str = ""
+    ngram_draft_path: str = ""
+    shared_prefix_text: str = ""    # the batched engine's pinned prelude
+    weight_quant: bool = False      # int8 (W8A8) or int4 weights
+    weight_bits: int = 8
+    kv_quant: bool = False          # the int8 KV cache
+    constrain_json: bool = False    # schema-constrained JSON decoding
+    tp_shards: int = 0              # > 1: tensor-parallel decoder
+    dp_replicas: int = 0            # > 1: data-parallel replicas
 
 
 @dataclass

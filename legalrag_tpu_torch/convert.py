@@ -33,6 +33,8 @@ package.
 the JAX BERT param tree and cross-encoder head (numpy arrays; a linear
 layer's ``kernel`` is ``[in, out]``) into the port's state dicts (HF names;
 ``weight`` is ``[out, in]``), so both packages run one set of weights.
+:func:`decoder_params_from_jax` does the same for the JAX decoder's tree
+(``legalrag_tpu/models/decoder.py``), keeping its dtype.
 
 bf16 arrays may come as float32 (bf16 values widen exactly) or as
 ``ml_dtypes.bfloat16``; either way they are rounded to the store dtype,
@@ -157,6 +159,46 @@ def cross_encoder_head_from_jax(head: Mapping
     dense = head.get("dense")
     return {"dense": None if dense is None else linear_from_jax(dense),
             "out": linear_from_jax(head["out"])}
+
+
+def _same_dtype(a) -> torch.Tensor:
+    """A numpy array (``ml_dtypes.bfloat16`` included) as a tensor of the
+    same dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def decoder_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX decoder's dense param tree (``embed``, ``lm_head`` [H, V],
+    ``final_norm``, ``layers[i]`` with ``input_norm``, ``q``/``k``/``v``
+    (``kernel`` [in, out], ``bias``), ``o``, ``post_norm``, ``gate``,
+    ``up``, ``down``) as the port's ``DecoderModel`` state dict, in the
+    tree's dtype. A head equal to the embedding's transpose is the tied
+    head: the state then has no ``lm_head.weight``."""
+    def weight(node) -> torch.Tensor:
+        return _same_dtype(np.asarray(node["kernel"]).T)
+
+    embed = np.asarray(tree["embed"])
+    state = {"embed_tokens.weight": _same_dtype(embed),
+             "norm.weight": _same_dtype(tree["final_norm"])}
+    head = np.asarray(tree["lm_head"])
+    if not np.array_equal(head, embed.T):
+        state["lm_head.weight"] = _same_dtype(head.T)
+    for i, layer in enumerate(tree["layers"]):
+        p = f"layers.{i}"
+        state[f"{p}.input_layernorm.weight"] = _same_dtype(layer["input_norm"])
+        state[f"{p}.post_attention_layernorm.weight"] = _same_dtype(
+            layer["post_norm"])
+        for x in "qkvo":
+            state[f"{p}.self_attn.{x}_proj.weight"] = weight(layer[x])
+        for x in "qkv":
+            state[f"{p}.self_attn.{x}_proj.bias"] = _same_dtype(
+                layer[x]["bias"])
+        for x in ("gate", "up", "down"):
+            state[f"{p}.mlp.{x}_proj.weight"] = weight(layer[x])
+    return state
 
 
 def postings_from_arrays(offsets: np.ndarray, post_docs: np.ndarray,

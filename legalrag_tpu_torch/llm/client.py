@@ -3,21 +3,30 @@
 - Providers: ``openai`` (chat completions over stdlib HTTP, no SDK),
   ``local`` (a transformers causal LM from local files, imported lazily;
   without transformers, or without the model on disk, it degrades and never
-  downloads) and ``disabled`` (expects a per-request user key; degrades
-  otherwise). Any other provider name, such as ``local-jax`` (the JAX
-  package's decoder engines, not ported yet), raises ``LLMUnavailable``
-  and so gets the degraded answer, as the JAX client does for a provider
-  it cannot load.
+  downloads), ``local-jax`` (the in-repo decoder on the port's device: the
+  single-stream ``TorchDecoderLM`` with the port's own byte-level BPE
+  tokenizer and chat template, ``models/decoder.py``, ``tokenize/bpe.py``;
+  the provider keeps its name, so one config file serves both packages)
+  and ``disabled`` (expects a per-request user key; degrades otherwise).
+  Any other provider name raises ``LLMUnavailable`` and so gets the
+  degraded answer.
+- ``local-jax`` loads once, under a lock, with a KV cache of
+  ``max_context_tokens + max_new_tokens`` rows. A knob of the JAX
+  package's other engines (batched, paged, speculative, quantized,
+  constrained, TP / DP; ``unported_engine_knobs``) makes the load fail with
+  ``LLMUnavailable`` naming it, so the answer degrades as it does in JAX
+  when a load fails; no knob is ignored.
 - Reasoning models (gpt-5, o1, o3, "thinking") get no temperature or top_p
   and ``max_completion_tokens`` in place of ``max_tokens``.
 - ``chat`` makes two attempts, then returns the degraded answer: a fixed
   "model unavailable, showing retrieval only" text instead of an exception,
   so retrieval results always reach the user.
 - ``chat_stream`` yields text chunks; the OpenAI SSE frames are parsed as
-  they arrive. A stream that dies after its first chunk ends with a
-  "generation interrupted" tail; one that dies before gives the degraded
-  answer.
-- ``from_config`` (one client per ``LLMConfig``) and
+  they arrive, and ``local-jax`` decodes every token so far, holding text
+  back while it ends in a partial UTF-8 character. A stream that dies
+  after its first chunk ends with a "generation interrupted" tail; one
+  that dies before gives the degraded answer.
+- ``from_config`` (one client per ``LLMConfig`` and device) and
   ``from_config_with_key`` (a client per user key, which forces the
   ``openai`` provider).
 """
@@ -34,6 +43,8 @@ from typing import Dict, Generator, List, Optional
 from legalrag_tpu_torch.config import AppConfig, LLMConfig
 from legalrag_tpu_torch.llm.context import get_request_id
 from legalrag_tpu_torch.utils import get_logger, has_chinese
+from legalrag_tpu_torch.utils.device import DeviceLike
+from legalrag_tpu_torch.utils.metrics import METRICS
 
 log = get_logger("torch.llm.client")
 
@@ -59,27 +70,53 @@ class LLMUnavailable(RuntimeError):
     pass
 
 
+# the JAX package's engine knobs that the port has no engine for: a value
+# other than the default selects or shapes one of those engines, but for
+# the counts, whose 0 and 1 both keep the single-stream engine
+_UNPORTED_KNOBS = ("batch_slots", "paged_kv", "kv_block_size",
+                   "kv_pool_blocks", "spec_k", "spec_adaptive", "draft_model",
+                   "ngram_draft_path", "shared_prefix_text", "weight_quant",
+                   "weight_bits", "kv_quant", "constrain_json", "tp_shards",
+                   "dp_replicas")
+_COUNT_KNOBS = ("batch_slots", "tp_shards", "dp_replicas")
+
+
+def unported_engine_knobs(cfg: LLMConfig) -> List[str]:
+    """The knobs of ``cfg`` that ask ``local-jax`` for an engine or a
+    feature the port does not have."""
+    default = LLMConfig()
+    return [k for k in _UNPORTED_KNOBS
+            if (getattr(cfg, k) > 1 if k in _COUNT_KNOBS
+                else getattr(cfg, k) != getattr(default, k))]
+
+
 class LLMClient:
     _singleton: Optional["LLMClient"] = None
     _keyed_cache: Dict[str, "LLMClient"] = {}
     _cache_lock = threading.Lock()
 
-    def __init__(self, cfg: LLMConfig, api_key: Optional[str] = None):
+    def __init__(self, cfg: LLMConfig, api_key: Optional[str] = None,
+                 device: DeviceLike = None):
         self.cfg = cfg
         self.api_key = api_key or cfg.api_key
         self.provider = cfg.provider
         if self.provider == "openai" and not self.api_key:
             self.provider = "disabled"
-        self._local = None  # (tokenizer, model) of the local provider
+        # local-jax decodes here (None: cuda, and no load without it)
+        self.device = device
+        # (tokenizer, model) of the local provider, or local-jax's engine
+        self._local = None
         # serving threads share this client: one model load, not one each
         self._load_lock = threading.Lock()
 
     # ------------------------------------------------------------ factories
     @classmethod
-    def from_config(cls, cfg: AppConfig) -> "LLMClient":
+    def from_config(cls, cfg: AppConfig, device: DeviceLike = None
+                    ) -> "LLMClient":
         with cls._cache_lock:
-            if cls._singleton is None or cls._singleton.cfg is not cfg.llm:
-                cls._singleton = cls(cfg.llm)
+            if (cls._singleton is None or cls._singleton.cfg is not cfg.llm
+                    or cls._singleton.device != device):
+                cls._singleton = cls(cfg.llm, device=device)
             return cls._singleton
 
     @classmethod
@@ -104,6 +141,8 @@ class LLMClient:
                     return self._chat_openai(messages, max_new_tokens)
                 if self.provider == "local":
                     return self._chat_local(messages, max_new_tokens)
+                if self.provider == "local-jax":
+                    return "".join(self._stream_jax(messages, max_new_tokens))
                 raise LLMUnavailable(f"provider {self.provider!r} is "
                                      "disabled or not available")
             except LLMUnavailable as e:
@@ -122,7 +161,8 @@ class LLMClient:
         yielded = False
         try:
             streams = {"openai": self._stream_openai,
-                       "local": self._stream_local}
+                       "local": self._stream_local,
+                       "local-jax": self._stream_jax}
             fn = streams.get(self.provider)
             if fn is not None:
                 for chunk in fn(messages, max_new_tokens):
@@ -149,7 +189,7 @@ class LLMClient:
         return self.provider == "disabled"
 
     def close(self) -> None:
-        """Drop the local model. Idempotent."""
+        """Drop the local model or engine. Idempotent."""
         self._local = None
 
     # --------------------------------------------------------------- openai
@@ -271,3 +311,66 @@ class LLMClient:
                                   daemon=True)
         thread.start()
         yield from streamer
+
+    # ------------------------------------------------------------ local-jax
+    def _load_jax_lm(self):
+        """The single-stream decoder engine (``TorchDecoderLM``), loaded
+        once under the lock; ``LLMUnavailable`` when the config asks for
+        an engine the port lacks or the load fails."""
+        with self._load_lock:
+            if self._local is None:
+                knobs = unported_engine_knobs(self.cfg)
+                if knobs:
+                    raise LLMUnavailable(
+                        "local-jax: not ported: " + ", ".join(knobs))
+                try:
+                    from legalrag_tpu_torch.models.decoder import \
+                        TorchDecoderLM
+
+                    # a full-context prompt can still generate
+                    # max_new_tokens (generation clamps at capacity)
+                    kw = dict(max_len=self.cfg.max_context_tokens
+                              + self.cfg.max_new_tokens,
+                              decode_chunk=self.cfg.decode_chunk,
+                              prefix_cache=self.cfg.prefix_cache)
+                    if self.cfg.prefill_chunk:
+                        kw["prefill_chunk"] = self.cfg.prefill_chunk
+                    self._local = TorchDecoderLM.from_pretrained(
+                        self.cfg.model, device=self.device, **kw)
+                except Exception as e:
+                    raise LLMUnavailable(f"decoder load failed: {e}") from e
+            return self._local
+
+    def _stream_jax(self, messages: List[Message],
+                    max_new_tokens: Optional[int]
+                    ) -> Generator[str, None, None]:
+        lm = self._load_jax_lm()
+        tok = lm.tokenizer
+        prompt = tok.apply_chat_template(messages, tokenize=False,
+                                         add_generation_prompt=True)
+        ids = tok(prompt, truncation=True,
+                  max_length=self.cfg.max_context_tokens)["input_ids"]
+        out_ids: List[int] = []
+        emitted = ""
+        try:
+            for t in lm.generate_stream(
+                    ids,
+                    max_new_tokens=max_new_tokens or self.cfg.max_new_tokens,
+                    temperature=self.cfg.temperature, top_p=self.cfg.top_p,
+                    top_k=self.cfg.top_k, min_p=self.cfg.min_p,
+                    eos_id=tok.eos_token_id,
+                    repetition_penalty=self.cfg.repetition_penalty):
+                out_ids.append(t)
+                text = tok.decode(out_ids, skip_special_tokens=True)
+                if len(text) > len(emitted) and not text.endswith("\ufffd"):
+                    yield text[len(emitted):]
+                    emitted = text
+            # the stream can end inside a character held back above (eos
+            # or the budget after the first bytes of a zh character)
+            final = tok.decode(out_ids, skip_special_tokens=True)
+            if len(final) > len(emitted):
+                yield final[len(emitted):]
+        finally:
+            METRICS.inc("legalrag_llm_tokens", len(out_ids),
+                        provider="local-jax")
+            METRICS.inc("legalrag_llm_streams", provider="local-jax")

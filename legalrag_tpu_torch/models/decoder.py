@@ -1,0 +1,845 @@
+"""Causal decoder LM: the single-stream generation engine (port of
+``legalrag_tpu/models/decoder.py``).
+
+The dense Qwen2 / Qwen2.5 (q/k/v biases, usually tied embeddings) and
+Llama (no biases, an untied head) families: RMSNorm, rotary positions
+(default, linear, llama3 and yarn scaling), grouped-query attention,
+SwiGLU, loaded from local HF safetensors in the checkpoint's dtype (bf16
+as released). ``DecoderModel`` computes as JAX's ``decoder_forward`` does:
+
+- projections in the weights' dtype, RMSNorm's variance and RoPE's angles
+  in float32;
+- attention scores in float32 over the whole preallocated cache (the
+  operands' products exact, as ``preferred_element_type=float32``),
+  positions past the filled rows and after the query masked at -1e30, the
+  softmax in float32 cast to the values' dtype, then the product with V;
+- the LM head with float32 logits, applied by prefill to the last real
+  row only (``return_hidden``).
+
+On a CUDA device a bf16 product with float32 output is one cuBLAS call
+(``out_dtype``); on the CPU both operands are widened first, which gives
+the same exact products.
+
+``TorchDecoderLM`` is the counterpart of ``JaxDecoderLM``: a per-layer
+``[1, max_len, Hkv, D]`` KV cache per prompt, prefill padded to
+``pad_bucket``, chunked above ``prefill_chunk``, the prefix-cache hit path,
+``decode_chunk`` tokens per host round trip (the tokens stay on the card
+inside a chunk; the tail below a chunk goes token by token), the capacity
+clamp and the ``ValueError`` for a prompt that does not fit, and HF's
+warpers. The draw is a Gumbel-max over the warped logits from an explicit
+``torch.Generator`` seeded by ``generate_stream``'s ``seed``; JAX's
+``jax.random.categorical`` stream is not reproduced. The nucleus filter's
+running sum is sequential where XLA's is a reduce-window: where it meets
+``top_p`` within rounding (``top_p`` 1.0) the two keep different tails of
+tokens too improbable to matter.
+
+Refused at load with ``NotImplementedError``, never decoded with the wrong
+arithmetic: Qwen3's q/k norms, Gemma 1/2/3, a layer whose ``layer_types``
+entry is ``"sliding_attention"`` (Mistral, Mixtral; a Qwen2.5 config with
+``sliding_window`` set and ``use_sliding_window: false`` has none), MoE,
+int8 / int4 weights, the int8 KV cache, the JSON constraint and draft
+models.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+from pathlib import Path
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from legalrag_tpu_torch.models.bert import resolve_model_dir
+from legalrag_tpu_torch.models.safetensors_io import load_weights
+from legalrag_tpu_torch.utils import get_logger
+from legalrag_tpu_torch.utils.device import DeviceLike, resolve_device
+
+log = get_logger("torch.models.decoder")
+
+NEG_INF = -1e30
+
+
+class DecoderConfig:
+    """An HF decoder ``config.json`` as JAX's ``DecoderConfig`` parses it
+    (every family's keys, so a config means the same in both packages)."""
+
+    def __init__(self, vocab_size=151936, hidden_size=896,
+                 num_hidden_layers=24, num_attention_heads=14,
+                 num_key_value_heads=2, intermediate_size=4864,
+                 max_position_embeddings=32768, rms_norm_eps=1e-6,
+                 rope_theta=1000000.0, tie_word_embeddings=True,
+                 head_dim=None, rope_scaling=None, model_type="",
+                 hidden_activation=None, query_pre_attn_scalar=None,
+                 attn_logit_softcapping=None, final_logit_softcapping=None,
+                 sliding_window=None, layer_types=None,
+                 rope_local_base_freq=None, sliding_window_pattern=None,
+                 num_local_experts=None, num_experts=None,
+                 num_experts_per_tok=None, norm_topk_prob=None,
+                 moe_intermediate_size=None,
+                 shared_expert_intermediate_size=None,
+                 decoder_sparse_step=None, mlp_only_layers=None,
+                 **_ignored):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_hidden_layers = num_hidden_layers
+        self.num_attention_heads = num_attention_heads
+        self.num_key_value_heads = num_key_value_heads
+        self.intermediate_size = intermediate_size
+        self.max_position_embeddings = max_position_embeddings
+        self.rms_norm_eps = rms_norm_eps
+        self.rope_theta = rope_theta
+        self.tie_word_embeddings = tie_word_embeddings
+        # Qwen3 / Gemma configs carry a head_dim other than hidden / heads
+        self.head_dim = head_dim or hidden_size // num_attention_heads
+        self.rope_scaling = rope_scaling
+        rtype = (rope_scaling or {}).get("rope_type") \
+            or (rope_scaling or {}).get("type")
+        if rtype not in (None, "default", "linear", "llama3", "yarn"):
+            raise ValueError(
+                f"rope_scaling type {rtype!r} (dynamic/longrope/…) is not "
+                "implemented — refusing to load rather than decode with "
+                "wrong positions")
+        self.model_type = model_type or ""
+        self.gemma = self.model_type.startswith("gemma")
+        self.gemma3 = self.model_type.startswith("gemma3")
+        self.rope_local_base_freq = rope_local_base_freq or 10000.0
+        self.hidden_activation = hidden_activation or (
+            "gelu_pytorch_tanh" if self.gemma else "silu")
+        self.query_pre_attn_scalar = query_pre_attn_scalar
+        self.attn_logit_softcapping = attn_logit_softcapping
+        self.final_logit_softcapping = final_logit_softcapping
+        self.sliding_window = sliding_window
+        if layer_types is None and self.gemma3 and sliding_window:
+            # gemma3: every Nth layer is full attention
+            pat = sliding_window_pattern or 6
+            layer_types = ["full_attention" if (i + 1) % pat == 0 else
+                           "sliding_attention"
+                           for i in range(num_hidden_layers)]
+        elif layer_types is None and self.gemma and sliding_window:
+            # gemma-2 configs predate layer_types: alternate, as HF does
+            layer_types = ["sliding_attention" if (i + 1) % 2 else
+                           "full_attention"
+                           for i in range(num_hidden_layers)]
+        elif (layer_types is None and sliding_window
+              and self.model_type in ("mistral", "mixtral")):
+            # Mistral/Mixtral v0.1: every layer attends in the band
+            layer_types = ["sliding_attention"] * num_hidden_layers
+        self.layer_types = layer_types
+        # mixture of experts (Mixtral num_local_experts, Qwen2-MoE
+        # num_experts)
+        self.num_experts = num_local_experts or num_experts or 0
+        self.num_experts_per_tok = num_experts_per_tok or 2
+        if norm_topk_prob is None:
+            norm_topk_prob = self.model_type == "mixtral"
+        self.norm_topk_prob = bool(norm_topk_prob)
+        self.moe_intermediate_size = moe_intermediate_size
+        self.shared_expert_intermediate_size = shared_expert_intermediate_size
+        self.decoder_sparse_step = decoder_sparse_step or 1
+        self.mlp_only_layers = list(mlp_only_layers or [])
+
+    def layer_is_moe(self, li: int) -> bool:
+        if not self.num_experts:
+            return False
+        if li in self.mlp_only_layers:
+            return False
+        step = self.decoder_sparse_step
+        return step > 0 and (li + 1) % step == 0
+
+    def layer_is_sliding(self, li: int) -> bool:
+        """Whether JAX bands layer ``li``: only a ``"sliding_attention"``
+        entry of ``layer_types`` with ``sliding_window`` set does."""
+        return bool(self.sliding_window and self.layer_types is not None
+                    and self.layer_types[li] == "sliding_attention")
+
+    def unsupported(self) -> List[str]:
+        """What of this config the port cannot compute yet."""
+        out = []
+        if self.gemma:
+            out.append(f"the {self.model_type} family (Gemma norms, "
+                       "activations, softcaps, local RoPE)")
+        if self.attn_logit_softcapping or self.final_logit_softcapping:
+            out.append("logit softcapping")
+        if self.query_pre_attn_scalar:
+            out.append("query_pre_attn_scalar")
+        if self.hidden_activation != "silu":
+            out.append(f"the {self.hidden_activation} activation")
+        if any(self.layer_is_sliding(i)
+               for i in range(self.num_hidden_layers)):
+            out.append("sliding-window attention (layer_types "
+                       "'sliding_attention')")
+        if self.num_experts:
+            out.append("mixture-of-experts layers")
+        return out
+
+    @classmethod
+    def from_json(cls, path: Path) -> "DecoderConfig":
+        return cls(**json.loads(Path(path).read_text(encoding="utf-8")))
+
+
+# ---------------------------------------------------------------------------
+# functional pieces
+
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm: the variance in float32, the normed rows cast back to
+    ``x``'s dtype, then times ``w``."""
+    var = x.float().pow(2).mean(-1, keepdim=True)
+    return (x.float() * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rope_inv_freq(cfg: DecoderConfig, d: int, base: Optional[float] = None,
+                  use_scaling: bool = True) -> Tuple[torch.Tensor, float]:
+    """(float32 inverse wavelengths [d / 2], cos/sin scale) for the
+    default, linear, llama3 and yarn types, computed in float64 as JAX
+    computes them."""
+    base = base or cfg.rope_theta
+    inv = 1.0 / (base ** (np.arange(0, d, 2, dtype=np.float64) / d))
+    scale = 1.0
+    rs = cfg.rope_scaling if use_scaling else None
+    rtype = (rs or {}).get("rope_type") or (rs or {}).get("type")
+    if rtype == "linear":
+        inv = inv / rs["factor"]
+    elif rtype == "llama3":
+        factor, lo, hi = rs["factor"], rs["low_freq_factor"], \
+            rs["high_freq_factor"]
+        orig = rs["original_max_position_embeddings"]
+        wavelen = 2 * math.pi / inv
+        smooth = (orig / wavelen - lo) / (hi - lo)
+        inv = np.where(wavelen > orig / lo, inv / factor,
+                       np.where(wavelen < orig / hi, inv,
+                                (1 - smooth) / factor * inv + smooth * inv))
+    elif rtype == "yarn":
+        factor = rs["factor"]
+        orig = (rs.get("original_max_position_embeddings")
+                or cfg.max_position_embeddings)
+        beta_fast = rs.get("beta_fast") or 32
+        beta_slow = rs.get("beta_slow") or 1
+        scale = rs.get("attention_factor")
+        if scale is None:
+            def mscale(s, m=1):
+                return 1.0 if s <= 1 else 0.1 * m * math.log(s) + 1.0
+
+            ms, msd = rs.get("mscale"), rs.get("mscale_all_dim")
+            scale = (mscale(factor, ms) / mscale(factor, msd)
+                     if ms and msd else mscale(factor))
+
+        def corr_dim(n_rot):
+            return (d * math.log(orig / (n_rot * 2 * math.pi))
+                    ) / (2 * math.log(base))
+
+        lo, hi = corr_dim(beta_fast), corr_dim(beta_slow)
+        if rs.get("truncate", True):
+            lo, hi = math.floor(lo), math.ceil(hi)
+        lo, hi = max(lo, 0), min(hi, d - 1)
+        if lo == hi:
+            hi += 0.001
+        ramp = np.clip((np.arange(d // 2, dtype=np.float64) - lo)
+                       / (hi - lo), 0, 1)
+        extrapolation_factor = 1 - ramp
+        inv = (inv / factor) * (1 - extrapolation_factor) \
+            + inv * extrapolation_factor
+    return torch.from_numpy(np.asarray(inv, np.float32)), float(scale)
+
+
+def _rope_tables(positions: torch.Tensor, inv: torch.Tensor, scale: float):
+    """cos and sin [B, T, 1, D / 2] (float32) of ``positions`` [B, T]."""
+    ang = positions[:, :, None].float() * inv.to(positions.device)[None, None]
+    return ((torch.cos(ang) * scale)[:, :, None, :],
+            (torch.sin(ang) * scale)[:, :, None, :])
+
+
+def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+          ) -> torch.Tensor:
+    """Rotate ``x`` [B, T, H, D] by pairs (the half-split convention), in
+    float32, cast back to ``x``'s dtype."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` ([N, K] x [K, M] or batched) with float32 output and
+    exact products of 16-bit operands, as ``preferred_element_type=
+    float32`` asks."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b) if a.dim() == 3 else a @ b
+    if a.is_cuda:
+        return (torch.bmm(a, b, out_dtype=torch.float32) if a.dim() == 3
+                else torch.mm(a, b, out_dtype=torch.float32))
+    a, b = a.float(), b.float()
+    return torch.bmm(a, b) if a.dim() == 3 else a @ b
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """GQA attention: ``q`` [B, T, H, D], ``k``/``v`` [B, S, Hkv, D],
+    ``mask`` [B, T, S] (True where a query may attend); query head h reads
+    kv head h // (H / Hkv), as ``jnp.repeat`` pairs them. Returns
+    [B, T, H * D] in ``v``'s dtype."""
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    qg = q.reshape(b, t, hkv, rep, d).permute(0, 2, 3, 1, 4).reshape(
+        b * hkv, rep * t, d)
+    kg = k.permute(0, 2, 3, 1).reshape(b * hkv, d, s)
+    scores = _mm_f32(qg, kg).view(b, hkv, rep, t, s) * scale
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    vg = v.permute(0, 2, 1, 3).reshape(b * hkv, s, d)
+    ctx = torch.bmm(probs.view(b * hkv, rep * t, s), vg)
+    return ctx.view(b, hkv, rep, t, d).permute(0, 3, 1, 2, 4).reshape(
+        b, t, h * d)
+
+
+def lm_logits(head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Final-norm hidden states [..., H] and the head [V, H] (the tied
+    embedding or ``lm_head.weight``) → float32 logits [..., V]."""
+    return _mm_f32(x.reshape(-1, x.shape[-1]), head.t()).view(
+        *x.shape[:-1], head.shape[0])
+
+
+def pad_bucket(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
+    """Next power of two ≥ n (at least ``lo``), capped at ``hi``: the
+    prompt padding buckets."""
+    b = lo
+    while b < n:
+        b *= 2
+    return min(b, hi) if hi is not None else b
+
+
+# ---------------------------------------------------------------------------
+# the model
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.eps = eps
+
+    def forward(self, x):
+        return _rms_norm(x, self.weight, self.eps)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: DecoderConfig, bias: bool):
+        super().__init__()
+        h, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim)
+        self.q_proj = nn.Linear(cfg.hidden_size, h * d, bias=bias)
+        self.k_proj = nn.Linear(cfg.hidden_size, hkv * d, bias=bias)
+        self.v_proj = nn.Linear(cfg.hidden_size, hkv * d, bias=bias)
+        self.o_proj = nn.Linear(h * d, cfg.hidden_size, bias=False)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        hs, ff = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = nn.Linear(hs, ff, bias=False)
+        self.up_proj = nn.Linear(hs, ff, bias=False)
+        self.down_proj = nn.Linear(ff, hs, bias=False)
+
+    def forward(self, y):
+        return self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y))
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: DecoderConfig, bias: bool):
+        super().__init__()
+        self.cfg = cfg
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.self_attn = Attention(cfg, bias)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
+                                                cfg.rms_norm_eps)
+        self.mlp = MLP(cfg)
+
+    def forward(self, x, cos, sin, mask, cache, cache_len: int):
+        cfg, a = self.cfg, self.self_attn
+        b, t, _ = x.shape
+        d = cfg.head_dim
+        y = self.input_layernorm(x)
+        q = _rope(a.q_proj(y).view(b, t, cfg.num_attention_heads, d), cos, sin)
+        k = _rope(a.k_proj(y).view(b, t, cfg.num_key_value_heads, d), cos, sin)
+        v = a.v_proj(y).view(b, t, cfg.num_key_value_heads, d)
+        if cache is not None:
+            ck, cv = cache
+            ck[:, cache_len:cache_len + t] = k
+            cv[:, cache_len:cache_len + t] = v
+            k, v = ck, cv
+        x = x + a.o_proj(attend(q, k, v, mask, d ** -0.5))
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class DecoderModel(nn.Module):
+    """The dense decoder with HF's parameter names (``embed_tokens``,
+    ``layers.{i}.self_attn.q_proj``, ..., ``norm``, ``lm_head`` when the
+    head is untied), so a checkpoint's tensors load by name. ``bias``:
+    whether q/k/v have biases (Qwen2) or not (Llama)."""
+
+    def __init__(self, cfg: DecoderConfig, bias: bool = True):
+        super().__init__()
+        refused = cfg.unsupported()
+        if refused:
+            raise NotImplementedError(
+                "decoder config not supported by the port: "
+                + "; ".join(refused))
+        self.cfg = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, bias)
+                                    for _ in range(cfg.num_hidden_layers))
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.lm_head = (None if cfg.tie_word_embeddings else
+                        nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False))
+        inv, self.rope_scale = rope_inv_freq(cfg, cfg.head_dim)
+        self.register_buffer("rope_inv", inv, persistent=False)
+
+    @classmethod
+    def from_state_dict(cls, cfg: DecoderConfig,
+                        state: Dict[str, torch.Tensor]) -> "DecoderModel":
+        """A model holding ``state``'s tensors as they are (dtype and
+        device kept), built without initialising weights. The head is tied
+        when ``state`` has no ``lm_head.weight`` (``cfg`` is set so)."""
+        cfg.tie_word_embeddings = "lm_head.weight" not in state
+        with torch.device("meta"):
+            model = cls(cfg, bias="layers.0.self_attn.q_proj.bias" in state)
+        model.load_state_dict(state, strict=True, assign=True)
+        inv, _ = rope_inv_freq(cfg, cfg.head_dim)
+        model.rope_inv = inv.to(model.embed_tokens.weight.device)
+        return model.eval()
+
+    @property
+    def head(self) -> torch.Tensor:
+        return (self.embed_tokens.weight if self.lm_head is None
+                else self.lm_head.weight)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed_tokens.weight.dtype
+
+    def forward(self, input_ids: torch.Tensor, positions: torch.Tensor,
+                kv_cache: Optional[List[Tuple[torch.Tensor, torch.Tensor]]]
+                = None, cache_len: int = 0, return_hidden: bool = False
+                ) -> torch.Tensor:
+        """[B, T] ids at ``positions`` [B, T] → float32 logits [B, T, V]
+        (the final-norm hidden states with ``return_hidden``).
+
+        With ``kv_cache`` (per layer ``(k, v)``, each [B, S, Hkv, D]) the
+        new keys and values are written in place at rows ``cache_len`` ..
+        ``cache_len + T - 1`` and attention spans the whole cache, rows at
+        or past ``cache_len + T`` and after each query's position masked.
+        Without it the T tokens attend each other causally."""
+        t = input_ids.shape[1]
+        x = self.embed_tokens(input_ids)
+        cos, sin = _rope_tables(positions, self.rope_inv, self.rope_scale)
+        if kv_cache is not None:
+            s = kv_cache[0][0].shape[1]
+            kv_pos = torch.arange(s, device=x.device)[None, None, :]
+            mask = (kv_pos <= positions[:, :, None]) & (kv_pos < cache_len + t)
+        else:
+            mask = positions[:, :, None] >= positions[:, None, :]
+        for li, layer in enumerate(self.layers):
+            x = layer(x, cos, sin, mask,
+                      None if kv_cache is None else kv_cache[li], cache_len)
+        x = self.norm(x)
+        return x if return_hidden else lm_logits(self.head, x)
+
+
+def load_hf_decoder_params(model_dir: str | Path
+                           ) -> Tuple[Dict[str, torch.Tensor], DecoderConfig]:
+    """(``DecoderModel`` state dict, config) of a local HF checkpoint
+    (``config.json``, ``*.safetensors`` or ``pytorch_model.bin``), in the
+    checkpoint's dtype. The dense families only: a config or checkpoint
+    of a family or feature the port lacks raises ``NotImplementedError``."""
+    model_dir = Path(model_dir)
+    cfg = DecoderConfig.from_json(model_dir / "config.json")
+    refused = cfg.unsupported()
+    t = {} if refused else load_weights(model_dir)
+
+    def get(name):
+        for p in ("model.", ""):
+            if p + name in t:
+                return t[p + name]
+        raise KeyError(name)
+
+    if any(p + "layers.0.self_attn.q_norm.weight" in t for p in ("model.", "")):
+        refused.append("Qwen3-class q/k norms")
+    if refused:
+        raise NotImplementedError(
+            f"decoder checkpoint {model_dir} not supported by the port: "
+            + "; ".join(refused))
+    h, hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    q0 = get("layers.0.self_attn.q_proj.weight")
+    k0 = get("layers.0.self_attn.k_proj.weight")
+    if q0.shape[0] != h * hd or k0.shape[0] != hkv * hd:
+        raise ValueError(
+            f"attention weight shapes q{tuple(q0.shape)}/k{tuple(k0.shape)} "
+            f"do not match heads={h}/{hkv} head_dim={hd}; checkpoint uses an "
+            "architecture variant this loader does not support")
+    embed = get("embed_tokens.weight")
+    biased = any(p + "layers.0.self_attn.q_proj.bias" in t
+                 for p in ("model.", ""))
+    state = {"embed_tokens.weight": embed, "norm.weight": get("norm.weight")}
+    for i in range(cfg.num_hidden_layers):
+        p = f"layers.{i}"
+        names = [f"{p}.input_layernorm.weight",
+                 f"{p}.post_attention_layernorm.weight",
+                 *(f"{p}.self_attn.{x}_proj.weight" for x in "qkvo"),
+                 *(f"{p}.mlp.{x}_proj.weight" for x in ("gate", "up", "down"))]
+        state.update({n: get(n) for n in names})
+        if biased:
+            for x in "qkv":
+                w = state[f"{p}.self_attn.{x}_proj.weight"]
+                try:
+                    state[f"{p}.self_attn.{x}_proj.bias"] = get(
+                        f"{p}.self_attn.{x}_proj.bias")
+                except KeyError:
+                    state[f"{p}.self_attn.{x}_proj.bias"] = torch.zeros(
+                        w.shape[0], dtype=w.dtype)
+    if not (cfg.tie_word_embeddings or "lm_head.weight" not in t):
+        state["lm_head.weight"] = t["lm_head.weight"]
+    return state, cfg
+
+
+# ---------------------------------------------------------------------------
+# generation
+
+class PrefixKVCache:
+    """LRU of recent prompts' KV rows, for exact prefix reuse.
+
+    ``match`` returns (rows, l, sb): reuse the first ``l`` cached rows and
+    prefill a suffix padded to bucket ``sb`` (shrinking ``l`` when the
+    padded suffix would not fit the cache). ``store`` inserts a prompt's
+    rows at the front and evicts past ``size``.
+    """
+
+    def __init__(self, size: int, min_len: int = 16):
+        self.size = size
+        self.min_len = min_len
+        self.entries: List = []    # [(prompt_ids, rows, t)]
+        self.stats = {"hits": 0, "misses": 0, "saved_tokens": 0}
+
+    def match(self, prompt_ids: List[int], max_len: int):
+        t = len(prompt_ids)
+        best, best_l = None, 0
+        for entry in self.entries:
+            l = 0
+            for a, b in zip(prompt_ids, entry[0]):
+                if a != b:
+                    break
+                l += 1
+            l = min(l, t - 1)  # at least one suffix token must run
+            if l > best_l:
+                best, best_l = entry, l
+        if best is None or best_l < self.min_len:
+            self.stats["misses"] += 1
+            return None
+        sb = pad_bucket(t - best_l, hi=max_len)
+        if best_l + sb > max_len:
+            best_l = max_len - sb  # shrink so the padded suffix fits
+        if best_l < self.min_len:
+            self.stats["misses"] += 1
+            return None
+        self.stats["hits"] += 1
+        self.stats["saved_tokens"] += best_l
+        return best[1], best_l, sb
+
+    def store(self, prompt_ids: List[int], rows, t: int) -> None:
+        """Insert at the LRU front. An entry whose prompt extends this one
+        already holds its rows (KV rows depend only on the tokens before
+        them): it moves to the front instead; entries this prompt extends
+        are dropped."""
+        ids = list(prompt_ids)
+        for i, e in enumerate(self.entries):
+            if len(e[0]) >= t and e[0][:t] == ids:
+                self.entries.insert(0, self.entries.pop(i))
+                return
+        self.entries = [e for e in self.entries
+                        if ids[:len(e[0])] != e[0]]
+        self.entries.insert(0, (ids, rows, t))
+        del self.entries[self.size:]
+
+
+class TorchDecoderLM:
+    """Greedy or sampled generation over a preallocated KV cache (module
+    docstring). ``prefix_cache > 0`` keeps the KV rows of that many recent
+    prompts: a prompt sharing at least ``_PREFIX_MIN`` leading tokens with
+    one prefills only its suffix (RAG prompts share the system template
+    and the example)."""
+
+    _PREFIX_MIN = 16
+
+    def __init__(self, model: DecoderModel, tokenizer=None,
+                 device: DeviceLike = None, max_len: int = 4096,
+                 decode_chunk: int = 8, prefix_cache: int = 0,
+                 prefill_chunk: int = 1024):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.cfg = model.cfg
+        self.tokenizer = tokenizer
+        self.max_len = max_len
+        # prompts longer than this prefill in chunks at cache offsets: a
+        # single T-token prefill holds [H, T, max_len] float32 scores
+        self.prefill_chunk = max(prefill_chunk, 16)
+        self._prefix = (PrefixKVCache(prefix_cache, self._PREFIX_MIN)
+                        if prefix_cache else None)
+        # tokens decoded per host round trip (1: the per-token loop)
+        self.decode_chunk = max(1, decode_chunk)
+
+    @classmethod
+    def from_pretrained(cls, name_or_path: str, device: DeviceLike = None,
+                        **kw) -> "TorchDecoderLM":
+        """A local checkpoint (a directory, or the offline HF cache) with
+        its ``tokenizer.json``. JAX's quantization, constraint and draft
+        options raise ``NotImplementedError``."""
+        from legalrag_tpu_torch.tokenize.bpe import BPETokenizer
+
+        kw.pop("weight_bits", None)    # shapes weight_quant only
+        refused = [name for name, on in (
+            ("int8 / int4 weights (weight_quant)", kw.pop("weight_quant",
+                                                           False)),
+            ("the int8 KV cache (kv_quant)", kw.pop("kv_quant", False)),
+            ("the JSON constraint (constrain_json)",
+             kw.pop("constrain_json", False)),
+            ("draft models (draft_model)", kw.pop("draft_model", "")))
+            if on]
+        if refused:
+            raise NotImplementedError("not ported: " + "; ".join(refused))
+        model_dir = resolve_model_dir(name_or_path)
+        state, cfg = load_hf_decoder_params(model_dir)
+        tokenizer = BPETokenizer.from_dir(model_dir)
+        model = DecoderModel.from_state_dict(cfg, state)
+        log.info("loaded decoder %s (%d layers, H=%d, GQA %d/%d, %s)",
+                 name_or_path, cfg.num_hidden_layers, cfg.hidden_size,
+                 cfg.num_attention_heads, cfg.num_key_value_heads,
+                 model.dtype)
+        return cls(model, tokenizer, device=device, **kw)
+
+    # ------------------------------------------------------------ internals
+    def _empty_cache(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Per layer zeroed (k, v) [1, max_len, Hkv, D] in the weights'
+        dtype."""
+        shape = (1, self.max_len, self.cfg.num_key_value_heads,
+                 self.cfg.head_dim)
+        return [tuple(torch.zeros(shape, dtype=self.model.dtype,
+                                  device=self.device) for _ in range(2))
+                for _ in range(self.cfg.num_hidden_layers)]
+
+    def _positions(self, start: int, n: int) -> torch.Tensor:
+        return torch.arange(start, start + n, device=self.device)[None, :]
+
+    def _forward_rows(self, ids: List[int], cache, p_len: int, true_len: int
+                      ) -> torch.Tensor:
+        """Forward the right-padded ``ids`` at cache offset ``p_len``;
+        float32 logits [1, V] of row ``true_len - 1``. Pad rows land past
+        the real ones: later rows overwrite them before a query can see
+        them, and the causal mask hides them meanwhile."""
+        x = torch.tensor([ids], dtype=torch.long, device=self.device)
+        hidden = self.model(x, self._positions(p_len, len(ids)),
+                            kv_cache=cache, cache_len=p_len,
+                            return_hidden=True)
+        return lm_logits(self.model.head, hidden[:, true_len - 1])
+
+    @torch.inference_mode()
+    def _prefill_prompt(self, prompt_ids: List[int]):
+        """Prefill a prompt → (last logits [1, V], cache), through the
+        prefix cache when an exact prefix of at least ``_PREFIX_MIN``
+        tokens is kept, in chunks above ``prefill_chunk``."""
+        t = len(prompt_ids)
+        hit = self._prefix.match(prompt_ids, self.max_len) \
+            if self._prefix else None
+        if hit is not None and t - hit[1] > self.prefill_chunk:
+            hit = None  # long suffix: the chunked cold path instead
+        cache = self._empty_cache()
+        if hit is not None:
+            (ks, vs), l, sb = hit
+            for (ck, cv), k, v in zip(cache, ks, vs):
+                ck[:, :k.shape[1]] = k
+                cv[:, :v.shape[1]] = v
+            sfx = list(prompt_ids[l:]) + [0] * (sb - (t - l))
+            last = self._forward_rows(sfx, cache, l, t - l)
+        elif t > self.prefill_chunk:
+            # sequential chunks at cache offsets, each attending the
+            # filled cache: the single-shot prefill's arithmetic per row
+            c = self.prefill_chunk
+            for off in range(0, t, c):
+                piece = list(prompt_ids[off:off + c])
+                n = len(piece)
+                # the padded chunk must fit the cache rows [off, max_len)
+                cb = c if n == c else pad_bucket(n, hi=self.max_len - off)
+                last = self._forward_rows(piece + [0] * (cb - n), cache,
+                                          off, n)
+        else:
+            bucket = pad_bucket(t, hi=self.max_len)
+            last = self._forward_rows(list(prompt_ids) + [0] * (bucket - t),
+                                      cache, 0, t)
+        if self._prefix is not None:
+            tb = pad_bucket(t, hi=self.max_len)
+            rows = tuple(torch.stack([layer[c][:, :tb] for layer in cache])
+                         for c in range(2))
+            self._prefix.store(prompt_ids, rows, t)
+        return last, cache
+
+    @property
+    def prefix_stats(self):
+        return self._prefix.stats if self._prefix else \
+            {"hits": 0, "misses": 0, "saved_tokens": 0}
+
+    @torch.inference_mode()
+    def _step(self, token: torch.Tensor, pos: int, cache) -> torch.Tensor:
+        """One token [1] at position ``pos`` → float32 logits [1, V]."""
+        return self.model(token.view(1, 1), self._positions(pos, 1),
+                          kv_cache=cache, cache_len=pos)[:, -1]
+
+    @torch.inference_mode()
+    def _pick(self, last, rep_mask, pen, greedy, temp, top_p, top_k, min_p,
+              generator) -> torch.Tensor:
+        """The next token [1] on the device, and the seen mask updated."""
+        scored = apply_repetition_penalty(last, rep_mask, pen)
+        if greedy:
+            tok = torch.argmax(scored, dim=-1)
+        else:
+            tok = _sample_top_p(scored / temp, top_p, generator, top_k, min_p)
+        rep_mask.scatter_(1, tok.view(1, 1), True)
+        return tok
+
+    @torch.inference_mode()
+    def _chunk(self, last, pos, cache, n_steps, pick) -> Tuple[list, object]:
+        """``n_steps`` pick + decode steps with no host read: (tokens [n]
+        on the device, the last logits)."""
+        toks = []
+        for i in range(n_steps):
+            tok = pick(last)
+            last = self._step(tok, pos + i, cache)
+            toks.append(tok)
+        return torch.cat(toks), last
+
+    def generate_stream(self, prompt_ids: List[int], max_new_tokens: int = 256,
+                        temperature: float = 0.0, top_p: float = 0.9,
+                        eos_id: Optional[int] = None, seed: int = 0,
+                        repetition_penalty: float = 1.0, top_k: int = 0,
+                        min_p: float = 0.0, constrain: bool = False
+                        ) -> Iterator[int]:
+        """Token ids, greedy (``temperature`` 0) or sampled through HF's
+        warpers (temperature → top_k → top_p → min_p; ``top_k == 1`` or
+        ``min_p == 1.0`` reproduce the greedy stream). Ends at ``eos_id``
+        (not yielded), after ``max_new_tokens``, or at the cache's
+        capacity."""
+        if constrain:
+            raise NotImplementedError("the JSON constraint is not ported")
+        t = len(prompt_ids)
+        if t >= self.max_len:
+            raise ValueError(
+                f"prompt ({t} tokens) does not fit the {self.max_len}-token "
+                "KV cache; truncate the prompt before generation")
+        # positions are absolute and the cache is not a ring: generation
+        # stops at capacity
+        budget = self.max_len - t
+        if max_new_tokens > budget:
+            log.warning("max_new_tokens %d exceeds cache budget %d "
+                        "(prompt %d / max_len %d); clamping",
+                        max_new_tokens, budget, t, self.max_len)
+            max_new_tokens = budget
+        last, cache = self._prefill_prompt(list(prompt_ids))
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        greedy = not temperature > 0
+        temp = torch.tensor(max(temperature, 1e-6), device=self.device)
+        pen = torch.tensor(repetition_penalty, device=self.device)
+        rep_mask = torch.zeros((1, self.cfg.vocab_size), dtype=torch.bool,
+                               device=self.device)
+        rep_mask[0, torch.tensor(list(prompt_ids), dtype=torch.long,
+                                 device=self.device)] = True
+
+        def pick(logits):
+            return self._pick(logits, rep_mask, pen, greedy, temp, top_p,
+                              top_k, min_p, generator)
+
+        pos, produced = t, 0
+        # whole chunks, one host read each; the tail token by token
+        while produced + self.decode_chunk <= max_new_tokens:
+            toks, last = self._chunk(last, pos, cache, self.decode_chunk,
+                                     pick)
+            pos += self.decode_chunk
+            produced += self.decode_chunk
+            for tok_host in toks.tolist():
+                if eos_id is not None and tok_host == eos_id:
+                    return
+                yield tok_host
+        for i in range(max_new_tokens - produced):
+            tok = pick(last)
+            tok_host = int(tok[0])
+            if eos_id is not None and tok_host == eos_id:
+                return
+            yield tok_host
+            if produced + i + 1 < max_new_tokens:  # final logits unused
+                last = self._step(tok, pos + i, cache)
+
+
+# ---------------------------------------------------------------------------
+# sampling warpers (each on [B, V] rows)
+
+def apply_repetition_penalty(logits: torch.Tensor, seen_mask: torch.Tensor,
+                             penalty) -> torch.Tensor:
+    """HF's ``RepetitionPenaltyLogitsProcessor``: for every token seen
+    (prompt and output), a positive logit is divided by the penalty, a
+    negative one multiplied by it. 1.0 leaves the logits' bits."""
+    pen = torch.as_tensor(penalty, dtype=logits.dtype, device=logits.device)
+    penalized = torch.where(logits > 0, logits / pen, logits * pen)
+    return torch.where(seen_mask, penalized, logits)
+
+
+def _top_k_filter(logits: torch.Tensor, top_k: int) -> torch.Tensor:
+    """HF's ``TopKLogitsWarper``: the k highest logits kept (ties at the
+    k-th value too), the rest -1e30; ``top_k <= 0`` passes the row."""
+    if top_k <= 0:
+        return logits
+    v = logits.shape[-1]
+    kk = min(max(top_k, 1), v)
+    thr = torch.sort(logits, dim=-1).values[..., v - kk:v - kk + 1]
+    return logits.masked_fill(logits < thr, NEG_INF)
+
+
+def _top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """The nucleus filter: logits below the one where the sorted
+    probabilities' running sum first reaches ``top_p`` go to -1e30 (an
+    index past the row clamps to its last entry, as JAX's gather does)."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    idx = (cum < top_p).sum(-1, keepdim=True).clamp_max(logits.shape[-1] - 1)
+    cutoff = torch.gather(sorted_logits, -1, idx)
+    return torch.where(logits >= cutoff, logits,
+                       torch.full_like(logits, NEG_INF))
+
+
+def _min_p_filter(logits: torch.Tensor, min_p: float) -> torch.Tensor:
+    """HF's ``MinPLogitsWarper``: tokens whose probability is below
+    ``min_p`` times the top one's go to -1e30; ``min_p <= 0`` passes."""
+    if min_p <= 0:
+        return logits
+    probs = torch.softmax(logits, dim=-1)
+    cutoff = min_p * probs.max(dim=-1, keepdim=True).values
+    return logits.masked_fill(probs < cutoff, NEG_INF)
+
+
+def _warp_filter(logits: torch.Tensor, top_p: float, top_k: int = 0,
+                 min_p: float = 0.0) -> torch.Tensor:
+    """HF's warper chain after the temperature: top-k → top-p → min-p."""
+    return _min_p_filter(
+        _top_p_filter(_top_k_filter(logits, top_k), top_p), min_p)
+
+
+def _sample_top_p(logits: torch.Tensor, top_p: float,
+                 generator: torch.Generator, top_k: int = 0,
+                 min_p: float = 0.0) -> torch.Tensor:
+    """One token per row [B] from the warped distribution, by Gumbel-max:
+    the argmax of the warped logits plus -log(-log(u)), u uniform on
+    [tiny, 1) from ``generator`` (an exact draw from their softmax)."""
+    filtered = _warp_filter(logits, top_p, top_k, min_p)
+    u = torch.rand(filtered.shape, generator=generator,
+                   device=filtered.device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.argmax(filtered - torch.log(-torch.log(u)), dim=-1)

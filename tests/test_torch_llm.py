@@ -132,8 +132,9 @@ def test_stream_dying_mid_answer_ends_with_the_interrupted_tail(msgs):
 
 
 def test_providers_the_port_lacks_degrade():
-    """``local-jax`` (not ported) degrades as the JAX client degrades for a
-    provider it cannot load."""
+    """``local-jax`` with a model that is not on disk (the port's decoder
+    engine cannot load it), and a provider no package has, degrade as the
+    JAX client degrades for a provider it cannot load."""
     for provider in ("local-jax", "no-such-provider"):
         _j, cfg = configs(provider=provider, model="nonexistent/decoder-model")
         c = LLMClient(cfg.llm)

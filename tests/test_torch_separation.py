@@ -79,8 +79,45 @@ def test_module_list_covers_the_slice():
                  "legalrag_tpu_torch.ingest.ingestor",
                  "legalrag_tpu_torch.ingest.task_queue",
                  "legalrag_tpu_torch.ingest.orchestrator",
-                 "legalrag_tpu_torch.ingest.service"):
+                 "legalrag_tpu_torch.ingest.service",
+                 "legalrag_tpu_torch.models.decoder",
+                 "legalrag_tpu_torch.tokenize.bpe"):
         assert name in PORT_MODULES
+
+
+def test_decoder_and_bpe_import_no_tokenizer_or_checkpoint_package():
+    """The decoder engine, its tokenizer and the client that serves them
+    import none of ``transformers``, ``tokenizers``, ``safetensors`` or
+    ``regex`` (nor JAX), and render a chat template without them."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "transformers", "tokenizers", "safetensors",
+                     "regex"):
+            sys.modules[name] = None  # any import of them now fails
+        sys.path.insert(0, {str(REPO)!r})
+        from legalrag_tpu_torch.llm import client
+        from legalrag_tpu_torch.models import decoder
+        from legalrag_tpu_torch.tokenize import bpe
+        tok = bpe.BPETokenizer({{
+            "model": {{"type": "BPE", "vocab": {{c: i for i, c in enumerate(
+                bpe.bytes_to_unicode().values())}}, "merges": []}},
+            "normalizer": {{"type": "NFC"}},
+            "pre_tokenizer": {{"type": "Sequence", "pretokenizers": [
+                {{"type": "Split", "pattern": {{"Regex": bpe.QWEN2_PATTERN}},
+                 "behavior": "Isolated", "invert": False}},
+                {{"type": "ByteLevel", "add_prefix_space": False,
+                 "use_regex": False}}]}},
+            "decoder": {{"type": "ByteLevel"}}, "added_tokens": []}},
+            {{"chat_template": "{{{{ messages[0]['content'] }}}}"}})
+        ids = tok("合同 ok")["input_ids"]
+        assert tok.decode(ids) == "合同 ok", ids
+        assert tok.apply_chat_template([{{"role": "user", "content": "x"}}]) == "x"
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("ok")
 
 
 def test_prompts_are_the_ports_own_copies():
