@@ -86,9 +86,10 @@ def test_module_list_covers_the_slice():
 
 
 def test_decoder_and_bpe_import_no_tokenizer_or_checkpoint_package():
-    """The decoder engine, its tokenizer and the client that serves them
-    import none of ``transformers``, ``tokenizers``, ``safetensors`` or
-    ``regex`` (nor JAX), and render a chat template without them."""
+    """The decoder engine, its tokenizer, the client that serves them and
+    ``chip_smoke.py`` import none of ``transformers``, ``tokenizers``,
+    ``safetensors`` or ``regex`` (nor JAX), and render a chat template
+    without them."""
     code = textwrap.dedent(f"""
         import sys
         for name in ("jax", "transformers", "tokenizers", "safetensors",
@@ -98,6 +99,7 @@ def test_decoder_and_bpe_import_no_tokenizer_or_checkpoint_package():
         from legalrag_tpu_torch.llm import client
         from legalrag_tpu_torch.models import decoder
         from legalrag_tpu_torch.tokenize import bpe
+        import chip_smoke
         tok = bpe.BPETokenizer({{
             "model": {{"type": "BPE", "vocab": {{c: i for i, c in enumerate(
                 bpe.bytes_to_unicode().values())}}, "merges": []}},
