@@ -184,7 +184,24 @@ Phases, each printing one JSON line:
    on the checkpoint (the zh bundle built on the card): events ending in
    ``done`` with non-empty token text, time to the first token and to the
    end, and one score+select and one MaxSim launch per request (the
-   ``answer`` path).
+   ``answer`` path), each kernel then held against its plain version on
+   the tensors those requests handed it;
+13. ``decoder_families``: the dense families past Qwen2 at full width.
+   Gemma-3-1B (``GEMMA3_1B``, gemma-3-1b-it's published config.json: 26 x
+   1152, 4 / 1 heads of 256, FFN 6912, the tanh GELU, vocab 262,144,
+   ``query_pre_attn_scalar`` 256, a window of 512 on 5 layers of 6, local
+   RoPE at 1e4 beside the global 1e6, tied, bf16), random weights with the
+   zero-centred norms at 0, beside a sentencepiece-style BPE of the
+   script's own in Gemma's layout (byte fallback, ``<pad>`` / ``<eos>`` /
+   ``<bos>`` / ``<unk>`` at ids 0-3, the turn markers at 105 / 106, a chat
+   template in Gemma's turn format, ``<eos>`` the end): the same steps as
+   12 (the twin's zh prompt over 512 tokens, so the band bites; the
+   identities, whose chunked prefill crosses the window; prefill, decode,
+   peak memory) and 3 ``/rag/answer`` streams (the ``families`` path,
+   kernels 1 and 2/3 once a request, held against their plain versions);
+   then Qwen3-0.6B (``QWEN3_06B``: 28 x 1024, 16 / 8 heads of 128, q/k
+   norms, tied) with the Qwen2-layout tokenizer: its prefill logits and
+   64 greedy tokens against the float32 CPU twin.
 
 Each path checks its own kernels: every kernel of the path launched once
 per batch, every other kernel not at all. Then the ``{"kernels": [...]}``
@@ -233,6 +250,7 @@ from legalrag_tpu_torch.index.token_index import (
     quantize_int8,
 )
 from legalrag_tpu_torch.ingest.minipdf import build_pdf
+from legalrag_tpu_torch.llm import DEGRADED_ANSWER
 from legalrag_tpu_torch.models.bert import BertConfig, random_init_bert_params
 from legalrag_tpu_torch.models.decoder import (
     DecoderModel,
@@ -381,6 +399,52 @@ DECODER_DECODE_TOKENS = 128
 DECODER_PROFILE_TOKENS = 40  # a profiled decode run (~1,300 events a token)
 DECODER_ANSWERS = 3         # timed /rag/answer streams
 DECODER_ANSWER_TOKENS = 128  # their max_new_tokens
+# decoder_families phase: google/gemma-3-1b-it's published config.json (a
+# dict as released; its head is tied by Gemma3TextConfig's default) and
+# Qwen/Qwen3-0.6B's, random weights from a seed
+GEMMA3_1B = dict(architectures=["Gemma3ForCausalLM"], attention_bias=False,
+                 attention_dropout=0.0, attn_logit_softcapping=None,
+                 bos_token_id=2, cache_implementation="hybrid",
+                 eos_token_id=[1, 106], final_logit_softcapping=None,
+                 head_dim=256, hidden_activation="gelu_pytorch_tanh",
+                 hidden_size=1152, initializer_range=0.02,
+                 intermediate_size=6912, max_position_embeddings=32768,
+                 model_type="gemma3_text", num_attention_heads=4,
+                 num_hidden_layers=26, num_key_value_heads=1, pad_token_id=0,
+                 query_pre_attn_scalar=256, rms_norm_eps=1e-6,
+                 rope_local_base_freq=10000, rope_scaling=None,
+                 rope_theta=1000000, sliding_window=512,
+                 sliding_window_pattern=6, torch_dtype="bfloat16",
+                 use_cache=True, vocab_size=262144)
+QWEN3_06B = dict(architectures=["Qwen3ForCausalLM"], attention_bias=False,
+                 attention_dropout=0.0, bos_token_id=151643,
+                 eos_token_id=151645, head_dim=128, hidden_act="silu",
+                 hidden_size=1024, initializer_range=0.02,
+                 intermediate_size=3072, max_position_embeddings=40960,
+                 max_window_layers=28, model_type="qwen3",
+                 num_attention_heads=16, num_hidden_layers=28,
+                 num_key_value_heads=8, rms_norm_eps=1e-6, rope_scaling=None,
+                 rope_theta=1000000, sliding_window=None,
+                 tie_word_embeddings=True, torch_dtype="bfloat16",
+                 use_cache=True, use_sliding_window=False, vocab_size=151936)
+# Gemma's special tokens at gemma-3's ids; <unusedN> fill ids 4-104, the
+# 256 <0xNN> byte tokens follow the turn markers
+GEMMA_SPECIALS = {"<pad>": 0, "<eos>": 1, "<bos>": 2, "<unk>": 3,
+                  "<start_of_turn>": 105, "<end_of_turn>": 106}
+# Gemma's turn format; every system turn is a user turn (gemma-3's own
+# template refuses the pipeline's second system message, and the answer
+# would only degrade)
+GEMMA_TURNS = ("{{ bos_token }}{% for m in messages %}<start_of_turn>"
+               "{{ 'model' if m['role'] == 'assistant' else 'user' }}\n"
+               "{{ m['content'] | trim }}<end_of_turn>\n{% endfor %}"
+               "{% if add_generation_prompt %}<start_of_turn>model\n"
+               "{% endif %}")
+# the card's bf16 logits against the float32 twin's: an H100's prefill
+# logits were 0.052 off for each (range +-3.1 / +-2.9), so 0.15 leaves
+# the margin Qwen2.5's has
+GEMMA_LOGIT_ATOL = 0.15
+QWEN3_LOGIT_ATOL = 0.15
+FAMILIES_MIN_PROMPT = 512   # the twin's prompt crosses Gemma 3's window
 # the kernels each path must launch once per batch (and no other); the
 # serve path's batch is one channels call of the micro-batcher. An int8
 # dense store never reaches score+select (JAX sends it to XLA).
@@ -393,12 +457,13 @@ PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "stores_n4": ("score_select", "maxsim"),
                 "large": ("bm25_sparse",),
                 "recall": ("maxsim",),
-                "answer": ("score_select", "maxsim")}
+                "answer": ("score_select", "maxsim"),
+                "families": ("score_select", "maxsim")}
 # MaxSim's route (the store kind, as the wrapper counts it) on each path
 # that launches it; the recall path's is its token store's
 PATH_ROUTES = {"map": "bf16", "bert": "bf16", "serve": "bf16", "http": "bf16",
                "ingest": "bf16", "stores_q8": "int8", "stores_n4": "nbit4",
-               "answer": "bf16"}
+               "answer": "bf16", "families": "bf16"}
 
 
 def emit(obj) -> None:
@@ -1377,25 +1442,25 @@ class KernelInputs:
         fused_query.dense_topk, fused_query.maxsim_full = self._orig
 
 
-def check_serve_kernels(rec: KernelInputs) -> dict:
+def check_serve_kernels(rec: KernelInputs, path: str = "serve") -> dict:
     """Kernels 1 and 2/3 against their plain versions on the tensors that
-    the serving path's channels calls gave them (``KernelInputs``), at
-    every batch bucket seen, with timings at those shapes. A bucket's
-    padding questions are empty: their MaxSim row must be 0."""
+    ``path``'s channels calls gave them (``KernelInputs``), at every batch
+    bucket seen, with timings at those shapes. A bucket's padding
+    questions are empty: their MaxSim row must be 0."""
     check(set(rec.dense) == set(rec.maxsim) and rec.dense,
-          f"serve: recorded dense {sorted(rec.dense)} and MaxSim "
+          f"{path}: recorded dense {sorted(rec.dense)} and MaxSim "
           f"{sorted(rec.maxsim)} calls")
     out = {}
     for lang, b in sorted(rec.dense):
         emb, q, valid_n, k = rec.dense[lang, b]
-        check(emb.shape[0] < TWO_PASS_MIN_N, "serve: the one-pass route")
+        check(emb.shape[0] < TWO_PASS_MIN_N, f"{path}: the one-pass route")
         _s, _i, res1 = check_dense_topk(emb, q, valid_n, k,
-                                        f"serve {lang} B {b}")
+                                        f"{path} {lang} B {b}")
         args = rec.maxsim[lang, b]
         got, want = maxsim_full(*args), maxsim_full_plain(*args)
         err = (got - want).abs().max().item()
         check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
-              f"maxsim at serve {lang} B {b} differs by {err}")
+              f"maxsim at {path} {lang} B {b} differs by {err}")
         empty = ~args[3].any(dim=1)
         check(bool((got[empty] == 0).all()),
               "maxsim: a padded empty question must score 0")
@@ -3110,16 +3175,12 @@ def phase_bert() -> list:
 
 # ------------------------------------------------------- decoder engine
 
-def train_bpe(texts, n_merges: int):
-    """Byte-level BPE merges counted from ``texts``: each text split by
-    Qwen2's pattern (the port's scanner) into byte-level words, then, until
-    ``n_merges`` merges or no pair is left, the most frequent adjacent pair
-    (ties: the smaller pair) merged in every word. The pair counts are
-    kept up to date per word, so a merge costs the words that hold it."""
-    bmap = bytes_to_unicode()
-    counts = collections.Counter(
-        "".join(bmap[b] for b in piece.encode("utf-8"))
-        for t in texts for piece in split_words(unicodedata.normalize("NFC", t)))
+def count_merges(counts: collections.Counter, n_merges: int):
+    """BPE merges counted from ``counts`` (each word, a string of
+    symbols, with its frequency): until ``n_merges`` merges or no pair is
+    left, the most frequent adjacent pair (ties: the smaller pair) merged
+    in every word. The pair counts are kept up to date per word, so a
+    merge costs the words that hold it."""
     words = [list(w) for w in counts]
     freq = list(counts.values())
     pairs = collections.Counter()
@@ -3163,6 +3224,24 @@ def train_bpe(texts, n_merges: int):
             if pairs.get(q, 0) > 0:
                 heapq.heappush(heap, (-pairs[q], q))
     return merges
+
+
+def train_bpe(texts, n_merges: int):
+    """Byte-level BPE merges counted from ``texts``, each split by Qwen2's
+    pattern (the port's scanner) into byte-level words."""
+    bmap = bytes_to_unicode()
+    return count_merges(collections.Counter(
+        "".join(bmap[b] for b in piece.encode("utf-8"))
+        for t in texts
+        for piece in split_words(unicodedata.normalize("NFC", t))), n_merges)
+
+
+def sp_words(texts) -> collections.Counter:
+    """Sentencepiece-style training words: each text with its spaces as
+    "▁", cut before every "▁"."""
+    return collections.Counter(
+        w for t in texts
+        for w in re.split("(?=\u2581)", t.replace(" ", "\u2581")) if w)
 
 
 def write_bpe_tokenizer(d: Path, texts) -> dict:
@@ -3210,44 +3289,123 @@ def write_bpe_tokenizer(d: Path, texts) -> dict:
     return {"merges": len(merges), "tokens": len(vocab) + len(QWEN_SPECIALS)}
 
 
+def write_gemma_tokenizer(d: Path, texts) -> dict:
+    """A sentencepiece-style BPE tokenizer in Gemma's layout, of the
+    script's own: ``tokenizer.json`` with ``GEMMA_SPECIALS`` (added, special)
+    and ``<unusedN>`` at ids 0-106, the 256 ``<0xNN>`` byte tokens, every
+    character of ``texts``, then the merges ``count_merges`` counts from
+    their "▁"-words; the normalizer ``Replace(" ", "▁")``, no
+    pre-tokenizer, byte fallback, the decoder ``Replace`` / ``ByteFallback``
+    / ``Fuse``, ``<bos>`` added by the post-processor;
+    ``tokenizer_config.json`` with ``GEMMA_TURNS`` and ``eos_token``
+    ``<eos>``, as gemma-3's."""
+    words = sp_words(texts)
+    vocab = {f"<unused{i - 4}>": i for i in range(4, 105)} | GEMMA_SPECIALS
+    vocab = dict(sorted(vocab.items(), key=lambda kv: kv[1]))
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    for c in sorted({c for w in words for c in w}):
+        vocab.setdefault(c, len(vocab))
+    merges = count_merges(words, DECODER_MERGES)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    check(len(vocab) < GEMMA3_1B["vocab_size"], "gemma bpe: vocabulary size")
+    spiece = {"String": "\u2581"}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": s, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for s, i in GEMMA_SPECIALS.items()],
+        "normalizer": {"type": "Replace", "pattern": {"String": " "},
+                       "content": "\u2581"},
+        "pre_tokenizer": None,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<bos>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<bos>", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "<bos>", "type_id": 1}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<bos>": {"id": "<bos>", "ids": [2],
+                                         "tokens": ["<bos>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": spiece, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True,
+                  "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": [[a, b] for a, b in merges]}}
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False),
+                                      encoding="utf-8")
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "GemmaTokenizer", "chat_template": GEMMA_TURNS,
+        "bos_token": "<bos>", "eos_token": "<eos>", "pad_token": "<pad>",
+        "unk_token": "<unk>", "add_bos_token": True, "add_eos_token": False,
+        "additional_special_tokens": ["<start_of_turn>", "<end_of_turn>"],
+        "clean_up_tokenization_spaces": False,
+        "model_max_length": 1000000000000000019884624838656}),
+        encoding="utf-8")
+    return {"merges": len(merges), "tokens": len(vocab)}
+
+
 def write_decoder_checkpoint(d: Path, seed: int,
                              layer_scale: float = DECODER_LAYER_SCALE,
                              conf=None) -> Path:
-    """A random Qwen2 checkpoint at ``conf``'s shape (Qwen2.5-0.5B-Instruct's
-    by default): ``config.json`` and a bf16 ``model.safetensors`` by the
-    port's writer. The weights are drawn in numpy from ``seed``: the
-    embedding (tied head) at HF's init 0.02, every layer's projections and
-    q/k/v biases at 0.02 * ``layer_scale``, norms at 1."""
+    """A random checkpoint at ``conf``'s shape (Qwen2.5-0.5B-Instruct's by
+    default; Qwen3's and Gemma 3's too): ``config.json`` and a bf16
+    ``model.safetensors`` by the port's writer. The weights are drawn in
+    numpy from ``seed``: the embedding (tied head) at HF's init 0.02,
+    every layer's projections and Qwen2's q/k/v biases at 0.02 *
+    ``layer_scale``; norms at 1, or at 0 for Gemma (zero-centred, applied
+    as 1 + w), Qwen3's and Gemma 3's q/k norms and Gemma 3's feed-forward
+    norms among them."""
     conf = conf or QWEN25_05B
     rng = np.random.default_rng(seed)
+    mt = conf["model_type"]
     h, ff = conf["hidden_size"], conf["intermediate_size"]
-    q_out = conf["num_attention_heads"] * (h // conf["num_attention_heads"])
-    kv_out = conf["num_key_value_heads"] * (h // conf["num_attention_heads"])
+    hd = conf.get("head_dim") or h // conf["num_attention_heads"]
+    q_out = conf["num_attention_heads"] * hd
+    kv_out = conf["num_key_value_heads"] * hd
     s = 0.02 * layer_scale
 
     def draw(shape, scale):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
                                 * np.float32(scale)).to(torch.bfloat16)
 
-    def ones(n):
-        return torch.ones(n, dtype=torch.bfloat16)
+    def norm(n):
+        return (torch.zeros if mt.startswith("gemma") else torch.ones)(
+            n, dtype=torch.bfloat16)
+
+    def proj(name, rows, cols):
+        out = {f"{name}.weight": draw((rows, cols), s)}
+        if mt.startswith("qwen2") and name.endswith(("q_proj", "k_proj",
+                                                     "v_proj")):
+            out[f"{name}.bias"] = draw((rows,), s)
+        return out
 
     t = {"model.embed_tokens.weight": draw((conf["vocab_size"], h), 0.02),
-         "model.norm.weight": ones(h)}
+         "model.norm.weight": norm(h)}
     for i in range(conf["num_hidden_layers"]):
         p = f"model.layers.{i}"
-        t |= {f"{p}.input_layernorm.weight": ones(h),
-              f"{p}.post_attention_layernorm.weight": ones(h),
-              f"{p}.self_attn.q_proj.weight": draw((q_out, h), s),
-              f"{p}.self_attn.q_proj.bias": draw((q_out,), s),
-              f"{p}.self_attn.k_proj.weight": draw((kv_out, h), s),
-              f"{p}.self_attn.k_proj.bias": draw((kv_out,), s),
-              f"{p}.self_attn.v_proj.weight": draw((kv_out, h), s),
-              f"{p}.self_attn.v_proj.bias": draw((kv_out,), s),
-              f"{p}.self_attn.o_proj.weight": draw((h, q_out), s),
-              f"{p}.mlp.gate_proj.weight": draw((ff, h), s),
-              f"{p}.mlp.up_proj.weight": draw((ff, h), s),
-              f"{p}.mlp.down_proj.weight": draw((h, ff), s)}
+        t |= {f"{p}.input_layernorm.weight": norm(h),
+              f"{p}.post_attention_layernorm.weight": norm(h),
+              **proj(f"{p}.self_attn.q_proj", q_out, h),
+              **proj(f"{p}.self_attn.k_proj", kv_out, h),
+              **proj(f"{p}.self_attn.v_proj", kv_out, h),
+              **proj(f"{p}.self_attn.o_proj", h, q_out),
+              **proj(f"{p}.mlp.gate_proj", ff, h),
+              **proj(f"{p}.mlp.up_proj", ff, h),
+              **proj(f"{p}.mlp.down_proj", h, ff)}
+        if mt == "qwen3" or mt.startswith("gemma3"):
+            t |= {f"{p}.self_attn.q_norm.weight": norm(hd),
+                  f"{p}.self_attn.k_norm.weight": norm(hd)}
+        if mt.startswith(("gemma2", "gemma3")):
+            t |= {f"{p}.pre_feedforward_layernorm.weight": norm(h),
+                  f"{p}.post_feedforward_layernorm.weight": norm(h)}
     d.mkdir(parents=True, exist_ok=True)
     save_file(t, d / "model.safetensors")
     (d / "config.json").write_text(json.dumps(conf), encoding="utf-8")
@@ -3274,34 +3432,42 @@ def decoder_bytes(model, positions) -> float:
     return weights + kv_row * float(np.mean(positions))
 
 
-def decoder_twin(card, twin, ids) -> dict:
+def decoder_twin(card, twin, ids, atol: float = DECODER_LOGIT_ATOL
+                 ) -> dict:
     """The card's engine (bf16) against its CPU twin (float32 copies of the
     same weights) on one prompt: the prefill's last-row logits within
-    ``DECODER_LOGIT_ATOL``; then the card's first ``DECODER_GREEDY`` greedy
-    tokens fed to the twin one by one, each equal to the twin's argmax
-    wherever the twin's top-2 gap exceeds the atol (a step below it may
-    pick either)."""
-    card_last, _ = card._prefill_prompt(ids)
+    ``atol``; then the card's first ``DECODER_GREEDY`` greedy tokens fed to
+    the twin and to the card one by one: each step's logits on the card
+    within ``atol`` of the twin's, and each token equal to the twin's
+    argmax wherever the twin's top-2 gap exceeds the atol (a step below it
+    may pick either)."""
+    card_last, card_cache = card._prefill_prompt(ids)
     t0 = time.perf_counter()
     twin_last, twin_cache = twin._prefill_prompt(ids)
     twin_prefill_s = time.perf_counter() - t0
     err = float((card_last.float().cpu() - twin_last).abs().max())
-    check(err <= DECODER_LOGIT_ATOL,
-          f"decoder: prefill logits {err} off the CPU twin's")
+    check(err <= atol, f"decoder: prefill logits {err} off the CPU twin's")
     toks = list(card.generate_stream(ids, DECODER_GREEDY, temperature=0.0))
     check(len(toks) == DECODER_GREEDY, f"decoder: {len(toks)} greedy tokens")
-    gaps, ties, last = [], [], twin_last
+    gaps, ties, step_err, last = [], [], 0.0, twin_last
     t0 = time.perf_counter()
     for i, tok in enumerate(toks):
+        step_err = max(step_err,
+                       float((card_last.float().cpu() - last).abs().max()))
         top = torch.topk(last[0], 2).values
         gaps.append(float(top[0] - top[1]))
         if int(last[0].argmax()) != tok:
-            check(gaps[-1] <= DECODER_LOGIT_ATOL,
+            check(gaps[-1] <= atol,
                   f"decoder: greedy token {i} is {tok} on the card, "
                   f"{int(last[0].argmax())} on the twin (gap {gaps[-1]})")
             ties.append(i)
         last = twin._step(torch.tensor([tok]), len(ids) + i, twin_cache)
+        card_last = card._step(torch.tensor([tok], device=card.device),
+                               len(ids) + i, card_cache)
+    check(step_err <= atol,
+          f"decoder: a decode step's logits {step_err} off the CPU twin's")
     return {"prompt_tokens": len(ids), "prefill_logits_max_abs_err": err,
+            "decode_logits_max_abs_err": step_err,
             "logit_range": [float(twin_last.min()), float(twin_last.max())],
             "greedy_tokens": len(toks), "distinct_tokens": len(set(toks)),
             "near_tie_steps": ties, "min_top2_gap": min(gaps),
@@ -3321,7 +3487,8 @@ def top2_gap_after(engine, prompt, tokens) -> float:
     return float(top[0] - top[1])
 
 
-def decoder_identities(card, ids, long_ids) -> dict:
+def decoder_identities(card, ids, long_ids,
+                       atol: float = DECODER_LOGIT_ATOL) -> dict:
     """Greedy streams of the card's engine that must agree: chunked
     prefill (1024) of a prompt above 1024 tokens against one shot,
     decode_chunk 1 against 8, and a prefix-cache hit (a donor prompt
@@ -3329,7 +3496,7 @@ def decoder_identities(card, ids, long_ids) -> dict:
     float32 copy of the weights on the card they must be token-identical
     (the engine's offsets, chunks and reused rows). In bf16 cuBLAS rounds
     a [1, T] product by T's kernel, so a stream may diverge, but only at a
-    step where the reference's top-2 gap is within DECODER_LOGIT_ATOL."""
+    step where the reference's top-2 gap is within ``atol``."""
     f32 = DecoderModel.from_state_dict(
         copy.copy(card.cfg), {k: v.float() for k, v in
                               card.model.state_dict().items()})
@@ -3364,7 +3531,7 @@ def decoder_identities(card, ids, long_ids) -> dict:
                 res["first_difference"] = i
                 res["reference_top2_gap"] = gap = top2_gap_after(
                     ref, prompt, want[:i])
-                check(dtype == "bfloat16" and gap <= DECODER_LOGIT_ATOL,
+                check(dtype == "bfloat16" and gap <= atol,
                       f"decoder {dtype}: {name} differs at token {i} "
                       f"(top-2 gap {gap})")
             out[f"{dtype}_{name}"] = res
@@ -3419,15 +3586,17 @@ def decoder_speed(card, corpus_ids) -> dict:
     return out
 
 
-def decoder_answer(ckpt: Path, tmp: Path) -> dict:
+def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
+                   phase: str = "decoder_answer") -> dict:
     """``/rag/answer`` with ``stream: true`` through the port's HTTP server
     on the card, ``llm.provider`` ``local-jax`` on ``ckpt`` (the default
     sampling, 0.3 / 0.9): the zh bundle and its law graph saved under
     ``tmp``, one warm-up answer (the engine's load), then
     ``DECODER_ANSWERS`` answers: events ending in ``done`` with non-empty
     token text, time to the first token and to the end, tokens, and the
-    retrieval's launches (one score_select and one MaxSim per channels
-    call)."""
+    retrieval's launches on ``path`` (one score_select and one MaxSim per
+    channels call); then kernels 1 and 2/3 against their plain versions
+    on the tensors those calls handed them (``KernelInputs``)."""
     cfg = AppConfig()
     cfg.paths.index_dir, cfg.paths.graph_dir = tmp / "index", tmp / "graph"
     cfg.llm.provider, cfg.llm.model = "local-jax", str(ckpt)
@@ -3452,28 +3621,34 @@ def decoder_answer(ckpt: Path, tmp: Path) -> dict:
         http_sse(base, "/rag/answer", {"question": DECODER_QUESTION,
                                        "stream": True})
         warm_s = time.perf_counter() - t0
-        batchers = [st.pipeline.retriever.retriever("zh")._batcher]
+        hr = st.pipeline.retriever.retriever("zh")
         questions = [DECODER_QUESTION, "借款合同的利息如何计算？",
                      "租赁期限届满后承租人应当如何返还租赁物？"]
         tok0 = METRICS._counters[key]
-        out, launches, calls = launches_of(
-            lambda: [http_sse(base, "/rag/answer", {"question": q,
-                                                    "stream": True})
-                     for q in questions[:DECODER_ANSWERS]], batchers)
+        rec = KernelInputs({"zh": hr.bundle})
+        rec.start()
+        try:
+            out, launches, calls = launches_of(
+                lambda: [http_sse(base, "/rag/answer", {"question": q,
+                                                        "stream": True})
+                         for q in questions[:DECODER_ANSWERS]], [hr._batcher])
+        finally:
+            rec.stop()
         generated = METRICS._counters[key] - tok0
     finally:
         shutdown_gracefully(st, server, 0.0)
-    check_launches("answer", launches, calls)
-    check(calls == DECODER_ANSWERS, f"decoder answer: {calls} channels calls")
+    check_launches(path, launches, calls)
+    check(calls == DECODER_ANSWERS, f"{path}: {calls} channels calls")
     texts = []
     for events, first, _total in out:
         kinds = [e for e, _ in events]
         text = "".join(p["text"] for e, p in events if e == "token")
         check(kinds[0] == "meta" and kinds[-1] == "done"
-              and "error" not in kinds and text and first is not None,
-              f"decoder answer: events {kinds[:3]} ... {kinds[-3:]}")
+              and "error" not in kinds and text and first is not None
+              and text != DEGRADED_ANSWER["zh"],
+              f"{path}: events {kinds[:3]} ... {kinds[-3:]}")
         texts.append(text)
-    return {"phase": "decoder_answer", "answers": len(out),
+    return {"phase": phase, "answers": len(out),
             "warmup_s": warm_s,
             "ttft_ms": [first for _e, first, _t in out],
             "total_ms": [total for _e, _f, total in out],
@@ -3481,7 +3656,72 @@ def decoder_answer(ckpt: Path, tmp: Path) -> dict:
                              for ev, _f, _t in out],
             "generated_tokens": generated, "text_chars": [len(t) for t in texts],
             "text_head": texts[0][:60], "launches": launches,
-            "channel_calls": calls}
+            "channel_calls": calls,
+            "kernels": check_serve_kernels(rec, path)}
+
+
+def decoder_setup(ckpt: Path, write_tokenizer, texts, seed: int,
+                  conf=None):
+    """Write ``write_tokenizer``'s tokenizer of ``texts`` and a random
+    checkpoint at ``conf``'s shape under ``ckpt``, then load it twice:
+    ``TorchDecoderLM.from_pretrained`` on the card (bf16) and a float32
+    CPU twin of the same weights. (card engine, twin, the timings)."""
+    t0 = time.perf_counter()
+    bpe = write_tokenizer(ckpt, texts)
+    bpe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_decoder_checkpoint(ckpt, seed=seed, conf=conf)
+    ckpt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = TorchDecoderLM.from_pretrained(str(ckpt), device="cuda",
+                                          max_len=DECODER_MAX_LEN)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, cfg = load_hf_decoder_params(ckpt)
+    twin = TorchDecoderLM(
+        DecoderModel.from_state_dict(
+            cfg, {k: v.float() for k, v in state.items()}),
+        card.tokenizer, device="cpu", max_len=DECODER_MAX_LEN)
+    return card, twin, {
+        "bpe": bpe, "bpe_s": bpe_s, "checkpoint_s": ckpt_s,
+        "card_load_s": load_s, "twin_load_s": time.perf_counter() - t0,
+        "checkpoint_bytes": (ckpt / "model.safetensors").stat().st_size,
+        "layer_scale": DECODER_LAYER_SCALE, "max_len": card.max_len}
+
+
+def rag_prompt_ids(tok, chunks) -> list:
+    """The pipeline's zh RAG prompt in ``tok``'s chat template, as the
+    client tokenizes it (special tokens added, at most 4,096)."""
+    prompt = tok.apply_chat_template(decoder_messages(chunks),
+                                     add_generation_prompt=True)
+    return tok(prompt, truncation=True, max_length=4096)["input_ids"]
+
+
+def decoder_runs(name: str, card, twin, chunks, atol: float):
+    """The twin, the identities and the speed of one checkpoint on the
+    card (the Qwen2.5 and Gemma 3 runs), each emitted as
+    ``{name}_twin`` / ``_identities`` / ``_speed``; the twin's prompt
+    ids."""
+    ids = rag_prompt_ids(card.tokenizer, chunks)
+    t0 = time.perf_counter()
+    twin_res = decoder_twin(card, twin, ids, atol)
+    emit({"phase": f"{name}_twin", **twin_res,
+          "seconds": time.perf_counter() - t0})
+    del twin
+    t0 = time.perf_counter()
+    corpus_ids = card.tokenizer("\n".join(c.text for c in chunks))[
+        "input_ids"]
+    encode_s = time.perf_counter() - t0
+    ident = decoder_identities(card, ids, corpus_ids[:1500], atol)
+    emit({"phase": f"{name}_identities", **ident,
+          "corpus_tokens": len(corpus_ids), "corpus_encode_s": encode_s,
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    speed = decoder_speed(card, corpus_ids)
+    emit({"phase": f"{name}_speed", **speed,
+          "seconds": time.perf_counter() - t0})
+    return ids
 
 
 def phase_decoder() -> dict:
@@ -3493,49 +3733,12 @@ def phase_decoder() -> dict:
     try:
         ckpt = tmp / "qwen25_05b"
         chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
-        t0 = time.perf_counter()
-        bpe = write_bpe_tokenizer(ckpt, [c.text for cs in chunks.values()
-                                         for c in cs])
-        bpe_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        write_decoder_checkpoint(ckpt, seed=5)
-        ckpt_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        card = TorchDecoderLM.from_pretrained(str(ckpt), device="cuda",
-                                              max_len=DECODER_MAX_LEN)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        state, cfg = load_hf_decoder_params(ckpt)
-        twin = TorchDecoderLM(
-            DecoderModel.from_state_dict(
-                cfg, {k: v.float() for k, v in state.items()}),
-            card.tokenizer, device="cpu", max_len=DECODER_MAX_LEN)
-        del state
-        tok = card.tokenizer
-        emit({"phase": "decoder_setup", "bpe": bpe, "bpe_s": bpe_s,
-              "checkpoint_s": ckpt_s, "card_load_s": load_s,
-              "twin_load_s": time.perf_counter() - t0,
-              "checkpoint_bytes": (ckpt / "model.safetensors").stat().st_size,
-              "layer_scale": DECODER_LAYER_SCALE, "max_len": card.max_len})
-        prompt = tok.apply_chat_template(decoder_messages(chunks["zh"]),
-                                         add_generation_prompt=True)
-        ids = tok(prompt, truncation=True, max_length=4096)["input_ids"]
-        t0 = time.perf_counter()
-        twin_res = decoder_twin(card, twin, ids)
-        emit({"phase": "decoder_twin", **twin_res,
-              "seconds": time.perf_counter() - t0})
-        del twin
-        t0 = time.perf_counter()
-        corpus_ids = tok("\n".join(c.text for c in chunks["zh"]))["input_ids"]
-        ident = decoder_identities(card, ids, corpus_ids[:1500])
-        emit({"phase": "decoder_identities", **ident,
-              "seconds": time.perf_counter() - t0})
-        t0 = time.perf_counter()
-        speed = decoder_speed(card, corpus_ids)
-        emit({"phase": "decoder_speed", **speed,
-              "seconds": time.perf_counter() - t0})
-        del card
+        card, twin, setup = decoder_setup(
+            ckpt, write_bpe_tokenizer,
+            [c.text for cs in chunks.values() for c in cs], seed=5)
+        emit({"phase": "decoder_setup", **setup})
+        decoder_runs("decoder", card, twin, chunks["zh"], DECODER_LOGIT_ATOL)
+        del card, twin
         t0 = time.perf_counter()
         answer = decoder_answer(ckpt, tmp)
         emit(answer | {"seconds": time.perf_counter() - t0,
@@ -3543,6 +3746,63 @@ def phase_decoder() -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "decoder", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": nvidia_smi()})
+    return answer
+
+
+def phase_decoder_families() -> dict:
+    """The dense families at full width (module docstring, phase 13):
+    Gemma-3-1B through the twin, identities, speed and ``/rag/answer``
+    (the ``families`` path), then Qwen3-0.6B's twin. Returns Gemma's
+    answer run with its launches."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="families_"))
+    try:
+        chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
+        texts = [c.text for cs in chunks.values() for c in cs]
+        gemma = tmp / "gemma3_1b"
+        card, twin, setup = decoder_setup(gemma, write_gemma_tokenizer,
+                                          texts, seed=7, conf=GEMMA3_1B)
+        tok, cfg = card.tokenizer, card.cfg
+        # characters outside the statutes take the byte fallback
+        probe = "合同😀 § 2-207\u3000ǅ"
+        probe_ids = tok(probe, add_special_tokens=False)["input_ids"]
+        check(tok.decode(probe_ids) == probe
+              and tok.token_id("<0xF0>") in probe_ids,
+              f"gemma tokenizer: {probe!r} -> {probe_ids}")
+        emit({"phase": "families_setup", "model": "gemma-3-1b-it", **setup,
+              "sliding_layers": sum(cfg.layer_is_sliding(i) for i in
+                                    range(cfg.num_hidden_layers)),
+              "window": cfg.sliding_window,
+              "params": sum(p.numel() for p in card.model.parameters())})
+        ids = decoder_runs("gemma3", card, twin, chunks["zh"],
+                           GEMMA_LOGIT_ATOL)
+        check(len(ids) > FAMILIES_MIN_PROMPT,
+              f"gemma3: the twin's prompt has {len(ids)} tokens")
+        del card, twin
+        t0 = time.perf_counter()
+        answer = decoder_answer(gemma, tmp, "families", "gemma3_answer")
+        emit(answer | {"seconds": time.perf_counter() - t0,
+                       "peak_card_bytes": torch.cuda.max_memory_allocated()})
+        shutil.rmtree(gemma)
+        qwen3 = tmp / "qwen3_06b"
+        card, twin, setup = decoder_setup(qwen3, write_bpe_tokenizer, texts,
+                                          seed=9, conf=QWEN3_06B)
+        emit({"phase": "families_setup", "model": "Qwen3-0.6B", **setup,
+              "params": sum(p.numel() for p in card.model.parameters())})
+        t0 = time.perf_counter()
+        res = decoder_twin(card, twin, rag_prompt_ids(card.tokenizer,
+                                                      chunks["zh"]),
+                           QWEN3_LOGIT_ATOL)
+        emit({"phase": "qwen3_twin", **res,
+              "seconds": time.perf_counter() - t0})
+        del card, twin
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "decoder_families",
+          "seconds": time.perf_counter() - t_phase,
+          "peak_card_bytes": torch.cuda.max_memory_allocated(),
           "nvidia_smi": nvidia_smi()})
     return answer
 
@@ -3889,10 +4149,11 @@ def main() -> int:
     large_store_runs, large_stores = phase_large_stores()
     bert_runs = phase_bert()
     answer = phase_decoder()
+    families = phase_decoder_families()
     runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
             "ingest": [ingest], "stores": store_runs,
             "large": [large] + large_store_runs, "bert": bert_runs,
-            "answer": [answer]}
+            "answer": [answer], "families": [families]}
     # MaxSim's launches per route, as the wrapper counts them on each path
     # (the kernel's own row: all its routes; bf16 is the map path's)
     routes["float32"] = kres["maxsim"].pop("float32_route")

@@ -174,9 +174,11 @@ def decoder_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX decoder's dense param tree (``embed``, ``lm_head`` [H, V],
     ``final_norm``, ``layers[i]`` with ``input_norm``, ``q``/``k``/``v``
     (``kernel`` [in, out], ``bias``), ``o``, ``post_norm``, ``gate``,
-    ``up``, ``down``) as the port's ``DecoderModel`` state dict, in the
-    tree's dtype. A head equal to the embedding's transpose is the tied
-    head: the state then has no ``lm_head.weight``."""
+    ``up``, ``down`` and, where the family has them, ``q_norm``,
+    ``k_norm``, ``pre_ff_norm`` and ``post_ff_norm``) as the port's
+    ``DecoderModel`` state dict, in the tree's dtype. A head equal to the
+    embedding's transpose is the tied head: the state then has no
+    ``lm_head.weight``."""
     def weight(node) -> torch.Tensor:
         return _same_dtype(np.asarray(node["kernel"]).T)
 
@@ -198,6 +200,12 @@ def decoder_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 layer[x]["bias"])
         for x in ("gate", "up", "down"):
             state[f"{p}.mlp.{x}_proj.weight"] = weight(layer[x])
+        for key, name in (("q_norm", "self_attn.q_norm"),
+                          ("k_norm", "self_attn.k_norm"),
+                          ("pre_ff_norm", "pre_feedforward_layernorm"),
+                          ("post_ff_norm", "post_feedforward_layernorm")):
+            if key in layer:
+                state[f"{p}.{name}.weight"] = _same_dtype(layer[key])
     return state
 
 

@@ -1,20 +1,29 @@
 """Causal decoder LM: the single-stream generation engine (port of
 ``legalrag_tpu/models/decoder.py``).
 
-The dense Qwen2 / Qwen2.5 (q/k/v biases, usually tied embeddings) and
-Llama (no biases, an untied head) families: RMSNorm, rotary positions
-(default, linear, llama3 and yarn scaling), grouped-query attention,
-SwiGLU, loaded from local HF safetensors in the checkpoint's dtype (bf16
-as released). ``DecoderModel`` computes as JAX's ``decoder_forward`` does:
+The dense families JAX serves: Qwen2 / Qwen2.5 (q/k/v biases, usually tied
+embeddings), Llama (no biases, an untied head), Qwen3 (per-head q/k
+RMSNorms before RoPE, an explicit ``head_dim``), Mistral (every layer in
+the sliding band), Gemma 1 / 2 / 3 (``1 + w`` RMSNorms, the embedding
+scaled by sqrt(hidden), the tanh GELU, Gemma 2 / 3's sandwich norms
+around attention and MLP, Gemma 2's logit softcaps, Gemma 3's ``1 + w``
+q/k norms and its sliding layers rotating at ``rope_local_base_freq``
+without ``rope_scaling``), ``query_pre_attn_scalar``: RMSNorm, rotary
+positions (default, linear, llama3 and yarn scaling), grouped-query
+attention, banded on the layers ``layer_types`` marks
+``"sliding_attention"``, loaded from local HF safetensors in the
+checkpoint's dtype (bf16 as released). ``DecoderModel`` computes as JAX's
+``decoder_forward`` does:
 
 - projections in the weights' dtype, RMSNorm's variance and RoPE's angles
-  in float32;
+  in float32; a ``1 + w`` norm weight is added in the weight's dtype;
 - attention scores in float32 over the whole preallocated cache (the
-  operands' products exact, as ``preferred_element_type=float32``),
-  positions past the filled rows and after the query masked at -1e30, the
-  softmax in float32 cast to the values' dtype, then the product with V;
-- the LM head with float32 logits, applied by prefill to the last real
-  row only (``return_hidden``).
+  operands' products exact, as ``preferred_element_type=float32``), scaled,
+  softcapped, then positions past the filled rows, after the query or
+  outside the band masked at -1e30, the softmax in float32 cast to the
+  values' dtype, then the product with V;
+- the LM head with float32 logits, softcapped, applied by prefill to the
+  last real row only (``return_hidden``).
 
 On a CUDA device a bf16 product with float32 output is one cuBLAS call
 (``out_dtype``); on the CPU both operands are widened first, which gives
@@ -33,12 +42,9 @@ running sum is sequential where XLA's is a reduce-window: where it meets
 ``top_p`` within rounding (``top_p`` 1.0) the two keep different tails of
 tokens too improbable to matter.
 
-Refused at load with ``NotImplementedError``, never decoded with the wrong
-arithmetic: Qwen3's q/k norms, Gemma 1/2/3, a layer whose ``layer_types``
-entry is ``"sliding_attention"`` (Mistral, Mixtral; a Qwen2.5 config with
-``sliding_window`` set and ``use_sliding_window: false`` has none), MoE,
-int8 / int4 weights, the int8 KV cache, the JSON constraint and draft
-models.
+Refused with ``NotImplementedError``, never decoded with the wrong
+arithmetic: MoE (Mixtral, Qwen2-MoE), int8 / int4 weights, the int8 KV
+cache, the JSON constraint and draft models.
 """
 
 from __future__ import annotations
@@ -157,23 +163,7 @@ class DecoderConfig:
 
     def unsupported(self) -> List[str]:
         """What of this config the port cannot compute yet."""
-        out = []
-        if self.gemma:
-            out.append(f"the {self.model_type} family (Gemma norms, "
-                       "activations, softcaps, local RoPE)")
-        if self.attn_logit_softcapping or self.final_logit_softcapping:
-            out.append("logit softcapping")
-        if self.query_pre_attn_scalar:
-            out.append("query_pre_attn_scalar")
-        if self.hidden_activation != "silu":
-            out.append(f"the {self.hidden_activation} activation")
-        if any(self.layer_is_sliding(i)
-               for i in range(self.num_hidden_layers)):
-            out.append("sliding-window attention (layer_types "
-                       "'sliding_attention')")
-        if self.num_experts:
-            out.append("mixture-of-experts layers")
-        return out
+        return ["mixture-of-experts layers"] if self.num_experts else []
 
     @classmethod
     def from_json(cls, path: Path) -> "DecoderConfig":
@@ -183,11 +173,15 @@ class DecoderConfig:
 # ---------------------------------------------------------------------------
 # functional pieces
 
-def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+              plus_one: bool = False) -> torch.Tensor:
     """RMSNorm: the variance in float32, the normed rows cast back to
-    ``x``'s dtype, then times ``w``."""
+    ``x``'s dtype, then times ``w``, or with ``plus_one`` (Gemma's
+    zero-centred weight) times ``1 + w`` added in ``w``'s dtype, as JAX
+    adds it."""
     var = x.float().pow(2).mean(-1, keepdim=True)
-    return (x.float() * torch.rsqrt(var + eps)).to(x.dtype) * w
+    normed = (x.float() * torch.rsqrt(var + eps)).to(x.dtype)
+    return normed * (1.0 + w) if plus_one else normed * w
 
 
 def rope_inv_freq(cfg: DecoderConfig, d: int, base: Optional[float] = None,
@@ -274,19 +268,27 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a, b) if a.dim() == 3 else a @ b
 
 
+def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """``cap * tanh(x / cap)`` (Gemma 2's softcap); no cap passes ``x``."""
+    return cap * torch.tanh(x / cap) if cap else x
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           mask: torch.Tensor, scale: float) -> torch.Tensor:
+           mask: torch.Tensor, scale: float,
+           softcap: Optional[float] = None) -> torch.Tensor:
     """GQA attention: ``q`` [B, T, H, D], ``k``/``v`` [B, S, Hkv, D],
     ``mask`` [B, T, S] (True where a query may attend); query head h reads
-    kv head h // (H / Hkv), as ``jnp.repeat`` pairs them. Returns
-    [B, T, H * D] in ``v``'s dtype."""
+    kv head h // (H / Hkv), as ``jnp.repeat`` pairs them. The scores are
+    scaled, then softcapped, then masked. Returns [B, T, H * D] in ``v``'s
+    dtype."""
     b, t, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
     qg = q.reshape(b, t, hkv, rep, d).permute(0, 2, 3, 1, 4).reshape(
         b * hkv, rep * t, d)
     kg = k.permute(0, 2, 3, 1).reshape(b * hkv, d, s)
-    scores = _mm_f32(qg, kg).view(b, hkv, rep, t, s) * scale
+    scores = _softcap(_mm_f32(qg, kg).view(b, hkv, rep, t, s) * scale,
+                      softcap)
     scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     vg = v.permute(0, 2, 1, 3).reshape(b * hkv, s, d)
@@ -295,11 +297,13 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, t, h * d)
 
 
-def lm_logits(head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def lm_logits(head: torch.Tensor, x: torch.Tensor,
+              softcap: Optional[float] = None) -> torch.Tensor:
     """Final-norm hidden states [..., H] and the head [V, H] (the tied
-    embedding or ``lm_head.weight``) → float32 logits [..., V]."""
-    return _mm_f32(x.reshape(-1, x.shape[-1]), head.t()).view(
-        *x.shape[:-1], head.shape[0])
+    embedding or ``lm_head.weight``) → float32 logits [..., V], softcapped
+    by ``softcap`` (``final_logit_softcapping``)."""
+    return _softcap(_mm_f32(x.reshape(-1, x.shape[-1]), head.t()).view(
+        *x.shape[:-1], head.shape[0]), softcap)
 
 
 def pad_bucket(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
@@ -315,17 +319,25 @@ def pad_bucket(n: int, lo: int = 16, hi: Optional[int] = None) -> int:
 # the model
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float):
+    """``plus_one``: the Gemma families' zero-centred weight, applied as
+    ``1 + w``."""
+
+    def __init__(self, dim: int, eps: float, plus_one: bool = False):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(dim))
+        self.weight = nn.Parameter(torch.zeros(dim) if plus_one
+                                   else torch.ones(dim))
         self.eps = eps
+        self.plus_one = plus_one
 
     def forward(self, x):
-        return _rms_norm(x, self.weight, self.eps)
+        return _rms_norm(x, self.weight, self.eps, self.plus_one)
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: DecoderConfig, bias: bool):
+    """The projections, and Qwen3's / Gemma 3's per-head ``q_norm`` and
+    ``k_norm`` when ``qk_norm``."""
+
+    def __init__(self, cfg: DecoderConfig, bias: bool, qk_norm: bool):
         super().__init__()
         h, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
                      cfg.head_dim)
@@ -333,6 +345,10 @@ class Attention(nn.Module):
         self.k_proj = nn.Linear(cfg.hidden_size, hkv * d, bias=bias)
         self.v_proj = nn.Linear(cfg.hidden_size, hkv * d, bias=bias)
         self.o_proj = nn.Linear(h * d, cfg.hidden_size, bias=False)
+        self.q_norm = self.k_norm = None
+        if qk_norm:
+            self.q_norm = RMSNorm(d, cfg.rms_norm_eps, cfg.gemma)
+            self.k_norm = RMSNorm(d, cfg.rms_norm_eps, cfg.gemma)
 
 
 class MLP(nn.Module):
@@ -342,35 +358,59 @@ class MLP(nn.Module):
         self.gate_proj = nn.Linear(hs, ff, bias=False)
         self.up_proj = nn.Linear(hs, ff, bias=False)
         self.down_proj = nn.Linear(ff, hs, bias=False)
+        # JAX's test: the tanh GELU by name, SiLU for any other activation
+        self.gelu = cfg.hidden_activation == "gelu_pytorch_tanh"
 
     def forward(self, y):
-        return self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y))
+        g = self.gate_proj(y)
+        act = F.gelu(g, approximate="tanh") if self.gelu else F.silu(g)
+        return self.down_proj(act * self.up_proj(y))
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: DecoderConfig, bias: bool):
+    """Pre-norm attention and MLP; with ``sandwich`` (Gemma 2 / 3)
+    ``post_attention_layernorm`` normalises the attention output before
+    the residual add, ``pre_feedforward_layernorm`` feeds the MLP and
+    ``post_feedforward_layernorm`` normalises its output."""
+
+    def __init__(self, cfg: DecoderConfig, bias: bool, qk_norm: bool,
+                 sandwich: bool):
         super().__init__()
         self.cfg = cfg
-        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.self_attn = Attention(cfg, bias)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
-                                                cfg.rms_norm_eps)
+        hs, eps, g = cfg.hidden_size, cfg.rms_norm_eps, cfg.gemma
+        self.input_layernorm = RMSNorm(hs, eps, g)
+        self.self_attn = Attention(cfg, bias, qk_norm)
+        self.post_attention_layernorm = RMSNorm(hs, eps, g)
         self.mlp = MLP(cfg)
+        self.pre_feedforward_layernorm = self.post_feedforward_layernorm = None
+        if sandwich:
+            self.pre_feedforward_layernorm = RMSNorm(hs, eps, True)
+            self.post_feedforward_layernorm = RMSNorm(hs, eps, True)
 
     def forward(self, x, cos, sin, mask, cache, cache_len: int):
         cfg, a = self.cfg, self.self_attn
         b, t, _ = x.shape
         d = cfg.head_dim
         y = self.input_layernorm(x)
-        q = _rope(a.q_proj(y).view(b, t, cfg.num_attention_heads, d), cos, sin)
-        k = _rope(a.k_proj(y).view(b, t, cfg.num_key_value_heads, d), cos, sin)
+        q = a.q_proj(y).view(b, t, cfg.num_attention_heads, d)
+        k = a.k_proj(y).view(b, t, cfg.num_key_value_heads, d)
+        if a.q_norm is not None:
+            q, k = a.q_norm(q), a.k_norm(k)
+        q, k = _rope(q, cos, sin), _rope(k, cos, sin)
         v = a.v_proj(y).view(b, t, cfg.num_key_value_heads, d)
         if cache is not None:
             ck, cv = cache
             ck[:, cache_len:cache_len + t] = k
             cv[:, cache_len:cache_len + t] = v
             k, v = ck, cv
-        x = x + a.o_proj(attend(q, k, v, mask, d ** -0.5))
+        out = a.o_proj(attend(q, k, v, mask,
+                              (cfg.query_pre_attn_scalar or d) ** -0.5,
+                              cfg.attn_logit_softcapping))
+        if self.pre_feedforward_layernorm is not None:
+            x = x + self.post_attention_layernorm(out)
+            out = self.mlp(self.pre_feedforward_layernorm(x))
+            return x + self.post_feedforward_layernorm(out)
+        x = x + out
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -378,9 +418,12 @@ class DecoderModel(nn.Module):
     """The dense decoder with HF's parameter names (``embed_tokens``,
     ``layers.{i}.self_attn.q_proj``, ..., ``norm``, ``lm_head`` when the
     head is untied), so a checkpoint's tensors load by name. ``bias``:
-    whether q/k/v have biases (Qwen2) or not (Llama)."""
+    whether q/k/v have biases (Qwen2) or not; ``qk_norm``: the per-head
+    q/k norms (Qwen3, Gemma 3); ``sandwich``: the feed-forward norms
+    (Gemma 2 / 3)."""
 
-    def __init__(self, cfg: DecoderConfig, bias: bool = True):
+    def __init__(self, cfg: DecoderConfig, bias: bool = True,
+                 qk_norm: bool = False, sandwich: bool = False):
         super().__init__()
         refused = cfg.unsupported()
         if refused:
@@ -389,26 +432,41 @@ class DecoderModel(nn.Module):
                 + "; ".join(refused))
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, bias)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, bias, qk_norm, sandwich)
                                     for _ in range(cfg.num_hidden_layers))
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.gemma)
         self.lm_head = (None if cfg.tie_word_embeddings else
                         nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False))
+        self._set_rope()
+
+    def _set_rope(self, device=None) -> None:
+        """The global RoPE table, and for Gemma 3 the sliding layers' own
+        (``rope_local_base_freq``, no ``rope_scaling``)."""
+        cfg = self.cfg
         inv, self.rope_scale = rope_inv_freq(cfg, cfg.head_dim)
-        self.register_buffer("rope_inv", inv, persistent=False)
+        self.register_buffer("rope_inv", inv.to(device), persistent=False)
+        inv, self.rope_scale_local = rope_inv_freq(
+            cfg, cfg.head_dim, base=cfg.rope_local_base_freq,
+            use_scaling=False)
+        self.register_buffer("rope_inv_local", inv.to(device),
+                             persistent=False)
 
     @classmethod
     def from_state_dict(cls, cfg: DecoderConfig,
                         state: Dict[str, torch.Tensor]) -> "DecoderModel":
         """A model holding ``state``'s tensors as they are (dtype and
         device kept), built without initialising weights. The head is tied
-        when ``state`` has no ``lm_head.weight`` (``cfg`` is set so)."""
+        when ``state`` has no ``lm_head.weight`` (``cfg`` is set so); the
+        biases, q/k norms and feed-forward norms are there when ``state``
+        has them."""
         cfg.tie_word_embeddings = "lm_head.weight" not in state
         with torch.device("meta"):
-            model = cls(cfg, bias="layers.0.self_attn.q_proj.bias" in state)
+            model = cls(
+                cfg, bias="layers.0.self_attn.q_proj.bias" in state,
+                qk_norm="layers.0.self_attn.q_norm.weight" in state,
+                sandwich="layers.0.pre_feedforward_layernorm.weight" in state)
         model.load_state_dict(state, strict=True, assign=True)
-        inv, _ = rope_inv_freq(cfg, cfg.head_dim)
-        model.rope_inv = inv.to(model.embed_tokens.weight.device)
+        model._set_rope(model.embed_tokens.weight.device)
         return model.eval()
 
     @property
@@ -419,6 +477,10 @@ class DecoderModel(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.embed_tokens.weight.dtype
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Final-norm hidden states → float32 logits (softcapped)."""
+        return lm_logits(self.head, hidden, self.cfg.final_logit_softcapping)
 
     def forward(self, input_ids: torch.Tensor, positions: torch.Tensor,
                 kv_cache: Optional[List[Tuple[torch.Tensor, torch.Tensor]]]
@@ -431,33 +493,55 @@ class DecoderModel(nn.Module):
         new keys and values are written in place at rows ``cache_len`` ..
         ``cache_len + T - 1`` and attention spans the whole cache, rows at
         or past ``cache_len + T`` and after each query's position masked.
-        Without it the T tokens attend each other causally."""
+        Without it the T tokens attend each other causally. A sliding
+        layer also masks the keys ``sliding_window`` or more positions
+        before the query. Both masks and both RoPE tables are built once
+        per call."""
+        cfg = self.cfg
         t = input_ids.shape[1]
         x = self.embed_tokens(input_ids)
-        cos, sin = _rope_tables(positions, self.rope_inv, self.rope_scale)
+        if cfg.gemma:   # the embedding times sqrt(H), rounded to its dtype
+            x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
+        rope = _rope_tables(positions, self.rope_inv, self.rope_scale)
+        if cfg.gemma3:
+            rope_local = _rope_tables(positions, self.rope_inv_local,
+                                      self.rope_scale_local)
         if kv_cache is not None:
             s = kv_cache[0][0].shape[1]
             kv_pos = torch.arange(s, device=x.device)[None, None, :]
             mask = (kv_pos <= positions[:, :, None]) & (kv_pos < cache_len + t)
         else:
-            mask = positions[:, :, None] >= positions[:, None, :]
+            kv_pos = positions[:, None, :]
+            mask = positions[:, :, None] >= kv_pos
+        sliding = [cfg.layer_is_sliding(li) for li in range(len(self.layers))]
+        if any(sliding):
+            band = mask & (positions[:, :, None] - kv_pos < cfg.sliding_window)
         for li, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, mask,
+            cos, sin = rope_local if cfg.gemma3 and sliding[li] else rope
+            x = layer(x, cos, sin, band if sliding[li] else mask,
                       None if kv_cache is None else kv_cache[li], cache_len)
         x = self.norm(x)
-        return x if return_hidden else lm_logits(self.head, x)
+        return x if return_hidden else self.logits(x)
 
 
 def load_hf_decoder_params(model_dir: str | Path
                            ) -> Tuple[Dict[str, torch.Tensor], DecoderConfig]:
     """(``DecoderModel`` state dict, config) of a local HF checkpoint
     (``config.json``, ``*.safetensors`` or ``pytorch_model.bin``), in the
-    checkpoint's dtype. The dense families only: a config or checkpoint
-    of a family or feature the port lacks raises ``NotImplementedError``."""
+    checkpoint's dtype: the q/k biases, Qwen3's and Gemma 3's q/k norms and
+    Gemma 2 / 3's feed-forward norms where the checkpoint has them. A MoE
+    config raises ``NotImplementedError`` before any weight is read."""
     model_dir = Path(model_dir)
     cfg = DecoderConfig.from_json(model_dir / "config.json")
     refused = cfg.unsupported()
-    t = {} if refused else load_weights(model_dir)
+    if refused:
+        raise NotImplementedError(
+            f"decoder checkpoint {model_dir} not supported by the port: "
+            + "; ".join(refused))
+    t = load_weights(model_dir)
+
+    def has(name):
+        return any(p + name in t for p in ("model.", ""))
 
     def get(name):
         for p in ("model.", ""):
@@ -465,12 +549,6 @@ def load_hf_decoder_params(model_dir: str | Path
                 return t[p + name]
         raise KeyError(name)
 
-    if any(p + "layers.0.self_attn.q_norm.weight" in t for p in ("model.", "")):
-        refused.append("Qwen3-class q/k norms")
-    if refused:
-        raise NotImplementedError(
-            f"decoder checkpoint {model_dir} not supported by the port: "
-            + "; ".join(refused))
     h, hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
     q0 = get("layers.0.self_attn.q_proj.weight")
@@ -481,15 +559,21 @@ def load_hf_decoder_params(model_dir: str | Path
             f"do not match heads={h}/{hkv} head_dim={hd}; checkpoint uses an "
             "architecture variant this loader does not support")
     embed = get("embed_tokens.weight")
-    biased = any(p + "layers.0.self_attn.q_proj.bias" in t
-                 for p in ("model.", ""))
+    biased = has("layers.0.self_attn.q_proj.bias")
+    optional = []
+    if has("layers.0.self_attn.q_norm.weight"):
+        optional += ["self_attn.q_norm", "self_attn.k_norm"]
+    # JAX reads the sandwich only for a Gemma (Gemma 1 has none)
+    if cfg.gemma and has("layers.0.pre_feedforward_layernorm.weight"):
+        optional += ["pre_feedforward_layernorm", "post_feedforward_layernorm"]
     state = {"embed_tokens.weight": embed, "norm.weight": get("norm.weight")}
     for i in range(cfg.num_hidden_layers):
         p = f"layers.{i}"
         names = [f"{p}.input_layernorm.weight",
                  f"{p}.post_attention_layernorm.weight",
                  *(f"{p}.self_attn.{x}_proj.weight" for x in "qkvo"),
-                 *(f"{p}.mlp.{x}_proj.weight" for x in ("gate", "up", "down"))]
+                 *(f"{p}.mlp.{x}_proj.weight" for x in ("gate", "up", "down")),
+                 *(f"{p}.{x}.weight" for x in optional)]
         state.update({n: get(n) for n in names})
         if biased:
             for x in "qkv":
@@ -642,7 +726,7 @@ class TorchDecoderLM:
         hidden = self.model(x, self._positions(p_len, len(ids)),
                             kv_cache=cache, cache_len=p_len,
                             return_hidden=True)
-        return lm_logits(self.model.head, hidden[:, true_len - 1])
+        return self.model.logits(hidden[:, true_len - 1])
 
     @torch.inference_mode()
     def _prefill_prompt(self, prompt_ids: List[int]):

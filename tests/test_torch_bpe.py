@@ -253,27 +253,69 @@ def test_chat_template_matches_on_the_pipelines_messages(toks, zh_chunks,
     assert want.startswith("<|im_start|>system\nYou are Qwen")
 
 
-def test_other_layouts_are_not_supported(toks, tmp_path):
-    """A WordPiece or sentencepiece-style tokenizer.json, another split
-    pattern, or a missing file raises ``TokenizerNotSupported``."""
-    _ref, mine = toks
-    d = write_qwen2_tokenizer(tmp_path / "base", vocab=300)
-    spec = json.loads((d / "tokenizer.json").read_text())
-    variants = {
-        "wordpiece": {**spec, "model": {**spec["model"], "type": "WordPiece"}},
-        "llama3_digits": {**spec, "pre_tokenizer": {
-            **spec["pre_tokenizer"], "pretokenizers": [
-                {**spec["pre_tokenizer"]["pretokenizers"][0], "pattern": {
-                    "Regex": spec["pre_tokenizer"]["pretokenizers"][0][
-                        "pattern"]["Regex"].replace(r"\p{N}|", r"\p{N}{1,3}|")}},
-                spec["pre_tokenizer"]["pretokenizers"][1]]}},
-        "metaspace": {**spec, "normalizer": None, "pre_tokenizer": {
-            "type": "Metaspace", "replacement": "▁"}},
+def qwen2_variants(spec: dict) -> dict:
+    """Qwen2-layout specs changed in one component each."""
+    split, level = spec["pre_tokenizer"]["pretokenizers"]
+
+    def pattern(regex):
+        return {**spec, "pre_tokenizer": {**spec["pre_tokenizer"],
+                                          "pretokenizers": [
+            {**split, "pattern": {"Regex": regex}}, level]}}
+
+    return {
+        "llama3_digits": pattern(split["pattern"]["Regex"].replace(
+            r"\p{N}|", r"\p{N}{1,3}|")),
         "byte_fallback": {**spec, "model": {**spec["model"],
                                             "byte_fallback": True}},
+        "wordpiece": {**spec, "model": {**spec["model"], "type": "WordPiece"}},
+        "unigram": {**spec, "model": {"type": "Unigram", "unk_id": 0,
+                                      "vocab": [["<unk>", 0.0], ["a", -1.0]],
+                                      "byte_fallback": False}},
+        "gpt2_pattern": pattern(
+            r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+"
+            r"|\s+(?!\S)|\s+"),
+        "metaspace_bytelevel": {**spec, "normalizer": None, "pre_tokenizer": {
+            "type": "Metaspace", "replacement": "▁"}},
+        "metaspace_decoder": {**spec, "normalizer": None, "pre_tokenizer": {
+            "type": "Metaspace", "replacement": "▁"}, "decoder": {
+            "type": "Metaspace", "replacement": "▁"}},
     }
-    for name, v in variants.items():
+
+
+@pytest.mark.parametrize("variant", ["llama3_digits", "byte_fallback"])
+def test_layout_variants_match(tmp_path, variant):
+    """Llama 3's split pattern (digits in runs of up to three) and a
+    ``byte_fallback`` flag on a byte-level model (every byte is a symbol,
+    so it never applies) over Qwen2's files: ids on the edge cases, 500
+    seeded strings and 300 statute lines, and decoded text, equal to
+    ``AutoTokenizer``'s on the same files."""
+    from transformers import AutoTokenizer
+
+    d = write_qwen2_tokenizer(tmp_path, vocab=600)
+    spec = qwen2_variants(json.loads((d / "tokenizer.json").read_text()))[
+        variant]
+    (d / "tokenizer.json").write_text(json.dumps(spec), encoding="utf-8")
+    ref, mine = AutoTokenizer.from_pretrained(str(d)), BPETokenizer.from_dir(d)
+    rng = np.random.default_rng(2)
+    texts = CASES + corpus_lines()[:300] + [
+        "".join(rng.choice(list("0123456789 ab合,\n"), rng.integers(1, 20)))
+        for _ in range(500)]
+    want = ref(texts)["input_ids"]
+    assert [mine(t)["input_ids"] for t in texts] == want
+    for ids in want[:100]:
+        assert mine.decode(ids) == ref.decode(ids)
+
+
+def test_other_layouts_are_not_supported(toks, tmp_path):
+    """A WordPiece or Unigram model, another split pattern, a Metaspace
+    pre-tokenizer before a byte-level decoder, a Metaspace decoder, or a
+    missing file raises ``TokenizerNotSupported``."""
+    _ref, mine = toks
+    d = write_qwen2_tokenizer(tmp_path / "base", vocab=300)
+    variants = qwen2_variants(json.loads((d / "tokenizer.json").read_text()))
+    for name in ("wordpiece", "unigram", "gpt2_pattern",
+                 "metaspace_bytelevel", "metaspace_decoder"):
         with pytest.raises(TokenizerNotSupported):
-            BPETokenizer(v)
+            BPETokenizer(variants[name])
     with pytest.raises(TokenizerNotSupported):
         BPETokenizer.from_dir(tmp_path / "nothing")

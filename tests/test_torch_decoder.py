@@ -38,26 +38,35 @@ def write_ckpt(d, family="qwen2", dtype=torch.float32, seed=0,
                patch=None, drop=(), **over):
     """A tiny random checkpoint saved by transformers (safetensors), its
     ``config.json`` then updated with ``patch`` and without ``drop``."""
-    from transformers import (LlamaConfig, LlamaForCausalLM, Qwen2Config,
-                              Qwen2ForCausalLM, Qwen3Config, Qwen3ForCausalLM)
+    import transformers as tf
 
     kw = dict(vocab_size=VOCAB, hidden_size=32, num_hidden_layers=2,
               num_attention_heads=4, num_key_value_heads=2,
               intermediate_size=64, max_position_embeddings=256,
-              rope_theta=10000.0, tie_word_embeddings=family == "qwen2",
+              rope_theta=10000.0,
+              tie_word_embeddings=family in ("qwen2", "gemma", "gemma2",
+                                             "gemma3"),
               attention_dropout=0.0)
+    if family.startswith("gemma"):
+        kw["head_dim"] = 8
     kw.update(over)
-    conf, cls = {"qwen2": (Qwen2Config, Qwen2ForCausalLM),
-                 "llama": (LlamaConfig, LlamaForCausalLM),
-                 "qwen3": (Qwen3Config, Qwen3ForCausalLM)}[family]
+    conf, cls = {"qwen2": ("Qwen2Config", "Qwen2ForCausalLM"),
+                 "llama": ("LlamaConfig", "LlamaForCausalLM"),
+                 "qwen3": ("Qwen3Config", "Qwen3ForCausalLM"),
+                 "mistral": ("MistralConfig", "MistralForCausalLM"),
+                 "gemma": ("GemmaConfig", "GemmaForCausalLM"),
+                 "gemma2": ("Gemma2Config", "Gemma2ForCausalLM"),
+                 "gemma3": ("Gemma3TextConfig", "Gemma3ForCausalLM")}[family]
     torch.manual_seed(seed)
-    model = cls(conf(**kw)).eval()
+    model = getattr(tf, cls)(getattr(tf, conf)(**kw)).eval()
     g = torch.Generator().manual_seed(seed)
+    # Gemma's norm weights are zero-centred (applied as 1 + w)
+    norm0 = 0.0 if family.startswith("gemma") else 1.0
     with torch.no_grad():
         for name, p in model.named_parameters():
             r = torch.randn(p.shape, generator=g)
             if name.endswith("norm.weight"):
-                p.copy_(1 + 0.2 * r)
+                p.copy_(norm0 + 0.2 * r)
             elif name.endswith("bias"):
                 p.copy_(0.2 * r)
             elif "embed_tokens" in name:
@@ -114,6 +123,25 @@ FORWARD_CASES = {
     "qwen25_sliding_window_no_layer_types": dict(
         family="qwen2", patch=QWEN25_CONFIG, drop=("layer_types",)),
 }
+# the dense families past Qwen2 and Llama, each with its window below the
+# 24 tokens so the band bites (tests/test_checkpoint_parity.py's configs)
+WINDOW = 5
+FAMILY_CASES = {
+    "qwen3_qk_norm": dict(family="qwen3", head_dim=16),
+    "gemma": dict(family="gemma"),
+    "gemma2_softcaps": dict(family="gemma2", query_pre_attn_scalar=16,
+                            sliding_window=WINDOW,
+                            attn_logit_softcapping=50.0,
+                            final_logit_softcapping=30.0),
+    "gemma3_local_rope": dict(
+        family="gemma3", num_hidden_layers=4, query_pre_attn_scalar=16,
+        sliding_window=WINDOW, sliding_window_pattern=2, rope_theta=1e6,
+        rope_local_base_freq=1e4,
+        rope_scaling={"rope_type": "linear", "factor": 8.0}),
+    "mistral_sliding": dict(family="mistral", head_dim=8,
+                            sliding_window=WINDOW),
+}
+FORWARD_CASES |= FAMILY_CASES
 
 
 @pytest.mark.parametrize("case", sorted(FORWARD_CASES))
@@ -126,6 +154,9 @@ def test_forward_logits_match_jax(tmp_path, case):
     (jparams, jcfg), state, cfg = load_both(d)
     if "patch" in over:
         assert cfg.sliding_window == 32768 and cfg.unsupported() == []
+    if over.get("sliding_window") == WINDOW:
+        assert cfg.layer_types == jcfg.layer_types
+        assert "sliding_attention" in cfg.layer_types
     ids = np.random.default_rng(1).integers(0, VOCAB, (2, 24))
     want = jax_logits(jparams, jcfg, ids)
     got = port_logits(td.DecoderModel.from_state_dict(cfg, state), ids)
@@ -375,31 +406,19 @@ def test_sampled_draw_follows_the_warped_distribution(top_k, top_p, min_p):
     assert chi2 < CHI2_999[int(live.sum()) - 1], (chi2, counts, p)
 
 
-# ---------------------------------------------------------------- refusals
+# ------------------------------------------- configs the port once refused
 
 REFUSED = {
-    "gemma": ({"model_type": "gemma"}, "gemma"),
-    "gemma2": ({"model_type": "gemma2", "sliding_window": 16,
-                "attn_logit_softcapping": 50.0,
-                "final_logit_softcapping": 30.0}, "softcapping"),
-    "gemma3": ({"model_type": "gemma3_text", "sliding_window": 16},
-               "gemma3"),
-    "mistral": ({"model_type": "mistral", "sliding_window": 16},
-                "sliding-window"),
     "mixtral": ({"model_type": "mixtral", "num_local_experts": 4,
                  "sliding_window": 16}, "mixture-of-experts"),
     "qwen2_moe": ({"model_type": "qwen2_moe", "num_experts": 4},
                   "mixture-of-experts"),
-    "qwen2_sliding_layers": ({"model_type": "qwen2", "sliding_window": 16,
-                              "layer_types": ["full_attention",
-                                              "sliding_attention"]},
-                             "sliding-window"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_families_are_refused(tmp_path, case):
-    """Configs JAX decodes with arithmetic the port lacks raise
+    """Configs JAX decodes with arithmetic the port lacks (MoE) raise
     ``NotImplementedError`` naming it, before any weight is read."""
     conf, what = REFUSED[case]
     (tmp_path / "config.json").write_text(json.dumps(
@@ -413,19 +432,43 @@ def test_unported_families_are_refused(tmp_path, case):
         td.DecoderModel(td.DecoderConfig.from_json(tmp_path / "config.json"))
 
 
-def test_qwen3_qk_norms_are_refused(tmp_path):
-    write_ckpt(tmp_path, family="qwen3", head_dim=8)
-    with pytest.raises(NotImplementedError, match="q/k norms"):
-        td.load_hf_decoder_params(tmp_path)
+# the configs the port refused before it computed these families: each
+# written with weights (the config keys as they were refused, a window of
+# 16 below the 24 tokens), now loaded and held to JAX
+ONCE_REFUSED = {
+    "gemma": dict(family="gemma", head_dim=8, patch={"model_type": "gemma"}),
+    "gemma2": dict(family="gemma2", sliding_window=16,
+                   attn_logit_softcapping=50.0, final_logit_softcapping=30.0),
+    "gemma3": dict(family="gemma3", sliding_window=16),
+    "mistral": dict(family="mistral", sliding_window=16),
+    "qwen2_sliding_layers": dict(
+        family="qwen2", sliding_window=16, patch={
+            "layer_types": ["full_attention", "sliding_attention"]}),
+    # transformers writes "sliding_attention" past max_window_layers
+    "qwen2_use_sliding_window": dict(family="qwen2", sliding_window=16,
+                                     use_sliding_window=True,
+                                     max_window_layers=1),
+    "qwen3_qk_norms": dict(family="qwen3", head_dim=8),
+}
 
 
-def test_transformers_sliding_layers_are_refused(tmp_path):
-    """transformers writes ``layer_types`` with ``"sliding_attention"``
-    past ``max_window_layers`` when ``use_sliding_window`` is on."""
-    write_ckpt(tmp_path, sliding_window=16, use_sliding_window=True,
-               max_window_layers=1)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        td.load_hf_decoder_params(tmp_path)
+@pytest.mark.parametrize("case", sorted(ONCE_REFUSED))
+def test_once_refused_configs_match_jax(tmp_path, case):
+    """Each loads through the port's loader (no ``NotImplementedError``)
+    and gives float32 logits within 1e-4 of JAX's ``decoder_forward``;
+    a layer JAX bands, the port bands."""
+    d = write_ckpt(tmp_path, seed=len(case) + 40, **ONCE_REFUSED[case])
+    (jparams, jcfg), state, cfg = load_both(d)
+    assert cfg.unsupported() == []
+    assert cfg.layer_types == jcfg.layer_types
+    assert [cfg.layer_is_sliding(i) for i in range(cfg.num_hidden_layers)] \
+        == [bool(jcfg.sliding_window and jcfg.layer_types
+                 and jcfg.layer_types[i] == "sliding_attention")
+            for i in range(jcfg.num_hidden_layers)]
+    ids = np.random.default_rng(2).integers(0, VOCAB, (2, 24))
+    np.testing.assert_allclose(
+        port_logits(td.DecoderModel.from_state_dict(cfg, state), ids),
+        jax_logits(jparams, jcfg, ids), atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("option,what", [
