@@ -201,7 +201,23 @@ Phases, each printing one JSON line:
    kernels 1 and 2/3 once a request, held against their plain versions);
    then Qwen3-0.6B (``QWEN3_06B``: 28 x 1024, 16 / 8 heads of 128, q/k
    norms, tied) with the Qwen2-layout tokenizer: its prefill logits and
-   64 greedy tokens against the float32 CPU twin.
+   64 greedy tokens against the float32 CPU twin;
+14. ``decoder_moe``: the mixture-of-experts families. Qwen1.5-MoE-A2.7B
+   (``QWEN15_MOE_A27B``, its published config.json: 2048 wide, 16 / 16
+   heads of 128 with q/k/v biases, 60 experts of 1,408, top 4 without
+   renormalisation, a sigmoid-gated shared expert of 5,632, vocab 151,936,
+   untied) at ``MOE_LAYERS`` of its 24 layers, every width as released,
+   random bf16 weights beside the Qwen2-layout tokenizer: the steps of 12
+   (twin, identities, speed, 3 ``/rag/answer`` streams on the ``moe``
+   path, kernels 1 and 2/3 once a request), and from the twin's prefill
+   the share of (token, layer) top-4 sets that differ between the card
+   (bf16) and the twin (float32), at most ``MOE_MAX_FLIP_SHARE``, and the
+   distinct experts each layer chose over the prompt, at least
+   ``MOE_MIN_EXPERTS``; the dense formulation's decode bound beside a
+   routed dispatch's. Then Mixtral-8x7B (``MIXTRAL_8X7B``: 4096 wide, 32 /
+   8 heads, 8 experts of 14,336, top 2 renormalised, vocab 32,000) at 1 of
+   32 layers with the sentencepiece-style tokenizer: its twin, routing
+   included.
 
 Each path checks its own kernels: every kernel of the path launched once
 per batch, every other kernel not at all. Then the ``{"kernels": [...]}``
@@ -254,6 +270,7 @@ from legalrag_tpu_torch.llm import DEGRADED_ANSWER
 from legalrag_tpu_torch.models.bert import BertConfig, random_init_bert_params
 from legalrag_tpu_torch.models.decoder import (
     DecoderModel,
+    MoEBlock,
     TorchDecoderLM,
     load_hf_decoder_params,
 )
@@ -445,6 +462,49 @@ GEMMA_TURNS = ("{{ bos_token }}{% for m in messages %}<start_of_turn>"
 GEMMA_LOGIT_ATOL = 0.15
 QWEN3_LOGIT_ATOL = 0.15
 FAMILIES_MIN_PROMPT = 512   # the twin's prompt crosses Gemma 3's window
+# decoder_moe phase: Qwen/Qwen1.5-MoE-A2.7B's published config.json, every
+# width as released; the depth cut from 24 layers to MOE_LAYERS (the only
+# cut: 14.3 B parameters would not go through a random safetensors file
+# and a float32 CPU twin in the phase's time)
+MOE_LAYERS = 4
+QWEN15_MOE_A27B = dict(
+    architectures=["Qwen2MoeForCausalLM"], attention_dropout=0.0,
+    bos_token_id=151643, decoder_sparse_step=1, eos_token_id=151643,
+    hidden_act="silu", hidden_size=2048, initializer_range=0.02,
+    intermediate_size=5632, max_position_embeddings=8192,
+    max_window_layers=21, mlp_only_layers=[], model_type="qwen2_moe",
+    moe_intermediate_size=1408, norm_topk_prob=False,
+    num_attention_heads=16, num_experts=60, num_experts_per_tok=4,
+    num_hidden_layers=MOE_LAYERS, num_key_value_heads=16,
+    output_router_logits=False, rms_norm_eps=1e-6, rope_theta=1000000.0,
+    router_aux_loss_coef=0.001, shared_expert_intermediate_size=5632,
+    sliding_window=32768, tie_word_embeddings=False, torch_dtype="bfloat16",
+    use_cache=True, use_sliding_window=False, vocab_size=151936)
+# mistralai/Mixtral-8x7B-v0.1's config.json, 1 of its 32 layers: the twin
+# only (block_sparse_moe naming, renormalised top-2 weights on the card)
+MIXTRAL_8X7B = dict(
+    architectures=["MixtralForCausalLM"], attention_dropout=0.0,
+    bos_token_id=1, eos_token_id=2, hidden_act="silu", hidden_size=4096,
+    initializer_range=0.02, intermediate_size=14336,
+    max_position_embeddings=32768, model_type="mixtral",
+    num_attention_heads=32, num_experts_per_tok=2, num_hidden_layers=1,
+    num_key_value_heads=8, num_local_experts=8, output_router_logits=False,
+    rms_norm_eps=1e-5, rope_theta=1000000.0, router_aux_loss_coef=0.02,
+    sliding_window=None, tie_word_embeddings=False, torch_dtype="bfloat16",
+    use_cache=True, vocab_size=32000)
+# the card's bf16 logits against the float32 twin's, the twin routed to
+# the card's experts (``decoder_twin``): on an H100 Qwen1.5-MoE's were
+# 0.083 / 0.122 off at prefill / decode steps, so 0.15 as for the dense
+# families; Mixtral's 0.181 at decode steps (its experts' outputs, 14,336
+# wide, dwarf the residual), so 0.3
+MOE_LOGIT_ATOL = 0.15
+MIXTRAL_LOGIT_ATOL = 0.3
+# (token, layer) top-k sets whose experts differ between the card's bf16
+# router logits and the twin's float32 ones: on an H100 5.6% of
+# Qwen1.5-MoE's 4,396 (the prompt's and 64 decode steps') flipped (top 4
+# of 60, the router's logits in bf16 as JAX and HF compute them)
+MOE_MAX_FLIP_SHARE = 0.15
+MOE_MIN_EXPERTS = 8         # distinct experts each layer must choose
 # the kernels each path must launch once per batch (and no other); the
 # serve path's batch is one channels call of the micro-batcher. An int8
 # dense store never reaches score+select (JAX sends it to XLA).
@@ -458,12 +518,13 @@ PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "large": ("bm25_sparse",),
                 "recall": ("maxsim",),
                 "answer": ("score_select", "maxsim"),
-                "families": ("score_select", "maxsim")}
+                "families": ("score_select", "maxsim"),
+                "moe": ("score_select", "maxsim")}
 # MaxSim's route (the store kind, as the wrapper counts it) on each path
 # that launches it; the recall path's is its token store's
 PATH_ROUTES = {"map": "bf16", "bert": "bf16", "serve": "bf16", "http": "bf16",
                "ingest": "bf16", "stores_q8": "int8", "stores_n4": "nbit4",
-               "answer": "bf16", "families": "bf16"}
+               "answer": "bf16", "families": "bf16", "moe": "bf16"}
 
 
 def emit(obj) -> None:
@@ -3354,25 +3415,37 @@ def write_gemma_tokenizer(d: Path, texts) -> dict:
 
 def write_decoder_checkpoint(d: Path, seed: int,
                              layer_scale: float = DECODER_LAYER_SCALE,
-                             conf=None) -> Path:
+                             conf=None, card_rng: bool = False) -> Path:
     """A random checkpoint at ``conf``'s shape (Qwen2.5-0.5B-Instruct's by
-    default; Qwen3's and Gemma 3's too): ``config.json`` and a bf16
-    ``model.safetensors`` by the port's writer. The weights are drawn in
-    numpy from ``seed``: the embedding (tied head) at HF's init 0.02,
-    every layer's projections and Qwen2's q/k/v biases at 0.02 *
+    default; Qwen3's, Gemma 3's, Qwen1.5-MoE's and Mixtral's too):
+    ``config.json`` and a bf16 ``model.safetensors`` by the port's writer.
+    The weights are float32 normals drawn from ``seed``, rounded to bf16:
+    in numpy, or with ``card_rng`` by a generator on the card (the MoE
+    checkpoints' billions of draws): the embedding and an untied head at
+    HF's init 0.02, every layer's projections, Qwen2's q/k/v
+    biases, a MoE layer's router, experts and shared expert at 0.02 *
     ``layer_scale``; norms at 1, or at 0 for Gemma (zero-centred, applied
     as 1 + w), Qwen3's and Gemma 3's q/k norms and Gemma 3's feed-forward
-    norms among them."""
+    norms among them. A MoE layer is written in its family's naming:
+    Mixtral's ``block_sparse_moe.gate`` and ``experts.{x}.w1`` / ``w3`` /
+    ``w2``, Qwen2-MoE's ``mlp.gate``, ``mlp.experts.{x}.*_proj``,
+    ``mlp.shared_expert.*`` and ``mlp.shared_expert_gate``."""
     conf = conf or QWEN25_05B
     rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed) if card_rng \
+        else None
     mt = conf["model_type"]
     h, ff = conf["hidden_size"], conf["intermediate_size"]
     hd = conf.get("head_dim") or h // conf["num_attention_heads"]
     q_out = conf["num_attention_heads"] * hd
     kv_out = conf["num_key_value_heads"] * hd
+    n_experts = conf.get("num_local_experts") or conf.get("num_experts") or 0
     s = 0.02 * layer_scale
 
     def draw(shape, scale):
+        if gen is not None:
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * scale).to(torch.bfloat16).cpu()
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
                                 * np.float32(scale)).to(torch.bfloat16)
 
@@ -3387,8 +3460,33 @@ def write_decoder_checkpoint(d: Path, seed: int,
             out[f"{name}.bias"] = draw((rows,), s)
         return out
 
+    def mlp(pre, names, width):
+        return {k: v for x, (rows, cols) in zip(
+                    names, ((width, h), (width, h), (h, width)))
+                for k, v in proj(f"{pre}.{x}", rows, cols).items()}
+
+    def moe(p):
+        if mt == "mixtral":
+            pre, names = f"{p}.block_sparse_moe", ("w1", "w3", "w2")
+        else:
+            pre, names = f"{p}.mlp", ("gate_proj", "up_proj", "down_proj")
+        out = proj(f"{pre}.gate", n_experts, h)
+        width = conf.get("moe_intermediate_size") or ff
+        for x in range(n_experts):
+            out |= mlp(f"{pre}.experts.{x}", names, width)
+        if conf.get("shared_expert_intermediate_size"):
+            out |= mlp(f"{pre}.shared_expert", ("gate_proj", "up_proj",
+                                                "down_proj"),
+                       conf["shared_expert_intermediate_size"])
+            out |= proj(f"{pre}.shared_expert_gate", 1, h)
+        return out
+
     t = {"model.embed_tokens.weight": draw((conf["vocab_size"], h), 0.02),
          "model.norm.weight": norm(h)}
+    if not conf.get("tie_word_embeddings", True):
+        t["lm_head.weight"] = draw((conf["vocab_size"], h), 0.02)
+    sparse = set(conf.get("mlp_only_layers") or ())
+    step = conf.get("decoder_sparse_step") or 1
     for i in range(conf["num_hidden_layers"]):
         p = f"model.layers.{i}"
         t |= {f"{p}.input_layernorm.weight": norm(h),
@@ -3396,10 +3494,11 @@ def write_decoder_checkpoint(d: Path, seed: int,
               **proj(f"{p}.self_attn.q_proj", q_out, h),
               **proj(f"{p}.self_attn.k_proj", kv_out, h),
               **proj(f"{p}.self_attn.v_proj", kv_out, h),
-              **proj(f"{p}.self_attn.o_proj", h, q_out),
-              **proj(f"{p}.mlp.gate_proj", ff, h),
-              **proj(f"{p}.mlp.up_proj", ff, h),
-              **proj(f"{p}.mlp.down_proj", h, ff)}
+              **proj(f"{p}.self_attn.o_proj", h, q_out)}
+        if n_experts and i not in sparse and (i + 1) % step == 0:
+            t |= moe(p)
+        else:
+            t |= mlp(f"{p}.mlp", ("gate_proj", "up_proj", "down_proj"), ff)
         if mt == "qwen3" or mt.startswith("gemma3"):
             t |= {f"{p}.self_attn.q_norm.weight": norm(hd),
                   f"{p}.self_attn.k_norm.weight": norm(hd)}
@@ -3421,36 +3520,125 @@ def decoder_messages(chunks, question: str = DECODER_QUESTION):
     return pipe._build_messages(question, hits[:DECODER_HITS], None)
 
 
-def decoder_bytes(model, positions) -> float:
+def decoder_bytes(model, positions, routed: bool = False) -> float:
     """Bytes one decode step must move: every weight read once (the tied
-    head is the embedding, counted once) and the filled KV rows, on
-    average over ``positions``."""
+    head is the embedding, counted once; an untied model's embedding gives
+    one row) and the filled KV rows, on average over ``positions``. With
+    ``routed``, a MoE layer's experts count only ``num_experts_per_tok``
+    of them: what a dispatch to the chosen experts would read."""
     cfg = model.cfg
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    if model.lm_head is not None:
+        weights -= model.embed_tokens.weight.numel() \
+            * model.embed_tokens.weight.element_size()
+    for layer in model.layers:
+        if routed and isinstance(layer.mlp, MoEBlock):
+            m = layer.mlp
+            experts = sum(w.numel() * w.element_size()
+                          for w in (m.gate, m.up, m.down))
+            weights -= experts * (1 - cfg.num_experts_per_tok
+                                  / cfg.num_experts)
     kv_row = (2 * cfg.num_hidden_layers * cfg.num_key_value_heads
               * cfg.head_dim * model.dtype.itemsize)
     return weights + kv_row * float(np.mean(positions))
 
 
-def decoder_twin(card, twin, ids, atol: float = DECODER_LOGIT_ATOL
-                 ) -> dict:
+class ExpertRoutes:
+    """While open, every ``MoEBlock`` of ``model`` records the experts it
+    would choose for each row (per layer, in call order); with ``replay``
+    (the ``ExpertRoutes`` of the same calls on another copy of the model)
+    it routes each row to the experts recorded there instead, weighted by
+    its own probabilities (``MoEBlock.combine``). ``rows(n)`` gives each
+    MoE layer's first ``n`` recorded rows [n, k] over the calls (a
+    chunked prefill's chunks in order, its padding last)."""
+
+    def __init__(self, model, replay=None):
+        self.blocks = {li: layer.mlp for li, layer in enumerate(model.layers)
+                       if isinstance(layer.mlp, MoEBlock)}
+        self.seen = collections.defaultdict(list)
+        self.replay = replay
+
+    def __enter__(self):
+        for li, block in self.blocks.items():
+            def route(x, li=li, block=block):
+                probs = block.probs(x)
+                own = stable_topk(probs, block.cfg.num_experts_per_tok)[1]
+                chosen = own
+                if self.replay is not None:
+                    chosen = self.replay.seen[li][len(self.seen[li])].to(
+                        x.device)
+                    check(chosen.shape == own.shape,
+                          f"moe: replayed routes {tuple(chosen.shape)}")
+                self.seen[li].append(own.cpu())
+                return chosen, block.combine(probs, chosen, x.dtype)
+            block.route = route
+        return self
+
+    def __exit__(self, *exc):
+        for block in self.blocks.values():
+            del block.route
+
+    def rows(self, n=None) -> dict:
+        return {li: torch.cat(self.seen[li])[:n] for li in self.blocks}
+
+
+def routing_flips(card_rows: dict, twin_rows: dict) -> tuple:
+    """(the (token, layer) top-k sets where the twin's own choice differs
+    from the card's, the sets compared)."""
+    flips = sum(int((rows.sort(-1).values
+                     != twin_rows[li].sort(-1).values).any(-1).sum())
+                for li, rows in card_rows.items())
+    return flips, sum(rows.shape[0] for rows in card_rows.values())
+
+
+def decoder_twin(card, twin, ids, atol: float = DECODER_LOGIT_ATOL) -> dict:
     """The card's engine (bf16) against its CPU twin (float32 copies of the
     same weights) on one prompt: the prefill's last-row logits within
     ``atol``; then the card's first ``DECODER_GREEDY`` greedy tokens fed to
-    the twin and to the card one by one: each step's logits on the card
-    within ``atol`` of the twin's, and each token equal to the twin's
-    argmax wherever the twin's top-2 gap exceeds the atol (a step below it
-    may pick either)."""
-    card_last, card_cache = card._prefill_prompt(ids)
+    the twin and to the card one by one: each step's logits on the card within
+    ``atol`` of the twin's, and each token equal to the twin's argmax
+    wherever the twin's top-2 gap exceeds the atol (a step below it may
+    pick either).
+
+    A MoE twin routes every row to the experts the card chose
+    (``ExpertRoutes``), as the stores' twins rank the card's late map: a
+    row whose bf16 router logits put another expert in the top k would
+    otherwise move the logits by that expert's share, which says nothing
+    of the arithmetic. The routes are held apart: the share of (token,
+    layer) sets where the twin's own choice differs (the prompt's and the
+    decode steps', at most ``MOE_MAX_FLIP_SHARE``), the distinct experts
+    each layer chose on the prompt (at least ``min(MOE_MIN_EXPERTS, E /
+    2)``: collapsed routing fails), and the prefill's logits with the
+    twin routing freely (printed only)."""
+    with ExpertRoutes(card.model) as card_routes:
+        card_last, card_cache = card._prefill_prompt(ids)
     t0 = time.perf_counter()
-    twin_last, twin_cache = twin._prefill_prompt(ids)
+    with ExpertRoutes(twin.model, card_routes) as twin_routes:
+        twin_last, twin_cache = twin._prefill_prompt(ids)
     twin_prefill_s = time.perf_counter() - t0
+    routing = {}
+    if card_routes.blocks:
+        card_rows = card_routes.rows(len(ids))
+        flips, rows = routing_flips(card_rows, twin_routes.rows(len(ids)))
+        routing = {"prompt_routing_flips": flips, "prompt_routed_rows": rows,
+                   "distinct_experts_by_layer": {
+                       li: int(r.unique().numel())
+                       for li, r in card_rows.items()},
+                   "free_routing_prefill_logits_max_abs_err": float(
+                       (card_last.float().cpu()
+                        - twin._prefill_prompt(ids)[0]).abs().max())}
+        low = min(MOE_MIN_EXPERTS, card.cfg.num_experts // 2)
+        check(min(routing["distinct_experts_by_layer"].values()) >= low,
+              f"moe: distinct experts {routing['distinct_experts_by_layer']}"
+              f", under {low}")
     err = float((card_last.float().cpu() - twin_last).abs().max())
     check(err <= atol, f"decoder: prefill logits {err} off the CPU twin's")
     toks = list(card.generate_stream(ids, DECODER_GREEDY, temperature=0.0))
     check(len(toks) == DECODER_GREEDY, f"decoder: {len(toks)} greedy tokens")
     gaps, ties, step_err, last = [], [], 0.0, twin_last
     t0 = time.perf_counter()
+    card_steps = ExpertRoutes(card.model)
+    twin_steps = ExpertRoutes(twin.model, card_steps)
     for i, tok in enumerate(toks):
         step_err = max(step_err,
                        float((card_last.float().cpu() - last).abs().max()))
@@ -3461,11 +3649,21 @@ def decoder_twin(card, twin, ids, atol: float = DECODER_LOGIT_ATOL
                   f"decoder: greedy token {i} is {tok} on the card, "
                   f"{int(last[0].argmax())} on the twin (gap {gaps[-1]})")
             ties.append(i)
-        last = twin._step(torch.tensor([tok]), len(ids) + i, twin_cache)
-        card_last = card._step(torch.tensor([tok], device=card.device),
-                               len(ids) + i, card_cache)
+        with card_steps:
+            card_last = card._step(torch.tensor([tok], device=card.device),
+                                   len(ids) + i, card_cache)
+        with twin_steps:
+            last = twin._step(torch.tensor([tok]), len(ids) + i, twin_cache)
     check(step_err <= atol,
           f"decoder: a decode step's logits {step_err} off the CPU twin's")
+    if routing:
+        flips, rows = routing_flips(card_steps.rows(), twin_steps.rows())
+        routing |= {"step_routing_flips": flips, "step_routed_rows": rows}
+        share = (flips + routing["prompt_routing_flips"]) \
+            / (rows + routing["prompt_routed_rows"])
+        routing["routing_flip_share"] = share
+        check(share <= MOE_MAX_FLIP_SHARE,
+              f"moe: routing flips {share} of the (token, layer) sets")
     return {"prompt_tokens": len(ids), "prefill_logits_max_abs_err": err,
             "decode_logits_max_abs_err": step_err,
             "logit_range": [float(twin_last.min()), float(twin_last.max())],
@@ -3473,7 +3671,8 @@ def decoder_twin(card, twin, ids, atol: float = DECODER_LOGIT_ATOL
             "near_tie_steps": ties, "min_top2_gap": min(gaps),
             "median_top2_gap": float(np.median(gaps)),
             "twin_prefill_s": twin_prefill_s,
-            "twin_step_s": (time.perf_counter() - t0) / len(toks)}
+            "twin_step_s": (time.perf_counter() - t0) / len(toks),
+            **routing}
 
 
 def top2_gap_after(engine, prompt, tokens) -> float:
@@ -3661,16 +3860,17 @@ def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
 
 
 def decoder_setup(ckpt: Path, write_tokenizer, texts, seed: int,
-                  conf=None):
+                  conf=None, card_rng: bool = False):
     """Write ``write_tokenizer``'s tokenizer of ``texts`` and a random
-    checkpoint at ``conf``'s shape under ``ckpt``, then load it twice:
+    checkpoint at ``conf``'s shape under ``ckpt``
+    (``write_decoder_checkpoint``), then load it twice:
     ``TorchDecoderLM.from_pretrained`` on the card (bf16) and a float32
     CPU twin of the same weights. (card engine, twin, the timings)."""
     t0 = time.perf_counter()
     bpe = write_tokenizer(ckpt, texts)
     bpe_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    write_decoder_checkpoint(ckpt, seed=seed, conf=conf)
+    write_decoder_checkpoint(ckpt, seed=seed, conf=conf, card_rng=card_rng)
     ckpt_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     card = TorchDecoderLM.from_pretrained(str(ckpt), device="cuda",
@@ -3687,6 +3887,7 @@ def decoder_setup(ckpt: Path, write_tokenizer, texts, seed: int,
         "bpe": bpe, "bpe_s": bpe_s, "checkpoint_s": ckpt_s,
         "card_load_s": load_s, "twin_load_s": time.perf_counter() - t0,
         "checkpoint_bytes": (ckpt / "model.safetensors").stat().st_size,
+        "params": sum(p.numel() for p in card.model.parameters()),
         "layer_scale": DECODER_LAYER_SCALE, "max_len": card.max_len}
 
 
@@ -3700,7 +3901,7 @@ def rag_prompt_ids(tok, chunks) -> list:
 
 def decoder_runs(name: str, card, twin, chunks, atol: float):
     """The twin, the identities and the speed of one checkpoint on the
-    card (the Qwen2.5 and Gemma 3 runs), each emitted as
+    card (the Qwen2.5, Gemma 3 and Qwen1.5-MoE runs), each emitted as
     ``{name}_twin`` / ``_identities`` / ``_speed``; the twin's prompt
     ids."""
     ids = rag_prompt_ids(card.tokenizer, chunks)
@@ -3774,8 +3975,7 @@ def phase_decoder_families() -> dict:
         emit({"phase": "families_setup", "model": "gemma-3-1b-it", **setup,
               "sliding_layers": sum(cfg.layer_is_sliding(i) for i in
                                     range(cfg.num_hidden_layers)),
-              "window": cfg.sliding_window,
-              "params": sum(p.numel() for p in card.model.parameters())})
+              "window": cfg.sliding_window})
         ids = decoder_runs("gemma3", card, twin, chunks["zh"],
                            GEMMA_LOGIT_ATOL)
         check(len(ids) > FAMILIES_MIN_PROMPT,
@@ -3789,8 +3989,7 @@ def phase_decoder_families() -> dict:
         qwen3 = tmp / "qwen3_06b"
         card, twin, setup = decoder_setup(qwen3, write_bpe_tokenizer, texts,
                                           seed=9, conf=QWEN3_06B)
-        emit({"phase": "families_setup", "model": "Qwen3-0.6B", **setup,
-              "params": sum(p.numel() for p in card.model.parameters())})
+        emit({"phase": "families_setup", "model": "Qwen3-0.6B", **setup})
         t0 = time.perf_counter()
         res = decoder_twin(card, twin, rag_prompt_ids(card.tokenizer,
                                                       chunks["zh"]),
@@ -3802,6 +4001,62 @@ def phase_decoder_families() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "decoder_families",
           "seconds": time.perf_counter() - t_phase,
+          "peak_card_bytes": torch.cuda.max_memory_allocated(),
+          "nvidia_smi": nvidia_smi()})
+    return answer
+
+
+def phase_decoder_moe() -> dict:
+    """The mixture-of-experts families at full width (module docstring,
+    phase 14): Qwen1.5-MoE-A2.7B at ``MOE_LAYERS`` layers through the
+    twin (with its routing flips and distinct experts), the identities,
+    the speed with the dense and the routed bound, and ``/rag/answer``
+    (the ``moe`` path); then Mixtral-8x7B's twin at one layer. Returns
+    the answer run with its launches."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="moe_"))
+    try:
+        chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
+        texts = [c.text for cs in chunks.values() for c in cs]
+        qwen = tmp / "qwen15_moe_a27b"
+        card, twin, setup = decoder_setup(qwen, write_bpe_tokenizer, texts,
+                                          seed=11, conf=QWEN15_MOE_A27B,
+                                          card_rng=True)
+        cfg = card.cfg
+        emit({"phase": "moe_setup", "model": "Qwen1.5-MoE-A2.7B", **setup,
+              "layers": cfg.num_hidden_layers, "published_layers": 24,
+              "moe_layers": sum(map(cfg.layer_is_moe,
+                                    range(cfg.num_hidden_layers))),
+              "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok})
+        decoder_runs("moe", card, twin, chunks["zh"], MOE_LOGIT_ATOL)
+        # beside moe_speed's bound of the dense formulation
+        routed = decoder_bytes(card.model, [512], routed=True)
+        emit({"phase": "moe_routed_bound", "bytes": routed,
+              "ms": bound(routed, 0, BF16_FLOP_PER_S)[0]})
+        del card, twin
+        t0 = time.perf_counter()
+        answer = decoder_answer(qwen, tmp, "moe", "moe_answer")
+        emit(answer | {"seconds": time.perf_counter() - t0,
+                       "peak_card_bytes": torch.cuda.max_memory_allocated()})
+        shutil.rmtree(qwen)
+        mixtral = tmp / "mixtral_8x7b"
+        card, twin, setup = decoder_setup(mixtral, write_gemma_tokenizer,
+                                          texts, seed=13, conf=MIXTRAL_8X7B,
+                                          card_rng=True)
+        check(card.cfg.norm_topk_prob, "mixtral: top-2 weights renormalised")
+        emit({"phase": "moe_setup", "model": "Mixtral-8x7B-v0.1", **setup,
+              "layers": card.cfg.num_hidden_layers, "published_layers": 32})
+        t0 = time.perf_counter()
+        res = decoder_twin(card, twin, rag_prompt_ids(card.tokenizer,
+                                                      chunks["zh"]),
+                           MIXTRAL_LOGIT_ATOL)
+        emit({"phase": "mixtral_twin", **res,
+              "seconds": time.perf_counter() - t0})
+        del card, twin
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "decoder_moe", "seconds": time.perf_counter() - t_phase,
           "peak_card_bytes": torch.cuda.max_memory_allocated(),
           "nvidia_smi": nvidia_smi()})
     return answer
@@ -4150,10 +4405,11 @@ def main() -> int:
     bert_runs = phase_bert()
     answer = phase_decoder()
     families = phase_decoder_families()
+    moe = phase_decoder_moe()
     runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
             "ingest": [ingest], "stores": store_runs,
             "large": [large] + large_store_runs, "bert": bert_runs,
-            "answer": [answer], "families": [families]}
+            "answer": [answer], "families": [families], "moe": [moe]}
     # MaxSim's launches per route, as the wrapper counts them on each path
     # (the kernel's own row: all its routes; bf16 is the map path's)
     routes["float32"] = kres["maxsim"].pop("float32_route")

@@ -174,13 +174,19 @@ def decoder_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX decoder's dense param tree (``embed``, ``lm_head`` [H, V],
     ``final_norm``, ``layers[i]`` with ``input_norm``, ``q``/``k``/``v``
     (``kernel`` [in, out], ``bias``), ``o``, ``post_norm``, ``gate``,
-    ``up``, ``down`` and, where the family has them, ``q_norm``,
-    ``k_norm``, ``pre_ff_norm`` and ``post_ff_norm``) as the port's
-    ``DecoderModel`` state dict, in the tree's dtype. A head equal to the
-    embedding's transpose is the tied head: the state then has no
+    ``up``, ``down`` or, on a MoE layer, ``moe`` (``router`` [H, E],
+    ``gate`` / ``up`` [E, H, F], ``down`` [E, F, H] and Qwen2-MoE's
+    ``shared_gate`` [H, 1] and ``shared`` ``gate`` / ``up`` / ``down``)
+    and, where the family has them, ``q_norm``, ``k_norm``,
+    ``pre_ff_norm`` and ``post_ff_norm``) as the port's ``DecoderModel``
+    state dict, in the tree's dtype. A head equal to the embedding's
+    transpose is the tied head: the state then has no
     ``lm_head.weight``."""
     def weight(node) -> torch.Tensor:
         return _same_dtype(np.asarray(node["kernel"]).T)
+
+    def transposed(a) -> torch.Tensor:
+        return _same_dtype(np.asarray(a).T)
 
     embed = np.asarray(tree["embed"])
     state = {"embed_tokens.weight": _same_dtype(embed),
@@ -198,8 +204,20 @@ def decoder_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         for x in "qkv":
             state[f"{p}.self_attn.{x}_proj.bias"] = _same_dtype(
                 layer[x]["bias"])
-        for x in ("gate", "up", "down"):
-            state[f"{p}.mlp.{x}_proj.weight"] = weight(layer[x])
+        if "moe" in layer:
+            moe = layer["moe"]
+            state[f"{p}.mlp.router"] = transposed(moe["router"])
+            for x in ("gate", "up", "down"):
+                state[f"{p}.mlp.{x}"] = _same_dtype(moe[x])
+            if "shared_gate" in moe:
+                state[f"{p}.mlp.shared_expert_gate.weight"] = transposed(
+                    moe["shared_gate"])
+                for x in ("gate", "up", "down"):
+                    state[f"{p}.mlp.shared_expert.{x}_proj.weight"] = \
+                        transposed(moe["shared"][x])
+        else:
+            for x in ("gate", "up", "down"):
+                state[f"{p}.mlp.{x}_proj.weight"] = weight(layer[x])
         for key, name in (("q_norm", "self_attn.q_norm"),
                           ("k_norm", "self_attn.k_norm"),
                           ("pre_ff_norm", "pre_feedforward_layernorm"),

@@ -5,7 +5,8 @@
   without transformers, or without the model on disk, it degrades and never
   downloads), ``local-jax`` (the in-repo decoder on the port's device: the
   single-stream ``TorchDecoderLM`` over the dense families, Qwen2 / 2.5 /
-  3, Llama, Mistral and Gemma 1 / 2 / 3, with the port's own BPE tokenizer
+  3, Llama, Mistral and Gemma 1 / 2 / 3, and the mixture-of-experts ones,
+  Mixtral and Qwen2-MoE, with the port's own BPE tokenizer
   in the layout the checkpoint ships, byte-level or sentencepiece-style,
   and its chat template, ``models/decoder.py``, ``tokenize/bpe.py``; the
   provider keeps its name, so one config file serves both packages)

@@ -42,9 +42,15 @@ running sum is sequential where XLA's is a reduce-window: where it meets
 ``top_p`` within rounding (``top_p`` 1.0) the two keep different tails of
 tokens too improbable to matter.
 
+The mixture-of-experts families (Mixtral's ``block_sparse_moe``, Qwen2-MoE
+with its sigmoid-gated shared expert, its ``decoder_sparse_step`` and
+``mlp_only_layers``) take ``MoEBlock`` on the layers ``layer_is_moe``
+marks: JAX's dense formulation of ``_moe_block``, every expert on every
+token, so a decode chunk still needs no host read.
+
 Refused with ``NotImplementedError``, never decoded with the wrong
-arithmetic: MoE (Mixtral, Qwen2-MoE), int8 / int4 weights, the int8 KV
-cache, the JSON constraint and draft models.
+arithmetic: int8 / int4 weights (the expert stacks among them), the int8
+KV cache, the JSON constraint and draft models.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from torch import nn
 
 from legalrag_tpu_torch.models.bert import resolve_model_dir
 from legalrag_tpu_torch.models.safetensors_io import load_weights
+from legalrag_tpu_torch.ops.topk import stable_topk
 from legalrag_tpu_torch.utils import get_logger
 from legalrag_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -160,10 +167,6 @@ class DecoderConfig:
         entry of ``layer_types`` with ``sliding_window`` set does."""
         return bool(self.sliding_window and self.layer_types is not None
                     and self.layer_types[li] == "sliding_attention")
-
-    def unsupported(self) -> List[str]:
-        """What of this config the port cannot compute yet."""
-        return ["mixture-of-experts layers"] if self.num_experts else []
 
     @classmethod
     def from_json(cls, path: Path) -> "DecoderConfig":
@@ -351,37 +354,120 @@ class Attention(nn.Module):
             self.k_norm = RMSNorm(d, cfg.rms_norm_eps, cfg.gemma)
 
 
+def _act(g: torch.Tensor, gelu: bool) -> torch.Tensor:
+    """The tanh GELU or SiLU (JAX's test: the GELU by name, SiLU for any
+    other activation)."""
+    return F.gelu(g, approximate="tanh") if gelu else F.silu(g)
+
+
 class MLP(nn.Module):
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, ff: Optional[int] = None,
+                 gelu: Optional[bool] = None):
         super().__init__()
-        hs, ff = cfg.hidden_size, cfg.intermediate_size
+        hs, ff = cfg.hidden_size, ff or cfg.intermediate_size
         self.gate_proj = nn.Linear(hs, ff, bias=False)
         self.up_proj = nn.Linear(hs, ff, bias=False)
         self.down_proj = nn.Linear(ff, hs, bias=False)
-        # JAX's test: the tanh GELU by name, SiLU for any other activation
-        self.gelu = cfg.hidden_activation == "gelu_pytorch_tanh"
+        self.gelu = (cfg.hidden_activation == "gelu_pytorch_tanh"
+                     if gelu is None else gelu)
 
     def forward(self, y):
-        g = self.gate_proj(y)
-        act = F.gelu(g, approximate="tanh") if self.gelu else F.silu(g)
-        return self.down_proj(act * self.up_proj(y))
+        return self.down_proj(_act(self.gate_proj(y), self.gelu)
+                              * self.up_proj(y))
+
+
+class MoEBlock(nn.Module):
+    """JAX's ``_moe_block`` (unquantized), Mixtral's and Qwen2-MoE's, with
+    JAX's stacked parameters: ``router`` [E, H] (the checkpoint's
+    ``gate.weight``), ``gate`` and ``up`` [E, H, F], ``down`` [E, F, H]
+    (F: ``moe_intermediate_size``, else ``intermediate_size``), and with
+    ``shared`` Qwen2-MoE's ``shared_expert`` (an ``MLP`` of
+    ``shared_expert_intermediate_size``, always SiLU) and
+    ``shared_expert_gate`` [1, H] where ``shared_expert_intermediate_size``
+    is set.
+
+    The function and its rounding points are JAX's: router logits in the
+    hidden dtype; the softmax in float32 over all experts; the top
+    ``num_experts_per_tok`` in ``lax.top_k``'s order (a tie to the lower
+    expert, ``stable_topk``), renormalised where ``norm_topk_prob``; the
+    combine weights cast to the hidden dtype and multiplied into
+    ``act * u`` before the down projection, which contracts experts and
+    width in one product; then ``sigmoid(y @ shared_gate) * shared(y)``
+    added. Dense: every expert runs on every token (one batched product
+    over the expert axis for ``gate`` and ``up``), on the CPU and the card
+    alike, with no host read."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        e, hs = cfg.num_experts, cfg.hidden_size
+        ff = cfg.moe_intermediate_size or cfg.intermediate_size
+        self.cfg = cfg
+        self.router = nn.Parameter(torch.empty(e, hs))
+        self.gate = nn.Parameter(torch.empty(e, hs, ff))
+        self.up = nn.Parameter(torch.empty(e, hs, ff))
+        self.down = nn.Parameter(torch.empty(e, ff, hs))
+        self.gelu = cfg.hidden_activation == "gelu_pytorch_tanh"
+        self.shared_expert = self.shared_expert_gate = None
+        if cfg.shared_expert_intermediate_size:
+            self.shared_expert = MLP(cfg, cfg.shared_expert_intermediate_size,
+                                     gelu=False)
+            self.shared_expert_gate = nn.Linear(hs, 1, bias=False)
+
+    def probs(self, x: torch.Tensor) -> torch.Tensor:
+        """The router's float32 softmax over all experts [N, E] of rows
+        ``x`` [N, H] (the logits in ``x``'s dtype)."""
+        return torch.softmax(F.linear(x, self.router).float(), dim=-1)
+
+    def combine(self, probs: torch.Tensor, chosen: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        """The combine weights [N, E] in ``dtype``: ``probs`` at the
+        ``chosen`` experts [N, k] (renormalised where ``norm_topk_prob``),
+        0 elsewhere."""
+        topv = probs.gather(-1, chosen)
+        if self.cfg.norm_topk_prob:
+            topv = topv / topv.sum(-1, keepdim=True)
+        return torch.zeros_like(probs).scatter_(-1, chosen, topv).to(dtype)
+
+    def route(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Rows ``x`` [N, H] → (the chosen experts [N, k] in ``lax.top_k``'s
+        order, their combine weights [N, E] in ``x``'s dtype)."""
+        probs = self.probs(x)
+        chosen = stable_topk(probs, self.cfg.num_experts_per_tok)[1]
+        return chosen, self.combine(probs, chosen, x.dtype)
+
+    def forward(self, y):
+        shape = y.shape
+        x = y.reshape(-1, shape[-1])                             # [N, H]
+        e, n = self.gate.shape[0], x.shape[0]
+        _, combine = self.route(x)
+        xe = x.unsqueeze(0).expand(e, n, x.shape[1])
+        g = torch.bmm(xe, self.gate)                             # [E, N, F]
+        mid = _act(g, self.gelu) * torch.bmm(xe, self.up) \
+            * combine.t()[:, :, None]
+        out = mid.transpose(0, 1).reshape(n, -1) @ self.down.reshape(
+            -1, shape[-1])
+        if self.shared_expert is not None:
+            out = out + torch.sigmoid(self.shared_expert_gate(x)) \
+                * self.shared_expert(x)
+        return out.view(shape)
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm attention and MLP; with ``sandwich`` (Gemma 2 / 3)
+    """Pre-norm attention and MLP (``MoEBlock`` with ``moe``); with
+    ``sandwich`` (Gemma 2 / 3)
     ``post_attention_layernorm`` normalises the attention output before
     the residual add, ``pre_feedforward_layernorm`` feeds the MLP and
     ``post_feedforward_layernorm`` normalises its output."""
 
     def __init__(self, cfg: DecoderConfig, bias: bool, qk_norm: bool,
-                 sandwich: bool):
+                 sandwich: bool, moe: bool = False):
         super().__init__()
         self.cfg = cfg
         hs, eps, g = cfg.hidden_size, cfg.rms_norm_eps, cfg.gemma
         self.input_layernorm = RMSNorm(hs, eps, g)
         self.self_attn = Attention(cfg, bias, qk_norm)
         self.post_attention_layernorm = RMSNorm(hs, eps, g)
-        self.mlp = MLP(cfg)
+        self.mlp = MoEBlock(cfg) if moe else MLP(cfg)
         self.pre_feedforward_layernorm = self.post_feedforward_layernorm = None
         if sandwich:
             self.pre_feedforward_layernorm = RMSNorm(hs, eps, True)
@@ -417,23 +503,21 @@ class DecoderLayer(nn.Module):
 class DecoderModel(nn.Module):
     """The dense decoder with HF's parameter names (``embed_tokens``,
     ``layers.{i}.self_attn.q_proj``, ..., ``norm``, ``lm_head`` when the
-    head is untied), so a checkpoint's tensors load by name. ``bias``:
-    whether q/k/v have biases (Qwen2) or not; ``qk_norm``: the per-head
-    q/k norms (Qwen3, Gemma 3); ``sandwich``: the feed-forward norms
-    (Gemma 2 / 3)."""
+    head is untied), so a checkpoint's tensors load by name; a MoE layer's
+    ``mlp`` is a ``MoEBlock`` (``layers.{i}.mlp.router``, ``.gate``,
+    ``.up``, ``.down``, ``.shared_expert.*``, ``.shared_expert_gate``).
+    ``bias``: whether q/k/v have biases (Qwen2) or not; ``qk_norm``: the
+    per-head q/k norms (Qwen3, Gemma 3); ``sandwich``: the feed-forward
+    norms (Gemma 2 / 3)."""
 
     def __init__(self, cfg: DecoderConfig, bias: bool = True,
                  qk_norm: bool = False, sandwich: bool = False):
         super().__init__()
-        refused = cfg.unsupported()
-        if refused:
-            raise NotImplementedError(
-                "decoder config not supported by the port: "
-                + "; ".join(refused))
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, bias, qk_norm, sandwich)
-                                    for _ in range(cfg.num_hidden_layers))
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, bias, qk_norm, sandwich, cfg.layer_is_moe(li))
+            for li in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.gemma)
         self.lm_head = (None if cfg.tie_word_embeddings else
                         nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False))
@@ -458,7 +542,8 @@ class DecoderModel(nn.Module):
         device kept), built without initialising weights. The head is tied
         when ``state`` has no ``lm_head.weight`` (``cfg`` is set so); the
         biases, q/k norms and feed-forward norms are there when ``state``
-        has them."""
+        has them; a MoE layer's shared expert where ``cfg`` sets
+        ``shared_expert_intermediate_size``."""
         cfg.tie_word_embeddings = "lm_head.weight" not in state
         with torch.device("meta"):
             model = cls(
@@ -529,15 +614,11 @@ def load_hf_decoder_params(model_dir: str | Path
     """(``DecoderModel`` state dict, config) of a local HF checkpoint
     (``config.json``, ``*.safetensors`` or ``pytorch_model.bin``), in the
     checkpoint's dtype: the q/k biases, Qwen3's and Gemma 3's q/k norms and
-    Gemma 2 / 3's feed-forward norms where the checkpoint has them. A MoE
-    config raises ``NotImplementedError`` before any weight is read."""
+    Gemma 2 / 3's feed-forward norms where the checkpoint has them, and on
+    each MoE layer the experts stacked as ``MoEBlock`` holds them
+    (``moe_state``)."""
     model_dir = Path(model_dir)
     cfg = DecoderConfig.from_json(model_dir / "config.json")
-    refused = cfg.unsupported()
-    if refused:
-        raise NotImplementedError(
-            f"decoder checkpoint {model_dir} not supported by the port: "
-            + "; ".join(refused))
     t = load_weights(model_dir)
 
     def has(name):
@@ -572,8 +653,12 @@ def load_hf_decoder_params(model_dir: str | Path
         names = [f"{p}.input_layernorm.weight",
                  f"{p}.post_attention_layernorm.weight",
                  *(f"{p}.self_attn.{x}_proj.weight" for x in "qkvo"),
-                 *(f"{p}.mlp.{x}_proj.weight" for x in ("gate", "up", "down")),
                  *(f"{p}.{x}.weight" for x in optional)]
+        if cfg.layer_is_moe(i):
+            state |= moe_state(cfg, p, has, get)
+        else:
+            names += [f"{p}.mlp.{x}_proj.weight"
+                      for x in ("gate", "up", "down")]
         state.update({n: get(n) for n in names})
         if biased:
             for x in "qkv":
@@ -587,6 +672,33 @@ def load_hf_decoder_params(model_dir: str | Path
     if not (cfg.tie_word_embeddings or "lm_head.weight" not in t):
         state["lm_head.weight"] = t["lm_head.weight"]
     return state, cfg
+
+
+def moe_state(cfg: DecoderConfig, p: str, has, get
+              ) -> Dict[str, torch.Tensor]:
+    """Layer ``p``'s ``MoEBlock`` tensors from either naming (JAX's
+    ``moe_layer``): Mixtral's ``block_sparse_moe.gate`` and
+    ``experts.{x}.w1`` / ``w3`` / ``w2`` (gate / up / down), or
+    Qwen2-MoE's ``mlp.gate``, ``mlp.experts.{x}.{gate,up,down}_proj``,
+    ``mlp.shared_expert.*`` and ``mlp.shared_expert_gate``; the experts
+    stacked on a leading axis in JAX's [in, out] layout, in the
+    checkpoint's dtype."""
+    if has(f"{p}.block_sparse_moe.gate.weight"):
+        pre, names = f"{p}.block_sparse_moe", ("w1", "w3", "w2")
+    else:
+        pre, names = f"{p}.mlp", ("gate_proj", "up_proj", "down_proj")
+    out = {f"{p}.mlp.router": get(f"{pre}.gate.weight")}
+    for key, name in zip(("gate", "up", "down"), names):
+        out[f"{p}.mlp.{key}"] = torch.stack(
+            [get(f"{pre}.experts.{x}.{name}.weight").t()
+             for x in range(cfg.num_experts)])
+    if has(f"{pre}.shared_expert.gate_proj.weight"):
+        out[f"{p}.mlp.shared_expert_gate.weight"] = get(
+            f"{pre}.shared_expert_gate.weight")
+        for x in ("gate", "up", "down"):
+            out[f"{p}.mlp.shared_expert.{x}_proj.weight"] = get(
+                f"{pre}.shared_expert.{x}_proj.weight")
+    return out
 
 
 # ---------------------------------------------------------------------------

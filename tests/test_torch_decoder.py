@@ -56,7 +56,10 @@ def write_ckpt(d, family="qwen2", dtype=torch.float32, seed=0,
                  "mistral": ("MistralConfig", "MistralForCausalLM"),
                  "gemma": ("GemmaConfig", "GemmaForCausalLM"),
                  "gemma2": ("Gemma2Config", "Gemma2ForCausalLM"),
-                 "gemma3": ("Gemma3TextConfig", "Gemma3ForCausalLM")}[family]
+                 "gemma3": ("Gemma3TextConfig", "Gemma3ForCausalLM"),
+                 "mixtral": ("MixtralConfig", "MixtralForCausalLM"),
+                 "qwen2_moe": ("Qwen2MoeConfig", "Qwen2MoeForCausalLM")
+                 }[family]
     torch.manual_seed(seed)
     model = getattr(tf, cls)(getattr(tf, conf)(**kw)).eval()
     g = torch.Generator().manual_seed(seed)
@@ -153,7 +156,8 @@ def test_forward_logits_match_jax(tmp_path, case):
     d = write_ckpt(tmp_path, seed=len(case), **over)
     (jparams, jcfg), state, cfg = load_both(d)
     if "patch" in over:
-        assert cfg.sliding_window == 32768 and cfg.unsupported() == []
+        assert cfg.sliding_window == 32768
+        assert not any(map(cfg.layer_is_sliding, range(2)))
     if over.get("sliding_window") == WINDOW:
         assert cfg.layer_types == jcfg.layer_types
         assert "sliding_attention" in cfg.layer_types
@@ -408,34 +412,15 @@ def test_sampled_draw_follows_the_warped_distribution(top_k, top_p, min_p):
 
 # ------------------------------------------- configs the port once refused
 
-REFUSED = {
-    "mixtral": ({"model_type": "mixtral", "num_local_experts": 4,
-                 "sliding_window": 16}, "mixture-of-experts"),
-    "qwen2_moe": ({"model_type": "qwen2_moe", "num_experts": 4},
-                  "mixture-of-experts"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_unported_families_are_refused(tmp_path, case):
-    """Configs JAX decodes with arithmetic the port lacks (MoE) raise
-    ``NotImplementedError`` naming it, before any weight is read."""
-    conf, what = REFUSED[case]
-    (tmp_path / "config.json").write_text(json.dumps(
-        dict(vocab_size=VOCAB, hidden_size=32, num_hidden_layers=2,
-             num_attention_heads=4, num_key_value_heads=2,
-             intermediate_size=64) | conf))
-    jd.DecoderConfig.from_json(tmp_path / "config.json")    # JAX parses it
-    with pytest.raises(NotImplementedError, match=what):
-        td.load_hf_decoder_params(tmp_path)
-    with pytest.raises(NotImplementedError, match=what):
-        td.DecoderModel(td.DecoderConfig.from_json(tmp_path / "config.json"))
-
-
 # the configs the port refused before it computed these families: each
 # written with weights (the config keys as they were refused, a window of
 # 16 below the 24 tokens), now loaded and held to JAX
 ONCE_REFUSED = {
+    "mixtral": dict(family="mixtral", num_local_experts=4,
+                    sliding_window=16),
+    "qwen2_moe": dict(family="qwen2_moe", num_experts=4,
+                      moe_intermediate_size=24,
+                      shared_expert_intermediate_size=40),
     "gemma": dict(family="gemma", head_dim=8, patch={"model_type": "gemma"}),
     "gemma2": dict(family="gemma2", sliding_window=16,
                    attn_logit_softcapping=50.0, final_logit_softcapping=30.0),
@@ -456,19 +441,22 @@ ONCE_REFUSED = {
 def test_once_refused_configs_match_jax(tmp_path, case):
     """Each loads through the port's loader (no ``NotImplementedError``)
     and gives float32 logits within 1e-4 of JAX's ``decoder_forward``;
-    a layer JAX bands, the port bands."""
+    a layer JAX bands, the port bands; a layer JAX routes, the port
+    routes."""
     d = write_ckpt(tmp_path, seed=len(case) + 40, **ONCE_REFUSED[case])
     (jparams, jcfg), state, cfg = load_both(d)
-    assert cfg.unsupported() == []
     assert cfg.layer_types == jcfg.layer_types
     assert [cfg.layer_is_sliding(i) for i in range(cfg.num_hidden_layers)] \
         == [bool(jcfg.sliding_window and jcfg.layer_types
                  and jcfg.layer_types[i] == "sliding_attention")
             for i in range(jcfg.num_hidden_layers)]
+    model = td.DecoderModel.from_state_dict(cfg, state)
+    assert [isinstance(layer.mlp, td.MoEBlock) for layer in model.layers] \
+        == ["moe" in layer for layer in jparams["layers"]]
     ids = np.random.default_rng(2).integers(0, VOCAB, (2, 24))
-    np.testing.assert_allclose(
-        port_logits(td.DecoderModel.from_state_dict(cfg, state), ids),
-        jax_logits(jparams, jcfg, ids), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(port_logits(model, ids),
+                               jax_logits(jparams, jcfg, ids),
+                               atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("option,what", [
