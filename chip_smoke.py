@@ -197,11 +197,13 @@ Phases, each printing one JSON line:
    template in Gemma's turn format, ``<eos>`` the end): the same steps as
    12 (the twin's zh prompt over 512 tokens, so the band bites; the
    identities, whose chunked prefill crosses the window; prefill, decode,
-   peak memory) and 3 ``/rag/answer`` streams (the ``families`` path,
+   peak memory, one timed run of each) and 3 ``/rag/answer`` streams (the
+   ``families`` path,
    kernels 1 and 2/3 once a request, held against their plain versions);
-   then Qwen3-0.6B (``QWEN3_06B``: 28 x 1024, 16 / 8 heads of 128, q/k
-   norms, tied) with the Qwen2-layout tokenizer: its prefill logits and
-   64 greedy tokens against the float32 CPU twin;
+   then Qwen3-0.6B (``QWEN3_06B``: 1024 wide, 16 / 8 heads of 128, q/k
+   norms, tied; ``QWEN3_LAYERS`` of its 28 layers) with the Qwen2-layout
+   tokenizer: its prefill logits and 64 greedy tokens against the float32
+   CPU twin;
 14. ``decoder_moe``: the mixture-of-experts families. Qwen1.5-MoE-A2.7B
    (``QWEN15_MOE_A27B``, its published config.json: 2048 wide, 16 / 16
    heads of 128 with q/k/v biases, 60 experts of 1,408, top 4 without
@@ -217,7 +219,33 @@ Phases, each printing one JSON line:
    routed dispatch's. Then Mixtral-8x7B (``MIXTRAL_8X7B``: 4096 wide, 32 /
    8 heads, 8 experts of 14,336, top 2 renormalised, vocab 32,000) at 1 of
    32 layers with the sentencepiece-style tokenizer: its twin, routing
-   included.
+   included;
+15. ``decoder_quant``: JAX's quantized serving knobs (``llm.weight_quant``,
+   ``weight_bits``, ``kv_quant``) on phase 12's Qwen2.5 checkpoint, loaded
+   by ``TorchDecoderLM.from_pretrained`` with int8 weights (W8A8), grouped
+   int4 weights, and int4 weights with the int8 KV cache: each
+   configuration's quantized state on the card bit for bit the CPU's
+   ``quantize_weights`` of the same checkpoint (its first and last layers
+   and the head); the integer accumulators of layer 0's ``down_proj`` and
+   of the head at a decode row and a chunk of rows, bit for bit an int64
+   CPU product; the twin (a CPU float32 copy of the floating tensors with
+   the same ints and scales) within ``QUANT_LOGIT_ATOL`` over the prefill
+   and the greedy steps (``QUANT_TWIN``); prefill tokens/s at 2,048,
+   decode ms a token
+   greedy, the bytes on the card, the KV bytes a token and the decode
+   bound; for int4 with the int8 cache (the served configuration) also
+   the identities of 12 and the busy and idle share, and how far one ulp
+   moves the logits with and without the int8 grid; then 3
+   ``/rag/answer`` streams in that configuration (the ``quant`` path,
+   kernels 1 and 2/3 once a request, held against their plain versions).
+   Then phase 14's Qwen1.5-MoE checkpoint with int8 and int4 expert
+   stacks and the quantized shared expert: layer 0's quantized tensors
+   against the CPU's quantization, the gate stack's
+   accumulator against an int64 CPU product, the twin given the card's
+   experts (on the RAG prompt's first ``MOE_QUANT_PROMPT`` tokens, for
+   ``MOE_QUANT_STEPS`` steps), decode ms a token, the bytes a decode token
+   (dense and routed bounds), and the prefill chunk (128 for int4) with
+   its accumulator's bytes.
 
 Each path checks its own kernels: every kernel of the path launched once
 per batch, every other kernel not at all. Then the ``{"kernels": [...]}``
@@ -273,6 +301,17 @@ from legalrag_tpu_torch.models.decoder import (
     MoEBlock,
     TorchDecoderLM,
     load_hf_decoder_params,
+)
+from legalrag_tpu_torch.models.quant import (
+    QLinear,
+    group_int_mm,
+    hold_unpacked,
+    int4_operand,
+    int_mm,
+    quant_acts,
+    quantize_weights,
+    state_bits,
+    unpack_nibbles,
 )
 from legalrag_tpu_torch.models.hash_encoder import project_norm
 from legalrag_tpu_torch.models.safetensors_io import save_file
@@ -374,7 +413,9 @@ BGE_VOCAB = {"zh": 21128, "en": 30522}
 BERT_LAYER_SCALE = 4.0
 BERT_APPEND = 91            # en chunks appended to the built bert bundle
 BERT_TWIN_QUERIES = 16      # map questions held against the CPU twin
-BERT_SERVE_REQUESTS = 256   # ByLangRetriever requests (128 per language)
+# ByLangRetriever requests (64 per language: the decoder phases need the
+# script's time)
+BERT_SERVE_REQUESTS = 128
 BERT_CE_DOCS = 30           # cross-encoder candidates a call (rerank_top_n)
 BERT_VIEW_ATOL = 1e-4       # the card's query views against the CPU twin's
 BERT_CE_ATOL = 1e-4         # cross-encoder logits against the CPU twin's
@@ -408,6 +449,9 @@ DECODER_LAYER_SCALE = 1.5
 # top-2 gap is within it may pick either token
 DECODER_LOGIT_ATOL = 0.15
 DECODER_GREEDY = 64         # greedy tokens held against the CPU twin
+# each identity stream's greedy tokens (the bf16 prefix hit's divergence
+# on an H100 came at token 14)
+DECODER_IDENTITY_TOKENS = 16
 DECODER_MAX_LEN = 4096 + 1024   # max_context_tokens + max_new_tokens
 DECODER_QUESTION = "合同在什么情况下可以解除？"
 DECODER_HITS = 8            # statute chunks in the twin's RAG prompt
@@ -461,6 +505,9 @@ GEMMA_TURNS = ("{{ bos_token }}{% for m in messages %}<start_of_turn>"
 # the margin Qwen2.5's has
 GEMMA_LOGIT_ATOL = 0.15
 QWEN3_LOGIT_ATOL = 0.15
+# Qwen3's twin at 8 of its 28 layers, every width kept (the script's time;
+# at 28 an H100's logits were 0.052 / 0.062 off the twin's)
+QWEN3_LAYERS = 8
 FAMILIES_MIN_PROMPT = 512   # the twin's prompt crosses Gemma 3's window
 # decoder_moe phase: Qwen/Qwen1.5-MoE-A2.7B's published config.json, every
 # width as released; the depth cut from 24 layers to MOE_LAYERS (the only
@@ -505,6 +552,52 @@ MIXTRAL_LOGIT_ATOL = 0.3
 # of 60, the router's logits in bf16 as JAX and HF compute them)
 MOE_MAX_FLIP_SHARE = 0.15
 MOE_MIN_EXPERTS = 8         # distinct experts each layer must choose
+# decoder_quant phase: JAX's quantized serving knobs (LLMConfig's
+# weight_quant, weight_bits, kv_quant) on phase 12's Qwen2.5 checkpoint
+QUANT_RUNS = {"int8": dict(weight_quant=True, weight_bits=8),
+              "int4": dict(weight_quant=True, weight_bits=4),
+              "int4_kv8": dict(weight_quant=True, weight_bits=4,
+                               kv_quant=True)}
+# the card's bf16 activations against the float32 twin's on the same ints
+# and scales. Each quantizes its own activations per row, and wherever
+# their difference crosses a midpoint of the int8 grid the rounding flips
+# by a step: on an H100 one ulp added to the prompt's embedding moved a
+# float32 copy's prefill logits 0.309 with int4 weights and the int8 cache
+# (1.1e-5 unquantized; ``one_ulp_sensitivity``), and the twins were
+# 0.36-0.57 off (Qwen2.5) and 0.28-0.59 (Qwen1.5-MoE) in every
+# configuration; a greedy step whose top-2 gap is within it may pick
+# either token
+QUANT_LOGIT_ATOL = 0.8
+MOE_QUANT_LOGIT_ATOL = QUANT_LOGIT_ATOL
+# quantized, the card's and the twin's hidden states part further, and
+# their routers' top-4 sets with them: 20.5-21.5% of (token, layer) sets
+# with int8 or int4 experts on an H100 (bf16, unquantized: 5.6%)
+MOE_QUANT_MAX_FLIP_SHARE = 0.35
+# activation rows of the accumulator checks: a decode row, a prefill chunk
+QUANT_ACC_ROWS = {"down_proj": (1, 256), "lm_head": (1, 24)}
+# the int4 expert stacks' accumulator [E, groups, chunk, out] int32 (and
+# its float32 copy) grows with the chunk: 1.38 GB at 128 tokens for
+# Qwen1.5-MoE's gate / up and down, 11 GB at the default 1,024
+MOE_QUANT_PREFILL_CHUNK = 128
+# each configuration's speed: prefill at 2,048, one greedy decode run of
+# 64 tokens; the served one's (QUANT_SERVED) busy share from a profile of
+# 8 tokens, the device's activity alone
+QUANT_SPEED = dict(lens=(2048,), runs=1, modes=("greedy",), tokens=32)
+QUANT_PROFILE = 8
+QUANT_IDENTITY_TOKENS = 8   # each identity stream's greedy tokens
+# the twins' cache: the RAG prompt and 64 steps (rows past the filled ones
+# are masked, so the logits do not depend on it)
+QUANT_TWIN_MAX_LEN = 2048
+QUANT_SERVED = "int4_kv8"   # /rag/answer's configuration, and its identities
+# the twins: the served configuration's on the whole RAG prompt, the others
+# on its first 256 tokens (the CPU's prefill is most of a twin's time)
+QUANT_TWIN = {True: dict(steps=32), False: dict(prompt=256, steps=16)}
+QUANT_ANSWER_TOKENS = 64
+# the MoE twins' prompt (the RAG prompt's first tokens) and greedy steps:
+# the CPU's int4 expert products sum a [E * groups, tokens, F] float32
+# accumulator, ~10 MB a token and layer
+MOE_QUANT_PROMPT = 64
+MOE_QUANT_STEPS = 8
 # the kernels each path must launch once per batch (and no other); the
 # serve path's batch is one channels call of the micro-batcher. An int8
 # dense store never reaches score+select (JAX sends it to XLA).
@@ -519,12 +612,14 @@ PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "recall": ("maxsim",),
                 "answer": ("score_select", "maxsim"),
                 "families": ("score_select", "maxsim"),
-                "moe": ("score_select", "maxsim")}
+                "moe": ("score_select", "maxsim"),
+                "quant": ("score_select", "maxsim")}
 # MaxSim's route (the store kind, as the wrapper counts it) on each path
 # that launches it; the recall path's is its token store's
 PATH_ROUTES = {"map": "bf16", "bert": "bf16", "serve": "bf16", "http": "bf16",
                "ingest": "bf16", "stores_q8": "int8", "stores_n4": "nbit4",
-               "answer": "bf16", "families": "bf16", "moe": "bf16"}
+               "answer": "bf16", "families": "bf16", "moe": "bf16",
+               "quant": "bf16"}
 
 
 def emit(obj) -> None:
@@ -1303,16 +1398,18 @@ def check_launches(path: str, launches, batches: int, route=None) -> None:
               f"{launches[f'maxsim/{r}']} times (want {want})")
 
 
-def profile_device(run, batches: int):
+def profile_device(run, batches: int, host: bool = True):
     """torch.profiler over ``run()`` (the execute of every batch): device
     time by kernel (the port's own kernels by name), the card's busy time
-    and its idle share of the window."""
+    and its idle share of the window. ``host=False`` records the device's
+    activity alone (a long eager run's host events cost the profiler
+    minutes to sort)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2912,6 +3009,13 @@ def phase_stores(e2e) -> tuple:
     Returns ({route: kernel result}, [runs with launches])."""
     t_phase = time.perf_counter()
     routes, runs = {}, []
+    # store_route_costs' kernel copies, one nvcc each, started together
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda c: kernel_copy(*c), (
+            ("no_exponent", *EXPONENT_PROLOGUE), ("no_table", *TABLE_LAUNCH),
+            ("no_table_gather", *TABLE_GATHER))))
+    emit({"phase": "stores_kernel_copies",
+          "seconds": time.perf_counter() - t_phase})
     tmp = Path(tempfile.mkdtemp(prefix="stores_"))
     try:
         for name in STORES:
@@ -3520,27 +3624,48 @@ def decoder_messages(chunks, question: str = DECODER_QUESTION):
     return pipe._build_messages(question, hits[:DECODER_HITS], None)
 
 
-def decoder_bytes(model, positions, routed: bool = False) -> float:
+def weight_bytes(model) -> int:
+    """The bytes of ``model``'s weights as the card holds them (int8 and
+    packed int4 matrices with their scales where quantized)."""
+    return sum(t.numel() * t.element_size()
+               for t in model.state_dict().values())
+
+
+def weight_elements(model) -> int:
+    """The weights' element count (an int4 carrier's byte holds two)."""
+    return sum(t.numel() * (2 if k.endswith("_q4p") else 1)
+               for k, t in model.state_dict().items()
+               if not k.endswith("_scale"))
+
+
+def kv_bytes_per_token(cfg, dtype: torch.dtype, kv_quant: bool) -> int:
+    """One token's k and v rows over the layers: the model's dtype, or
+    int8 rows with a float32 scale a (position, head)."""
+    per_head = cfg.head_dim + 4 if kv_quant else cfg.head_dim * dtype.itemsize
+    return 2 * cfg.num_hidden_layers * cfg.num_key_value_heads * per_head
+
+
+def decoder_bytes(model, positions, routed: bool = False,
+                  kv_quant: bool = False) -> float:
     """Bytes one decode step must move: every weight read once (the tied
-    head is the embedding, counted once; an untied model's embedding gives
-    one row) and the filled KV rows, on average over ``positions``. With
-    ``routed``, a MoE layer's experts count only ``num_experts_per_tok``
-    of them: what a dispatch to the chosen experts would read."""
+    head is the embedding, counted once; an untied or quantized head's
+    model reads one row of its embedding) and the filled KV rows, on
+    average over ``positions``. With ``routed``, a MoE layer's experts
+    count only ``num_experts_per_tok`` of them: what a dispatch to the
+    chosen experts would read."""
     cfg = model.cfg
-    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    weights = weight_bytes(model)
     if model.lm_head is not None:
         weights -= model.embed_tokens.weight.numel() \
             * model.embed_tokens.weight.element_size()
     for layer in model.layers:
         if routed and isinstance(layer.mlp, MoEBlock):
-            m = layer.mlp
             experts = sum(w.numel() * w.element_size()
-                          for w in (m.gate, m.up, m.down))
+                          for w in layer.mlp.experts())
             weights -= experts * (1 - cfg.num_experts_per_tok
                                   / cfg.num_experts)
-    kv_row = (2 * cfg.num_hidden_layers * cfg.num_key_value_heads
-              * cfg.head_dim * model.dtype.itemsize)
-    return weights + kv_row * float(np.mean(positions))
+    return weights + kv_bytes_per_token(cfg, model.dtype, kv_quant) \
+        * float(np.mean(positions))
 
 
 class ExpertRoutes:
@@ -3591,14 +3716,18 @@ def routing_flips(card_rows: dict, twin_rows: dict) -> tuple:
     return flips, sum(rows.shape[0] for rows in card_rows.values())
 
 
-def decoder_twin(card, twin, ids, atol: float = DECODER_LOGIT_ATOL) -> dict:
+def decoder_twin(card, twin, ids, atol: float = DECODER_LOGIT_ATOL,
+                 steps: int = DECODER_GREEDY,
+                 max_flips: float = MOE_MAX_FLIP_SHARE) -> dict:
     """The card's engine (bf16) against its CPU twin (float32 copies of the
     same weights) on one prompt: the prefill's last-row logits within
-    ``atol``; then the card's first ``DECODER_GREEDY`` greedy tokens fed to
-    the twin and to the card one by one: each step's logits on the card within
-    ``atol`` of the twin's, and each token equal to the twin's argmax
-    wherever the twin's top-2 gap exceeds the atol (a step below it may
-    pick either).
+    ``atol``; then the card's first ``steps`` greedy tokens (each the
+    argmax of the card's own logits, as ``generate_stream`` picks it at
+    temperature 0) fed to the twin and to the card one by one: each step's
+    logits on the card within ``atol`` of the twin's, and each token equal
+    to the twin's argmax wherever the twin's top-2 gap exceeds the atol (a
+    step below it may pick either). The twin runs in a thread beside the
+    card's steps: its prefill, then each token as the card hands it over.
 
     A MoE twin routes every row to the experts the card chose
     (``ExpertRoutes``), as the stores' twins rank the card's late map: a
@@ -3606,42 +3735,70 @@ def decoder_twin(card, twin, ids, atol: float = DECODER_LOGIT_ATOL) -> dict:
     otherwise move the logits by that expert's share, which says nothing
     of the arithmetic. The routes are held apart: the share of (token,
     layer) sets where the twin's own choice differs (the prompt's and the
-    decode steps', at most ``MOE_MAX_FLIP_SHARE``), the distinct experts
-    each layer chose on the prompt (at least ``min(MOE_MIN_EXPERTS, E /
-    2)``: collapsed routing fails), and the prefill's logits with the
-    twin routing freely (printed only)."""
+    decode steps', at most ``max_flips``), and the distinct experts each
+    layer chose on the prompt (at least ``min(MOE_MIN_EXPERTS, E / 2)``:
+    collapsed routing fails)."""
+    import queue
+
+    t_start = time.perf_counter()
     with ExpertRoutes(card.model) as card_routes:
         card_last, card_cache = card._prefill_prompt(ids)
-    t0 = time.perf_counter()
-    with ExpertRoutes(twin.model, card_routes) as twin_routes:
-        twin_last, twin_cache = twin._prefill_prompt(ids)
-    twin_prefill_s = time.perf_counter() - t0
+    card_steps = ExpertRoutes(card.model)
+    twin_steps = ExpertRoutes(twin.model, card_steps)
+    fed, twin_out = queue.Queue(), {}
+
+    def run_twin():
+        try:
+            t0 = time.perf_counter()
+            with ExpertRoutes(twin.model, card_routes) as twin_routes:
+                last, cache = twin._prefill_prompt(ids)
+            twin_out.update(routes=twin_routes, logits=[last],
+                            prefill_s=time.perf_counter() - t0)
+            while (item := fed.get()) is not None:
+                with twin_steps:
+                    last = twin._step(torch.tensor([item[1]]),
+                                      len(ids) + item[0], cache)
+                twin_out["logits"].append(last)
+        except BaseException as e:   # re-raised by the card's thread
+            twin_out["error"] = e
+
+    thread = threading.Thread(target=run_twin, name="decoder_twin")
+    thread.start()
+    card_logits, toks = [card_last.float().cpu()], []
+    try:
+        for i in range(steps):
+            toks.append(int(card_logits[-1][0].argmax()))
+            with card_steps:
+                card_last = card._step(torch.tensor([toks[-1]],
+                                                    device=card.device),
+                                       len(ids) + i, card_cache)
+            fed.put((i, toks[-1]))
+            card_logits.append(card_last.float().cpu())
+    finally:
+        fed.put(None)
+        thread.join()
+    if "error" in twin_out:
+        raise twin_out["error"]
+    twin_logits = twin_out["logits"]
     routing = {}
     if card_routes.blocks:
         card_rows = card_routes.rows(len(ids))
-        flips, rows = routing_flips(card_rows, twin_routes.rows(len(ids)))
+        flips, rows = routing_flips(card_rows,
+                                    twin_out["routes"].rows(len(ids)))
         routing = {"prompt_routing_flips": flips, "prompt_routed_rows": rows,
                    "distinct_experts_by_layer": {
                        li: int(r.unique().numel())
-                       for li, r in card_rows.items()},
-                   "free_routing_prefill_logits_max_abs_err": float(
-                       (card_last.float().cpu()
-                        - twin._prefill_prompt(ids)[0]).abs().max())}
+                       for li, r in card_rows.items()}}
         low = min(MOE_MIN_EXPERTS, card.cfg.num_experts // 2)
         check(min(routing["distinct_experts_by_layer"].values()) >= low,
               f"moe: distinct experts {routing['distinct_experts_by_layer']}"
               f", under {low}")
-    err = float((card_last.float().cpu() - twin_last).abs().max())
+    err = float((card_logits[0] - twin_logits[0]).abs().max())
     check(err <= atol, f"decoder: prefill logits {err} off the CPU twin's")
-    toks = list(card.generate_stream(ids, DECODER_GREEDY, temperature=0.0))
-    check(len(toks) == DECODER_GREEDY, f"decoder: {len(toks)} greedy tokens")
-    gaps, ties, step_err, last = [], [], 0.0, twin_last
-    t0 = time.perf_counter()
-    card_steps = ExpertRoutes(card.model)
-    twin_steps = ExpertRoutes(twin.model, card_steps)
+    gaps, ties, step_err = [], [], 0.0
     for i, tok in enumerate(toks):
-        step_err = max(step_err,
-                       float((card_last.float().cpu() - last).abs().max()))
+        last = twin_logits[i]
+        step_err = max(step_err, float((card_logits[i] - last).abs().max()))
         top = torch.topk(last[0], 2).values
         gaps.append(float(top[0] - top[1]))
         if int(last[0].argmax()) != tok:
@@ -3649,11 +3806,6 @@ def decoder_twin(card, twin, ids, atol: float = DECODER_LOGIT_ATOL) -> dict:
                   f"decoder: greedy token {i} is {tok} on the card, "
                   f"{int(last[0].argmax())} on the twin (gap {gaps[-1]})")
             ties.append(i)
-        with card_steps:
-            card_last = card._step(torch.tensor([tok], device=card.device),
-                                   len(ids) + i, card_cache)
-        with twin_steps:
-            last = twin._step(torch.tensor([tok]), len(ids) + i, twin_cache)
     check(step_err <= atol,
           f"decoder: a decode step's logits {step_err} off the CPU twin's")
     if routing:
@@ -3662,17 +3814,24 @@ def decoder_twin(card, twin, ids, atol: float = DECODER_LOGIT_ATOL) -> dict:
         share = (flips + routing["prompt_routing_flips"]) \
             / (rows + routing["prompt_routed_rows"])
         routing["routing_flip_share"] = share
-        check(share <= MOE_MAX_FLIP_SHARE,
+        check(share <= max_flips,
               f"moe: routing flips {share} of the (token, layer) sets")
     return {"prompt_tokens": len(ids), "prefill_logits_max_abs_err": err,
             "decode_logits_max_abs_err": step_err,
-            "logit_range": [float(twin_last.min()), float(twin_last.max())],
+            "logit_range": [float(twin_logits[0].min()),
+                            float(twin_logits[0].max())],
             "greedy_tokens": len(toks), "distinct_tokens": len(set(toks)),
             "near_tie_steps": ties, "min_top2_gap": min(gaps),
             "median_top2_gap": float(np.median(gaps)),
-            "twin_prefill_s": twin_prefill_s,
-            "twin_step_s": (time.perf_counter() - t0) / len(toks),
-            **routing}
+            "twin_prefill_s": twin_out["prefill_s"],
+            "twin_s": time.perf_counter() - t_start, **routing}
+
+
+def float32_state(model) -> dict:
+    """``model``'s state with its floating tensors widened to float32 (a
+    quantized model's ints and scales as they are)."""
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in model.state_dict().items()}
 
 
 def top2_gap_after(engine, prompt, tokens) -> float:
@@ -3686,8 +3845,8 @@ def top2_gap_after(engine, prompt, tokens) -> float:
     return float(top[0] - top[1])
 
 
-def decoder_identities(card, ids, long_ids,
-                       atol: float = DECODER_LOGIT_ATOL) -> dict:
+def decoder_identities(card, ids, long_ids, atol: float = DECODER_LOGIT_ATOL,
+                       n: int = DECODER_IDENTITY_TOKENS) -> dict:
     """Greedy streams of the card's engine that must agree: chunked
     prefill (1024) of a prompt above 1024 tokens against one shot,
     decode_chunk 1 against 8, and a prefix-cache hit (a donor prompt
@@ -3696,9 +3855,8 @@ def decoder_identities(card, ids, long_ids,
     (the engine's offsets, chunks and reused rows). In bf16 cuBLAS rounds
     a [1, T] product by T's kernel, so a stream may diverge, but only at a
     step where the reference's top-2 gap is within ``atol``."""
-    f32 = DecoderModel.from_state_dict(
-        copy.copy(card.cfg), {k: v.float() for k, v in
-                              card.model.state_dict().items()})
+    f32 = DecoderModel.from_state_dict(copy.copy(card.cfg),
+                                       float32_state(card.model))
     donor = card.tokenizer(card.tokenizer.apply_chat_template(
         decoder_messages(load_chunks("zh"), "借款合同的利息如何计算？"),
         add_generation_prompt=True))["input_ids"]
@@ -3709,9 +3867,10 @@ def decoder_identities(card, ids, long_ids,
     for dtype, model in (("float32", f32), ("bfloat16", card.model)):
         def engine(**kw):
             return TorchDecoderLM(model, card.tokenizer, device=card.device,
-                                  max_len=card.max_len, **kw)
+                                  max_len=card.max_len,
+                                  kv_quant=card.kv_quant, **kw)
 
-        def greedy(lm, prompt, n=32):
+        def greedy(lm, prompt, n=n):
             return list(lm.generate_stream(prompt, n, temperature=0.0))
 
         hot = engine(prefix_cache=2)
@@ -3739,20 +3898,24 @@ def decoder_identities(card, ids, long_ids,
     return out
 
 
-def decoder_speed(card, corpus_ids) -> dict:
-    """Prefill tokens/s at DECODER_PREFILL_LENS (CUDA-synchronised host
-    clock, median of 3 after one warm-up); decode ms a token, greedy and
-    at the default sampling (0.3 / 0.9), after a 512-token prompt: the
-    host clock from the first chunk's tokens to the last's over
-    DECODER_DECODE_TOKENS tokens (each chunk ends in its host read), the
-    median of 3 runs; the device's busy and idle share of a greedy run of
-    DECODER_PROFILE_TOKENS (``torch.profiler``, the prompt's prefill
-    included); the bound of one decode step."""
-    out = {}
-    for n in DECODER_PREFILL_LENS:
+def decoder_speed(card, corpus_ids, lens=DECODER_PREFILL_LENS,
+                  runs: int = 3, modes=("greedy", "sampled"),
+                  tokens: int = DECODER_DECODE_TOKENS,
+                  profile: int = DECODER_PROFILE_TOKENS) -> dict:
+    """Prefill tokens/s at ``lens`` (CUDA-synchronised host clock, median
+    of ``runs`` after one warm-up); decode ms a token, greedy and at the
+    default sampling (0.3 / 0.9; ``modes``), after a 512-token prompt: the
+    host clock from the first chunk's tokens to the last's over ``tokens``
+    tokens (each chunk ends in its host read), the median of ``runs``
+    runs; the device's busy and idle share of a greedy run of ``profile``
+    tokens (``torch.profiler`` recording the device's activity alone, the
+    prompt's prefill included; none at 0); the bound of one decode
+    step."""
+    out = {"runs": runs}
+    for n in lens:
         ids = corpus_ids[:n]
         times = []
-        for _ in range(4):
+        for _ in range(1 + runs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             card._prefill_prompt(ids)
@@ -3761,23 +3924,26 @@ def decoder_speed(card, corpus_ids) -> dict:
         out[f"prefill_{n}_ms"] = statistics.median(times[1:]) * 1e3
         out[f"prefill_{n}_tokens_per_s"] = n / statistics.median(times[1:])
     ids = corpus_ids[:512]
-    n = card.decode_chunk + DECODER_DECODE_TOKENS
+    n = card.decode_chunk + tokens
     for name, kw in (("greedy", dict(temperature=0.0)),
                      ("sampled", dict(temperature=0.3, top_p=0.9, seed=1))):
+        if name not in modes:
+            continue
         per_token = []
-        for _ in range(3):
+        for _ in range(runs):
             stamps = [time.perf_counter() for _tok in card.generate_stream(
                 ids, n, **kw)]
             check(len(stamps) == n, f"decoder: {len(stamps)} of {n} tokens")
             per_token.append((stamps[-1] - stamps[card.decode_chunk - 1])
-                             / DECODER_DECODE_TOKENS * 1e3)
+                             / tokens * 1e3)
         out[f"decode_{name}_ms_per_token"] = statistics.median(per_token)
-    out["decode_profile"] = profile_device(
-        lambda: list(card.generate_stream(ids, DECODER_PROFILE_TOKENS,
-                                          temperature=0.0)),
-        DECODER_PROFILE_TOKENS)
-    n_bytes = decoder_bytes(card.model, range(512, 512 + n))
-    n_flop = 2 * sum(p.numel() for p in card.model.parameters())
+    if profile:
+        out["decode_profile"] = profile_device(
+            lambda: list(card.generate_stream(ids, profile, temperature=0.0)),
+            profile, host=False)
+    n_bytes = decoder_bytes(card.model, range(512, 512 + n),
+                            kv_quant=card.kv_quant)
+    n_flop = 2 * weight_elements(card.model)
     out["decode_bound_ms"], out["decode_bound_by"] = bound(
         n_bytes, n_flop, BF16_FLOP_PER_S)
     out["decode_bound_bytes"] = n_bytes
@@ -3786,7 +3952,7 @@ def decoder_speed(card, corpus_ids) -> dict:
 
 
 def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
-                   phase: str = "decoder_answer") -> dict:
+                   phase: str = "decoder_answer", llm=None) -> dict:
     """``/rag/answer`` with ``stream: true`` through the port's HTTP server
     on the card, ``llm.provider`` ``local-jax`` on ``ckpt`` (the default
     sampling, 0.3 / 0.9): the zh bundle and its law graph saved under
@@ -3795,17 +3961,23 @@ def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
     token text, time to the first token and to the end, tokens, and the
     retrieval's launches on ``path`` (one score_select and one MaxSim per
     channels call); then kernels 1 and 2/3 against their plain versions
-    on the tensors those calls handed them (``KernelInputs``)."""
+    on the tensors those calls handed them (``KernelInputs``). ``llm``
+    sets more of ``LLMConfig`` (the quantization knobs, or another
+    ``max_new_tokens``). A bundle and graph already saved under ``tmp``
+    (an earlier answer run's) are served as they are."""
     cfg = AppConfig()
     cfg.paths.index_dir, cfg.paths.graph_dir = tmp / "index", tmp / "graph"
     cfg.llm.provider, cfg.llm.model = "local-jax", str(ckpt)
     cfg.llm.max_new_tokens = DECODER_ANSWER_TOKENS
+    for k, v in (llm or {}).items():
+        setattr(cfg.llm, k, v)
     cfg.server.prewarm_buckets = 1
     chunks = load_chunks("zh")
     lc = cfg.with_lang("zh")
-    IndexBundle.build_from_chunks(chunks, lc, "zh", device="cuda").save(
-        lc.paths.lang_index_dir)
-    GraphBuilder().build_to_file(chunks, lc.paths.graph_file)
+    if not lc.paths.graph_file.exists():    # an earlier answer run's
+        IndexBundle.build_from_chunks(chunks, lc, "zh", device="cuda").save(
+            lc.paths.lang_index_dir)
+        GraphBuilder().build_to_file(chunks, lc.paths.graph_file)
     for name in ("torch.webcore", "torch.api.server", "torch.rag_pipeline",
                  "torch.llm.client", "torch.llm.gateway"):
         logging.getLogger(name).setLevel(logging.WARNING)
@@ -3847,7 +4019,7 @@ def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
               and text != DEGRADED_ANSWER["zh"],
               f"{path}: events {kinds[:3]} ... {kinds[-3:]}")
         texts.append(text)
-    return {"phase": phase, "answers": len(out),
+    return {"phase": phase, "answers": len(out), "llm": llm or {},
             "warmup_s": warm_s,
             "ttft_ms": [first for _e, first, _t in out],
             "total_ms": [total for _e, _f, total in out],
@@ -3859,15 +4031,35 @@ def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
             "kernels": check_serve_kernels(rec, path)}
 
 
+def tokenizer_files(write_tokenizer, d: Path, texts, trained: dict) -> dict:
+    """``write_tokenizer(d, texts)``, trained once per writer and texts:
+    ``trained`` (the caller's) keeps the files a first call wrote, and a
+    later call writes them again (the training is deterministic; the
+    Qwen-layout checkpoints share one tokenizer, the Gemma-layout ones
+    another)."""
+    key = (write_tokenizer.__name__, hash("\n".join(texts)))
+    d.mkdir(parents=True, exist_ok=True)
+    if key not in trained:
+        before = set(d.iterdir())
+        info = write_tokenizer(d, texts)
+        trained[key] = (info, {p.name: p.read_bytes()
+                               for p in set(d.iterdir()) - before})
+    info, files = trained[key]
+    for name, data in files.items():
+        (d / name).write_bytes(data)
+    return info
+
+
 def decoder_setup(ckpt: Path, write_tokenizer, texts, seed: int,
-                  conf=None, card_rng: bool = False):
-    """Write ``write_tokenizer``'s tokenizer of ``texts`` and a random
-    checkpoint at ``conf``'s shape under ``ckpt``
-    (``write_decoder_checkpoint``), then load it twice:
+                  conf=None, card_rng: bool = False, tokenizers=None):
+    """Write ``write_tokenizer``'s tokenizer of ``texts`` (``tokenizer_files``,
+    ``tokenizers`` its trained ones) and a random checkpoint at ``conf``'s
+    shape under ``ckpt`` (``write_decoder_checkpoint``), then load it twice:
     ``TorchDecoderLM.from_pretrained`` on the card (bf16) and a float32
     CPU twin of the same weights. (card engine, twin, the timings)."""
     t0 = time.perf_counter()
-    bpe = write_tokenizer(ckpt, texts)
+    bpe = tokenizer_files(write_tokenizer, ckpt, texts,
+                          {} if tokenizers is None else tokenizers)
     bpe_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     write_decoder_checkpoint(ckpt, seed=seed, conf=conf, card_rng=card_rng)
@@ -3899,14 +4091,19 @@ def rag_prompt_ids(tok, chunks) -> list:
     return tok(prompt, truncation=True, max_length=4096)["input_ids"]
 
 
-def decoder_runs(name: str, card, twin, chunks, atol: float):
-    """The twin, the identities and the speed of one checkpoint on the
-    card (the Qwen2.5, Gemma 3 and Qwen1.5-MoE runs), each emitted as
-    ``{name}_twin`` / ``_identities`` / ``_speed``; the twin's prompt
+def decoder_runs(name: str, card, twin, chunks, atol: float,
+                 speed=None, identities: int = DECODER_IDENTITY_TOKENS,
+                 prompt: int = None, steps: int = DECODER_GREEDY):
+    """The twin (on the RAG prompt's first ``prompt`` tokens, all by
+    default, for ``steps`` steps), the identities (streams of
+    ``identities`` tokens; none at 0) and the speed (``decoder_speed`` with
+    ``speed``) of one checkpoint on the card (the Qwen2.5, Gemma 3,
+    Qwen1.5-MoE and quantized Qwen2.5 runs), each emitted as
+    ``{name}_twin`` / ``_identities`` / ``_speed``; the RAG prompt's
     ids."""
     ids = rag_prompt_ids(card.tokenizer, chunks)
     t0 = time.perf_counter()
-    twin_res = decoder_twin(card, twin, ids, atol)
+    twin_res = decoder_twin(card, twin, ids[:prompt], atol, steps=steps)
     emit({"phase": f"{name}_twin", **twin_res,
           "seconds": time.perf_counter() - t0})
     del twin
@@ -3914,34 +4111,44 @@ def decoder_runs(name: str, card, twin, chunks, atol: float):
     corpus_ids = card.tokenizer("\n".join(c.text for c in chunks))[
         "input_ids"]
     encode_s = time.perf_counter() - t0
-    ident = decoder_identities(card, ids, corpus_ids[:1500], atol)
-    emit({"phase": f"{name}_identities", **ident,
-          "corpus_tokens": len(corpus_ids), "corpus_encode_s": encode_s,
-          "seconds": time.perf_counter() - t0})
+    if identities:
+        ident = decoder_identities(card, ids, corpus_ids[:1500], atol,
+                                   identities)
+        emit({"phase": f"{name}_identities", **ident,
+              "corpus_tokens": len(corpus_ids), "corpus_encode_s": encode_s,
+              "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    speed = decoder_speed(card, corpus_ids)
-    emit({"phase": f"{name}_speed", **speed,
+    res = decoder_speed(card, corpus_ids, **(speed or {}))
+    emit({"phase": f"{name}_speed", **res,
           "seconds": time.perf_counter() - t0})
     return ids
 
 
-def phase_decoder() -> dict:
+def phase_decoder(keep=None, tokenizers=None) -> dict:
     """Local generation at Qwen2.5-0.5B-Instruct's width (module docstring,
-    phase 12). Returns the answer run with its launches."""
+    phase 12). Returns the answer run with its launches. With ``keep`` (a
+    directory) the checkpoint is written at ``keep / "qwen25_05b"`` and
+    kept for phase 15, with the answer run's zh bundle and graph.
+    ``tokenizers``: ``tokenizer_files``' trained ones, shared with the
+    later decoder phases."""
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     tmp = Path(tempfile.mkdtemp(prefix="decoder_"))
     try:
-        ckpt = tmp / "qwen25_05b"
+        ckpt = (keep or tmp) / "qwen25_05b"
         chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
         card, twin, setup = decoder_setup(
             ckpt, write_bpe_tokenizer,
-            [c.text for cs in chunks.values() for c in cs], seed=5)
+            [c.text for cs in chunks.values() for c in cs], seed=5,
+            tokenizers=tokenizers)
         emit({"phase": "decoder_setup", **setup})
-        decoder_runs("decoder", card, twin, chunks["zh"], DECODER_LOGIT_ATOL)
+        # one timed run of each speed (the script's time; on an H100 three
+        # runs spread with the host's noise more than they narrowed it)
+        decoder_runs("decoder", card, twin, chunks["zh"], DECODER_LOGIT_ATOL,
+                     speed=dict(runs=1))
         del card, twin
         t0 = time.perf_counter()
-        answer = decoder_answer(ckpt, tmp)
+        answer = decoder_answer(ckpt, keep or tmp)
         emit(answer | {"seconds": time.perf_counter() - t0,
                        "peak_card_bytes": torch.cuda.max_memory_allocated()})
     finally:
@@ -3951,11 +4158,12 @@ def phase_decoder() -> dict:
     return answer
 
 
-def phase_decoder_families() -> dict:
+def phase_decoder_families(keep=None, tokenizers=None) -> dict:
     """The dense families at full width (module docstring, phase 13):
     Gemma-3-1B through the twin, identities, speed and ``/rag/answer``
     (the ``families`` path), then Qwen3-0.6B's twin. Returns Gemma's
-    answer run with its launches."""
+    answer run with its launches. ``keep``: phase 12's directory, whose
+    zh bundle the answer run serves."""
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     tmp = Path(tempfile.mkdtemp(prefix="families_"))
@@ -3964,7 +4172,8 @@ def phase_decoder_families() -> dict:
         texts = [c.text for cs in chunks.values() for c in cs]
         gemma = tmp / "gemma3_1b"
         card, twin, setup = decoder_setup(gemma, write_gemma_tokenizer,
-                                          texts, seed=7, conf=GEMMA3_1B)
+                                          texts, seed=7, conf=GEMMA3_1B,
+                                          tokenizers=tokenizers)
         tok, cfg = card.tokenizer, card.cfg
         # characters outside the statutes take the byte fallback
         probe = "合同😀 § 2-207\u3000ǅ"
@@ -3976,20 +4185,25 @@ def phase_decoder_families() -> dict:
               "sliding_layers": sum(cfg.layer_is_sliding(i) for i in
                                     range(cfg.num_hidden_layers)),
               "window": cfg.sliding_window})
+        # one timed run of each speed (the script's time)
         ids = decoder_runs("gemma3", card, twin, chunks["zh"],
-                           GEMMA_LOGIT_ATOL)
+                           GEMMA_LOGIT_ATOL, speed=dict(runs=1))
         check(len(ids) > FAMILIES_MIN_PROMPT,
               f"gemma3: the twin's prompt has {len(ids)} tokens")
         del card, twin
         t0 = time.perf_counter()
-        answer = decoder_answer(gemma, tmp, "families", "gemma3_answer")
+        answer = decoder_answer(gemma, keep or tmp, "families",
+                                "gemma3_answer")
         emit(answer | {"seconds": time.perf_counter() - t0,
                        "peak_card_bytes": torch.cuda.max_memory_allocated()})
         shutil.rmtree(gemma)
         qwen3 = tmp / "qwen3_06b"
-        card, twin, setup = decoder_setup(qwen3, write_bpe_tokenizer, texts,
-                                          seed=9, conf=QWEN3_06B)
-        emit({"phase": "families_setup", "model": "Qwen3-0.6B", **setup})
+        card, twin, setup = decoder_setup(
+            qwen3, write_bpe_tokenizer, texts, seed=9,
+            conf=QWEN3_06B | {"num_hidden_layers": QWEN3_LAYERS},
+            tokenizers=tokenizers)
+        emit({"phase": "families_setup", "model": "Qwen3-0.6B", **setup,
+              "layers": QWEN3_LAYERS, "published_layers": 28})
         t0 = time.perf_counter()
         res = decoder_twin(card, twin, rag_prompt_ids(card.tokenizer,
                                                       chunks["zh"]),
@@ -4006,44 +4220,49 @@ def phase_decoder_families() -> dict:
     return answer
 
 
-def phase_decoder_moe() -> dict:
+def phase_decoder_moe(keep=None, tokenizers=None) -> dict:
     """The mixture-of-experts families at full width (module docstring,
     phase 14): Qwen1.5-MoE-A2.7B at ``MOE_LAYERS`` layers through the
     twin (with its routing flips and distinct experts), the identities,
     the speed with the dense and the routed bound, and ``/rag/answer``
     (the ``moe`` path); then Mixtral-8x7B's twin at one layer. Returns
-    the answer run with its launches."""
+    the answer run with its launches. With ``keep`` (a directory) the
+    Qwen1.5-MoE checkpoint is written at ``keep / "qwen15_moe_a27b"`` and
+    kept for phase 15, and the answer run serves phase 12's zh bundle
+    there."""
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     tmp = Path(tempfile.mkdtemp(prefix="moe_"))
     try:
         chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
         texts = [c.text for cs in chunks.values() for c in cs]
-        qwen = tmp / "qwen15_moe_a27b"
+        qwen = (keep or tmp) / "qwen15_moe_a27b"
         card, twin, setup = decoder_setup(qwen, write_bpe_tokenizer, texts,
                                           seed=11, conf=QWEN15_MOE_A27B,
-                                          card_rng=True)
+                                          card_rng=True, tokenizers=tokenizers)
         cfg = card.cfg
         emit({"phase": "moe_setup", "model": "Qwen1.5-MoE-A2.7B", **setup,
               "layers": cfg.num_hidden_layers, "published_layers": 24,
               "moe_layers": sum(map(cfg.layer_is_moe,
                                     range(cfg.num_hidden_layers))),
               "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok})
-        decoder_runs("moe", card, twin, chunks["zh"], MOE_LOGIT_ATOL)
+        decoder_runs("moe", card, twin, chunks["zh"], MOE_LOGIT_ATOL,
+                     speed=dict(runs=1))
         # beside moe_speed's bound of the dense formulation
         routed = decoder_bytes(card.model, [512], routed=True)
         emit({"phase": "moe_routed_bound", "bytes": routed,
               "ms": bound(routed, 0, BF16_FLOP_PER_S)[0]})
         del card, twin
         t0 = time.perf_counter()
-        answer = decoder_answer(qwen, tmp, "moe", "moe_answer")
+        answer = decoder_answer(qwen, keep or tmp, "moe", "moe_answer")
         emit(answer | {"seconds": time.perf_counter() - t0,
                        "peak_card_bytes": torch.cuda.max_memory_allocated()})
-        shutil.rmtree(qwen)
+        if keep is None:
+            shutil.rmtree(qwen)
         mixtral = tmp / "mixtral_8x7b"
         card, twin, setup = decoder_setup(mixtral, write_gemma_tokenizer,
                                           texts, seed=13, conf=MIXTRAL_8X7B,
-                                          card_rng=True)
+                                          card_rng=True, tokenizers=tokenizers)
         check(card.cfg.norm_topk_prob, "mixtral: top-2 weights renormalised")
         emit({"phase": "moe_setup", "model": "Mixtral-8x7B-v0.1", **setup,
               "layers": card.cfg.num_hidden_layers, "published_layers": 32})
@@ -4060,6 +4279,276 @@ def phase_decoder_moe() -> dict:
           "peak_card_bytes": torch.cuda.max_memory_allocated(),
           "nvidia_smi": nvidia_smi()})
     return answer
+
+
+def quant_state_check(card, want: dict) -> dict:
+    """The card's quantized tensors named in ``want`` (the CPU's
+    ``quantize_weights`` of the same checkpoint) equal to the CPU's, bit
+    for bit."""
+    got = card.model.state_dict()
+    for k, v in want.items():
+        check(got[k].dtype == v.dtype and torch.equal(got[k].cpu(), v),
+              f"quant: the card's {k} differs from the CPU's quantization")
+    return {"tensors_bit_equal": len(want),
+            "quantized_tensors": sum(k.endswith(("_q", "_q4p"))
+                                     for k in want)}
+
+
+def quant_accumulators(model) -> dict:
+    """The integer accumulators of layer 0's ``down_proj`` (the longest
+    contraction) and of the head on the card, on bf16 rows drawn on the
+    card (``QUANT_ACC_ROWS``), against int64 products on the CPU of the
+    same ints, bit for bit: ``torch._int_mm``'s s32 sums (int8) or the
+    group products' float32 sums (int4)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for name, lin in (("down_proj", model.layers[0].mlp.down_proj),
+                      ("lm_head", model.lm_head)):
+        for m in QUANT_ACC_ROWS[name]:
+            x = torch.randn((m, lin.in_features), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            xq, _xs = quant_acts(x)
+            if lin.bits == 8:
+                acc = int_mm(xq, lin.weight_q)
+                want = xq.cpu().long() @ lin.weight_q.cpu().long().t()
+            else:
+                n_g = lin.weight_scale.shape[0]
+                g = lin.in_features // n_g
+                a = xq.view(m, n_g, g).transpose(0, 1)
+                acc = group_int_mm(a, int4_operand(lin.weight_q4p, g))
+                w = unpack_nibbles(lin.weight_q4p.cpu()).long()
+                want = torch.bmm(a.cpu().long(), w.view(n_g, g, -1))
+            got = acc.cpu()
+            check(torch.equal(got.long(), want)
+                  and (got.dtype == torch.int32
+                       or torch.equal(got, want.float())),
+                  f"quant: {name}'s accumulator at {m} rows differs from "
+                  f"the CPU's int64 product")
+            out[f"{name}_{m}"] = {"shape": list(got.shape),
+                                  "dtype": str(got.dtype).split(".")[-1],
+                                  "max_abs": int(want.abs().max())}
+    return out
+
+
+def quant_twin(card) -> TorchDecoderLM:
+    """A CPU twin of the quantized engine: float32 copies of its floating
+    tensors, its ints and scales, its cache kind and prefill chunk, the
+    int4 operands held unpacked (``hold_unpacked``)."""
+    model = DecoderModel.from_state_dict(
+        copy.copy(card.cfg), {k: v.cpu() for k, v in
+                              float32_state(card.model).items()})
+    hold_unpacked(model)
+    return TorchDecoderLM(model, card.tokenizer, device="cpu",
+                          max_len=QUANT_TWIN_MAX_LEN, kv_quant=card.kv_quant,
+                          prefill_chunk=card.prefill_chunk)
+
+
+def phase_decoder_quant(qwen=None, moe=None) -> dict:
+    """Quantized local generation (module docstring, phase 15) on phase
+    12's Qwen2.5 checkpoint ``qwen`` (its answer run's bundle beside it)
+    and phase 14's Qwen1.5-MoE one ``moe`` (each written anew where not
+    given). Returns the answer run with its launches."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="quant_"))
+    try:
+        chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
+        texts = [c.text for cs in chunks.values() for c in cs]
+        tokenizers = {}
+        if qwen is None:
+            qwen = tmp / "qwen25_05b"
+            tokenizer_files(write_bpe_tokenizer, qwen, texts, tokenizers)
+            write_decoder_checkpoint(qwen, seed=5)
+        t0 = time.perf_counter()
+        state, cfg = load_hf_decoder_params(qwen)
+        bf16 = DecoderModel.from_state_dict(cfg, dict(state))
+        cpu_quant = {bits: quant_part(state, (0, cfg.num_hidden_layers - 1),
+                                      bits) for bits in (8, 4)}
+        emit({"phase": "quant_setup", "model": "Qwen2.5-0.5B-Instruct",
+              "cpu_quantize_s": time.perf_counter() - t0,
+              "bf16_weight_bytes": weight_bytes(bf16),
+              "bf16_kv_bytes_per_token": kv_bytes_per_token(
+                  cfg, torch.bfloat16, False)})
+        del bf16, state
+        for name, knobs in QUANT_RUNS.items():
+            t0 = time.perf_counter()
+            card = TorchDecoderLM.from_pretrained(
+                str(qwen), device="cuda", max_len=DECODER_MAX_LEN, **knobs)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            bits = knobs["weight_bits"]
+            check(state_bits(card.model.state_dict()) == bits
+                  and isinstance(card.model.lm_head, QLinear)
+                  and card.kv_quant == knobs.get("kv_quant", False),
+                  f"quant {name}: the engine's weights and cache")
+            emit({"phase": f"quant_{name}_setup", **knobs,
+                  "card_load_s": load_s,
+                  **quant_state_check(card, cpu_quant[bits]),
+                  "accumulators": quant_accumulators(card.model),
+                  "weight_bytes": weight_bytes(card.model),
+                  "kv_bytes_per_token": kv_bytes_per_token(
+                      card.cfg, card.model.dtype, card.kv_quant)})
+            served = name == QUANT_SERVED
+            ids = decoder_runs(f"quant_{name}", card, quant_twin(card),
+                               chunks["zh"], QUANT_LOGIT_ATOL,
+                               identities=QUANT_IDENTITY_TOKENS * served,
+                               **QUANT_TWIN[served],
+                               speed=QUANT_SPEED | {"profile": QUANT_PROFILE
+                                                    if served else 0})
+            if served:
+                emit({"phase": f"quant_{name}_one_ulp",
+                      "quantized_prefill_logits_max_abs_err":
+                          one_ulp_sensitivity(DecoderModel.from_state_dict(
+                              copy.copy(card.cfg), float32_state(card.model)),
+                              ids, card.kv_quant),
+                      "float32_prefill_logits_max_abs_err":
+                          one_ulp_sensitivity(DecoderModel.from_state_dict(
+                              copy.copy(card.cfg), {
+                                  k: v.float().cuda() for k, v in
+                                  load_hf_decoder_params(qwen)[0].items()}),
+                              ids)})
+            del card
+        del cpu_quant
+        t0 = time.perf_counter()
+        answer = decoder_answer(qwen, qwen.parent, "quant", "quant_answer",
+                                llm=QUANT_RUNS[QUANT_SERVED] | {
+                                    "max_new_tokens": QUANT_ANSWER_TOKENS})
+        emit(answer | {"seconds": time.perf_counter() - t0,
+                       "peak_card_bytes": torch.cuda.max_memory_allocated()})
+        if moe is None:
+            moe = tmp / "qwen15_moe_a27b"
+            tokenizer_files(write_bpe_tokenizer, moe, texts, tokenizers)
+            write_decoder_checkpoint(moe, seed=11, conf=QWEN15_MOE_A27B,
+                                     card_rng=True)
+        moe_quant(moe, chunks["zh"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "decoder_quant", "seconds": time.perf_counter() - t_phase,
+          "peak_card_bytes": torch.cuda.max_memory_allocated(),
+          "host_peak_rss_bytes": host_peak_rss(),
+          "nvidia_smi": nvidia_smi()})
+    return answer
+
+
+def one_ulp_sensitivity(model, ids, kv_quant: bool = False) -> float:
+    """How far one ulp moves the logits: ``model`` (float32, on the card)
+    prefills ``ids`` as it is and with the prompt's embedding rows one ulp
+    up; the last row's logits' largest difference. With quantized weights
+    the activations' int8 rounding flips wherever an ulp crosses one of
+    its midpoints, so a twin can come no closer than this."""
+    lm = TorchDecoderLM(model, device="cuda", max_len=DECODER_MAX_LEN,
+                        kv_quant=kv_quant)
+    base = lm._prefill_prompt(ids)[0]
+    emb = model.embed_tokens.weight
+    with torch.no_grad():
+        rows = torch.tensor(sorted(set(ids)), device=emb.device)
+        emb[rows] = torch.nextafter(emb[rows],
+                                    torch.full_like(emb[rows], np.inf))
+    return float((lm._prefill_prompt(ids)[0] - base).abs().max())
+
+
+def host_peak_rss() -> int:
+    """This process's peak resident memory on the host, in bytes."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def quant_part(state: dict, layers, bits: int, head: bool = True) -> dict:
+    """The CPU's ``quantize_weights`` of ``layers`` and, with ``head``, the
+    head (the embedding beside it): the tensors the card's quantization is
+    held to."""
+    part = {k: v for k, v in state.items()
+            if k.startswith(tuple(f"layers.{i}." for i in layers))
+            or k == "embed_tokens.weight" or head and k == "lm_head.weight"}
+    out = quantize_weights(part, bits)
+    return out if head else {k: v for k, v in out.items()
+                             if not k.startswith("lm_head.")}
+
+
+def moe_quant(ckpt: Path, chunks) -> None:
+    """Qwen1.5-MoE-A2.7B (``MOE_LAYERS`` layers) with int8 and int4 expert
+    stacks and the quantized shared expert: the checkpoint loaded on the
+    card once, quantized there for each; the first layer's tensors against
+    the CPU's quantization of the same weights,
+    the gate stack's accumulator against an int64 CPU product, the twin
+    given the card's experts (``MOE_QUANT_PROMPT`` tokens of the RAG
+    prompt, ``MOE_QUANT_STEPS`` greedy steps), decode ms a token, the
+    bytes a decode token (dense and routed bounds) and the prefill chunk
+    with its accumulator's bytes."""
+    t0 = time.perf_counter()
+    state, cfg = load_hf_decoder_params(ckpt)
+    from legalrag_tpu_torch.tokenize.bpe import BPETokenizer
+
+    tok = BPETokenizer.from_dir(ckpt)
+    card_state = {k: v.to("cuda") for k, v in state.items()}
+    cpu_quant = {bits: quant_part(state, (0,), bits, head=False)
+                 for bits in (8, 4)}
+    del state
+    emit({"phase": "moe_quant_setup", "model": "Qwen1.5-MoE-A2.7B",
+          "load_and_cpu_quantize_s": time.perf_counter() - t0})
+    ids = rag_prompt_ids(tok, chunks)[:MOE_QUANT_PROMPT]
+    for bits in (8, 4):
+        t0 = time.perf_counter()
+        chunk = MOE_QUANT_PREFILL_CHUNK if bits == 4 else 1024
+        card = TorchDecoderLM(
+            DecoderModel.from_state_dict(copy.copy(cfg), quantize_weights(
+                card_state, bits)), tok, device="cuda",
+            max_len=DECODER_MAX_LEN, prefill_chunk=chunk)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        block = card.model.layers[0].mlp
+        e, f = cfg.num_experts, cfg.moe_intermediate_size
+        x = torch.randn((1, cfg.hidden_size), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            4)).to(torch.bfloat16)
+        xq, _xs = quant_acts(x)
+        if bits == 8:
+            acc = int_mm(xq, block.gate_q.view(-1, cfg.hidden_size)).cpu()
+            exact = xq.cpu().long() @ block.gate_q.cpu().long().view(
+                -1, cfg.hidden_size).t()
+        else:
+            g = block.groups["gate"]
+            n_g = cfg.hidden_size // g
+            a = xq.view(1, n_g, g).transpose(0, 1).unsqueeze(0).expand(
+                e, n_g, 1, g).reshape(e * n_g, 1, g)
+            acc = group_int_mm(a, int4_operand(block.gate_q4p, g)).cpu()
+            exact = torch.bmm(a.cpu().long(), unpack_nibbles(
+                block.gate_q4p.cpu()).long().view(e * n_g, g, f))
+        check(torch.equal(acc.long(), exact),
+              f"moe quant int{bits}: the gate stack's accumulator differs "
+              "from the CPU's int64 product")
+        # gate's (and up's) accumulator a chunk: [chunk, E * F] int32, or
+        # int4's [E * groups, chunk, F] float32
+        acc_bytes = 4 * chunk * e * f * (
+            cfg.hidden_size // block.groups["gate"] if bits == 4 else 1)
+        emit({"phase": f"moe_quant_int{bits}_setup", "card_quantize_s": load_s,
+              **quant_state_check(card, cpu_quant[bits]),
+              "gate_accumulator_bit_equal": list(acc.shape),
+              "prefill_chunk": chunk,
+              "gate_up_accumulator_bytes_per_chunk": acc_bytes,
+              "expert_bytes": sum(t.numel() * t.element_size()
+                                  for layer in card.model.layers
+                                  if isinstance(layer.mlp, MoEBlock)
+                                  for t in layer.mlp.experts()),
+              "weight_bytes": weight_bytes(card.model)})
+        t0 = time.perf_counter()
+        res = decoder_twin(card, quant_twin(card), ids, MOE_QUANT_LOGIT_ATOL,
+                           steps=MOE_QUANT_STEPS,
+                           max_flips=MOE_QUANT_MAX_FLIP_SHARE)
+        emit({"phase": f"moe_quant_int{bits}_twin", **res,
+              "host_peak_rss_bytes": host_peak_rss(),
+              "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        speed = decoder_speed(card, ids, lens=(len(ids),), runs=1,
+                              modes=("greedy",), tokens=32, profile=0)
+        routed = decoder_bytes(card.model, [512], routed=True)
+        emit({"phase": f"moe_quant_int{bits}_speed", **speed,
+              "routed_bound_bytes": routed,
+              "routed_bound_ms": bound(routed, 0, BF16_FLOP_PER_S)[0],
+              "seconds": time.perf_counter() - t0})
+        del card
+    del card_state
 
 
 def check_bm25_kernel(index, q, params):
@@ -4403,13 +4892,21 @@ def main() -> int:
     kres["bm25_sparse"], large = phase_large()
     large_store_runs, large_stores = phase_large_stores()
     bert_runs = phase_bert()
-    answer = phase_decoder()
-    families = phase_decoder_families()
-    moe = phase_decoder_moe()
+    keep = Path(tempfile.mkdtemp(prefix="checkpoints_"))
+    try:
+        tokenizers = {}
+        answer = phase_decoder(keep, tokenizers)
+        families = phase_decoder_families(keep, tokenizers)
+        moe = phase_decoder_moe(keep, tokenizers)
+        quant = phase_decoder_quant(keep / "qwen25_05b",
+                                    keep / "qwen15_moe_a27b")
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
             "ingest": [ingest], "stores": store_runs,
             "large": [large] + large_store_runs, "bert": bert_runs,
-            "answer": [answer], "families": [families], "moe": [moe]}
+            "answer": [answer], "families": [families], "moe": [moe],
+            "quant": [quant]}
     # MaxSim's launches per route, as the wrapper counts them on each path
     # (the kernel's own row: all its routes; bf16 is the map path's)
     routes["float32"] = kres["maxsim"].pop("float32_route")

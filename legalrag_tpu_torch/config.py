@@ -193,6 +193,12 @@ class LLMConfig:
     decode_chunk: int = 8
     prefill_chunk: int = 1024
     prefix_cache: int = 0
+    # the single-stream engine's quantization (models/quant.py): int8
+    # (W8A8) or grouped int4 weights (weight_bits 8 / 4; weight_bits
+    # without weight_quant changes nothing, as in JAX) and the int8 KV cache
+    weight_quant: bool = False
+    weight_bits: int = 8
+    kv_quant: bool = False
     # local-jax knobs of the JAX package's other engines, read so that a
     # config tuned for it means the same here: the port has none of those
     # engines yet, and a knob that would select or shape one makes the
@@ -207,9 +213,6 @@ class LLMConfig:
     draft_model: str = ""
     ngram_draft_path: str = ""
     shared_prefix_text: str = ""    # the batched engine's pinned prelude
-    weight_quant: bool = False      # int8 (W8A8) or int4 weights
-    weight_bits: int = 8
-    kv_quant: bool = False          # the int8 KV cache
     constrain_json: bool = False    # schema-constrained JSON decoding
     tp_shards: int = 0              # > 1: tensor-parallel decoder
     dp_replicas: int = 0            # > 1: data-parallel replicas

@@ -170,8 +170,26 @@ def _same_dtype(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _quantized_leaves(node: Mapping, key: str) -> Dict[str, torch.Tensor]:
+    """JAX's quantized leaves ``{key}_q`` [in, out] (carried as the port's
+    [out, in]) or ``{key}_q4p`` [in / 2, out] (as it is), and
+    ``{key}_scale``, of one node, under the port's suffixes (``_q``,
+    ``_q4p``, ``_scale``)."""
+    if f"{key}_q" in node:
+        return {"_q": _swap_last(node[f"{key}_q"]),
+                "_scale": _same_dtype(node[f"{key}_scale"])}
+    return {"_q4p": _same_dtype(node[f"{key}_q4p"]),
+            "_scale": _same_dtype(node[f"{key}_scale"])}
+
+
+def _swap_last(a) -> torch.Tensor:
+    """A numpy array with its last two axes swapped, contiguous."""
+    return _same_dtype(np.ascontiguousarray(np.swapaxes(np.asarray(a), -1,
+                                                        -2)))
+
+
 def decoder_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX decoder's dense param tree (``embed``, ``lm_head`` [H, V],
+    """The JAX decoder's param tree (``embed``, ``lm_head`` [H, V],
     ``final_norm``, ``layers[i]`` with ``input_norm``, ``q``/``k``/``v``
     (``kernel`` [in, out], ``bias``), ``o``, ``post_norm``, ``gate``,
     ``up``, ``down`` or, on a MoE layer, ``moe`` (``router`` [H, E],
@@ -181,9 +199,21 @@ def decoder_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     ``pre_ff_norm`` and ``post_ff_norm``) as the port's ``DecoderModel``
     state dict, in the tree's dtype. A head equal to the embedding's
     transpose is the tied head: the state then has no
-    ``lm_head.weight``."""
-    def weight(node) -> torch.Tensor:
-        return _same_dtype(np.asarray(node["kernel"]).T)
+    ``lm_head.weight``.
+
+    A tree that ``quantize_weights`` returned carries its ints and scales:
+    a node's ``kernel_q`` [in, out] becomes ``weight_q`` [out, in],
+    ``kernel_q4p`` ``weight_q4p`` as packed, ``kernel_scale``
+    ``weight_scale``; the quantized head (a dict) ``lm_head.*``; the MoE
+    stacks' ``gate_q`` / ``up_q`` / ``down_q`` [E, in, out] become [E, out,
+    in], the ``*_q4p`` carriers and the scales as they are; the shared
+    expert's flat leaves its projections' ``weight_*``."""
+    def weight(node, name: str) -> Dict[str, torch.Tensor]:
+        if "kernel" in node:
+            return {f"{name}.weight": _same_dtype(
+                np.asarray(node["kernel"]).T)}
+        return {f"{name}.weight{sfx}": t for sfx, t in
+                _quantized_leaves(node, "kernel").items()}
 
     def transposed(a) -> torch.Tensor:
         return _same_dtype(np.asarray(a).T)
@@ -191,16 +221,18 @@ def decoder_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     embed = np.asarray(tree["embed"])
     state = {"embed_tokens.weight": _same_dtype(embed),
              "norm.weight": _same_dtype(tree["final_norm"])}
-    head = np.asarray(tree["lm_head"])
-    if not np.array_equal(head, embed.T):
-        state["lm_head.weight"] = _same_dtype(head.T)
+    head = tree["lm_head"]
+    if isinstance(head, Mapping):
+        state |= weight(head, "lm_head")
+    elif not np.array_equal(np.asarray(head), embed.T):
+        state["lm_head.weight"] = transposed(head)
     for i, layer in enumerate(tree["layers"]):
         p = f"layers.{i}"
         state[f"{p}.input_layernorm.weight"] = _same_dtype(layer["input_norm"])
         state[f"{p}.post_attention_layernorm.weight"] = _same_dtype(
             layer["post_norm"])
         for x in "qkvo":
-            state[f"{p}.self_attn.{x}_proj.weight"] = weight(layer[x])
+            state |= weight(layer[x], f"{p}.self_attn.{x}_proj")
         for x in "qkv":
             state[f"{p}.self_attn.{x}_proj.bias"] = _same_dtype(
                 layer[x]["bias"])
@@ -208,16 +240,25 @@ def decoder_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             moe = layer["moe"]
             state[f"{p}.mlp.router"] = transposed(moe["router"])
             for x in ("gate", "up", "down"):
-                state[f"{p}.mlp.{x}"] = _same_dtype(moe[x])
+                if x in moe:
+                    state[f"{p}.mlp.{x}"] = _same_dtype(moe[x])
+                else:
+                    state |= {f"{p}.mlp.{x}{sfx}": t for sfx, t in
+                              _quantized_leaves(moe, x).items()}
             if "shared_gate" in moe:
                 state[f"{p}.mlp.shared_expert_gate.weight"] = transposed(
                     moe["shared_gate"])
+                sh = moe["shared"]
                 for x in ("gate", "up", "down"):
-                    state[f"{p}.mlp.shared_expert.{x}_proj.weight"] = \
-                        transposed(moe["shared"][x])
+                    name = f"{p}.mlp.shared_expert.{x}_proj.weight"
+                    if x in sh:
+                        state[name] = transposed(sh[x])
+                    else:
+                        state |= {name + sfx: t for sfx, t in
+                                  _quantized_leaves(sh, x).items()}
         else:
             for x in ("gate", "up", "down"):
-                state[f"{p}.mlp.{x}_proj.weight"] = weight(layer[x])
+                state |= weight(layer[x], f"{p}.mlp.{x}_proj")
         for key, name in (("q_norm", "self_attn.q_norm"),
                           ("k_norm", "self_attn.k_norm"),
                           ("pre_ff_norm", "pre_feedforward_layernorm"),

@@ -14,8 +14,10 @@
   Any other provider name raises ``LLMUnavailable`` and so gets the
   degraded answer.
 - ``local-jax`` loads once, under a lock, with a KV cache of
-  ``max_context_tokens + max_new_tokens`` rows. A knob of the JAX
-  package's other engines (batched, paged, speculative, quantized,
+  ``max_context_tokens + max_new_tokens`` rows, its weights quantized
+  under ``weight_quant`` (int8, or int4 with ``weight_bits`` 4) and its
+  cache int8 under ``kv_quant``, as JAX's client asks its engine. A knob
+  of the JAX package's other engines (batched, paged, speculative,
   constrained, TP / DP; ``unported_engine_knobs``) makes the load fail with
   ``LLMUnavailable`` naming it, so the answer degrades as it does in JAX
   when a load fails; no knob is ignored.
@@ -78,9 +80,8 @@ class LLMUnavailable(RuntimeError):
 # the counts, whose 0 and 1 both keep the single-stream engine
 _UNPORTED_KNOBS = ("batch_slots", "paged_kv", "kv_block_size",
                    "kv_pool_blocks", "spec_k", "spec_adaptive", "draft_model",
-                   "ngram_draft_path", "shared_prefix_text", "weight_quant",
-                   "weight_bits", "kv_quant", "constrain_json", "tp_shards",
-                   "dp_replicas")
+                   "ngram_draft_path", "shared_prefix_text", "constrain_json",
+                   "tp_shards", "dp_replicas")
 _COUNT_KNOBS = ("batch_slots", "tp_shards", "dp_replicas")
 
 
@@ -335,7 +336,10 @@ class LLMClient:
                     kw = dict(max_len=self.cfg.max_context_tokens
                               + self.cfg.max_new_tokens,
                               decode_chunk=self.cfg.decode_chunk,
-                              prefix_cache=self.cfg.prefix_cache)
+                              prefix_cache=self.cfg.prefix_cache,
+                              kv_quant=self.cfg.kv_quant,
+                              weight_quant=self.cfg.weight_quant,
+                              weight_bits=self.cfg.weight_bits)
                     if self.cfg.prefill_chunk:
                         kw["prefill_chunk"] = self.cfg.prefill_chunk
                     self._local = TorchDecoderLM.from_pretrained(

@@ -48,9 +48,18 @@ with its sigmoid-gated shared expert, its ``decoder_sparse_step`` and
 marks: JAX's dense formulation of ``_moe_block``, every expert on every
 token, so a decode chunk still needs no host read.
 
+JAX's quantized serving (``models/quant.py``): ``weight_quant`` swaps
+every projection, the quantized LM head and the expert stacks for int8
+(W8A8) or grouped int4 weights (``QLinear``; ``MoEBlock`` keeps the expert
+axis, and for int4 the group axis, in each integer product's output and
+combines the experts after the down projection in float32), and
+``kv_quant`` keeps the cache as int8 rows with per-(position, head)
+float32 scales: the layer writes quantized rows and attends the
+dequantized cache, its own rows included, so chunked prefill and prefix
+hits stay exact.
+
 Refused with ``NotImplementedError``, never decoded with the wrong
-arithmetic: int8 / int4 weights (the expert stacks among them), the int8
-KV cache, the JSON constraint and draft models.
+arithmetic: the JSON constraint and draft models.
 """
 
 from __future__ import annotations
@@ -66,6 +75,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from legalrag_tpu_torch.models.bert import resolve_model_dir
+from legalrag_tpu_torch.models.quant import (
+    QUANT_GROUP,
+    Int4Operands,
+    QLinear,
+    dequantize_kv,
+    group_int_mm,
+    group_size,
+    int_mm,
+    quant_acts,
+    quantize_kv,
+    quantize_weights,
+    state_bits,
+)
 from legalrag_tpu_torch.models.safetensors_io import load_weights
 from legalrag_tpu_torch.ops.topk import stable_topk
 from legalrag_tpu_torch.utils import get_logger
@@ -336,18 +358,28 @@ class RMSNorm(nn.Module):
         return _rms_norm(x, self.weight, self.eps, self.plus_one)
 
 
+def linear(in_features: int, out_features: int, bias: bool, bits: int = 0
+           ) -> nn.Module:
+    """``nn.Linear``, or under weight quantization (``bits`` 8 or 4) its
+    ``QLinear``."""
+    if bits:
+        return QLinear(in_features, out_features, bias, bits)
+    return nn.Linear(in_features, out_features, bias=bias)
+
+
 class Attention(nn.Module):
     """The projections, and Qwen3's / Gemma 3's per-head ``q_norm`` and
     ``k_norm`` when ``qk_norm``."""
 
-    def __init__(self, cfg: DecoderConfig, bias: bool, qk_norm: bool):
+    def __init__(self, cfg: DecoderConfig, bias: bool, qk_norm: bool,
+                 bits: int = 0):
         super().__init__()
         h, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
                      cfg.head_dim)
-        self.q_proj = nn.Linear(cfg.hidden_size, h * d, bias=bias)
-        self.k_proj = nn.Linear(cfg.hidden_size, hkv * d, bias=bias)
-        self.v_proj = nn.Linear(cfg.hidden_size, hkv * d, bias=bias)
-        self.o_proj = nn.Linear(h * d, cfg.hidden_size, bias=False)
+        self.q_proj = linear(cfg.hidden_size, h * d, bias, bits)
+        self.k_proj = linear(cfg.hidden_size, hkv * d, bias, bits)
+        self.v_proj = linear(cfg.hidden_size, hkv * d, bias, bits)
+        self.o_proj = linear(h * d, cfg.hidden_size, False, bits)
         self.q_norm = self.k_norm = None
         if qk_norm:
             self.q_norm = RMSNorm(d, cfg.rms_norm_eps, cfg.gemma)
@@ -362,12 +394,12 @@ def _act(g: torch.Tensor, gelu: bool) -> torch.Tensor:
 
 class MLP(nn.Module):
     def __init__(self, cfg: DecoderConfig, ff: Optional[int] = None,
-                 gelu: Optional[bool] = None):
+                 gelu: Optional[bool] = None, bits: int = 0):
         super().__init__()
         hs, ff = cfg.hidden_size, ff or cfg.intermediate_size
-        self.gate_proj = nn.Linear(hs, ff, bias=False)
-        self.up_proj = nn.Linear(hs, ff, bias=False)
-        self.down_proj = nn.Linear(ff, hs, bias=False)
+        self.gate_proj = linear(hs, ff, False, bits)
+        self.up_proj = linear(hs, ff, False, bits)
+        self.down_proj = linear(ff, hs, False, bits)
         self.gelu = (cfg.hidden_activation == "gelu_pytorch_tanh"
                      if gelu is None else gelu)
 
@@ -376,11 +408,11 @@ class MLP(nn.Module):
                               * self.up_proj(y))
 
 
-class MoEBlock(nn.Module):
-    """JAX's ``_moe_block`` (unquantized), Mixtral's and Qwen2-MoE's, with
-    JAX's stacked parameters: ``router`` [E, H] (the checkpoint's
-    ``gate.weight``), ``gate`` and ``up`` [E, H, F], ``down`` [E, F, H]
-    (F: ``moe_intermediate_size``, else ``intermediate_size``), and with
+class MoEBlock(Int4Operands, nn.Module):
+    """JAX's ``_moe_block``, Mixtral's and Qwen2-MoE's, with JAX's stacked
+    parameters: ``router`` [E, H] (the checkpoint's ``gate.weight``),
+    ``gate`` and ``up`` [E, H, F], ``down`` [E, F, H] (F:
+    ``moe_intermediate_size``, else ``intermediate_size``), and with
     ``shared`` Qwen2-MoE's ``shared_expert`` (an ``MLP`` of
     ``shared_expert_intermediate_size``, always SiLU) and
     ``shared_expert_gate`` [1, H] where ``shared_expert_intermediate_size``
@@ -395,23 +427,62 @@ class MoEBlock(nn.Module):
     width in one product; then ``sigmoid(y @ shared_gate) * shared(y)``
     added. Dense: every expert runs on every token (one batched product
     over the expert axis for ``gate`` and ``up``), on the CPU and the card
-    alike, with no host read."""
+    alike, with no host read.
 
-    def __init__(self, cfg: DecoderConfig):
+    Quantized (``bits``, JAX's ``qmoe``): int8 stacks ``gate_q`` / ``up_q``
+    [E, F, H], ``down_q`` [E, H, F] (each expert [out, in]) with scales [E,
+    F] / [E, H]; int4 carriers ``gate_q4p`` / ``up_q4p`` [E, H / 2, F],
+    ``down_q4p`` [E, F / 2, H] with scales [E, groups, out]; the shared
+    expert's projections as ``QLinear``. The router, ``shared_expert_gate``
+    and the combine stay at full precision. The activations are quantized
+    per token for gate and up, per (token, expert) for down; each integer
+    product keeps the expert axis (int4: and the group axis) in its output,
+    gate and up stay float32, and the combine (cast to the hidden dtype,
+    then to float32) weights the down projection's output."""
+
+    def __init__(self, cfg: DecoderConfig, bits: int = 0,
+                 group: int = QUANT_GROUP):
         super().__init__()
         e, hs = cfg.num_experts, cfg.hidden_size
         ff = cfg.moe_intermediate_size or cfg.intermediate_size
-        self.cfg = cfg
+        self.cfg, self.bits = cfg, bits
         self.router = nn.Parameter(torch.empty(e, hs))
-        self.gate = nn.Parameter(torch.empty(e, hs, ff))
-        self.up = nn.Parameter(torch.empty(e, hs, ff))
-        self.down = nn.Parameter(torch.empty(e, ff, hs))
+        if bits == 8:
+            for name, (o, i) in (("gate", (ff, hs)), ("up", (ff, hs)),
+                                 ("down", (hs, ff))):
+                self.register_buffer(f"{name}_q", torch.empty(
+                    e, o, i, dtype=torch.int8))
+                self.register_buffer(f"{name}_scale", torch.empty(e, o))
+        elif bits == 4:
+            self.groups = {}
+            for name, (i, o) in (("gate", (hs, ff)), ("up", (hs, ff)),
+                                 ("down", (ff, hs))):
+                g = self.groups[name] = group_size(i, group)
+                self.register_buffer(f"{name}_q4p", torch.empty(
+                    e, i // 2, o, dtype=torch.int8))
+                self.register_buffer(f"{name}_scale", torch.empty(
+                    e, i // g, o))
+        else:
+            self.gate = nn.Parameter(torch.empty(e, hs, ff))
+            self.up = nn.Parameter(torch.empty(e, hs, ff))
+            self.down = nn.Parameter(torch.empty(e, ff, hs))
         self.gelu = cfg.hidden_activation == "gelu_pytorch_tanh"
         self.shared_expert = self.shared_expert_gate = None
         if cfg.shared_expert_intermediate_size:
             self.shared_expert = MLP(cfg, cfg.shared_expert_intermediate_size,
-                                     gelu=False)
+                                     gelu=False, bits=bits)
             self.shared_expert_gate = nn.Linear(hs, 1, bias=False)
+
+    def experts(self) -> List[torch.Tensor]:
+        """The expert stacks' tensors (their scales with them)."""
+        names = ("gate", "up", "down")
+        if self.bits == 8:
+            return [getattr(self, f"{n}_{x}") for n in names
+                    for x in ("q", "scale")]
+        if self.bits == 4:
+            return [getattr(self, f"{n}_{x}") for n in names
+                    for x in ("q4p", "scale")]
+        return [self.gate, self.up, self.down]
 
     def probs(self, x: torch.Tensor) -> torch.Tensor:
         """The router's float32 softmax over all experts [N, E] of rows
@@ -435,17 +506,66 @@ class MoEBlock(nn.Module):
         chosen = stable_topk(probs, self.cfg.num_experts_per_tok)[1]
         return chosen, self.combine(probs, chosen, x.dtype)
 
+    def _gate_up_int8(self, xq, xs, name: str) -> torch.Tensor:
+        """``einsum("bth,ehf->btef")`` of int8 rows: [N, E, F] float32."""
+        w = getattr(self, f"{name}_q")
+        acc = int_mm(xq, w.view(-1, w.shape[-1])).view(xq.shape[0],
+                                                        *w.shape[:2])
+        return acc.float() * xs[..., None] * getattr(self, f"{name}_scale")
+
+    def _gate_up_int4(self, xq, xs, name: str) -> torch.Tensor:
+        """``einsum("btgi,egif->btegf")`` of int8 rows, summed over the
+        groups: [N, E, F] float32."""
+        scale = getattr(self, f"{name}_scale")                # [E, G, F]
+        e, n_g, f = scale.shape
+        n, g = xq.shape[0], self.groups[name]
+        a = xq.view(n, n_g, g).transpose(0, 1).unsqueeze(0).expand(
+            e, n_g, n, g).reshape(e * n_g, n, g)
+        acc = group_int_mm(a, self.int4_operand(f"{name}_q4p", g))
+        y = acc.view(e, n_g, n, f).mul_(scale[:, :, None]).sum(1)
+        return y.transpose(0, 1) * xs[..., None]
+
+    def _down_int8(self, aq: torch.Tensor) -> torch.Tensor:
+        """``einsum("btef,efh->bteh")``: [N, E, H] int32."""
+        return int_mm(aq.transpose(0, 1), self.down_q).transpose(0, 1)
+
+    def _down_int4(self, aq: torch.Tensor) -> torch.Tensor:
+        """``einsum("btegi,egih->btegh")`` rescaled and summed over the
+        groups: [N, E, H] float32."""
+        scale = self.down_scale                               # [E, G, H]
+        e, n_g, h = scale.shape
+        n, g = aq.shape[0], self.groups["down"]
+        a = aq.view(n, e, n_g, g).permute(1, 2, 0, 3).reshape(e * n_g, n, g)
+        acc = group_int_mm(a, self.int4_operand("down_q4p", g))
+        y = acc.view(e, n_g, n, h).mul_(scale[:, :, None]).sum(1)
+        return y.transpose(0, 1)
+
+    def _experts_quantized(self, x: torch.Tensor, combine: torch.Tensor
+                           ) -> torch.Tensor:
+        xq, xs = quant_acts(x)
+        gate_up = self._gate_up_int8 if self.bits == 8 else self._gate_up_int4
+        g, u = gate_up(xq, xs, "gate"), gate_up(xq, xs, "up")
+        aq, a_s = quant_acts(_act(g, self.gelu) * u)   # per (token, expert)
+        if self.bits == 8:
+            deq = self._down_int8(aq).float() * a_s * self.down_scale
+        else:
+            deq = self._down_int4(aq) * a_s
+        return (deq * combine.float()[..., None]).sum(1).to(x.dtype)
+
     def forward(self, y):
         shape = y.shape
         x = y.reshape(-1, shape[-1])                             # [N, H]
-        e, n = self.gate.shape[0], x.shape[0]
+        e, n = self.cfg.num_experts, x.shape[0]
         _, combine = self.route(x)
-        xe = x.unsqueeze(0).expand(e, n, x.shape[1])
-        g = torch.bmm(xe, self.gate)                             # [E, N, F]
-        mid = _act(g, self.gelu) * torch.bmm(xe, self.up) \
-            * combine.t()[:, :, None]
-        out = mid.transpose(0, 1).reshape(n, -1) @ self.down.reshape(
-            -1, shape[-1])
+        if self.bits:
+            out = self._experts_quantized(x, combine)
+        else:
+            xe = x.unsqueeze(0).expand(e, n, x.shape[1])
+            g = torch.bmm(xe, self.gate)                         # [E, N, F]
+            mid = _act(g, self.gelu) * torch.bmm(xe, self.up) \
+                * combine.t()[:, :, None]
+            out = mid.transpose(0, 1).reshape(n, -1) @ self.down.reshape(
+                -1, shape[-1])
         if self.shared_expert is not None:
             out = out + torch.sigmoid(self.shared_expert_gate(x)) \
                 * self.shared_expert(x)
@@ -460,14 +580,14 @@ class DecoderLayer(nn.Module):
     ``post_feedforward_layernorm`` normalises its output."""
 
     def __init__(self, cfg: DecoderConfig, bias: bool, qk_norm: bool,
-                 sandwich: bool, moe: bool = False):
+                 sandwich: bool, moe: bool = False, bits: int = 0):
         super().__init__()
         self.cfg = cfg
         hs, eps, g = cfg.hidden_size, cfg.rms_norm_eps, cfg.gemma
         self.input_layernorm = RMSNorm(hs, eps, g)
-        self.self_attn = Attention(cfg, bias, qk_norm)
+        self.self_attn = Attention(cfg, bias, qk_norm, bits)
         self.post_attention_layernorm = RMSNorm(hs, eps, g)
-        self.mlp = MoEBlock(cfg) if moe else MLP(cfg)
+        self.mlp = MoEBlock(cfg, bits) if moe else MLP(cfg, bits=bits)
         self.pre_feedforward_layernorm = self.post_feedforward_layernorm = None
         if sandwich:
             self.pre_feedforward_layernorm = RMSNorm(hs, eps, True)
@@ -484,7 +604,17 @@ class DecoderLayer(nn.Module):
             q, k = a.q_norm(q), a.k_norm(k)
         q, k = _rope(q, cos, sin), _rope(k, cos, sin)
         v = a.v_proj(y).view(b, t, cfg.num_key_value_heads, d)
-        if cache is not None:
+        if cache is not None and len(cache) == 4:
+            # the int8 cache: rows written quantized, every row (these
+            # included) read back dequantized
+            ckq, cvq, cks, cvs = cache
+            for dst, dsc, x_new in ((ckq, cks, k), (cvq, cvs, v)):
+                q_new, s_new = quantize_kv(x_new)
+                dst[:, cache_len:cache_len + t] = q_new
+                dsc[:, cache_len:cache_len + t] = s_new
+            k, v = (dequantize_kv(ckq, cks, k.dtype),
+                    dequantize_kv(cvq, cvs, v.dtype))
+        elif cache is not None:
             ck, cv = cache
             ck[:, cache_len:cache_len + t] = k
             cv[:, cache_len:cache_len + t] = v
@@ -508,18 +638,24 @@ class DecoderModel(nn.Module):
     ``.up``, ``.down``, ``.shared_expert.*``, ``.shared_expert_gate``).
     ``bias``: whether q/k/v have biases (Qwen2) or not; ``qk_norm``: the
     per-head q/k norms (Qwen3, Gemma 3); ``sandwich``: the feed-forward
-    norms (Gemma 2 / 3)."""
+    norms (Gemma 2 / 3); ``bits`` (8 or 4): ``quantize_weights``' model,
+    every projection a ``QLinear`` (``.weight_q`` or ``.weight_q4p`` with
+    ``.weight_scale``), the quantized stacks in each ``MoEBlock`` and a
+    quantized ``lm_head``, tied or not."""
 
     def __init__(self, cfg: DecoderConfig, bias: bool = True,
-                 qk_norm: bool = False, sandwich: bool = False):
+                 qk_norm: bool = False, sandwich: bool = False,
+                 bits: int = 0):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, bias, qk_norm, sandwich, cfg.layer_is_moe(li))
+            DecoderLayer(cfg, bias, qk_norm, sandwich, cfg.layer_is_moe(li),
+                         bits)
             for li in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.gemma)
-        self.lm_head = (None if cfg.tie_word_embeddings else
+        self.lm_head = (QLinear(cfg.hidden_size, cfg.vocab_size, False, bits)
+                        if bits else None if cfg.tie_word_embeddings else
                         nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False))
         self._set_rope()
 
@@ -543,13 +679,18 @@ class DecoderModel(nn.Module):
         when ``state`` has no ``lm_head.weight`` (``cfg`` is set so); the
         biases, q/k norms and feed-forward norms are there when ``state``
         has them; a MoE layer's shared expert where ``cfg`` sets
-        ``shared_expert_intermediate_size``."""
-        cfg.tie_word_embeddings = "lm_head.weight" not in state
+        ``shared_expert_intermediate_size``; a state that
+        ``quantize_weights`` made gives the quantized model of its bits
+        (int4 groups of ``QUANT_GROUP``)."""
+        bits = state_bits(state)
+        if not bits:
+            cfg.tie_word_embeddings = "lm_head.weight" not in state
         with torch.device("meta"):
             model = cls(
                 cfg, bias="layers.0.self_attn.q_proj.bias" in state,
                 qk_norm="layers.0.self_attn.q_norm.weight" in state,
-                sandwich="layers.0.pre_feedforward_layernorm.weight" in state)
+                sandwich="layers.0.pre_feedforward_layernorm.weight" in state,
+                bits=bits)
         model.load_state_dict(state, strict=True, assign=True)
         model._set_rope(model.embed_tokens.weight.device)
         return model.eval()
@@ -564,19 +705,26 @@ class DecoderModel(nn.Module):
         return self.embed_tokens.weight.dtype
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """Final-norm hidden states → float32 logits (softcapped)."""
-        return lm_logits(self.head, hidden, self.cfg.final_logit_softcapping)
+        """Final-norm hidden states → float32 logits (softcapped); a
+        quantized head's product is float32 (JAX's ``_qdot(x, head,
+        float32)``)."""
+        cap = self.cfg.final_logit_softcapping
+        if isinstance(self.lm_head, QLinear):
+            return _softcap(self.lm_head(hidden, torch.float32), cap)
+        return lm_logits(self.head, hidden, cap)
 
     def forward(self, input_ids: torch.Tensor, positions: torch.Tensor,
-                kv_cache: Optional[List[Tuple[torch.Tensor, torch.Tensor]]]
-                = None, cache_len: int = 0, return_hidden: bool = False
+                kv_cache: Optional[List[Tuple[torch.Tensor, ...]]] = None,
+                cache_len: int = 0, return_hidden: bool = False
                 ) -> torch.Tensor:
         """[B, T] ids at ``positions`` [B, T] → float32 logits [B, T, V]
         (the final-norm hidden states with ``return_hidden``).
 
-        With ``kv_cache`` (per layer ``(k, v)``, each [B, S, Hkv, D]) the
-        new keys and values are written in place at rows ``cache_len`` ..
-        ``cache_len + T - 1`` and attention spans the whole cache, rows at
+        With ``kv_cache`` (per layer ``(k, v)``, each [B, S, Hkv, D], or the
+        int8 cache's ``(k_q, v_q, k_scale, v_scale)``, the scales [B, S,
+        Hkv, 1]) the new keys and values are written in place at rows
+        ``cache_len`` .. ``cache_len + T - 1`` and attention spans the whole
+        cache (dequantized), rows at
         or past ``cache_len + T`` and after each query's position masked.
         Without it the T tokens attend each other causally. A sliding
         layer also masks the keys ``sliding_window`` or more positions
@@ -772,12 +920,14 @@ class TorchDecoderLM:
     def __init__(self, model: DecoderModel, tokenizer=None,
                  device: DeviceLike = None, max_len: int = 4096,
                  decode_chunk: int = 8, prefix_cache: int = 0,
-                 prefill_chunk: int = 1024):
+                 prefill_chunk: int = 1024, kv_quant: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = model.cfg
         self.tokenizer = tokenizer
         self.max_len = max_len
+        # the int8 KV cache (quantize_kv): int8 rows, float32 scales
+        self.kv_quant = kv_quant
         # prompts longer than this prefill in chunks at cache offsets: a
         # single T-token prefill holds [H, T, max_len] float32 scores
         self.prefill_chunk = max(prefill_chunk, 16)
@@ -790,39 +940,53 @@ class TorchDecoderLM:
     def from_pretrained(cls, name_or_path: str, device: DeviceLike = None,
                         **kw) -> "TorchDecoderLM":
         """A local checkpoint (a directory, or the offline HF cache) with
-        its ``tokenizer.json``. JAX's quantization, constraint and draft
-        options raise ``NotImplementedError``."""
+        its ``tokenizer.json``. ``weight_quant`` quantizes the weights on
+        the engine's device after loading (``quantize_weights``, at
+        ``weight_bits`` 8 or 4; ``weight_bits`` alone changes nothing, as
+        in JAX); ``kv_quant`` keeps an int8 KV cache. JAX's constraint and
+        draft options raise ``NotImplementedError``."""
         from legalrag_tpu_torch.tokenize.bpe import BPETokenizer
 
-        kw.pop("weight_bits", None)    # shapes weight_quant only
         refused = [name for name, on in (
-            ("int8 / int4 weights (weight_quant)", kw.pop("weight_quant",
-                                                           False)),
-            ("the int8 KV cache (kv_quant)", kw.pop("kv_quant", False)),
             ("the JSON constraint (constrain_json)",
              kw.pop("constrain_json", False)),
             ("draft models (draft_model)", kw.pop("draft_model", "")))
             if on]
         if refused:
             raise NotImplementedError("not ported: " + "; ".join(refused))
+        wq, wb = kw.pop("weight_quant", False), kw.pop("weight_bits", 8)
         model_dir = resolve_model_dir(name_or_path)
         state, cfg = load_hf_decoder_params(model_dir)
         tokenizer = BPETokenizer.from_dir(model_dir)
+        dev = resolve_device(device)
+        if wq:
+            state = quantize_weights({k: v.to(dev) for k, v in state.items()},
+                                     bits=wb)
         model = DecoderModel.from_state_dict(cfg, state)
-        log.info("loaded decoder %s (%d layers, H=%d, GQA %d/%d, %s)",
+        log.info("loaded decoder %s (%d layers, H=%d, GQA %d/%d, %s%s%s)",
                  name_or_path, cfg.num_hidden_layers, cfg.hidden_size,
                  cfg.num_attention_heads, cfg.num_key_value_heads,
-                 model.dtype)
-        return cls(model, tokenizer, device=device, **kw)
+                 model.dtype, f", int{wb} weights" if wq else "",
+                 ", int8 KV" if kw.get("kv_quant") else "")
+        return cls(model, tokenizer, device=dev, **kw)
 
     # ------------------------------------------------------------ internals
-    def _empty_cache(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    def _empty_cache(self) -> List[Tuple[torch.Tensor, ...]]:
         """Per layer zeroed (k, v) [1, max_len, Hkv, D] in the weights'
-        dtype."""
+        dtype; under ``kv_quant`` (k_q, v_q, k_scale, v_scale): int8 rows
+        and float32 scales [1, max_len, Hkv, 1]."""
         shape = (1, self.max_len, self.cfg.num_key_value_heads,
                  self.cfg.head_dim)
-        return [tuple(torch.zeros(shape, dtype=self.model.dtype,
-                                  device=self.device) for _ in range(2))
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        if self.kv_quant:
+            return [(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                     zeros(shape[:3] + (1,), torch.float32),
+                     zeros(shape[:3] + (1,), torch.float32))
+                    for _ in range(self.cfg.num_hidden_layers)]
+        return [(zeros(shape, self.model.dtype), zeros(shape, self.model.dtype))
                 for _ in range(self.cfg.num_hidden_layers)]
 
     def _positions(self, start: int, n: int) -> torch.Tensor:
@@ -852,10 +1016,10 @@ class TorchDecoderLM:
             hit = None  # long suffix: the chunked cold path instead
         cache = self._empty_cache()
         if hit is not None:
-            (ks, vs), l, sb = hit
-            for (ck, cv), k, v in zip(cache, ks, vs):
-                ck[:, :k.shape[1]] = k
-                cv[:, :v.shape[1]] = v
+            rows, l, sb = hit
+            for li, layer in enumerate(cache):
+                for dst, stack in zip(layer, rows):
+                    dst[:, :stack.shape[2]] = stack[li]
             sfx = list(prompt_ids[l:]) + [0] * (sb - (t - l))
             last = self._forward_rows(sfx, cache, l, t - l)
         elif t > self.prefill_chunk:
@@ -875,8 +1039,10 @@ class TorchDecoderLM:
                                       cache, 0, t)
         if self._prefix is not None:
             tb = pad_bucket(t, hi=self.max_len)
+            # one layer-stacked [L, 1, tb, ...] tensor per cache component
+            # (k, v, and under kv_quant their scales)
             rows = tuple(torch.stack([layer[c][:, :tb] for layer in cache])
-                         for c in range(2))
+                         for c in range(len(cache[0])))
             self._prefix.store(prompt_ids, rows, t)
         return last, cache
 

@@ -460,9 +460,6 @@ def test_once_refused_configs_match_jax(tmp_path, case):
 
 
 @pytest.mark.parametrize("option,what", [
-    ({"weight_quant": True}, "weight_quant"),
-    ({"weight_quant": True, "weight_bits": 4}, "int4"),
-    ({"kv_quant": True}, "kv_quant"),
     ({"constrain_json": True}, "constrain_json"),
     ({"draft_model": "some/draft"}, "draft_model")])
 def test_unported_engine_options_are_refused(tmp_path, option, what):

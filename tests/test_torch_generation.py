@@ -105,8 +105,7 @@ def test_rag_answer_sse_matches_jax(served, llm_on_both, clients):  # noqa: F811
 KNOBS = {"batch_slots": 4, "paged_kv": True, "kv_block_size": 32,
          "kv_pool_blocks": 64, "spec_k": 4, "spec_adaptive": 1.5,
          "draft_model": "some/draft", "ngram_draft_path": "table.npz",
-         "shared_prefix_text": "你是法律助手", "weight_quant": True,
-         "weight_bits": 4, "kv_quant": True, "constrain_json": True,
+         "shared_prefix_text": "你是法律助手", "constrain_json": True,
          "tp_shards": 2, "dp_replicas": 2}
 
 
