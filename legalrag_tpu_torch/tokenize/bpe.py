@@ -388,6 +388,20 @@ class BPETokenizer:
                   if conf.exists() else {})
         return cls(json.loads(path.read_text(encoding="utf-8")), config)
 
+    def __len__(self) -> int:
+        """The tokens of the vocabulary and the added ones, counted once
+        each (transformers' ``len(tokenizer)``)."""
+        return len(self.vocab.keys() | self.added.keys())
+
+    @property
+    def all_special_ids(self) -> List[int]:
+        """The ids of the configured special tokens (``bos_token`` ...,
+        ``additional_special_tokens``), as transformers lists them."""
+        toks = [t for a, t in self.special_tokens.items()
+                if a != "additional_special_tokens"]
+        toks += self.special_tokens.get("additional_special_tokens", [])
+        return list(dict.fromkeys(self.token_id(t) for t in toks))
+
     # ------------------------------------------------------------- encode
     def token_id(self, token: str) -> int:
         return self.added[token] if token in self.added else self.vocab[token]
