@@ -75,6 +75,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from legalrag_tpu_torch.models.bert import resolve_model_dir
+from legalrag_tpu_torch.models.constrain import (
+    SECTIONS_SCHEMA,
+    JsonConstraint,
+    StreamConstraint,
+)
 from legalrag_tpu_torch.models.quant import (
     QUANT_GROUP,
     Int4Operands,
@@ -572,6 +577,22 @@ class MoEBlock(Int4Operands, nn.Module):
         return out.view(shape)
 
 
+def _write_rows(dst: torch.Tensor, rows: torch.Tensor, cache_len) -> None:
+    """Write ``rows`` [B, T, ...] into the cache ``dst`` [B, S, ...] from row
+    ``cache_len``: an int, or a 0-d tensor on the device (the speculative
+    engine's offset, never read by the host). A tensor offset's rows past
+    the cache land on its last row: a frozen verify pass near capacity
+    writes there, at or past the write pointer, where every later step
+    writes its own row before attending it."""
+    t = rows.shape[1]
+    if isinstance(cache_len, int):
+        dst[:, cache_len:cache_len + t] = rows
+        return
+    idx = (cache_len + torch.arange(t, device=dst.device)).clamp_max(
+        dst.shape[1] - 1)
+    dst.index_copy_(1, idx, rows.to(dst.dtype))
+
+
 class DecoderLayer(nn.Module):
     """Pre-norm attention and MLP (``MoEBlock`` with ``moe``); with
     ``sandwich`` (Gemma 2 / 3)
@@ -610,14 +631,14 @@ class DecoderLayer(nn.Module):
             ckq, cvq, cks, cvs = cache
             for dst, dsc, x_new in ((ckq, cks, k), (cvq, cvs, v)):
                 q_new, s_new = quantize_kv(x_new)
-                dst[:, cache_len:cache_len + t] = q_new
-                dsc[:, cache_len:cache_len + t] = s_new
+                _write_rows(dst, q_new, cache_len)
+                _write_rows(dsc, s_new, cache_len)
             k, v = (dequantize_kv(ckq, cks, k.dtype),
                     dequantize_kv(cvq, cvs, v.dtype))
         elif cache is not None:
             ck, cv = cache
-            ck[:, cache_len:cache_len + t] = k
-            cv[:, cache_len:cache_len + t] = v
+            _write_rows(ck, k, cache_len)
+            _write_rows(cv, v, cache_len)
             k, v = ck, cv
         out = a.o_proj(attend(q, k, v, mask,
                               (cfg.query_pre_attn_scalar or d) ** -0.5,
@@ -849,6 +870,17 @@ def moe_state(cfg: DecoderConfig, p: str, has, get
     return out
 
 
+def load_decoder_model(state: Dict[str, torch.Tensor], cfg: DecoderConfig,
+                       device: torch.device, bits: int = 0) -> DecoderModel:
+    """``DecoderModel`` of a loaded checkpoint (``load_hf_decoder_params``),
+    its weights quantized on ``device`` to ``bits`` (8 or 4; 0 keeps
+    them)."""
+    if bits:
+        state = quantize_weights({k: v.to(device) for k, v in state.items()},
+                                 bits=bits)
+    return DecoderModel.from_state_dict(cfg, state)
+
+
 # ---------------------------------------------------------------------------
 # generation
 
@@ -920,7 +952,8 @@ class TorchDecoderLM:
     def __init__(self, model: DecoderModel, tokenizer=None,
                  device: DeviceLike = None, max_len: int = 4096,
                  decode_chunk: int = 8, prefix_cache: int = 0,
-                 prefill_chunk: int = 1024, kv_quant: bool = False):
+                 prefill_chunk: int = 1024, kv_quant: bool = False,
+                 json_constraint: Optional[JsonConstraint] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = model.cfg
@@ -935,6 +968,11 @@ class TorchDecoderLM:
                         if prefix_cache else None)
         # tokens decoded per host round trip (1: the per-token loop)
         self.decode_chunk = max(1, decode_chunk)
+        # the schema-DFA JSON constraint (models/constrain.py): a stream
+        # asking for it (generate_stream(constrain=True)) emits only
+        # prefixes of a schema-valid document, EOS once it is complete
+        self.json_constraint = (None if json_constraint is None
+                                else json_constraint.to(self.device))
 
     @classmethod
     def from_pretrained(cls, name_or_path: str, device: DeviceLike = None,
@@ -943,26 +981,28 @@ class TorchDecoderLM:
         its ``tokenizer.json``. ``weight_quant`` quantizes the weights on
         the engine's device after loading (``quantize_weights``, at
         ``weight_bits`` 8 or 4; ``weight_bits`` alone changes nothing, as
-        in JAX); ``kv_quant`` keeps an int8 KV cache. JAX's constraint and
-        draft options raise ``NotImplementedError``."""
+        in JAX); ``kv_quant`` keeps an int8 KV cache. ``constrain_json``
+        builds ``SECTIONS_SCHEMA``'s constraint from the tokenizer at the
+        model's ``vocab_size``; ``draft_model`` (a checkpoint of the same
+        vocabulary) loads a draft model for the speculative engine,
+        quantized as the target is, and passes it as ``draft``."""
         from legalrag_tpu_torch.tokenize.bpe import BPETokenizer
 
-        refused = [name for name, on in (
-            ("the JSON constraint (constrain_json)",
-             kw.pop("constrain_json", False)),
-            ("draft models (draft_model)", kw.pop("draft_model", "")))
-            if on]
-        if refused:
-            raise NotImplementedError("not ported: " + "; ".join(refused))
         wq, wb = kw.pop("weight_quant", False), kw.pop("weight_bits", 8)
         model_dir = resolve_model_dir(name_or_path)
         state, cfg = load_hf_decoder_params(model_dir)
         tokenizer = BPETokenizer.from_dir(model_dir)
         dev = resolve_device(device)
-        if wq:
-            state = quantize_weights({k: v.to(dev) for k, v in state.items()},
-                                     bits=wb)
-        model = DecoderModel.from_state_dict(cfg, state)
+        model = load_decoder_model(state, cfg, dev, wb if wq else 0)
+        if kw.pop("constrain_json", False) and "json_constraint" not in kw:
+            kw["json_constraint"] = JsonConstraint.from_tokenizer(
+                SECTIONS_SCHEMA, tokenizer, vocab_size=cfg.vocab_size,
+                device=dev)
+        dm = kw.pop("draft_model", "")
+        if dm:
+            kw["draft"] = load_decoder_model(
+                *load_hf_decoder_params(resolve_model_dir(dm)), dev,
+                wb if wq else 0)
         log.info("loaded decoder %s (%d layers, H=%d, GQA %d/%d, %s%s%s)",
                  name_or_path, cfg.num_hidden_layers, cfg.hidden_size,
                  cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -1046,6 +1086,21 @@ class TorchDecoderLM:
             self._prefix.store(prompt_ids, rows, t)
         return last, cache
 
+    def _stream_constraint(self, constrain: bool, eos_id: Optional[int],
+                           max_new_tokens: int
+                           ) -> Optional[StreamConstraint]:
+        """A constrained stream's DFA state (None unconstrained), with
+        JAX's warning when the budget is below the shortest document."""
+        if not constrain:
+            return None
+        jc = self.json_constraint
+        if max_new_tokens < jc.min_budget:
+            log.warning("constrained stream budget %d < shortest valid "
+                        "document (%d tokens); output will be a valid "
+                        "prefix, not a complete document",
+                        max_new_tokens, jc.min_budget)
+        return StreamConstraint(jc, eos_id)
+
     @property
     def prefix_stats(self):
         return self._prefix.stats if self._prefix else \
@@ -1059,23 +1114,31 @@ class TorchDecoderLM:
 
     @torch.inference_mode()
     def _pick(self, last, rep_mask, pen, greedy, temp, top_p, top_k, min_p,
-              generator) -> torch.Tensor:
-        """The next token [1] on the device, and the seen mask updated."""
+              generator, cons: Optional[StreamConstraint] = None,
+              left: int = 0) -> torch.Tensor:
+        """The next token [1] on the device, the seen mask and the
+        constraint's state updated. ``cons`` masks the penalized logits
+        before the warpers, with ``left`` tokens of budget left (this one
+        included)."""
         scored = apply_repetition_penalty(last, rep_mask, pen)
+        if cons is not None:
+            scored = cons.mask(scored, left)
         if greedy:
             tok = torch.argmax(scored, dim=-1)
         else:
             tok = _sample_top_p(scored / temp, top_p, generator, top_k, min_p)
+        if cons is not None:
+            cons.advance(tok)
         rep_mask.scatter_(1, tok.view(1, 1), True)
         return tok
 
     @torch.inference_mode()
     def _chunk(self, last, pos, cache, n_steps, pick) -> Tuple[list, object]:
         """``n_steps`` pick + decode steps with no host read: (tokens [n]
-        on the device, the last logits)."""
+        on the device, the last logits). ``pick(logits, position)``."""
         toks = []
         for i in range(n_steps):
-            tok = pick(last)
+            tok = pick(last, pos + i)
             last = self._step(tok, pos + i, cache)
             toks.append(tok)
         return torch.cat(toks), last
@@ -1090,9 +1153,13 @@ class TorchDecoderLM:
         warpers (temperature → top_k → top_p → min_p; ``top_k == 1`` or
         ``min_p == 1.0`` reproduce the greedy stream). Ends at ``eos_id``
         (not yielded), after ``max_new_tokens``, or at the cache's
-        capacity."""
-        if constrain:
-            raise NotImplementedError("the JSON constraint is not ported")
+        capacity. ``constrain`` applies the engine's JSON constraint: every
+        token keeps the output a prefix of a schema-valid document, EOS
+        only once it is complete, and within the budget the document ends
+        complete (``budget_force``)."""
+        if constrain and self.json_constraint is None:
+            raise ValueError("constrain=True requires an engine built "
+                             "with json_constraint / constrain_json")
         t = len(prompt_ids)
         if t >= self.max_len:
             raise ValueError(
@@ -1115,10 +1182,12 @@ class TorchDecoderLM:
                                device=self.device)
         rep_mask[0, torch.tensor(list(prompt_ids), dtype=torch.long,
                                  device=self.device)] = True
+        cons = self._stream_constraint(constrain, eos_id, max_new_tokens)
+        climit = t + max_new_tokens
 
-        def pick(logits):
+        def pick(logits, p):
             return self._pick(logits, rep_mask, pen, greedy, temp, top_p,
-                              top_k, min_p, generator)
+                              top_k, min_p, generator, cons, climit - p)
 
         pos, produced = t, 0
         # whole chunks, one host read each; the tail token by token
@@ -1132,7 +1201,7 @@ class TorchDecoderLM:
                     return
                 yield tok_host
         for i in range(max_new_tokens - produced):
-            tok = pick(last)
+            tok = pick(last, pos + i)
             tok_host = int(tok[0])
             if eos_id is not None and tok_host == eos_id:
                 return
