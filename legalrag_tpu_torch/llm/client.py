@@ -6,7 +6,9 @@
   downloads), ``local-jax`` (the in-repo decoder on the port's device: the
   single-stream ``TorchDecoderLM`` over the dense families, Qwen2 / 2.5 /
   3, Llama, Mistral and Gemma 1 / 2 / 3, and the mixture-of-experts ones,
-  Mixtral and Qwen2-MoE, with the port's own BPE tokenizer
+  Mixtral and Qwen2-MoE, or with ``spec_k > 0`` the speculative
+  ``TorchSpecLookupDecoderLM`` (``models/spec_decode.py``), with the port's
+  own BPE tokenizer
   in the layout the checkpoint ships, byte-level or sentencepiece-style,
   and its chat template, ``models/decoder.py``, ``tokenize/bpe.py``; the
   provider keeps its name, so one config file serves both packages)
@@ -16,11 +18,15 @@
 - ``local-jax`` loads once, under a lock, with a KV cache of
   ``max_context_tokens + max_new_tokens`` rows, its weights quantized
   under ``weight_quant`` (int8, or int4 with ``weight_bits`` 4) and its
-  cache int8 under ``kv_quant``, as JAX's client asks its engine. A knob
-  of the JAX package's other engines (batched, paged, speculative,
-  constrained, TP / DP; ``unported_engine_knobs``) makes the load fail with
-  ``LLMUnavailable`` naming it, so the answer degrades as it does in JAX
-  when a load fails; no knob is ignored.
+  cache int8 under ``kv_quant``, the JSON constraint under
+  ``constrain_json`` (passed to the load and to every stream), and with
+  ``spec_k > 0`` speculation with ``spec_adaptive``, ``draft_model`` and
+  the corpus table at ``ngram_draft_path``, as JAX's client asks its
+  single-stream engines. A knob of the JAX package's other engines
+  (batched, paged, shared prefix, TP / DP), or a speculation knob without
+  ``spec_k`` (JAX ignores it; ``unported_engine_knobs``), makes the load
+  fail with ``LLMUnavailable`` naming it, so the answer degrades as it
+  does in JAX when a load fails; no knob is ignored.
 - Reasoning models (gpt-5, o1, o3, "thinking") get no temperature or top_p
   and ``max_completion_tokens`` in place of ``max_tokens``.
 - ``chat`` makes two attempts, then returns the degraded answer: a fixed
@@ -79,17 +85,21 @@ class LLMUnavailable(RuntimeError):
 # other than the default selects or shapes one of those engines, but for
 # the counts, whose 0 and 1 both keep the single-stream engine
 _UNPORTED_KNOBS = ("batch_slots", "paged_kv", "kv_block_size",
-                   "kv_pool_blocks", "spec_k", "spec_adaptive", "draft_model",
-                   "ngram_draft_path", "shared_prefix_text", "constrain_json",
-                   "tp_shards", "dp_replicas")
+                   "kv_pool_blocks", "shared_prefix_text", "tp_shards",
+                   "dp_replicas")
 _COUNT_KNOBS = ("batch_slots", "tp_shards", "dp_replicas")
+# the speculative engine's knobs, which JAX's single-stream client ignores
+# without spec_k > 0 and the port refuses there
+_SPEC_KNOBS = ("spec_adaptive", "draft_model", "ngram_draft_path")
 
 
 def unported_engine_knobs(cfg: LLMConfig) -> List[str]:
-    """The knobs of ``cfg`` that ask ``local-jax`` for an engine or a
-    feature the port does not have."""
+    """The knobs of ``cfg`` that ``local-jax`` refuses: those asking for an
+    engine the port does not have, and without ``spec_k > 0`` the
+    speculation knobs set away from their defaults."""
     default = LLMConfig()
-    return [k for k in _UNPORTED_KNOBS
+    spec_off = () if cfg.spec_k > 0 else _SPEC_KNOBS
+    return [k for k in _UNPORTED_KNOBS + spec_off
             if (getattr(cfg, k) > 1 if k in _COUNT_KNOBS
                 else getattr(cfg, k) != getattr(default, k))]
 
@@ -318,15 +328,17 @@ class LLMClient:
 
     # ------------------------------------------------------------ local-jax
     def _load_jax_lm(self):
-        """The single-stream decoder engine (``TorchDecoderLM``), loaded
-        once under the lock; ``LLMUnavailable`` when the config asks for
-        an engine the port lacks or the load fails."""
+        """The single-stream decoder engine (``TorchDecoderLM``, or with
+        ``spec_k > 0`` ``TorchSpecLookupDecoderLM``), loaded once under the
+        lock; ``LLMUnavailable`` when the config asks for an engine the
+        port lacks or the load fails."""
         with self._load_lock:
             if self._local is None:
                 knobs = unported_engine_knobs(self.cfg)
                 if knobs:
                     raise LLMUnavailable(
-                        "local-jax: not ported: " + ", ".join(knobs))
+                        "local-jax: not ported, or without spec_k: "
+                        + ", ".join(knobs))
                 try:
                     from legalrag_tpu_torch.models.decoder import \
                         TorchDecoderLM
@@ -339,10 +351,25 @@ class LLMClient:
                               prefix_cache=self.cfg.prefix_cache,
                               kv_quant=self.cfg.kv_quant,
                               weight_quant=self.cfg.weight_quant,
-                              weight_bits=self.cfg.weight_bits)
+                              weight_bits=self.cfg.weight_bits,
+                              constrain_json=self.cfg.constrain_json)
                     if self.cfg.prefill_chunk:
                         kw["prefill_chunk"] = self.cfg.prefill_chunk
-                    self._local = TorchDecoderLM.from_pretrained(
+                    engine_cls = TorchDecoderLM
+                    if self.cfg.spec_k > 0:
+                        # speculation: prompt lookup, the corpus table and
+                        # a draft model, k drafts verified a pass
+                        from legalrag_tpu_torch.models.spec_decode import \
+                            TorchSpecLookupDecoderLM
+
+                        engine_cls = TorchSpecLookupDecoderLM
+                        kw.update(spec_k=self.cfg.spec_k,
+                                  spec_adaptive=self.cfg.spec_adaptive)
+                        if self.cfg.ngram_draft_path:
+                            kw["ngram_draft"] = self.cfg.ngram_draft_path
+                        if self.cfg.draft_model:
+                            kw["draft_model"] = self.cfg.draft_model
+                    self._local = engine_cls.from_pretrained(
                         self.cfg.model, device=self.device, **kw)
                 except Exception as e:
                     raise LLMUnavailable(f"decoder load failed: {e}") from e
@@ -366,6 +393,7 @@ class LLMClient:
                     temperature=self.cfg.temperature, top_p=self.cfg.top_p,
                     top_k=self.cfg.top_k, min_p=self.cfg.min_p,
                     eos_id=tok.eos_token_id,
+                    constrain=self.cfg.constrain_json,
                     repetition_penalty=self.cfg.repetition_penalty):
                 out_ids.append(t)
                 text = tok.decode(out_ids, skip_special_tokens=True)

@@ -459,15 +459,6 @@ def test_once_refused_configs_match_jax(tmp_path, case):
                                atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("option,what", [
-    ({"constrain_json": True}, "constrain_json"),
-    ({"draft_model": "some/draft"}, "draft_model")])
-def test_unported_engine_options_are_refused(tmp_path, option, what):
-    with pytest.raises(NotImplementedError, match=what):
-        td.TorchDecoderLM.from_pretrained(str(tmp_path), device="cpu",
-                                          **option)
-
-
 def test_engine_runs_on_cuda_unless_told(qwen, monkeypatch):
     """Without a CUDA device the engine raises unless given the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -475,8 +466,3 @@ def test_engine_runs_on_cuda_unless_told(qwen, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         td.TorchDecoderLM(td.DecoderModel.from_state_dict(cfg, state))
     assert port_engine(qwen).device == torch.device("cpu")
-
-
-def test_json_constraint_is_refused_in_generate(qwen):
-    with pytest.raises(NotImplementedError, match="JSON constraint"):
-        stream(port_engine(qwen), constrain=True)

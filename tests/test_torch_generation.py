@@ -102,10 +102,10 @@ def test_rag_answer_sse_matches_jax(served, llm_on_both, clients):  # noqa: F811
     assert [e for e, _ in got] == [e for e, _ in want]
 
 
+# the batched, paged, shared-prefix, TP and DP engines' knobs (the
+# constraint and speculation: tests/test_torch_generation_spec.py)
 KNOBS = {"batch_slots": 4, "paged_kv": True, "kv_block_size": 32,
-         "kv_pool_blocks": 64, "spec_k": 4, "spec_adaptive": 1.5,
-         "draft_model": "some/draft", "ngram_draft_path": "table.npz",
-         "shared_prefix_text": "你是法律助手", "constrain_json": True,
+         "kv_pool_blocks": 64, "shared_prefix_text": "你是法律助手",
          "tp_shards": 2, "dp_replicas": 2}
 
 
