@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port (``legalrag_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--route-costs]
 
 Phases, each printing one JSON line:
 
@@ -112,10 +112,10 @@ Phases, each printing one JSON line:
    (atol 1e-5), the device operations of one call (int8: the tensor-core
    kernel alone; nbit4: its centroid table and the tensor-core kernel),
    with timings of the wrapper and the C entry, the bound and the library
-   chain; for int8 the queries on the kernel's long path; for nbit4 the
-   table's share of the device time and the table gathers' share of the C
-   entry's time (against a copy of the kernel whose gathers return 0,
-   built under ``build/``); the map path (zh 16, en
+   chain; for int8 the queries on the kernel's long path (with
+   ``--route-costs`` also, for nbit4, the table's share of the device time
+   and the table gathers' share of the C entry's time, against a copy of
+   the kernel whose gathers return 0, built under ``build/``); the map path (zh 16, en
    9 batches through ``FusedQueryEngine``: q/s, Recall@10 against the bf16
    bundle's, N4 within 0.02, exact launches per batch (Q8: MaxSim only;
    N4: both kernels), device busy and idle share, MaxSim's device ms a
@@ -246,6 +246,43 @@ Phases, each printing one JSON line:
    ``MOE_QUANT_STEPS`` steps), decode ms a token, the bytes a decode token
    (dense and routed bounds), and the prefill chunk (128 for int4) with
    its accumulator's bytes.
+16. ``decoder_spec``: the single-stream engine's JSON constraint and
+   speculative decoding (``llm.constrain_json``, ``spec_k``,
+   ``ngram_draft_path``, ``draft_model``) on phase 12's Qwen2.5 checkpoint,
+   whose tokenizer (~20k tokens) sits under a 151,936-row embedding: the
+   constraint's table built from the tokenizer at the model's
+   ``vocab_size`` (seconds, shape, bytes; the ids past the tokenizer
+   banned); ``SPEC_CONSTRAINED_TOKENS`` constrained greedy tokens on the
+   RAG prompt in bf16 and on a float32 copy, every prefix replayed on the
+   host through the byte DFA, a stream ending on EOS a complete document;
+   a stream of ``min_budget + 4`` tokens ending complete; decode ms a
+   token with and without the constraint. Then speculation (``SPEC_K``
+   drafts a round, ``SPEC_STEPS`` rounds a host read): prompt lookup
+   alone and with the corpus n-gram table that the port's
+   ``build_draft_table`` CLI builds from the statutes, each greedy stream
+   token-identical to the plain engine's on the float32 copy (the
+   constrained speculative stream to the constrained plain one too) and
+   in bf16 but at a near-tie (its top-2 gap printed); a sampled stream the
+   same for one seed twice; tokens a round, launches, host reads a token
+   and decode ms a token against the plain engine's. Then a draft model:
+   Qwen2.5-1.5B-Instruct's published shape (``QWEN25_15B``: 28 x 1536, 12 /
+   2 heads of 128, FFN 8,960, tied; random bf16 weights drawn on the card)
+   loaded by ``TorchSpecLookupDecoderLM.from_pretrained`` with phase 12's
+   checkpoint as ``draft_model``: on float32 copies the speculative greedy
+   stream equals the target's plain one, in bf16 but at a near-tie; decode
+   ms a token against the plain target's and its bound; the 0.5B drafting
+   for itself on its float32 copy accepts all k in every round the budget
+   does not cut. Last, 3 ``/rag/answer`` streams through the port's server
+   with ``local-jax`` at ``spec_k`` 8, the corpus table and
+   ``constrain_json`` (the ``spec`` path, kernels 1 and 2/3 once a
+   request, held against their plain versions): each answer's text a
+   complete sections document whose sections the SSE scanner sends as
+   ``section`` events.
+
+A child process writes the files of phases 11-13 that need no card
+(``prepare_files``: the bert checkpoints, the Qwen2.5, Gemma-3-1B and
+Qwen3-0.6B tokenizers and checkpoints, as those phases would write them)
+while the card runs the earlier phases.
 
 Each path checks its own kernels: every kernel of the path launched once
 per batch, every other kernel not at all. Then the ``{"kernels": [...]}``
@@ -257,12 +294,14 @@ jax and nothing of the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import copy
 import heapq
 import itertools
 import json
 import logging
+import multiprocessing
 import re
 import shutil
 import statistics
@@ -275,7 +314,7 @@ import types
 import unicodedata
 import urllib.error
 import urllib.request
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -284,7 +323,12 @@ import torch
 from legalrag_tpu_torch import kernels, scale
 from legalrag_tpu_torch.api.server import create_app, shutdown_gracefully
 from legalrag_tpu_torch.api.webcore import TestClient
-from legalrag_tpu_torch.cli import build_graph, build_index, preprocess_law
+from legalrag_tpu_torch.cli import (
+    build_draft_table,
+    build_graph,
+    build_index,
+    preprocess_law,
+)
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.convert import bundle_from_arrays
 from legalrag_tpu_torch.corpus import parse_auto
@@ -296,6 +340,11 @@ from legalrag_tpu_torch.index.token_index import (
 from legalrag_tpu_torch.ingest.minipdf import build_pdf
 from legalrag_tpu_torch.llm import DEGRADED_ANSWER
 from legalrag_tpu_torch.models.bert import BertConfig, random_init_bert_params
+from legalrag_tpu_torch.models.constrain import (
+    SECTIONS_SCHEMA,
+    JsonConstraint,
+    build_schema_dfa,
+)
 from legalrag_tpu_torch.models.decoder import (
     DecoderModel,
     MoEBlock,
@@ -314,7 +363,9 @@ from legalrag_tpu_torch.models.quant import (
     unpack_nibbles,
 )
 from legalrag_tpu_torch.models.hash_encoder import project_norm
+from legalrag_tpu_torch.models.ngram_draft import NgramDraftTable
 from legalrag_tpu_torch.models.safetensors_io import save_file
+from legalrag_tpu_torch.models.spec_decode import TorchSpecLookupDecoderLM
 from legalrag_tpu_torch.ops.bm25_sparse import (
     bm25_sparse_map,
     bm25_sparse_scores,
@@ -598,6 +649,20 @@ QUANT_ANSWER_TOKENS = 64
 # accumulator, ~10 MB a token and layer
 MOE_QUANT_PROMPT = 64
 MOE_QUANT_STEPS = 8
+# decoder_spec phase: the JSON constraint and speculation on phase 12's
+# Qwen2.5-0.5B checkpoint, and that checkpoint drafting for
+# Qwen/Qwen2.5-1.5B-Instruct's published config.json (the same vocabulary;
+# random weights drawn on the card)
+QWEN25_15B = QWEN25_05B | dict(hidden_size=1536, num_hidden_layers=28,
+                               num_attention_heads=12, num_key_value_heads=2,
+                               intermediate_size=8960, max_window_layers=21)
+SPEC_K = 8                  # drafts verified a round (llm.spec_k)
+SPEC_STEPS = 4              # rounds a host read (the engine's default)
+SPEC_CONSTRAINED_TOKENS = 128
+SPEC_TOKENS = 64            # each speculation stream's greedy tokens
+SPEC_DRAFT_TOKENS = 32      # the 1.5B target's streams
+SPEC_ANSWER_TOKENS = 128
+SPEC_TABLE_LOG2 = 18        # the corpus table's slots (the CLI's default)
 # the kernels each path must launch once per batch (and no other); the
 # serve path's batch is one channels call of the micro-batcher. An int8
 # dense store never reaches score+select (JAX sends it to XLA).
@@ -613,13 +678,14 @@ PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "answer": ("score_select", "maxsim"),
                 "families": ("score_select", "maxsim"),
                 "moe": ("score_select", "maxsim"),
-                "quant": ("score_select", "maxsim")}
+                "quant": ("score_select", "maxsim"),
+                "spec": ("score_select", "maxsim")}
 # MaxSim's route (the store kind, as the wrapper counts it) on each path
 # that launches it; the recall path's is its token store's
 PATH_ROUTES = {"map": "bf16", "bert": "bf16", "serve": "bf16", "http": "bf16",
                "ingest": "bf16", "stores_q8": "int8", "stores_n4": "nbit4",
                "answer": "bf16", "families": "bf16", "moe": "bf16",
-               "quant": "bf16"}
+               "quant": "bf16", "spec": "bf16"}
 
 
 def emit(obj) -> None:
@@ -3002,20 +3068,25 @@ def store_serve(name: str, bundles, cfg: AppConfig) -> dict:
     return res
 
 
-def phase_stores(e2e) -> tuple:
+def phase_stores(e2e, route_costs: bool = False) -> tuple:
     """The quantized configurations (``STORES``) built on the card from
     ``data/raw`` at full width, each driven through the map path and
     ``ByLangRetriever``; MaxSim's int8 and nbit4 routes at the zh shapes.
-    Returns ({route: kernel result}, [runs with launches])."""
+    With ``route_costs`` (``--route-costs``; a diagnostic that checks
+    nothing) also where each route's time goes (``store_route_costs``, on
+    kernel copies built for it). Returns ({route: kernel result}, [runs
+    with launches])."""
     t_phase = time.perf_counter()
     routes, runs = {}, []
-    # store_route_costs' kernel copies, one nvcc each, started together
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(lambda c: kernel_copy(*c), (
-            ("no_exponent", *EXPONENT_PROLOGUE), ("no_table", *TABLE_LAUNCH),
-            ("no_table_gather", *TABLE_GATHER))))
-    emit({"phase": "stores_kernel_copies",
-          "seconds": time.perf_counter() - t_phase})
+    if route_costs:
+        # store_route_costs' kernel copies, one nvcc each, started together
+        with ThreadPoolExecutor(3) as pool:
+            list(pool.map(lambda c: kernel_copy(*c), (
+                ("no_exponent", *EXPONENT_PROLOGUE),
+                ("no_table", *TABLE_LAUNCH),
+                ("no_table_gather", *TABLE_GATHER))))
+        emit({"phase": "stores_kernel_copies",
+              "seconds": time.perf_counter() - t_phase})
     tmp = Path(tempfile.mkdtemp(prefix="stores_"))
     try:
         for name in STORES:
@@ -3035,9 +3106,11 @@ def phase_stores(e2e) -> tuple:
             zh_queries, _ = make_queries(bundles["zh"], BATCH)
             routes[route] = phase_store_kernels(route, bundles["zh"],
                                                 zh_queries)
-            routes[route]["costs"] = {
-                lang: store_route_costs(route, b, make_queries(b, BATCH)[0])
-                for lang, b in bundles.items()}
+            if route_costs:
+                routes[route]["costs"] = {
+                    lang: store_route_costs(route, b,
+                                            make_queries(b, BATCH)[0])
+                    for lang, b in bundles.items()}
             emit({"phase": "kernels", "name": "maxsim", "store": name,
                   **routes[route]})
             for lang, b in bundles.items():
@@ -3281,28 +3354,41 @@ def bert_cross_encoder(bundle, cfg: AppConfig) -> dict:
     return res
 
 
-def phase_bert() -> list:
+def write_bert_checkpoints(root: Path, chunks: dict) -> tuple:
+    """The bert phase's random checkpoints under ``root``: a BGE-base
+    bi-encoder per language and the cross-encoder (seeds 1-3). ({lang:
+    directory}, the cross-encoder's directory)."""
+    models = {lang: write_bert_checkpoint(
+        root / f"bge_{lang}", corpus_vocab(c.text for c in cs), seed,
+        layer_scale=BERT_LAYER_SCALE, vocab_size=BGE_VOCAB[lang])
+        for seed, (lang, cs) in enumerate(chunks.items(), start=1)}
+    reranker = write_bert_checkpoint(
+        root / "reranker", corpus_vocab(
+            c.text for cs in chunks.values() for c in cs), 3, head=True,
+        layer_scale=BERT_LAYER_SCALE, vocab_size=BGE_VOCAB["zh"])
+    return models, reranker
+
+
+def phase_bert(prepared=None) -> list:
     """The bert backend at BGE-base width (``BGE_BASE``; random weights
     from a seed, written as checkpoints by the port's safetensors writer,
     with a WordPiece vocabulary of each corpus's words): the zh and en
     bundles built on the card, the map path (``bert_map``), the serving
     path (``bert_serve``) and the cross-encoder (``bert_cross_encoder``).
-    Returns the runs with launches."""
+    ``prepared``: ``write_bert_checkpoints``' result when ``prepare_files``
+    wrote them already. Returns the runs with launches."""
     t_phase = time.perf_counter()
     emit({"phase": "bert_packages", "import": tokenizer_packages()})
     tmp = Path(tempfile.mkdtemp(prefix="bert_"))
     try:
         chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
         t0 = time.perf_counter()
-        models = {lang: write_bert_checkpoint(
-            tmp / f"bge_{lang}", corpus_vocab(c.text for c in cs), seed,
-            layer_scale=BERT_LAYER_SCALE, vocab_size=BGE_VOCAB[lang])
-            for seed, (lang, cs) in enumerate(chunks.items(), start=1)}
-        reranker = write_bert_checkpoint(
-            tmp / "reranker", corpus_vocab(
-                c.text for cs in chunks.values() for c in cs), 3, head=True,
-            layer_scale=BERT_LAYER_SCALE, vocab_size=BGE_VOCAB["zh"])
+        if prepared is None:
+            models, reranker = write_bert_checkpoints(tmp, chunks)
+        else:
+            models, reranker = prepared
         emit({"phase": "bert_checkpoints", "seconds": time.perf_counter() - t0,
+              "written_beside_the_card": prepared is not None,
               "bytes": {d.name: (d / "model.safetensors").stat().st_size
                         for d in (*models.values(), reranker)},
               "vocab": {d.name: len((d / "vocab.txt").read_text(
@@ -3952,7 +4038,8 @@ def decoder_speed(card, corpus_ids, lens=DECODER_PREFILL_LENS,
 
 
 def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
-                   phase: str = "decoder_answer", llm=None) -> dict:
+                   phase: str = "decoder_answer", llm=None,
+                   engine_check=None) -> dict:
     """``/rag/answer`` with ``stream: true`` through the port's HTTP server
     on the card, ``llm.provider`` ``local-jax`` on ``ckpt`` (the default
     sampling, 0.3 / 0.9): the zh bundle and its law graph saved under
@@ -3964,7 +4051,10 @@ def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
     on the tensors those calls handed them (``KernelInputs``). ``llm``
     sets more of ``LLMConfig`` (the quantization knobs, or another
     ``max_new_tokens``). A bundle and graph already saved under ``tmp``
-    (an earlier answer run's) are served as they are."""
+    (an earlier answer run's) are served as they are. ``engine_check``
+    is called with the loaded engine before the server stops. The run's
+    ``texts`` are each answer's token text, ``section_events`` its count
+    of SSE ``section`` events."""
     cfg = AppConfig()
     cfg.paths.index_dir, cfg.paths.graph_dir = tmp / "index", tmp / "graph"
     cfg.llm.provider, cfg.llm.model = "local-jax", str(ckpt)
@@ -4006,6 +4096,8 @@ def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
         finally:
             rec.stop()
         generated = METRICS._counters[key] - tok0
+        if engine_check is not None:
+            engine_check(st.pipeline.llm.client._local)
     finally:
         shutdown_gracefully(st, server, 0.0)
     check_launches(path, launches, calls)
@@ -4026,9 +4118,15 @@ def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
             "token_events": [sum(e == "token" for e, _ in ev)
                              for ev, _f, _t in out],
             "generated_tokens": generated, "text_chars": [len(t) for t in texts],
-            "text_head": texts[0][:60], "launches": launches,
+            "text_head": texts[0][:60], "texts": texts,
+            "section_events": [sum(e == "section" for e, _ in ev)
+                               for ev, _f, _t in out], "launches": launches,
             "channel_calls": calls,
             "kernels": check_serve_kernels(rec, path)}
+
+
+def tokenizer_key(write_tokenizer, texts) -> tuple:
+    return write_tokenizer.__name__, hash("\n".join(texts))
 
 
 def tokenizer_files(write_tokenizer, d: Path, texts, trained: dict) -> dict:
@@ -4037,7 +4135,7 @@ def tokenizer_files(write_tokenizer, d: Path, texts, trained: dict) -> dict:
     later call writes them again (the training is deterministic; the
     Qwen-layout checkpoints share one tokenizer, the Gemma-layout ones
     another)."""
-    key = (write_tokenizer.__name__, hash("\n".join(texts)))
+    key = tokenizer_key(write_tokenizer, texts)
     d.mkdir(parents=True, exist_ok=True)
     if key not in trained:
         before = set(d.iterdir())
@@ -4054,7 +4152,8 @@ def decoder_setup(ckpt: Path, write_tokenizer, texts, seed: int,
                   conf=None, card_rng: bool = False, tokenizers=None):
     """Write ``write_tokenizer``'s tokenizer of ``texts`` (``tokenizer_files``,
     ``tokenizers`` its trained ones) and a random checkpoint at ``conf``'s
-    shape under ``ckpt`` (``write_decoder_checkpoint``), then load it twice:
+    shape under ``ckpt`` (``write_decoder_checkpoint``; one that
+    ``prepare_files`` wrote there already is kept), then load it twice:
     ``TorchDecoderLM.from_pretrained`` on the card (bf16) and a float32
     CPU twin of the same weights. (card engine, twin, the timings)."""
     t0 = time.perf_counter()
@@ -4062,7 +4161,10 @@ def decoder_setup(ckpt: Path, write_tokenizer, texts, seed: int,
                           {} if tokenizers is None else tokenizers)
     bpe_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    write_decoder_checkpoint(ckpt, seed=seed, conf=conf, card_rng=card_rng)
+    prepared = (ckpt / "model.safetensors").exists()
+    if not prepared:
+        write_decoder_checkpoint(ckpt, seed=seed, conf=conf,
+                                 card_rng=card_rng)
     ckpt_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     card = TorchDecoderLM.from_pretrained(str(ckpt), device="cuda",
@@ -4077,6 +4179,7 @@ def decoder_setup(ckpt: Path, write_tokenizer, texts, seed: int,
         card.tokenizer, device="cpu", max_len=DECODER_MAX_LEN)
     return card, twin, {
         "bpe": bpe, "bpe_s": bpe_s, "checkpoint_s": ckpt_s,
+        "checkpoint_written_beside_the_card": prepared,
         "card_load_s": load_s, "twin_load_s": time.perf_counter() - t0,
         "checkpoint_bytes": (ckpt / "model.safetensors").stat().st_size,
         "params": sum(p.numel() for p in card.model.parameters()),
@@ -4122,6 +4225,46 @@ def decoder_runs(name: str, card, twin, chunks, atol: float,
     emit({"phase": f"{name}_speed", **res,
           "seconds": time.perf_counter() - t0})
     return ids
+
+
+def prepare_files(keep: str) -> dict:
+    """The later phases' files that need no card, written by a child
+    process while the card runs the earlier phases (``main``), each as
+    its phase would write it (the same seeds, the weights drawn in numpy):
+    phase 11's bert checkpoints under ``keep / "bert"``, phase 12's
+    Qwen2.5 tokenizer and checkpoint, phase 13's Gemma-3-1B (its own
+    tokenizer) and Qwen3-0.6B checkpoints. Returns the bert directories,
+    each file set's seconds, and the trained tokenizers' files by writer
+    (for ``tokenizer_files``)."""
+    keep = Path(keep)
+    chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
+    texts = [c.text for cs in chunks.values() for c in cs]
+    trained, seconds = {}, {}
+    t0 = time.perf_counter()
+    bert = write_bert_checkpoints(keep / "bert", chunks)
+    seconds["bert"] = time.perf_counter() - t0
+    for name, writer, seed, conf in (
+            ("qwen25_05b", write_bpe_tokenizer, 5, QWEN25_05B),
+            ("gemma3_1b", write_gemma_tokenizer, 7, GEMMA3_1B),
+            ("qwen3_06b", write_bpe_tokenizer, 9,
+             QWEN3_06B | {"num_hidden_layers": QWEN3_LAYERS})):
+        t0 = time.perf_counter()
+        tokenizer_files(writer, keep / name, texts, trained)
+        write_decoder_checkpoint(keep / name, seed=seed, conf=conf)
+        seconds[name] = time.perf_counter() - t0
+    return {"bert": bert, "seconds": seconds,
+            "tokenizers": {key[0]: v for key, v in trained.items()}}
+
+
+def adopt_prepared(prepared: dict, tokenizers: dict) -> None:
+    """``prepare_files``' trained tokenizers into ``tokenizers`` (this
+    process's keys), so the later checkpoints reuse them."""
+    texts = [c.text for lang in ("zh", "en") for c in load_chunks(lang)]
+    writers = {w.__name__: w for w in (write_bpe_tokenizer,
+                                       write_gemma_tokenizer)}
+    for name, files in prepared["tokenizers"].items():
+        tokenizers[tokenizer_key(writers[name], texts)] = files
+    emit({"phase": "prepared_files", "seconds": prepared["seconds"]})
 
 
 def phase_decoder(keep=None, tokenizers=None) -> dict:
@@ -4170,7 +4313,7 @@ def phase_decoder_families(keep=None, tokenizers=None) -> dict:
     try:
         chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
         texts = [c.text for cs in chunks.values() for c in cs]
-        gemma = tmp / "gemma3_1b"
+        gemma = (keep or tmp) / "gemma3_1b"
         card, twin, setup = decoder_setup(gemma, write_gemma_tokenizer,
                                           texts, seed=7, conf=GEMMA3_1B,
                                           tokenizers=tokenizers)
@@ -4197,7 +4340,7 @@ def phase_decoder_families(keep=None, tokenizers=None) -> dict:
         emit(answer | {"seconds": time.perf_counter() - t0,
                        "peak_card_bytes": torch.cuda.max_memory_allocated()})
         shutil.rmtree(gemma)
-        qwen3 = tmp / "qwen3_06b"
+        qwen3 = (keep or tmp) / "qwen3_06b"
         card, twin, setup = decoder_setup(
             qwen3, write_bpe_tokenizer, texts, seed=9,
             conf=QWEN3_06B | {"num_hidden_layers": QWEN3_LAYERS},
@@ -4211,6 +4354,7 @@ def phase_decoder_families(keep=None, tokenizers=None) -> dict:
         emit({"phase": "qwen3_twin", **res,
               "seconds": time.perf_counter() - t0})
         del card, twin
+        shutil.rmtree(qwen3)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "decoder_families",
@@ -4551,6 +4695,358 @@ def moe_quant(ckpt: Path, chunks) -> None:
     del card_state
 
 
+# ------------------------------------------- constraint and speculation
+
+def dfa_replay(pieces) -> tuple:
+    """The byte DFA of ``SECTIONS_SCHEMA`` (the port's
+    ``build_schema_dfa``) replayed on the host over ``pieces`` (bytes: a
+    stream's tokens each decoded alone, as the constraint's table reads
+    them, or one answer's text): every prefix must be valid. (whether the
+    document is complete, its bytes)."""
+    trans, acc = build_schema_dfa(SECTIONS_SCHEMA)
+    data, st = b"", 0
+    for piece in pieces:
+        for c in piece:
+            st = int(trans[st, c])
+            check(st >= 0, f"constraint: {data + piece!r} is no prefix of a "
+                           "sections document")
+        data += piece
+    return bool(acc[st]), data
+
+
+def token_bytes(tok, toks) -> list:
+    return [tok.decode([t]).encode("utf-8") for t in toks]
+
+
+def sections_of(data: bytes) -> list:
+    doc = json.loads(data.decode("utf-8"))
+    check(isinstance(doc.get("sections"), list),
+          f"constraint: {data[:80]!r} has no sections list")
+    return doc["sections"]
+
+
+def greedy_stream(lm, prompt, n: int, **kw) -> list:
+    return list(lm.generate_stream(prompt, n, temperature=0.0, **kw))
+
+
+def decode_ms(lm, prompt, n: int, spec: bool = False, **kw) -> float:
+    """Decode ms a token of ``n`` greedy tokens, the host clock: a plain
+    engine's from its first chunk's last token to the end, a speculative
+    one's from the first token (sampled at admission) to the end."""
+    stamps = [time.perf_counter() for _ in lm.generate_stream(
+        prompt, n, temperature=0.0, **kw)]
+    check(len(stamps) == n, f"spec: {len(stamps)} of {n} tokens")
+    first = 0 if spec else lm.decode_chunk - 1
+    return (stamps[-1] - stamps[first]) / (n - 1 - first) * 1e3
+
+
+def same_stream(got, want, ref, prompt, dtype: str, what: str) -> dict:
+    """``got`` against the reference engine's ``want``: identical, or in
+    bf16 apart from a step where the reference's top-2 gap is within
+    ``DECODER_LOGIT_ATOL`` (cuBLAS picks a k + 1-row GEMM apart from a
+    1-row one)."""
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if i is None:
+        check(len(got) == len(want), f"{what} {dtype}: {len(got)} tokens, "
+                                     f"{len(want)} in the reference")
+        return {"identical": True}
+    gap = top2_gap_after(ref, prompt, want[:i])
+    check(dtype == "bfloat16" and gap <= DECODER_LOGIT_ATOL,
+          f"{what} {dtype}: token {i} differs (top-2 gap {gap})")
+    return {"identical": False, "first_difference": i,
+            "reference_top2_gap": gap}
+
+
+def spec_stats(lm) -> dict:
+    st = lm.last_stats
+    rounds = st["spec_rounds"]
+    return {"launches": st["launches"], "tokens": st["tokens"],
+            "spec_rounds": rounds,
+            "tokens_per_round": st.get("spec_tokens", 0) / max(rounds, 1),
+            "host_reads_per_token": st["host_reads"] / st["tokens"],
+            "adaptive_bailed": bool(st.get("adaptive_bailed"))}
+
+
+def spec_constraint(card, f32, jc, ids) -> dict:
+    """(a) The constraint on the card: ``SPEC_CONSTRAINED_TOKENS``
+    constrained greedy tokens on the RAG prompt in bf16 and on the float32
+    copy, every prefix replayed valid, a stream that ends on EOS a
+    complete document; a budget-forced stream of ``min_budget + 4``
+    tokens ends complete; decode ms a token with and without the
+    constraint (bf16)."""
+    tok, eos = card.tokenizer, card.tokenizer.eos_token_id
+    out = {}
+    for dtype, model in (("bfloat16", card.model), ("float32", f32)):
+        lm = TorchDecoderLM(model, tok, device="cuda", max_len=card.max_len,
+                            json_constraint=jc)
+        toks = greedy_stream(lm, ids, SPEC_CONSTRAINED_TOKENS, eos_id=eos,
+                             constrain=True)
+        complete, data = dfa_replay(token_bytes(tok, toks))
+        ended = len(toks) < SPEC_CONSTRAINED_TOKENS
+        check(complete or not ended, f"constraint {dtype}: EOS before the "
+                                     "document was complete")
+        res = {"tokens": len(toks), "ended_on_eos": ended,
+               "complete": complete, "distinct_tokens": len(set(toks)),
+               "head": data[:100].decode("utf-8", errors="replace")}
+        if complete:
+            res["sections"] = len(sections_of(data))
+        n = jc.min_budget + 4
+        forced = greedy_stream(lm, ids, n, eos_id=eos, constrain=True)
+        complete, data = dfa_replay(token_bytes(tok, forced))
+        check(complete, f"constraint {dtype}: a stream of {n} tokens "
+                        f"ended incomplete: {data!r}")
+        res |= {"budget_forced": {"budget": n, "tokens": len(forced),
+                                  "sections": len(sections_of(data)),
+                                  "text": data.decode("utf-8")}}
+        out[dtype] = res
+    lm = TorchDecoderLM(card.model, tok, device="cuda", max_len=card.max_len,
+                        json_constraint=jc)
+    n = lm.decode_chunk + SPEC_TOKENS
+    out["decode_ms_per_token"] = {
+        "unconstrained": decode_ms(lm, ids, n),
+        "constrained": decode_ms(lm, ids, n, constrain=True, eos_id=None)}
+    return out
+
+
+def spec_lookup(card, f32, jc, ids, table) -> dict:
+    """(b) Speculation (``SPEC_K`` drafts, ``SPEC_STEPS`` rounds a host
+    read) on the RAG prompt: prompt lookup alone and with the corpus
+    table, each greedy stream of ``SPEC_TOKENS`` against the plain
+    engine's, exact on the float32 copy (the constrained speculative
+    stream against the constrained plain one too) and in bf16 but at a
+    near-tie; a sampled stream twice from one seed; the counts and decode
+    ms a token against the plain engine's."""
+    tok = card.tokenizer
+    out = {}
+    for dtype, model in (("float32", f32), ("bfloat16", card.model)):
+        def spec(**kw):
+            return TorchSpecLookupDecoderLM(
+                model, tok, device="cuda", max_len=card.max_len,
+                spec_k=SPEC_K, spec_steps=SPEC_STEPS, json_constraint=jc,
+                **kw)
+
+        plain = TorchDecoderLM(model, tok, device="cuda",
+                               max_len=card.max_len, json_constraint=jc)
+        want = greedy_stream(plain, ids, SPEC_TOKENS)
+        res = {}
+        for name, kw in (("lookup", {}), ("table", {"ngram_draft": table})):
+            lm = spec(**kw)
+            got = greedy_stream(lm, ids, SPEC_TOKENS)
+            res[name] = same_stream(got, want, plain, ids, dtype,
+                                    f"spec {name}") | spec_stats(lm)
+        if dtype == "float32":
+            eos = tok.eos_token_id
+            want = greedy_stream(plain, ids, SPEC_TOKENS, eos_id=eos,
+                                 constrain=True)
+            lm = spec(ngram_draft=table)
+            got = greedy_stream(lm, ids, SPEC_TOKENS, eos_id=eos,
+                                constrain=True)
+            check(got == want, f"spec float32: the constrained speculative "
+                               f"stream {got[:8]} leaves the plain one "
+                               f"{want[:8]}")
+            res["constrained_table"] = {
+                "identical": True,
+                "complete": dfa_replay(token_bytes(tok, got))[0],
+                **spec_stats(lm)}
+        out[dtype] = res
+    lm = TorchSpecLookupDecoderLM(card.model, tok, device="cuda",
+                                  max_len=card.max_len, spec_k=SPEC_K,
+                                  spec_steps=SPEC_STEPS, ngram_draft=table)
+    kw = dict(temperature=0.3, top_p=0.9, seed=1)
+    a, b = (list(lm.generate_stream(ids, SPEC_TOKENS, **kw))
+            for _ in range(2))
+    check(a == b, "spec: a sampled stream differs between two runs of one "
+                  "seed")
+    out["sampled"] = {"deterministic": True, "distinct_tokens": len(set(a)),
+                      **spec_stats(lm)}
+    n = card.decode_chunk + SPEC_TOKENS
+    plain = TorchDecoderLM(card.model, tok, device="cuda",
+                           max_len=card.max_len)
+    out["decode_ms_per_token"] = {
+        "plain": decode_ms(plain, ids, n),
+        "lookup": decode_ms(TorchSpecLookupDecoderLM(
+            card.model, tok, device="cuda", max_len=card.max_len,
+            spec_k=SPEC_K, spec_steps=SPEC_STEPS), ids, n, spec=True),
+        "table": decode_ms(lm, ids, n, spec=True)}
+    out["timed_table_run"] = spec_stats(lm)
+    return out
+
+
+def spec_draft(target, f32_05, ids, short_ids) -> dict:
+    """(c) A draft model: Qwen2.5-0.5B drafting for the 1.5B target
+    (``from_pretrained(draft_model=...)``): on float32 copies of both the
+    speculative greedy stream equals the target's plain one, in bf16 but
+    at a near-tie; decode ms a token against the plain target's and the
+    target's bound. The 0.5B drafting for itself on its float32 copy,
+    from a short prompt (no earlier bigram to look up): the plain stream,
+    and every round that is not cut by the budget accepts all k."""
+    tok = target.tokenizer
+    f32_t = DecoderModel.from_state_dict(copy.copy(target.cfg),
+                                         float32_state(target.model))
+    f32_d = DecoderModel.from_state_dict(copy.copy(target.draft.cfg),
+                                         float32_state(target.draft.model))
+    out = {}
+    for dtype, (model, draft) in (("float32", (f32_t, f32_d)),
+                                  ("bfloat16", (target.model,
+                                                target.draft.model))):
+        plain = TorchDecoderLM(model, tok, device="cuda",
+                               max_len=target.max_len)
+        lm = TorchSpecLookupDecoderLM(model, tok, device="cuda",
+                                      max_len=target.max_len, spec_k=SPEC_K,
+                                      spec_steps=SPEC_STEPS, draft=draft)
+        want = greedy_stream(plain, ids, SPEC_DRAFT_TOKENS)
+        got = greedy_stream(lm, ids, SPEC_DRAFT_TOKENS)
+        out[dtype] = same_stream(got, want, plain, ids, dtype,
+                                 "draft model") | spec_stats(lm)
+    del f32_t, f32_d
+    n = target.decode_chunk + SPEC_DRAFT_TOKENS
+    plain = TorchDecoderLM(target.model, tok, device="cuda",
+                           max_len=target.max_len)
+    out["decode_ms_per_token"] = {
+        "plain": decode_ms(plain, ids, n),
+        "draft_model": decode_ms(target, ids, n, spec=True)}
+    out["timed_run"] = spec_stats(target)
+    n_bytes = decoder_bytes(target.model, range(512, 512 + n))
+    out["target_decode_bound_ms"], _ = bound(
+        n_bytes, 2 * weight_elements(target.model), BF16_FLOP_PER_S)
+    out["target_decode_bound_bytes"] = n_bytes
+    out["target_weight_bytes"] = weight_bytes(target.model)
+    plain = TorchDecoderLM(f32_05, tok, device="cuda", max_len=target.max_len)
+    lm = TorchSpecLookupDecoderLM(f32_05, tok, device="cuda",
+                                  max_len=target.max_len, spec_k=SPEC_K,
+                                  spec_steps=SPEC_STEPS, draft=f32_05)
+    want = greedy_stream(plain, short_ids, SPEC_TOKENS)
+    got = greedy_stream(lm, short_ids, SPEC_TOKENS)
+    check(got == want, "self draft float32: the stream leaves the plain one")
+    st = spec_stats(lm)
+    full = -(-(SPEC_TOKENS - 1) // (SPEC_K + 1))
+    check(st["spec_rounds"] == full,
+          f"self draft float32: {st['spec_rounds']} rounds for "
+          f"{SPEC_TOKENS - 1} tokens, {full} if every round accepts all "
+          f"{SPEC_K}")
+    out["self_draft_float32"] = {"identical": True, "prompt_tokens":
+                                 len(short_ids), **st}
+    return out
+
+
+def phase_decoder_spec(qwen=None, tokenizers=None) -> dict:
+    """The single-stream engine's JSON constraint and speculation (module
+    docstring, phase 16) on phase 12's Qwen2.5-0.5B checkpoint ``qwen``
+    (its answer run's bundle beside it; written anew where not given),
+    and Qwen2.5-1.5B's widths as a draft model's target. Returns the
+    answer run with its launches (the ``spec`` path)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="spec_"))
+    tokenizers = {} if tokenizers is None else tokenizers
+    try:
+        chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
+        texts = [c.text for cs in chunks.values() for c in cs]
+        if qwen is None:
+            qwen = tmp / "qwen25_05b"
+            tokenizer_files(write_bpe_tokenizer, qwen, texts, tokenizers)
+            write_decoder_checkpoint(qwen, seed=5)
+        card = TorchDecoderLM.from_pretrained(str(qwen), device="cuda",
+                                              max_len=DECODER_MAX_LEN)
+        tok = card.tokenizer
+        t0 = time.perf_counter()
+        jc = JsonConstraint.from_tokenizer(SECTIONS_SCHEMA, tok,
+                                           vocab_size=card.cfg.vocab_size,
+                                           device="cuda")
+        torch.cuda.synchronize()
+        table_np = jc.table.cpu().numpy()
+        emit({"phase": "spec_constraint_table",
+              "build_s": time.perf_counter() - t0,
+              "tokenizer_tokens": len(tok), "vocab_size": card.cfg.vocab_size,
+              "shape": list(jc.table.shape), "bytes": jc.nbytes,
+              "min_budget": jc.min_budget,
+              "usable_tokens": int((table_np >= 0).any(axis=0).sum()),
+              "banned_padded_ids": bool((table_np[:, len(tok):] < 0).all())})
+        check((table_np[:, len(tok):] < 0).all(),
+              "constraint: an id past the tokenizer is allowed")
+        ids = rag_prompt_ids(tok, chunks["zh"])
+        f32 = DecoderModel.from_state_dict(copy.copy(card.cfg),
+                                           float32_state(card.model))
+        t0 = time.perf_counter()
+        emit({"phase": "spec_constraint", **spec_constraint(card, f32, jc,
+                                                            ids),
+              "prompt_tokens": len(ids), "seconds": time.perf_counter() - t0})
+        corpus = tmp / "corpus"
+        corpus.mkdir()
+        (corpus / "law.jsonl").write_text("".join(
+            json.dumps({"text": t}, ensure_ascii=False) + "\n"
+            for t in texts), encoding="utf-8")
+        t0 = time.perf_counter()
+        table_path = tmp / "draft_table.npz"
+        built = build_draft_table.main([
+            "--tokenizer", str(qwen), "--input", str(corpus), "--out",
+            str(table_path), "--k", str(SPEC_K),
+            "--log2-size", str(SPEC_TABLE_LOG2)])
+        emit({"phase": "spec_draft_table", **built,
+              "seconds": time.perf_counter() - t0})
+        table = NgramDraftTable.load(table_path)
+        t0 = time.perf_counter()
+        emit({"phase": "spec_lookup", "spec_k": SPEC_K,
+              "spec_steps": SPEC_STEPS,
+              **spec_lookup(card, f32, jc, ids, table),
+              "seconds": time.perf_counter() - t0})
+        del card
+        q15 = tmp / "qwen25_15b"
+        t0 = time.perf_counter()
+        tokenizer_files(write_bpe_tokenizer, q15, texts, tokenizers)
+        write_decoder_checkpoint(q15, seed=17, conf=QWEN25_15B,
+                                 card_rng=True)
+        ckpt_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        target = TorchSpecLookupDecoderLM.from_pretrained(
+            str(q15), device="cuda", max_len=DECODER_MAX_LEN, spec_k=SPEC_K,
+            spec_steps=SPEC_STEPS, draft_model=str(qwen))
+        torch.cuda.synchronize()
+        check(target.draft is not None
+              and target.draft.cfg.hidden_size == QWEN25_05B["hidden_size"]
+              and target.cfg.hidden_size == QWEN25_15B["hidden_size"],
+              "spec: the 1.5B target and its 0.5B draft")
+        short_ids = tok(DECODER_QUESTION)["input_ids"]
+        t0_run = time.perf_counter()
+        res = spec_draft(target, f32, ids, short_ids)
+        emit({"phase": "spec_draft_model", "target": "Qwen2.5-1.5B-Instruct",
+              "draft": "Qwen2.5-0.5B-Instruct", "checkpoint_s": ckpt_s,
+              "checkpoint_bytes": (q15 / "model.safetensors").stat().st_size,
+              "load_s": t0_run - t0, **res,
+              "seconds": time.perf_counter() - t0_run})
+        del target, f32
+        torch.cuda.empty_cache()
+
+        def served_engine(lm):
+            check(isinstance(lm, TorchSpecLookupDecoderLM)
+                  and lm.spec_k == SPEC_K and lm.ngram_draft is not None
+                  and torch.equal(lm.json_constraint.table, jc.table),
+                  "spec answer: the served engine")
+
+        t0 = time.perf_counter()
+        answer = decoder_answer(
+            qwen, qwen.parent, "spec", "spec_answer",
+            llm={"spec_k": SPEC_K, "ngram_draft_path": str(table_path),
+                 "constrain_json": True,
+                 "max_new_tokens": SPEC_ANSWER_TOKENS},
+            engine_check=served_engine)
+        for text, n_sections in zip(answer.pop("texts"),
+                                    answer["section_events"]):
+            complete, data = dfa_replay([text.encode("utf-8")])
+            check(complete, f"spec answer: {text[:80]!r} is incomplete")
+            check(len(sections_of(data)) == n_sections,
+                  f"spec answer: {n_sections} section events for "
+                  f"{len(sections_of(data))} sections")
+        emit(answer | {"seconds": time.perf_counter() - t0,
+                       "peak_card_bytes": torch.cuda.max_memory_allocated()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "decoder_spec", "seconds": time.perf_counter() - t_phase,
+          "peak_card_bytes": torch.cuda.max_memory_allocated(),
+          "nvidia_smi": nvidia_smi()})
+    return answer
+
+
 def check_bm25_kernel(index, q, params):
     """Kernel 4 (CSR BM25) against its plain version on the same card
     tensors, at the scale point's shapes, with timings and the bound."""
@@ -4852,10 +5348,31 @@ def phase_large_stores():
             {"launches": recall_launches}], res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--route-costs", action="store_true",
+                    help="also time where MaxSim's int8 and nbit4 routes "
+                         "spend their time, on kernel copies built for it "
+                         "(store_route_costs; checks nothing)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # the later phases' files that need no card are written by a child
+    # process meanwhile (prepare_files)
+    keep = Path(tempfile.mkdtemp(prefix="checkpoints_"))
+    try:
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+                "spawn")) as pool:
+            prep = pool.submit(prepare_files, str(keep))
+            return run_phases(prep, keep, args.route_costs)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+
+
+def run_phases(prep, keep: Path, route_costs: bool) -> int:
+    """Every phase in order (module docstring); ``prep``: the future of
+    ``prepare_files`` writing into ``keep``."""
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind,
@@ -4888,25 +5405,23 @@ def main() -> int:
     serve, http = run_serving(bundles)
     del bundles
     ingest = phase_ingest()
-    routes, store_runs = phase_stores(e2e)
+    routes, store_runs = phase_stores(e2e, route_costs)
     kres["bm25_sparse"], large = phase_large()
     large_store_runs, large_stores = phase_large_stores()
-    bert_runs = phase_bert()
-    keep = Path(tempfile.mkdtemp(prefix="checkpoints_"))
-    try:
-        tokenizers = {}
-        answer = phase_decoder(keep, tokenizers)
-        families = phase_decoder_families(keep, tokenizers)
-        moe = phase_decoder_moe(keep, tokenizers)
-        quant = phase_decoder_quant(keep / "qwen25_05b",
-                                    keep / "qwen15_moe_a27b")
-    finally:
-        shutil.rmtree(keep, ignore_errors=True)
+    prepared = prep.result()
+    bert_runs = phase_bert(prepared["bert"])
+    tokenizers = {}
+    adopt_prepared(prepared, tokenizers)
+    answer = phase_decoder(keep, tokenizers)
+    families = phase_decoder_families(keep, tokenizers)
+    moe = phase_decoder_moe(keep, tokenizers)
+    quant = phase_decoder_quant(keep / "qwen25_05b", keep / "qwen15_moe_a27b")
+    spec = phase_decoder_spec(keep / "qwen25_05b", tokenizers)
     runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
             "ingest": [ingest], "stores": store_runs,
             "large": [large] + large_store_runs, "bert": bert_runs,
             "answer": [answer], "families": [families], "moe": [moe],
-            "quant": [quant]}
+            "quant": [quant], "spec": [spec]}
     # MaxSim's launches per route, as the wrapper counts them on each path
     # (the kernel's own row: all its routes; bf16 is the map path's)
     routes["float32"] = kres["maxsim"].pop("float32_route")
