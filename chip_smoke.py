@@ -507,8 +507,10 @@ DECODER_MAX_LEN = 4096 + 1024   # max_context_tokens + max_new_tokens
 DECODER_QUESTION = "合同在什么情况下可以解除？"
 DECODER_HITS = 8            # statute chunks in the twin's RAG prompt
 DECODER_PREFILL_LENS = (512, 2048, 4096)
-DECODER_DECODE_TOKENS = 128
-DECODER_PROFILE_TOKENS = 40  # a profiled decode run (~1,300 events a token)
+# the decode timings' tokens (128 until the script's time needed them) and
+# a profiled decode run's (~1,300 events a token; 40 until then)
+DECODER_DECODE_TOKENS = 64
+DECODER_PROFILE_TOKENS = 16
 DECODER_ANSWERS = 3         # timed /rag/answer streams
 DECODER_ANSWER_TOKENS = 128  # their max_new_tokens
 # decoder_families phase: google/gemma-3-1b-it's published config.json (a
@@ -563,8 +565,9 @@ FAMILIES_MIN_PROMPT = 512   # the twin's prompt crosses Gemma 3's window
 # decoder_moe phase: Qwen/Qwen1.5-MoE-A2.7B's published config.json, every
 # width as released; the depth cut from 24 layers to MOE_LAYERS (the only
 # cut: 14.3 B parameters would not go through a random safetensors file
-# and a float32 CPU twin in the phase's time)
-MOE_LAYERS = 4
+# and a float32 CPU twin in the phase's time; 4 layers until the script
+# gained the decoder_spec phase, whose time it frees with the depth)
+MOE_LAYERS = 2
 QWEN15_MOE_A27B = dict(
     architectures=["Qwen2MoeForCausalLM"], attention_dropout=0.0,
     bos_token_id=151643, decoder_sparse_step=1, eos_token_id=151643,
@@ -659,8 +662,10 @@ QWEN25_15B = QWEN25_05B | dict(hidden_size=1536, num_hidden_layers=28,
 SPEC_K = 8                  # drafts verified a round (llm.spec_k)
 SPEC_STEPS = 4              # rounds a host read (the engine's default)
 SPEC_CONSTRAINED_TOKENS = 128
-SPEC_TOKENS = 64            # each speculation stream's greedy tokens
-SPEC_DRAFT_TOKENS = 32      # the 1.5B target's streams
+SPEC_TOKENS = 32            # each speculation identity stream's tokens
+SPEC_TIMED_TOKENS = 64      # the decode timings' tokens (after a chunk)
+SPEC_SELF_DRAFT_TOKENS = 64  # the self draft's stream: 7 rounds of k + 1
+SPEC_DRAFT_TOKENS = 16      # the 1.5B target's streams
 SPEC_ANSWER_TOKENS = 128
 SPEC_TABLE_LOG2 = 18        # the corpus table's slots (the CLI's default)
 # the kernels each path must launch once per batch (and no other); the
@@ -4773,7 +4778,7 @@ def spec_constraint(card, f32, jc, ids) -> dict:
     copy, every prefix replayed valid, a stream that ends on EOS a
     complete document; a budget-forced stream of ``min_budget + 4``
     tokens ends complete; decode ms a token with and without the
-    constraint (bf16)."""
+    constraint (bf16, ``SPEC_TIMED_TOKENS``)."""
     tok, eos = card.tokenizer, card.tokenizer.eos_token_id
     out = {}
     for dtype, model in (("bfloat16", card.model), ("float32", f32)):
@@ -4801,7 +4806,7 @@ def spec_constraint(card, f32, jc, ids) -> dict:
         out[dtype] = res
     lm = TorchDecoderLM(card.model, tok, device="cuda", max_len=card.max_len,
                         json_constraint=jc)
-    n = lm.decode_chunk + SPEC_TOKENS
+    n = lm.decode_chunk + SPEC_TIMED_TOKENS
     out["decode_ms_per_token"] = {
         "unconstrained": decode_ms(lm, ids, n),
         "constrained": decode_ms(lm, ids, n, constrain=True, eos_id=None)}
@@ -4815,7 +4820,7 @@ def spec_lookup(card, f32, jc, ids, table) -> dict:
     engine's, exact on the float32 copy (the constrained speculative
     stream against the constrained plain one too) and in bf16 but at a
     near-tie; a sampled stream twice from one seed; the counts and decode
-    ms a token against the plain engine's."""
+    ms a token (``SPEC_TIMED_TOKENS``) against the plain engine's."""
     tok = card.tokenizer
     out = {}
     for dtype, model in (("float32", f32), ("bfloat16", card.model)):
@@ -4859,7 +4864,7 @@ def spec_lookup(card, f32, jc, ids, table) -> dict:
                   "seed")
     out["sampled"] = {"deterministic": True, "distinct_tokens": len(set(a)),
                       **spec_stats(lm)}
-    n = card.decode_chunk + SPEC_TOKENS
+    n = card.decode_chunk + SPEC_TIMED_TOKENS
     plain = TorchDecoderLM(card.model, tok, device="cuda",
                            max_len=card.max_len)
     out["decode_ms_per_token"] = {
@@ -4915,15 +4920,15 @@ def spec_draft(target, f32_05, ids, short_ids) -> dict:
     lm = TorchSpecLookupDecoderLM(f32_05, tok, device="cuda",
                                   max_len=target.max_len, spec_k=SPEC_K,
                                   spec_steps=SPEC_STEPS, draft=f32_05)
-    want = greedy_stream(plain, short_ids, SPEC_TOKENS)
-    got = greedy_stream(lm, short_ids, SPEC_TOKENS)
+    n = SPEC_SELF_DRAFT_TOKENS
+    want = greedy_stream(plain, short_ids, n)
+    got = greedy_stream(lm, short_ids, n)
     check(got == want, "self draft float32: the stream leaves the plain one")
     st = spec_stats(lm)
-    full = -(-(SPEC_TOKENS - 1) // (SPEC_K + 1))
+    full = -(-(n - 1) // (SPEC_K + 1))
     check(st["spec_rounds"] == full,
-          f"self draft float32: {st['spec_rounds']} rounds for "
-          f"{SPEC_TOKENS - 1} tokens, {full} if every round accepts all "
-          f"{SPEC_K}")
+          f"self draft float32: {st['spec_rounds']} rounds for {n - 1} "
+          f"tokens, {full} if every round accepts all {SPEC_K}")
     out["self_draft_float32"] = {"identical": True, "prompt_tokens":
                                  len(short_ids), **st}
     return out

@@ -323,11 +323,12 @@ class JsonConstraint:
                  vocab_size: Optional[int] = None):
         table = np.asarray(table, np.int32)
         accepting = np.asarray(accepting, bool)
+        # banned columns change no distance: measure before padding
+        dist = token_dist_to_accept(table, accepting)
         if vocab_size is not None and vocab_size > table.shape[1]:
             table = np.concatenate([table, np.full(
                 (table.shape[0], vocab_size - table.shape[1]), -1, np.int32)],
                 axis=1)
-        dist = token_dist_to_accept(table, accepting)
         self.device = resolve_device(device)
         self.table = torch.from_numpy(table).to(self.device)
         self.accepting = torch.from_numpy(accepting).to(self.device)
@@ -371,8 +372,12 @@ class JsonConstraint:
         not decode to clean text (empty, or holding U+FFFD: a byte-level
         piece of a character, a byte-fallback byte), are banned.
         ``vocab_size`` (the model's) sizes the table: the ids from
-        ``len(tokenizer)`` up to it are banned, and ids past it dropped."""
+        ``len(tokenizer)`` up to it are banned (the table is compiled over
+        the tokenizer's ids and padded, which gives what compiling the
+        banned ids would), and ids past it dropped."""
         v = len(tokenizer)
+        if vocab_size is not None:
+            v = min(v, vocab_size)
         token_bytes: List[Optional[bytes]] = [None] * v
         specials = set(getattr(tokenizer, "all_special_ids", []) or [])
         for i in range(v):
@@ -382,10 +387,8 @@ class JsonConstraint:
             if not text or "�" in text:
                 continue
             token_bytes[i] = text.encode("utf-8")
-        if vocab_size is not None:
-            token_bytes = (token_bytes[:vocab_size]
-                           + [None] * (vocab_size - len(token_bytes)))
-        return cls.from_schema(schema, token_bytes, device=device)
+        return cls.from_schema(schema, token_bytes, device=device,
+                               vocab_size=vocab_size)
 
 
 class StreamConstraint:
