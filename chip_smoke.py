@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port (``legalrag_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--route-costs]
+    python3 chip_smoke.py [--diagnostics]
 
 Phases, each printing one JSON line:
 
@@ -113,7 +113,7 @@ Phases, each printing one JSON line:
    kernel alone; nbit4: its centroid table and the tensor-core kernel),
    with timings of the wrapper and the C entry, the bound and the library
    chain; for int8 the queries on the kernel's long path (with
-   ``--route-costs`` also, for nbit4, the table's share of the device time
+   ``--diagnostics`` also, for nbit4, the table's share of the device time
    and the table gathers' share of the C entry's time, against a copy of
    the kernel whose gathers return 0, built under ``build/``); the map path (zh 16, en
    9 batches through ``FusedQueryEngine``: q/s, Recall@10 against the bf16
@@ -234,8 +234,9 @@ Phases, each printing one JSON line:
    decode ms a token
    greedy, the bytes on the card, the KV bytes a token and the decode
    bound; for int4 with the int8 cache (the served configuration) also
-   the identities of 12 and the busy and idle share, and how far one ulp
-   moves the logits with and without the int8 grid; then 3
+   the identities of 12 and the busy and idle share (with
+   ``--diagnostics`` how far one ulp moves the logits with and without
+   the int8 grid); then 3
    ``/rag/answer`` streams in that configuration (the ``quant`` path,
    kernels 1 and 2/3 once a request, held against their plain versions).
    Then phase 14's Qwen1.5-MoE checkpoint with int8 and int4 expert
@@ -3073,17 +3074,17 @@ def store_serve(name: str, bundles, cfg: AppConfig) -> dict:
     return res
 
 
-def phase_stores(e2e, route_costs: bool = False) -> tuple:
+def phase_stores(e2e, diagnostics: bool = False) -> tuple:
     """The quantized configurations (``STORES``) built on the card from
     ``data/raw`` at full width, each driven through the map path and
     ``ByLangRetriever``; MaxSim's int8 and nbit4 routes at the zh shapes.
-    With ``route_costs`` (``--route-costs``; a diagnostic that checks
-    nothing) also where each route's time goes (``store_route_costs``, on
-    kernel copies built for it). Returns ({route: kernel result}, [runs
+    With ``diagnostics`` (``--diagnostics``: it checks nothing) also where
+    each route's time goes (``store_route_costs``, on kernel copies built
+    for it). Returns ({route: kernel result}, [runs
     with launches])."""
     t_phase = time.perf_counter()
     routes, runs = {}, []
-    if route_costs:
+    if diagnostics:
         # store_route_costs' kernel copies, one nvcc each, started together
         with ThreadPoolExecutor(3) as pool:
             list(pool.map(lambda c: kernel_copy(*c), (
@@ -3111,7 +3112,7 @@ def phase_stores(e2e, route_costs: bool = False) -> tuple:
             zh_queries, _ = make_queries(bundles["zh"], BATCH)
             routes[route] = phase_store_kernels(route, bundles["zh"],
                                                 zh_queries)
-            if route_costs:
+            if diagnostics:
                 routes[route]["costs"] = {
                     lang: store_route_costs(route, b,
                                             make_queries(b, BATCH)[0])
@@ -4492,7 +4493,8 @@ def quant_twin(card) -> TorchDecoderLM:
                           prefill_chunk=card.prefill_chunk)
 
 
-def phase_decoder_quant(qwen=None, moe=None) -> dict:
+def phase_decoder_quant(qwen=None, moe=None,
+                        diagnostics: bool = False) -> dict:
     """Quantized local generation (module docstring, phase 15) on phase
     12's Qwen2.5 checkpoint ``qwen`` (its answer run's bundle beside it)
     and phase 14's Qwen1.5-MoE one ``moe`` (each written anew where not
@@ -4544,7 +4546,7 @@ def phase_decoder_quant(qwen=None, moe=None) -> dict:
                                **QUANT_TWIN[served],
                                speed=QUANT_SPEED | {"profile": QUANT_PROFILE
                                                     if served else 0})
-            if served:
+            if served and diagnostics:
                 emit({"phase": f"quant_{name}_one_ulp",
                       "quantized_prefill_logits_max_abs_err":
                           one_ulp_sensitivity(DecoderModel.from_state_dict(
@@ -5355,10 +5357,12 @@ def phase_large_stores():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--route-costs", action="store_true",
-                    help="also time where MaxSim's int8 and nbit4 routes "
-                         "spend their time, on kernel copies built for it "
-                         "(store_route_costs; checks nothing)")
+    ap.add_argument("--diagnostics", action="store_true",
+                    help="also the diagnostics that check nothing: where "
+                         "MaxSim's int8 and nbit4 routes spend their time, "
+                         "on kernel copies built for it (store_route_costs),"
+                         " and how far one ulp moves the quantized logits "
+                         "(one_ulp_sensitivity)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5370,12 +5374,12 @@ def main(argv=None) -> int:
         with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
                 "spawn")) as pool:
             prep = pool.submit(prepare_files, str(keep))
-            return run_phases(prep, keep, args.route_costs)
+            return run_phases(prep, keep, args.diagnostics)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
 
-def run_phases(prep, keep: Path, route_costs: bool) -> int:
+def run_phases(prep, keep: Path, diagnostics: bool) -> int:
     """Every phase in order (module docstring); ``prep``: the future of
     ``prepare_files`` writing into ``keep``."""
     smi = nvidia_smi()
@@ -5410,7 +5414,7 @@ def run_phases(prep, keep: Path, route_costs: bool) -> int:
     serve, http = run_serving(bundles)
     del bundles
     ingest = phase_ingest()
-    routes, store_runs = phase_stores(e2e, route_costs)
+    routes, store_runs = phase_stores(e2e, diagnostics)
     kres["bm25_sparse"], large = phase_large()
     large_store_runs, large_stores = phase_large_stores()
     prepared = prep.result()
@@ -5420,7 +5424,8 @@ def run_phases(prep, keep: Path, route_costs: bool) -> int:
     answer = phase_decoder(keep, tokenizers)
     families = phase_decoder_families(keep, tokenizers)
     moe = phase_decoder_moe(keep, tokenizers)
-    quant = phase_decoder_quant(keep / "qwen25_05b", keep / "qwen15_moe_a27b")
+    quant = phase_decoder_quant(keep / "qwen25_05b", keep / "qwen15_moe_a27b",
+                                diagnostics)
     spec = phase_decoder_spec(keep / "qwen25_05b", tokenizers)
     runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
             "ingest": [ingest], "stores": store_runs,

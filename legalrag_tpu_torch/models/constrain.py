@@ -316,7 +316,8 @@ class JsonConstraint:
     to acceptance) on ``device``, the ``start`` state and ``min_budget``
     (the fewest tokens of a complete document). With ``vocab_size`` above
     the table's width the table gains -1 columns up to it: those ids are
-    banned. One instance per engine; streams opt in per call."""
+    banned. One instance per engine, on its device; streams opt in per
+    call."""
 
     def __init__(self, table: np.ndarray, accepting: np.ndarray,
                  start: int = 0, device: DeviceLike = None,
@@ -335,18 +336,6 @@ class JsonConstraint:
         self.dist = torch.from_numpy(dist).to(self.device)
         self.min_budget = int(dist[start])
         self.start = start
-
-    def to(self, device: DeviceLike) -> "JsonConstraint":
-        """This constraint on ``device`` (itself when it is there)."""
-        dev = resolve_device(device)
-        if dev == self.device:
-            return self
-        out = object.__new__(JsonConstraint)
-        out.__dict__.update(self.__dict__)
-        out.device = dev
-        out.table, out.accepting, out.dist = (
-            self.table.to(dev), self.accepting.to(dev), self.dist.to(dev))
-        return out
 
     @property
     def nbytes(self) -> int:

@@ -971,8 +971,7 @@ class TorchDecoderLM:
         # the schema-DFA JSON constraint (models/constrain.py): a stream
         # asking for it (generate_stream(constrain=True)) emits only
         # prefixes of a schema-valid document, EOS once it is complete
-        self.json_constraint = (None if json_constraint is None
-                                else json_constraint.to(self.device))
+        self.json_constraint = json_constraint
 
     @classmethod
     def from_pretrained(cls, name_or_path: str, device: DeviceLike = None,

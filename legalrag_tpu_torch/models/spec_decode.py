@@ -41,12 +41,12 @@ decode chunks.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, Iterator, List, Optional
 
-import numpy as np
 import torch
 
-from legalrag_tpu_torch.models.constrain import StreamConstraint, budget_force
+from legalrag_tpu_torch.models.constrain import budget_force
 from legalrag_tpu_torch.models.decoder import (
     DecoderModel,
     TorchDecoderLM,
@@ -61,13 +61,6 @@ from legalrag_tpu_torch.utils.metrics import METRICS
 log = get_logger("torch.models.spec_decode")
 
 _HASH_MULT = 2654435761
-
-
-class _Round:
-    """A speculative stream's state on the device between rounds."""
-
-    def __init__(self, **kw):
-        self.__dict__.update(kw)
 
 
 class TorchSpecLookupDecoderLM(TorchDecoderLM):
@@ -117,7 +110,7 @@ class TorchSpecLookupDecoderLM(TorchDecoderLM):
                                        device=self.device)
 
     # ------------------------------------------------------------- rounds
-    def _lookup_draft(self, st: _Round, ng):
+    def _lookup_draft(self, st: SimpleNamespace, ng):
         """Sources 1 and 2: (draft [k], whether a full window or a table
         hit was found)."""
         k, n = self.spec_k, self.max_len
@@ -149,7 +142,7 @@ class TorchSpecLookupDecoderLM(TorchDecoderLM):
             havek = havek | ok
         return draft, havek
 
-    def _model_draft(self, st: _Round) -> torch.Tensor:
+    def _model_draft(self, st: SimpleNamespace) -> torch.Tensor:
         """Source 3: ``k`` greedy steps of the draft model from ``pending``
         at ``pos``, over its cache."""
         tok, out = st.pending, []
@@ -161,7 +154,7 @@ class TorchSpecLookupDecoderLM(TorchDecoderLM):
             out.append(tok)
         return torch.stack(out)
 
-    def _round(self, st: _Round, ng, sample) -> torch.Tensor:
+    def _round(self, st: SimpleNamespace, ng, sample) -> torch.Tensor:
         """One speculation round on the device: draft, verify, accept,
         advance; the emissions [k + 1] (-1 where nothing is emitted). A
         frozen stream (EOS, budget or capacity) runs the pass and emits
@@ -238,7 +231,8 @@ class TorchSpecLookupDecoderLM(TorchDecoderLM):
         return emissions
 
     @torch.inference_mode()
-    def _launch(self, st: _Round, budget_left: int, ng, sample) -> List[int]:
+    def _launch(self, st: SimpleNamespace, budget_left: int, ng,
+                sample) -> List[int]:
         """``spec_steps`` rounds, then one host read: the emissions
         [spec_steps, k + 1] flattened, then active, hit_eos, emitted, pos,
         pending."""
@@ -311,7 +305,8 @@ class TorchSpecLookupDecoderLM(TorchDecoderLM):
         temp = torch.tensor(max(temperature, 1e-6), device=dev)
         pen = torch.tensor(repetition_penalty, device=dev)
         rep = torch.zeros(self.cfg.vocab_size, dtype=torch.bool, device=dev)
-        rep[torch.tensor(list(prompt_ids), dtype=torch.long, device=dev)] = True
+        rep[torch.tensor(list(prompt_ids), dtype=torch.long,
+                         device=dev)] = True
         cons = self._stream_constraint(constrain, eos_id, max_new_tokens)
         ng = (self.ngram_draft.device_arrays(k, dev)
               if self.ngram_draft is not None else None)
@@ -337,7 +332,7 @@ class TorchSpecLookupDecoderLM(TorchDecoderLM):
         buf = torch.zeros(self.max_len + 1, dtype=torch.long, device=dev)
         buf[:t] = torch.tensor(list(prompt_ids), dtype=torch.long, device=dev)
         buf[t] = pending_h
-        st = _Round(buf=buf, pos=torch.tensor(t, device=dev),
+        st = SimpleNamespace(buf=buf, pos=torch.tensor(t, device=dev),
                     pending=torch.tensor(pending_h, device=dev), cache=cache,
                     dcache=dcache, rep=rep, pen=pen, cons=cons,
                     penalized=repetition_penalty != 1.0,
@@ -425,6 +420,7 @@ class TorchSpecLookupDecoderLM(TorchDecoderLM):
                 return
             yield tok_host
             stats["tokens"] += 1
-            if produced + i + 1 < max_new_tokens and pos + i + 1 < self.max_len:
+            if (produced + i + 1 < max_new_tokens
+                    and pos + i + 1 < self.max_len):
                 last = self._step(tok, pos + i, cache)
                 stats["launches"] += 1

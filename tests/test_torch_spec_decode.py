@@ -7,10 +7,11 @@ Greedy streams must be token-identical to the port's plain engine and to
 JAX's speculative one with prompt lookup, an arbitrary n-gram table and
 one built from the streams, EOS, the budget and the capacity tail (the
 draft model, quantization, the penalty and the constraint:
-``tests/test_torch_spec_draft.py``); ``last_stats`` (launches, tokens, rounds, the adaptive
-bail) must be JAX's; a sampled stream is seeded, and its tokens inside the
-speculation loop follow the plain engine's distribution (a chi-squared
-test at the 0.999 quantile against the exact probabilities). One
+``tests/test_torch_spec_draft.py``, ``test_torch_spec_quant.py``);
+``last_stats`` (launches, tokens, rounds, the adaptive bail) must be
+JAX's; a sampled stream is seeded, and its tokens inside the speculation
+loop follow the plain engine's distribution (a chi-squared test at the
+0.999 quantile against the exact probabilities). One
 divergence is pinned: at the cache's capacity tail JAX's clamped cache
 write in a frozen round overwrites valid rows (``spec_steps`` >= 2), and
 its stream leaves the plain one; the port's does not."""
@@ -19,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from legalrag_tpu.models import decoder as jd
 from legalrag_tpu.models import spec_decode as jsd
 from legalrag_tpu.models.ngram_draft import NgramDraftTable as JaxTable
 from legalrag_tpu_torch.models import decoder as td
@@ -206,8 +206,8 @@ def test_capacity_tail_matches_plain_where_jax_leaves_it(qwen):
                p, 100) == want
 
 
-def test_sampled_stream_is_seeded_and_constrained_stays_valid(qwen,
-                                                              toy):  # noqa: F811
+def test_sampled_stream_is_seeded_and_constrained_stays_valid(
+        qwen, toy):  # noqa: F811
     eng = spec(qwen, spec_k=4, spec_steps=2)
     kw = dict(temperature=0.9, top_p=0.9)
     a = run(eng, PROMPTS[0], 12, seed=5, **kw)
