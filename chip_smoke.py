@@ -513,7 +513,9 @@ DECODER_PREFILL_LENS = (512, 2048, 4096)
 DECODER_DECODE_TOKENS = 64
 DECODER_PROFILE_TOKENS = 16
 DECODER_ANSWERS = 3         # timed /rag/answer streams
-DECODER_ANSWER_TOKENS = 128  # their max_new_tokens
+# their max_new_tokens (128 until the decoder_spec phase needed the time;
+# the quant phase's are 64, decoder_spec's 128)
+DECODER_ANSWER_TOKENS = 64
 # decoder_families phase: google/gemma-3-1b-it's published config.json (a
 # dict as released; its head is tied by Gemma3TextConfig's default) and
 # Qwen/Qwen3-0.6B's, random weights from a seed
