@@ -58,8 +58,12 @@ float32 scales: the layer writes quantized rows and attends the
 dequantized cache, its own rows included, so chunked prefill and prefix
 hits stay exact.
 
-Refused with ``NotImplementedError``, never decoded with the wrong
-arithmetic: the JSON constraint and draft models.
+The JSON constraint (``models/constrain.py``, ``json_constraint``):
+``generate_stream(constrain=True)`` masks the penalized logits to the
+tokens the schema DFA's state allows (EOS only in an accepting state),
+with budget-forced completion, before the warpers, in the decode chunks
+and the per-token tail alike. Speculation, and the draft models
+``from_pretrained`` loads, run in ``models/spec_decode.py``.
 """
 
 from __future__ import annotations
@@ -744,7 +748,8 @@ class DecoderModel(nn.Module):
         With ``kv_cache`` (per layer ``(k, v)``, each [B, S, Hkv, D], or the
         int8 cache's ``(k_q, v_q, k_scale, v_scale)``, the scales [B, S,
         Hkv, 1]) the new keys and values are written in place at rows
-        ``cache_len`` .. ``cache_len + T - 1`` and attention spans the whole
+        ``cache_len`` .. ``cache_len + T - 1`` (an int, or a 0-d tensor on
+        the device: ``_write_rows``) and attention spans the whole
         cache (dequantized), rows at
         or past ``cache_len + T`` and after each query's position masked.
         Without it the T tokens attend each other causally. A sliding
