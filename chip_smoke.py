@@ -42,7 +42,7 @@ Phases, each printing one JSON line:
 6. ``serve``: the single-query serving path. Both bundles are saved to a
    temporary index directory with their law graphs (``GraphBuilder``) and
    served by ``ByLangRetriever`` on the card (rerank, late channel, top 10,
-   oversample 4): 512 requests (256 zh, 256 en, sampled as in 5, every
+   oversample 4): 256 requests (128 zh, 128 en, sampled as in 5, every
    other one ``GRAPH_AUGMENTED``) from 16 threads at once, so the
    micro-batcher coalesces them. Requests/s, per-request p50 / p99 ms, the
    channels calls and their mean batch, the per-stage ms of the retriever's
@@ -60,15 +60,15 @@ Phases, each printing one JSON line:
    ``openai`` LLM provider pointed at an OpenAI-compatible stub on
    127.0.0.1 (``OpenAIStub``) that streams a sections JSON citing the
    prompt's first candidate. ``/health`` and ``/ready`` (cuda, the card's
-   name); 256 ``/rag/retrieve`` requests (128 zh, 128 en, every other one
+   name); 128 ``/rag/retrieve`` requests (64 zh, 64 en, every other one
    worded to interpret, so the router sends it ``GRAPH_AUGMENTED``) from
    16 client threads: requests/s, p50 / p99 ms, channels calls, stages,
    device busy and idle share, the micro-batcher's counters on
-   ``/metrics``; 64 of them one at a time; every hit list against the
+   ``/metrics``; 32 of them one at a time; every hit list against the
    same server on the CPU (``device="cpu"``, in-process) over the same
    directories; ``/rag/retrieve_batch`` with 64 questions per language;
    ``/rag/answer`` by ``retrieval_id`` (no launch) and as SSE, ``/rag/query``
-   as JSON and 16 SSE streams one at a time (time to the first ``token``
+   as JSON and 8 SSE streams one at a time (time to the first ``token``
    and to the end; events ``meta``, ``token``, ``section``/``item``/
    ``sentence``, ``citations`` with the cited article supported, ``done``);
    the launch counts per endpoint (one score+select and one MaxSim per
@@ -156,8 +156,8 @@ Phases, each printing one JSON line:
    score_select and one bf16 MaxSim launch a batch) with 16 questions
    against the bundle's CPU twin (saved, loaded on the CPU: its query
    views within 1e-4 of the card's, and, given the card's views, the
-   card's top 10 but for near-ties); 256 ``ByLangRetriever`` requests
-   (128 a language, the cross-encoder reranking each one's top 30):
+   card's top 10 but for near-ties); 64 ``ByLangRetriever`` requests
+   (32 a language, the cross-encoder reranking each one's top 30):
    requests/s, p50 / p99, stages, launches per channels call; the
    cross-encoder on 30 candidates at 512 tokens (ms a call, logits within
    1e-4 of the CPU's);
@@ -279,6 +279,29 @@ Phases, each printing one JSON line:
    request, held against their plain versions): each answer's text a
    complete sections document whose sections the SSE scanner sends as
    ``section`` events.
+17. ``decoder_batched``: the continuous-batching engine
+   (``llm.batch_slots``, ``TorchBatchedDecoderLM``) on phase 12's Qwen2.5
+   checkpoint. On a float32 copy and in bf16, against the single-stream
+   engine (float32 token-identical, bf16 but at a near-tie whose top-2 gap
+   is printed): six greedy streams of ``BATCHED_TOKENS`` on
+   ``BATCHED_SLOTS`` slots (the RAG prompt past ``prefill_chunk``, another
+   RAG prompt, the question stopped at an EOS id, three statute spans, the
+   last joining mid-flight with a 20-token budget); an engine pinning the
+   pipeline's system turn (``shared_prefix_text``) with a matching and a
+   non-matching prompt; an int8-cache engine; one speculating with
+   ``SPEC_K`` drafts and phase 16's corpus table; a sampled stream the same
+   alone and beside three others. The slot cache's bytes with and without
+   the pinned turn. An 8-slot engine at occupancy 1, 2, 4 and 8 (streams
+   of ``BATCHED_TIMED_TOKENS``): ms a step and aggregate tokens/s against
+   a step's bound, the single-stream engine's ms a token, busy and idle
+   share over ``BATCHED_PROFILE_TOKENS`` tokens at occupancy 8, peak card
+   memory. Last, ``BATCHED_ANSWERS`` ``/rag/answer`` SSE streams from as
+   many client threads at once through the port's server with
+   ``local-jax``, ``batch_slots`` 4 and the pinned turn (the ``batched``
+   path, kernels 1 and 2/3 once per channels call, held against their
+   plain versions): each stream's first-token and end ms, every prompt
+   admitted on the pinned turn, and ``/metrics``' ``legalrag_gen_*``
+   counts of the run.
 
 A child process writes the files of phases 11-13 that need no card
 (``prepare_files``: the bert checkpoints, the Qwen2.5, Gemma-3-1B and
@@ -340,6 +363,7 @@ from legalrag_tpu_torch.index.token_index import (
 )
 from legalrag_tpu_torch.ingest.minipdf import build_pdf
 from legalrag_tpu_torch.llm import DEGRADED_ANSWER
+from legalrag_tpu_torch.models.batched_decoder import TorchBatchedDecoderLM
 from legalrag_tpu_torch.models.bert import BertConfig, random_init_bert_params
 from legalrag_tpu_torch.models.constrain import (
     SECTIONS_SCHEMA,
@@ -428,18 +452,20 @@ TIE = 1e-6                  # scores closer than this may swap order
 LARGE = dict(n_docs=1 << 20, vocab=65536, dim=768, doc_len=64, token_dim=128)
 LARGE_BATCHES = 8           # back-to-back query batches of 64
 REF_DOCS = 65536            # the CPU reference's index
-SERVE_PER_LANG = 256        # serve phase: requests per language
+SERVE_PER_LANG = 128        # serve phase: requests per language (256 until PR 20)
 SERVE_THREADS = 16          # request threads submitting at once
 SERVE_CPU_CHECKS = 16       # requests held against the CPU retriever
 SERVE_SOLO_CHECKS = 8       # requests held against a solo run on the card
 SERVE_SERIAL = 64           # requests sent one at a time (no contention)
-HTTP_PER_LANG = 128         # http phase: /rag/retrieve requests per language
+# http phase: /rag/retrieve requests per language (128 until the
+# decoder_batched phase needed the script's time)
+HTTP_PER_LANG = 64
 HTTP_THREADS = 16           # client threads sending at once
-HTTP_SERIAL = 64            # /rag/retrieve requests sent one at a time
+HTTP_SERIAL = 32            # /rag/retrieve requests sent one at a time
 HTTP_BATCH_PER_LANG = 64    # questions per language in /rag/retrieve_batch
-HTTP_SSE = 16               # /rag/query SSE streams, one at a time
+HTTP_SSE = 8                # /rag/query SSE streams, one at a time
 INGEST_THREADS = 8          # ingest phase: client threads asking throughout
-INGEST_WINDOW = 128         # /rag/retrieve requests before and after it
+INGEST_WINDOW = 64          # /rag/retrieve requests before and after it
 INGEST_RECALL = 64          # self-retrieval queries from the ingested chunks
 INGEST_CPU_CHECKS = 32      # questions held against the CPU twin
 # stores phase: the quantized configurations (EngineConfig overrides)
@@ -465,9 +491,9 @@ BGE_VOCAB = {"zh": 21128, "en": 30522}
 BERT_LAYER_SCALE = 4.0
 BERT_APPEND = 91            # en chunks appended to the built bert bundle
 BERT_TWIN_QUERIES = 16      # map questions held against the CPU twin
-# ByLangRetriever requests (64 per language: the decoder phases need the
-# script's time)
-BERT_SERVE_REQUESTS = 128
+# ByLangRetriever requests (32 per language: the decoder phases need the
+# script's time; 128 until PR 20, 256 before)
+BERT_SERVE_REQUESTS = 64
 BERT_CE_DOCS = 30           # cross-encoder candidates a call (rerank_top_n)
 BERT_VIEW_ATOL = 1e-4       # the card's query views against the CPU twin's
 BERT_CE_ATOL = 1e-4         # cross-encoder logits against the CPU twin's
@@ -513,9 +539,10 @@ DECODER_PREFILL_LENS = (512, 2048, 4096)
 DECODER_DECODE_TOKENS = 64
 DECODER_PROFILE_TOKENS = 16
 DECODER_ANSWERS = 3         # timed /rag/answer streams
-# their max_new_tokens (128 until the decoder_spec phase needed the time;
-# the quant phase's are 64, decoder_spec's 128)
-DECODER_ANSWER_TOKENS = 64
+# their max_new_tokens (128 until the decoder_spec phase needed the time,
+# 64 until the decoder_batched phase did; the quant phase's are 16,
+# decoder_spec's 64, decoder_batched's 64)
+DECODER_ANSWER_TOKENS = 32
 # decoder_families phase: google/gemma-3-1b-it's published config.json (a
 # dict as released; its head is tied by Gemma3TextConfig's default) and
 # Qwen/Qwen3-0.6B's, random weights from a seed
@@ -637,10 +664,11 @@ QUANT_ACC_ROWS = {"down_proj": (1, 256), "lm_head": (1, 24)}
 # Qwen1.5-MoE's gate / up and down, 11 GB at the default 1,024
 MOE_QUANT_PREFILL_CHUNK = 128
 # each configuration's speed: prefill at 2,048, one greedy decode run of
-# 64 tokens; the served one's (QUANT_SERVED) busy share from a profile of
-# 8 tokens, the device's activity alone
-QUANT_SPEED = dict(lens=(2048,), runs=1, modes=("greedy",), tokens=32)
-QUANT_PROFILE = 8
+# 16 tokens after a chunk (32 until PR 20); the served one's
+# (QUANT_SERVED) busy share from a profile of 4 tokens (8 until PR 20),
+# the device's activity alone
+QUANT_SPEED = dict(lens=(2048,), runs=1, modes=("greedy",), tokens=16)
+QUANT_PROFILE = 4
 QUANT_IDENTITY_TOKENS = 8   # each identity stream's greedy tokens
 # the twins' cache: the RAG prompt and 64 steps (rows past the filled ones
 # are masked, so the logits do not depend on it)
@@ -649,7 +677,7 @@ QUANT_SERVED = "int4_kv8"   # /rag/answer's configuration, and its identities
 # the twins: the served configuration's on the whole RAG prompt, the others
 # on its first 256 tokens (the CPU's prefill is most of a twin's time)
 QUANT_TWIN = {True: dict(steps=32), False: dict(prompt=256, steps=16)}
-QUANT_ANSWER_TOKENS = 64
+QUANT_ANSWER_TOKENS = 16    # 64 until PR 20 (~150 ms a token served)
 # the MoE twins' prompt (the RAG prompt's first tokens) and greedy steps:
 # the CPU's int4 expert products sum a [E * groups, tokens, F] float32
 # accumulator, ~10 MB a token and layer
@@ -666,11 +694,28 @@ SPEC_K = 8                  # drafts verified a round (llm.spec_k)
 SPEC_STEPS = 4              # rounds a host read (the engine's default)
 SPEC_CONSTRAINED_TOKENS = 128
 SPEC_TOKENS = 32            # each speculation identity stream's tokens
-SPEC_TIMED_TOKENS = 64      # the decode timings' tokens (after a chunk)
+SPEC_TIMED_TOKENS = 32      # the decode timings' tokens (64 until PR 20)
 SPEC_SELF_DRAFT_TOKENS = 64  # the self draft's stream: 7 rounds of k + 1
-SPEC_DRAFT_TOKENS = 16      # the 1.5B target's streams
-SPEC_ANSWER_TOKENS = 128
+SPEC_DRAFT_TOKENS = 8       # the 1.5B target's streams (16 until PR 20)
+SPEC_ANSWER_TOKENS = 64     # 128 until PR 20
 SPEC_TABLE_LOG2 = 18        # the corpus table's slots (the CLI's default)
+# decoder_batched phase: the continuous-batching engine (llm.batch_slots)
+# on phase 12's Qwen2.5-0.5B checkpoint
+BATCHED_SLOTS = 4           # the identity engines' slots and the answers'
+BATCHED_TOKENS = 32         # each identity stream's greedy tokens
+BATCHED_OCCUPANCY = (1, 2, 4, 8)   # streams at once in an 8-slot engine
+BATCHED_TIMED_TOKENS = 64   # each timed stream's tokens
+BATCHED_PROFILE_TOKENS = 16
+BATCHED_ANSWERS = 8         # /rag/answer streams, one client thread each
+BATCHED_ANSWER_TOKENS = 64
+# zh questions the router sends to its default task, so the pipeline's
+# system turn (the pinned prelude) opens every prompt; the first 3 are the
+# earlier phases' answer questions
+ANSWER_QUESTIONS = (DECODER_QUESTION, "借款合同的利息如何计算？",
+                    "租赁期限届满后承租人应当如何返还租赁物？",
+                    "买卖合同中出卖人的主要义务是什么？",
+                    "保证合同的保证期间如何确定？", "赠与合同可以撤销吗？",
+                    "违约金过高时如何调整？", "承揽合同中定作人可以随时解除合同吗？")
 # the kernels each path must launch once per batch (and no other); the
 # serve path's batch is one channels call of the micro-batcher. An int8
 # dense store never reaches score+select (JAX sends it to XLA).
@@ -687,13 +732,14 @@ PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "families": ("score_select", "maxsim"),
                 "moe": ("score_select", "maxsim"),
                 "quant": ("score_select", "maxsim"),
-                "spec": ("score_select", "maxsim")}
+                "spec": ("score_select", "maxsim"),
+                "batched": ("score_select", "maxsim")}
 # MaxSim's route (the store kind, as the wrapper counts it) on each path
 # that launches it; the recall path's is its token store's
 PATH_ROUTES = {"map": "bf16", "bert": "bf16", "serve": "bf16", "http": "bf16",
                "ingest": "bf16", "stores_q8": "int8", "stores_n4": "nbit4",
                "answer": "bf16", "families": "bf16", "moe": "bf16",
-               "quant": "bf16", "spec": "bf16"}
+               "quant": "bf16", "spec": "bf16", "batched": "bf16"}
 
 
 def emit(obj) -> None:
@@ -4047,16 +4093,20 @@ def decoder_speed(card, corpus_ids, lens=DECODER_PREFILL_LENS,
 
 def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
                    phase: str = "decoder_answer", llm=None,
-                   engine_check=None) -> dict:
+                   engine_check=None, answers: int = DECODER_ANSWERS,
+                   concurrent: bool = False) -> dict:
     """``/rag/answer`` with ``stream: true`` through the port's HTTP server
     on the card, ``llm.provider`` ``local-jax`` on ``ckpt`` (the default
     sampling, 0.3 / 0.9): the zh bundle and its law graph saved under
     ``tmp``, one warm-up answer (the engine's load), then
-    ``DECODER_ANSWERS`` answers: events ending in ``done`` with non-empty
-    token text, time to the first token and to the end, tokens, and the
+    ``answers`` answers (``ANSWER_QUESTIONS``, one after another, or with
+    ``concurrent`` each from its own client thread at once): events ending
+    in ``done`` with non-empty token text, time to the first token and to
+    the end, tokens, ``/metrics``' ``legalrag_gen_*`` counters, and the
     retrieval's launches on ``path`` (one score_select and one MaxSim per
-    channels call); then kernels 1 and 2/3 against their plain versions
-    on the tensors those calls handed them (``KernelInputs``). ``llm``
+    channels call; concurrent questions may share a call); then kernels 1
+    and 2/3 against their plain versions on the tensors those calls
+    handed them (``KernelInputs``). ``llm``
     sets more of ``LLMConfig`` (the quantization knobs, or another
     ``max_new_tokens``). A bundle and graph already saved under ``tmp``
     (an earlier answer run's) are served as they are. ``engine_check``
@@ -4091,25 +4141,42 @@ def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
                                        "stream": True})
         warm_s = time.perf_counter() - t0
         hr = st.pipeline.retriever.retriever("zh")
-        questions = [DECODER_QUESTION, "借款合同的利息如何计算？",
-                     "租赁期限届满后承租人应当如何返还租赁物？"]
         tok0 = METRICS._counters[key]
         rec = KernelInputs({"zh": hr.bundle})
+
+        def one(q):
+            return http_sse(base, "/rag/answer", {"question": q,
+                                                  "stream": True})
+
+        def run():
+            qs = ANSWER_QUESTIONS[:answers]
+            if not concurrent:
+                return [one(q) for q in qs]
+            with ThreadPoolExecutor(answers) as ex:
+                return list(ex.map(one, qs))
+
+        def gen_metrics():
+            return {k: v for k, v in metric_values(
+                http_json(base, "/metrics")[1]).items()
+                if k.startswith("legalrag_gen_")}
+
+        gen0 = gen_metrics()
         rec.start()
         try:
-            out, launches, calls = launches_of(
-                lambda: [http_sse(base, "/rag/answer", {"question": q,
-                                                        "stream": True})
-                         for q in questions[:DECODER_ANSWERS]], [hr._batcher])
+            out, launches, calls = launches_of(run, [hr._batcher])
         finally:
             rec.stop()
         generated = METRICS._counters[key] - tok0
+        # the run's own counts (the registry holds the process's)
+        gen = {k: v - gen0.get(k, 0) for k, v in gen_metrics().items()
+               if v != gen0.get(k, 0)}
         if engine_check is not None:
             engine_check(st.pipeline.llm.client._local)
     finally:
         shutdown_gracefully(st, server, 0.0)
     check_launches(path, launches, calls)
-    check(calls == DECODER_ANSWERS, f"{path}: {calls} channels calls")
+    check(calls == answers or (concurrent and 1 <= calls < answers),
+          f"{path}: {calls} channels calls for {answers} answers")
     texts = []
     for events, first, _total in out:
         kinds = [e for e, _ in events]
@@ -4129,7 +4196,7 @@ def decoder_answer(ckpt: Path, tmp: Path, path: str = "answer",
             "text_head": texts[0][:60], "texts": texts,
             "section_events": [sum(e == "section" for e, _ in ev)
                                for ev, _f, _t in out], "launches": launches,
-            "channel_calls": calls,
+            "channel_calls": calls, "gen_metrics": gen,
             "kernels": check_serve_kernels(rec, path)}
 
 
@@ -4337,8 +4404,10 @@ def phase_decoder_families(keep=None, tokenizers=None) -> dict:
                                     range(cfg.num_hidden_layers)),
               "window": cfg.sliding_window})
         # one timed run of each speed (the script's time)
+        # greedy decode timed alone (the sampled run too until PR 20)
         ids = decoder_runs("gemma3", card, twin, chunks["zh"],
-                           GEMMA_LOGIT_ATOL, speed=dict(runs=1))
+                           GEMMA_LOGIT_ATOL,
+                           speed=dict(runs=1, modes=("greedy",)))
         check(len(ids) > FAMILIES_MIN_PROMPT,
               f"gemma3: the twin's prompt has {len(ids)} tokens")
         del card, twin
@@ -4938,6 +5007,23 @@ def spec_draft(target, f32_05, ids, short_ids) -> dict:
     return out
 
 
+def corpus_table(qwen: Path, texts, tmp: Path) -> tuple:
+    """The corpus n-gram table of the statutes ``texts``, built by the
+    port's ``build_draft_table`` CLI with ``qwen``'s tokenizer (``SPEC_K``
+    drafts, ``SPEC_TABLE_LOG2``), kept beside ``qwen`` for phase 17: (its
+    path, the CLI's report)."""
+    corpus = tmp / "corpus"
+    corpus.mkdir(exist_ok=True)
+    (corpus / "law.jsonl").write_text("".join(
+        json.dumps({"text": t}, ensure_ascii=False) + "\n"
+        for t in texts), encoding="utf-8")
+    table_path = qwen.parent / "draft_table.npz"
+    return table_path, build_draft_table.main([
+        "--tokenizer", str(qwen), "--input", str(corpus), "--out",
+        str(table_path), "--k", str(SPEC_K),
+        "--log2-size", str(SPEC_TABLE_LOG2)])
+
+
 def phase_decoder_spec(qwen=None, tokenizers=None) -> dict:
     """The single-stream engine's JSON constraint and speculation (module
     docstring, phase 16) on phase 12's Qwen2.5-0.5B checkpoint ``qwen``
@@ -4980,17 +5066,8 @@ def phase_decoder_spec(qwen=None, tokenizers=None) -> dict:
         emit({"phase": "spec_constraint", **spec_constraint(card, f32, jc,
                                                             ids),
               "prompt_tokens": len(ids), "seconds": time.perf_counter() - t0})
-        corpus = tmp / "corpus"
-        corpus.mkdir()
-        (corpus / "law.jsonl").write_text("".join(
-            json.dumps({"text": t}, ensure_ascii=False) + "\n"
-            for t in texts), encoding="utf-8")
         t0 = time.perf_counter()
-        table_path = tmp / "draft_table.npz"
-        built = build_draft_table.main([
-            "--tokenizer", str(qwen), "--input", str(corpus), "--out",
-            str(table_path), "--k", str(SPEC_K),
-            "--log2-size", str(SPEC_TABLE_LOG2)])
+        table_path, built = corpus_table(qwen, texts, tmp)
         emit({"phase": "spec_draft_table", **built,
               "seconds": time.perf_counter() - t0})
         table = NgramDraftTable.load(table_path)
@@ -5051,6 +5128,292 @@ def phase_decoder_spec(qwen=None, tokenizers=None) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "decoder_spec", "seconds": time.perf_counter() - t_phase,
+          "peak_card_bytes": torch.cuda.max_memory_allocated(),
+          "nvidia_smi": nvidia_smi()})
+    return answer
+
+
+# ------------------------------------------------ continuous batching
+
+def batched_prelude(tok) -> str:
+    """``llm.shared_prefix_text``: the pipeline's system turn (its first
+    system message, the same for every question the router sends to its
+    default task) rendered in ``tok``'s chat template."""
+    return tok.apply_chat_template(decoder_messages(load_chunks("zh"))[:1],
+                                   add_generation_prompt=False)
+
+
+def stream_jobs(engine, jobs, join_after=None) -> tuple:
+    """Each job ``(prompt, generate_stream kwargs)`` streamed from its own
+    thread, started together; with ``join_after`` ``(i, j)`` job ``j``
+    starts once job ``i`` has its first token (a mid-flight join). (the
+    tokens, each token's host clock) per job."""
+    toks = [[] for _ in jobs]
+    stamps = [[] for _ in jobs]
+    first = threading.Event()
+    errors = []
+
+    def run(j):
+        try:
+            if join_after is not None and j == join_after[1]:
+                first.wait(600)
+            prompt, kw = jobs[j]
+            for t in engine.generate_stream(prompt, **kw):
+                toks[j].append(t)
+                stamps[j].append(time.perf_counter())
+                if join_after is not None and j == join_after[0]:
+                    first.set()
+        except BaseException as e:     # re-raised on the main thread
+            errors.append(e)
+            first.set()
+
+    threads = [threading.Thread(target=run, args=(j,))
+               for j in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors:
+        raise errors[0]
+    check(not any(t.is_alive() for t in threads), "batched: a stream hung")
+    return toks, stamps
+
+
+def batched_identities(card, f32, ids, corpus_ids, table, prelude_ids
+                       ) -> dict:
+    """The engine's greedy streams against the single-stream engine's, on
+    the float32 copy (token-identical) and in bf16 (identical, or apart at
+    a step whose reference top-2 gap is within ``DECODER_LOGIT_ATOL``).
+    Six requests of ``BATCHED_TOKENS`` for ``BATCHED_SLOTS`` slots (slots
+    reused): the RAG prompt (past ``prefill_chunk``: chunked admission),
+    another RAG prompt, the short question stopped at an EOS id, three
+    statute spans, the last joining once the first stream has its first
+    token and stopped by a 20-token budget. Then an engine pinning the
+    pipeline's system turn (``prelude_ids``) with a matching prompt and
+    one that does not match, an int8-cache engine, and one speculating
+    with ``SPEC_K`` drafts and the corpus table; last, in bf16, a sampled
+    stream alone and beside three others. Returns the results and the
+    bf16 engines' cache bytes."""
+    tok = card.tokenizer
+    donor = rag_prompt_ids(tok, [c for c in load_chunks("zh")
+                                 if "借款" in c.text])
+    short = tok(DECODER_QUESTION)["input_ids"]
+    prompts = [ids, donor, short, corpus_ids[:300], corpus_ids[1000:1600],
+               corpus_ids[5000:5100]]
+    check(len(ids) > 1024 and ids[:len(prelude_ids)] == prelude_ids
+          and short[:len(prelude_ids)] != prelude_ids,
+          "batched: the prompts and the prelude")
+    n, max_len = BATCHED_TOKENS, card.max_len
+    slots = dict(device="cuda", max_len=max_len, n_slots=BATCHED_SLOTS)
+    out = {"prompt_tokens": [len(p) for p in prompts],
+           "prelude_tokens": len(prelude_ids)}
+    for dtype, model in (("float32", f32), ("bfloat16", card.model)):
+        t0 = time.perf_counter()
+        ref = TorchDecoderLM(model, tok, device="cuda", max_len=max_len)
+        want = [greedy_stream(ref, p, n) for p in prompts]
+        eos = want[2][n // 2]
+        want[2] = want[2][:want[2].index(eos)]
+        want[5] = want[5][:20]
+        kws = [dict(max_new_tokens=n, temperature=0.0) for _ in prompts]
+        kws[2]["eos_id"], kws[5]["max_new_tokens"] = eos, 20
+        res = {}
+        engine = TorchBatchedDecoderLM(model, tok, **slots)
+        try:
+            got, _ = stream_jobs(engine, list(zip(prompts, kws)),
+                                 join_after=(0, 5))
+        finally:
+            engine.close()
+        res["six_streams"] = [same_stream(g, w, ref, p, dtype,
+                                          f"batched stream {i}")
+                              for i, (g, w, p) in enumerate(
+                                  zip(got, want, prompts))]
+        shared = TorchBatchedDecoderLM(model, tok, shared_prefix=prelude_ids,
+                                       **slots)
+        try:
+            got, _ = stream_jobs(shared, [(ids, kws[0]), (short, kws[3])])
+            check(shared.admissions == {"shared": 1, "unshared": 1},
+                  f"batched: admissions {shared.admissions}")
+            if dtype == "bfloat16":
+                out["cache_bytes_shared"] = shared.cache_bytes
+                out["pinned_bytes"] = sum(
+                    a.numel() * a.element_size()
+                    for layer in shared._shared_kv for a in layer)
+        finally:
+            shared.close()
+        res["shared_prefix"] = {
+            "matching": same_stream(got[0], want[0], ref, ids, dtype,
+                                    "batched shared prefix"),
+            "not_matching": same_stream(got[1], greedy_stream(ref, short, n),
+                                        ref, short, dtype,
+                                        "batched unshared")}
+        ref_q = TorchDecoderLM(model, tok, device="cuda", max_len=max_len,
+                               kv_quant=True)
+        quant = TorchBatchedDecoderLM(model, tok, kv_quant=True, **slots)
+        try:
+            got, _ = stream_jobs(quant, [(ids, kws[0]),
+                                         (prompts[3], kws[3])])
+        finally:
+            quant.close()
+        res["kv_quant"] = [same_stream(g, greedy_stream(ref_q, p, n), ref_q,
+                                       p, dtype, "batched kv_quant")
+                           for g, p in zip(got, (ids, prompts[3]))]
+        spec = TorchBatchedDecoderLM(model, tok, spec_k=SPEC_K,
+                                     spec_steps=SPEC_STEPS, ngram_draft=table,
+                                     **slots)
+        try:
+            got, _ = stream_jobs(spec, [(ids, kws[0]), (prompts[3], kws[3])])
+        finally:
+            spec.close()
+        res["spec_table"] = [same_stream(g, w, ref, p, dtype,
+                                         "batched speculation")
+                             for g, w, p in zip(got, (want[0], want[3]),
+                                                (ids, prompts[3]))]
+        res["seconds"] = time.perf_counter() - t0
+        out[dtype] = res
+    engine = TorchBatchedDecoderLM(card.model, tok, **slots)
+    try:
+        out["cache_bytes"] = engine.cache_bytes
+        kw = dict(max_new_tokens=n, temperature=0.3, top_p=0.9, seed=1)
+        alone = list(engine.generate_stream(short, **kw))
+        got, _ = stream_jobs(engine, [
+            (ids, dict(max_new_tokens=n)),
+            (prompts[3], dict(max_new_tokens=n, temperature=0.7, seed=2)),
+            (prompts[4], dict(max_new_tokens=n, temperature=0.3, seed=1)),
+            (short, kw)], join_after=(0, 3))
+    finally:
+        engine.close()
+    check(got[3] == alone, "batched: a sampled stream differs beside others")
+    out["sampled"] = {"same_alone_and_beside_three": True,
+                      "distinct_tokens": len(set(alone))}
+    return out
+
+
+def batched_speed(card, corpus_ids) -> dict:
+    """An ``2 * BATCHED_SLOTS``-slot engine at each occupancy of
+    ``BATCHED_OCCUPANCY``: that many streams of ``BATCHED_TIMED_TOKENS``
+    greedy tokens at once, each on its own 512-token span of the
+    statutes, one timed run each. From the moment the last stream has its
+    first launch's tokens to the last token: ms a decode step (the host
+    clock over the launches that followed, ``decode_chunk`` steps each)
+    and aggregate tokens/s, against a step's bound (the weights and every
+    stream's filled KV rows at 3.35 TB/s); the single-stream engine's
+    decode ms a token beside; the card's busy and idle share over
+    ``BATCHED_PROFILE_TOKENS`` tokens at the top occupancy; peak card
+    memory."""
+    tok, max_len = card.tokenizer, card.max_len
+    top = BATCHED_OCCUPANCY[-1]
+    engine = TorchBatchedDecoderLM(card.model, tok, device="cuda",
+                                   max_len=max_len, n_slots=top)
+    out = {"slots": top, "decode_chunk": engine.decode_chunk}
+    c = engine.decode_chunk
+    try:
+        stream_jobs(engine, [(corpus_ids[:512], dict(max_new_tokens=16))])
+        for occ in BATCHED_OCCUPANCY:
+            jobs = [(corpus_ids[512 * i:512 * (i + 1)],
+                     dict(max_new_tokens=BATCHED_TIMED_TOKENS))
+                    for i in range(occ)]
+            toks, stamps = stream_jobs(engine, jobs)
+            check(all(len(t) == BATCHED_TIMED_TOKENS for t in toks),
+                  f"batched: {[len(t) for t in toks]} tokens")
+            t_a = max(st[c - 1] for st in stamps)
+            t_b = max(st[-1] for st in stamps)
+            after = sum(sum(x > t_a for x in st) for st in stamps)
+            steps = BATCHED_TIMED_TOKENS - c
+            # the weights once, each stream's rows at its mean position
+            n_bytes = decoder_bytes(card.model, [0]) + occ * (
+                decoder_bytes(card.model, range(512 + c, 512 + c + steps))
+                - decoder_bytes(card.model, [0]))
+            ms, by = bound(n_bytes, 2 * weight_elements(card.model) * occ,
+                           BF16_FLOP_PER_S)
+            out[f"occupancy_{occ}"] = {
+                "ms_per_step": (t_b - t_a) / steps * 1e3,
+                "tokens_per_s": after / (t_b - t_a),
+                "step_bound_ms": ms, "step_bound_by": by,
+                "step_bound_bytes": n_bytes}
+        out["profile_occupancy"] = top
+        out["decode_profile"] = profile_device(
+            lambda: stream_jobs(engine, [
+                (corpus_ids[512 * i:512 * (i + 1)],
+                 dict(max_new_tokens=BATCHED_PROFILE_TOKENS))
+                for i in range(top)]), BATCHED_PROFILE_TOKENS, host=False)
+    finally:
+        engine.close()
+    plain = TorchDecoderLM(card.model, tok, device="cuda", max_len=max_len)
+    out["single_stream_decode_ms_per_token"] = decode_ms(
+        plain, corpus_ids[:512], plain.decode_chunk + BATCHED_TIMED_TOKENS)
+    out["peak_card_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def phase_decoder_batched(qwen=None, tokenizers=None) -> dict:
+    """The continuous-batching engine (module docstring, phase 17) on phase
+    12's Qwen2.5-0.5B checkpoint ``qwen`` (its answer run's bundle and
+    phase 16's corpus table beside it; written anew where not given).
+    Returns the answer run with its launches (the ``batched`` path)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="batched_"))
+    tokenizers = {} if tokenizers is None else tokenizers
+    try:
+        chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
+        texts = [c.text for cs in chunks.values() for c in cs]
+        if qwen is None:
+            qwen = tmp / "qwen25_05b"
+            tokenizer_files(write_bpe_tokenizer, qwen, texts, tokenizers)
+            write_decoder_checkpoint(qwen, seed=5)
+        table_path = qwen.parent / "draft_table.npz"
+        if not table_path.exists():
+            corpus_table(qwen, texts, tmp)
+        table = NgramDraftTable.load(table_path)
+        card = TorchDecoderLM.from_pretrained(str(qwen), device="cuda",
+                                              max_len=DECODER_MAX_LEN)
+        tok = card.tokenizer
+        prelude = batched_prelude(tok)
+        prelude_ids = tok(prelude)["input_ids"]
+        ids = rag_prompt_ids(tok, chunks["zh"])
+        corpus_ids = tok("\n".join(c.text for c in chunks["zh"]))[
+            "input_ids"]
+        f32 = DecoderModel.from_state_dict(copy.copy(card.cfg),
+                                           float32_state(card.model))
+        t0 = time.perf_counter()
+        emit({"phase": "batched_identities", "slots": BATCHED_SLOTS,
+              "tokens": BATCHED_TOKENS,
+              **batched_identities(card, f32, ids, corpus_ids, table,
+                                   prelude_ids),
+              "seconds": time.perf_counter() - t0})
+        del f32
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        emit({"phase": "batched_speed", **batched_speed(card, corpus_ids),
+              "seconds": time.perf_counter() - t0})
+        del card
+        torch.cuda.empty_cache()
+        served = {}
+
+        def served_engine(lm):
+            check(isinstance(lm, TorchBatchedDecoderLM)
+                  and lm.n_slots == BATCHED_SLOTS
+                  and lm.shared_prefix == prelude_ids,
+                  "batched answer: the served engine")
+            served.update(admissions=dict(lm.admissions),
+                          cache_bytes=lm.cache_bytes)
+            check(lm.admissions["shared"] >= BATCHED_ANSWERS,
+                  f"batched answer: admissions {lm.admissions}")
+
+        t0 = time.perf_counter()
+        answer = decoder_answer(
+            qwen, qwen.parent, "batched", "batched_answer",
+            llm={"batch_slots": BATCHED_SLOTS, "shared_prefix_text": prelude,
+                 "max_new_tokens": BATCHED_ANSWER_TOKENS},
+            engine_check=served_engine, answers=BATCHED_ANSWERS,
+            concurrent=True)
+        answer.pop("texts")
+        emit(answer | {"served_engine": served,
+                       "seconds": time.perf_counter() - t0,
+                       "peak_card_bytes": torch.cuda.max_memory_allocated()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "decoder_batched", "seconds": time.perf_counter() - t_phase,
           "peak_card_bytes": torch.cuda.max_memory_allocated(),
           "nvidia_smi": nvidia_smi()})
     return answer
@@ -5429,11 +5792,12 @@ def run_phases(prep, keep: Path, diagnostics: bool) -> int:
     quant = phase_decoder_quant(keep / "qwen25_05b", keep / "qwen15_moe_a27b",
                                 diagnostics)
     spec = phase_decoder_spec(keep / "qwen25_05b", tokenizers)
+    batched = phase_decoder_batched(keep / "qwen25_05b", tokenizers)
     runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
             "ingest": [ingest], "stores": store_runs,
             "large": [large] + large_store_runs, "bert": bert_runs,
             "answer": [answer], "families": [families], "moe": [moe],
-            "quant": [quant], "spec": [spec]}
+            "quant": [quant], "spec": [spec], "batched": [batched]}
     # MaxSim's launches per route, as the wrapper counts them on each path
     # (the kernel's own row: all its routes; bf16 is the map path's)
     routes["float32"] = kres["maxsim"].pop("float32_route")

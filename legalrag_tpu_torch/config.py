@@ -200,12 +200,12 @@ class LLMConfig:
     weight_bits: int = 8
     kv_quant: bool = False
     # local-jax knobs of the JAX package's other engines, read so that a
-    # config tuned for it means the same here: the port has none of those
-    # engines yet, and a knob that would select or shape one makes the
-    # engine's load fail (llm/client.py: unported_engine_knobs), so the
-    # answer degrades instead of ignoring it
+    # config tuned for it means the same here: the batched engine is
+    # served; the paged, TP and DP ones are not yet, and a knob that would
+    # select or shape one makes the engine's load fail (llm/client.py:
+    # unported_engine_knobs), so the answer degrades instead of ignoring it
     batch_slots: int = 0            # > 1: the continuous-batching engine
-    paged_kv: bool = False          # the paged KV pool
+    paged_kv: bool = False          # the paged KV pool (not ported)
     kv_block_size: int = 64
     kv_pool_blocks: int = 0
     spec_k: int = 0                 # > 0: speculative decoding

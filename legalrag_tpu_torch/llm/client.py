@@ -11,7 +11,10 @@
   own BPE tokenizer
   in the layout the checkpoint ships, byte-level or sentencepiece-style,
   and its chat template, ``models/decoder.py``, ``tokenize/bpe.py``; the
-  provider keeps its name, so one config file serves both packages)
+  provider keeps its name, so one config file serves both packages; with
+  ``batch_slots > 1`` the continuous-batching ``TorchBatchedDecoderLM``,
+  ``models/batched_decoder.py``, whose concurrent streams share one decode
+  loop, with the pinned ``shared_prefix_text``)
   and ``disabled`` (expects a per-request user key; degrades otherwise).
   Any other provider name raises ``LLMUnavailable`` and so gets the
   degraded answer.
@@ -22,11 +25,15 @@
   ``constrain_json`` (passed to the load and to every stream), and with
   ``spec_k > 0`` speculation with ``spec_adaptive``, ``draft_model`` and
   the corpus table at ``ngram_draft_path``, as JAX's client asks its
-  single-stream engines. A knob of the JAX package's other engines
-  (batched, paged, shared prefix, TP / DP), or a speculation knob without
-  ``spec_k`` (JAX ignores it; ``unported_engine_knobs``), makes the load
-  fail with ``LLMUnavailable`` naming it, so the answer degrades as it
-  does in JAX when a load fails; no knob is ignored.
+  single-stream engines; ``batch_slots > 1`` (without ``paged_kv``) the
+  batched engine of that many slots, with ``shared_prefix_text`` and, with
+  ``spec_k > 0``, per-slot speculation with ``draft_model`` and the corpus
+  table. A knob of the JAX package's other engines (paged, TP / DP), or a
+  knob JAX ignores in the engine asked for (``unported_engine_knobs``: a
+  speculation knob without ``spec_k``, ``shared_prefix_text`` without
+  ``batch_slots > 1``, ``spec_adaptive`` with it), makes the load fail
+  with ``LLMUnavailable`` naming it, so the answer degrades as it does in
+  JAX when a load fails; no knob is ignored.
 - Reasoning models (gpt-5, o1, o3, "thinking") get no temperature or top_p
   and ``max_completion_tokens`` in place of ``max_tokens``.
 - ``chat`` makes two attempts, then returns the degraded answer: a fixed
@@ -84,22 +91,32 @@ class LLMUnavailable(RuntimeError):
 # the JAX package's engine knobs that the port has no engine for: a value
 # other than the default selects or shapes one of those engines, but for
 # the counts, whose 0 and 1 both keep the single-stream engine
-_UNPORTED_KNOBS = ("batch_slots", "paged_kv", "kv_block_size",
-                   "kv_pool_blocks", "shared_prefix_text", "tp_shards",
-                   "dp_replicas")
-_COUNT_KNOBS = ("batch_slots", "tp_shards", "dp_replicas")
-# the speculative engine's knobs, which JAX's single-stream client ignores
-# without spec_k > 0 and the port refuses there
+_UNPORTED_KNOBS = ("paged_kv", "kv_block_size", "kv_pool_blocks",
+                   "tp_shards", "dp_replicas")
+_COUNT_KNOBS = ("tp_shards", "dp_replicas")
+# the speculative engines' knobs, which JAX's client ignores without
+# spec_k > 0 and the port refuses there
 _SPEC_KNOBS = ("spec_adaptive", "draft_model", "ngram_draft_path")
+# the batched engine's own knob, which JAX ignores without batch_slots > 1
+_BATCHED_KNOBS = ("shared_prefix_text",)
+# the single-stream speculative engine's knob, which JAX's batched one
+# ignores
+_SINGLE_STREAM_SPEC_KNOBS = ("spec_adaptive",)
 
 
 def unported_engine_knobs(cfg: LLMConfig) -> List[str]:
     """The knobs of ``cfg`` that ``local-jax`` refuses: those asking for an
-    engine the port does not have, and without ``spec_k > 0`` the
-    speculation knobs set away from their defaults."""
+    engine the port does not have, and those set away from their defaults
+    that JAX would ignore in the engine ``cfg`` selects (the speculation
+    knobs without ``spec_k > 0``, ``shared_prefix_text`` without
+    ``batch_slots > 1``, ``spec_adaptive`` with it)."""
     default = LLMConfig()
-    spec_off = () if cfg.spec_k > 0 else _SPEC_KNOBS
-    return [k for k in _UNPORTED_KNOBS + spec_off
+    batched = cfg.batch_slots > 1
+    ignored = (_SPEC_KNOBS if cfg.spec_k <= 0
+               else _SINGLE_STREAM_SPEC_KNOBS if batched else ())
+    if not batched:
+        ignored += _BATCHED_KNOBS
+    return [k for k in _UNPORTED_KNOBS + ignored
             if (getattr(cfg, k) > 1 if k in _COUNT_KNOBS
                 else getattr(cfg, k) != getattr(default, k))]
 
@@ -203,8 +220,14 @@ class LLMClient:
         return self.provider == "disabled"
 
     def close(self) -> None:
-        """Drop the local model or engine. Idempotent."""
-        self._local = None
+        """Drop the local model or engine (the batched engine's worker
+        thread stopped, its open streams ended). Idempotent."""
+        local, self._local = self._local, None
+        if local is not None and hasattr(local, "close"):
+            try:
+                local.close()
+            except Exception:
+                log.warning("local engine close failed", exc_info=True)
 
     # --------------------------------------------------------------- openai
     def _openai_payload(self, messages: List[Message],
@@ -328,10 +351,11 @@ class LLMClient:
 
     # ------------------------------------------------------------ local-jax
     def _load_jax_lm(self):
-        """The single-stream decoder engine (``TorchDecoderLM``, or with
-        ``spec_k > 0`` ``TorchSpecLookupDecoderLM``), loaded once under the
-        lock; ``LLMUnavailable`` when the config asks for an engine the
-        port lacks or the load fails."""
+        """The decoder engine (``TorchDecoderLM``, with ``spec_k > 0``
+        ``TorchSpecLookupDecoderLM``, with ``batch_slots > 1``
+        ``TorchBatchedDecoderLM``), loaded once under the lock;
+        ``LLMUnavailable`` when the config asks for an engine the port
+        lacks or the load fails."""
         with self._load_lock:
             if self._local is None:
                 knobs = unported_engine_knobs(self.cfg)
@@ -356,7 +380,23 @@ class LLMClient:
                     if self.cfg.prefill_chunk:
                         kw["prefill_chunk"] = self.cfg.prefill_chunk
                     engine_cls = TorchDecoderLM
-                    if self.cfg.spec_k > 0:
+                    if self.cfg.batch_slots > 1:
+                        # continuous batching: concurrent streams share one
+                        # decode loop; spec_k > 0 adds per-slot speculation
+                        from legalrag_tpu_torch.models.batched_decoder \
+                            import TorchBatchedDecoderLM
+
+                        engine_cls = TorchBatchedDecoderLM
+                        kw.update(n_slots=self.cfg.batch_slots,
+                                  spec_k=max(self.cfg.spec_k, 0),
+                                  shared_prefix_text=self.cfg
+                                  .shared_prefix_text)
+                        if self.cfg.spec_k > 0:
+                            if self.cfg.ngram_draft_path:
+                                kw["ngram_draft"] = self.cfg.ngram_draft_path
+                            if self.cfg.draft_model:
+                                kw["draft_model"] = self.cfg.draft_model
+                    elif self.cfg.spec_k > 0:
                         # speculation: prompt lookup, the corpus table and
                         # a draft model, k drafts verified a pass
                         from legalrag_tpu_torch.models.spec_decode import \

@@ -583,18 +583,39 @@ class MoEBlock(Int4Operands, nn.Module):
 
 def _write_rows(dst: torch.Tensor, rows: torch.Tensor, cache_len) -> None:
     """Write ``rows`` [B, T, ...] into the cache ``dst`` [B, S, ...] from row
-    ``cache_len``: an int, or a 0-d tensor on the device (the speculative
-    engine's offset, never read by the host). A tensor offset's rows past
-    the cache land on its last row: a frozen verify pass near capacity
-    writes there, at or past the write pointer, where every later step
-    writes its own row before attending it."""
+    ``cache_len``: an int; a 0-d tensor on the device (the speculative
+    engine's offset, never read by the host); or a [B] tensor, each batch
+    row from its own offset (the continuous-batching engine's slots).
+
+    A 0-d offset's rows past the cache land on its last row: a frozen
+    verify pass near capacity writes there, at or past the write pointer,
+    where every later step writes its own row before attending it. A [B]
+    offset's rows outside the cache are dropped, as JAX's scatter drops
+    them: each is written instead to a row of its batch row that no valid
+    entry of this call writes, with that row's own content, so the cache
+    is left as it was there (``T <= S`` gives every batch row one)."""
     t = rows.shape[1]
     if isinstance(cache_len, int):
         dst[:, cache_len:cache_len + t] = rows
         return
-    idx = (cache_len + torch.arange(t, device=dst.device)).clamp_max(
-        dst.shape[1] - 1)
-    dst.index_copy_(1, idx, rows.to(dst.dtype))
+    if cache_len.dim() == 0:
+        idx = (cache_len + torch.arange(t, device=dst.device)).clamp_max(
+            dst.shape[1] - 1)
+        dst.index_copy_(1, idx, rows.to(dst.dtype))
+        return
+    b, s = dst.shape[:2]
+    r = cache_len[:, None] + torch.arange(t, device=dst.device)[None, :]
+    ok = (r >= 0) & (r < s)
+    lo = cache_len.clamp(0, s)
+    hi = (cache_len + t).clamp(0, s)
+    # the row before the written range where there is one, else after it
+    sink = torch.where(lo > 0, lo - 1, hi.clamp_max(s - 1))
+    brow = torch.arange(b, device=dst.device)
+    kept = dst[brow, sink]                                   # [B, ...]
+    shape = (b, t) + (1,) * (rows.dim() - 2)
+    vals = torch.where(ok.view(shape), rows.to(dst.dtype),
+                       kept[:, None].expand_as(rows))
+    dst[brow[:, None].expand(b, t), torch.where(ok, r, sink[:, None])] = vals
 
 
 class DecoderLayer(nn.Module):
@@ -618,7 +639,10 @@ class DecoderLayer(nn.Module):
             self.pre_feedforward_layernorm = RMSNorm(hs, eps, True)
             self.post_feedforward_layernorm = RMSNorm(hs, eps, True)
 
-    def forward(self, x, cos, sin, mask, cache, cache_len: int):
+    def forward(self, x, cos, sin, mask, cache, cache_len, shared=None):
+        """``cache_len``: the write offset (``_write_rows``); ``shared``:
+        the layer's pinned shared-prefix rows (``DecoderModel.forward``),
+        attended before the cache."""
         cfg, a = self.cfg, self.self_attn
         b, t, _ = x.shape
         d = cfg.head_dim
@@ -644,6 +668,12 @@ class DecoderLayer(nn.Module):
             _write_rows(ck, k, cache_len)
             _write_rows(cv, v, cache_len)
             k, v = ck, cv
+        if shared is not None:
+            sk, sv = shared if len(shared) == 2 else (
+                dequantize_kv(shared[0], shared[2], k.dtype),
+                dequantize_kv(shared[1], shared[3], v.dtype))
+            k = torch.cat([sk.expand(b, *sk.shape[1:]), k], dim=1)
+            v = torch.cat([sv.expand(b, *sv.shape[1:]), v], dim=1)
         out = a.o_proj(attend(q, k, v, mask,
                               (cfg.query_pre_attn_scalar or d) ** -0.5,
                               cfg.attn_logit_softcapping))
@@ -740,24 +770,33 @@ class DecoderModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, positions: torch.Tensor,
                 kv_cache: Optional[List[Tuple[torch.Tensor, ...]]] = None,
-                cache_len: int = 0, return_hidden: bool = False
-                ) -> torch.Tensor:
+                cache_len=0, return_hidden: bool = False,
+                shared_kv: Optional[List[Tuple[torch.Tensor, ...]]] = None,
+                kv_offset=None) -> torch.Tensor:
         """[B, T] ids at ``positions`` [B, T] → float32 logits [B, T, V]
         (the final-norm hidden states with ``return_hidden``).
 
         With ``kv_cache`` (per layer ``(k, v)``, each [B, S, Hkv, D], or the
         int8 cache's ``(k_q, v_q, k_scale, v_scale)``, the scales [B, S,
         Hkv, 1]) the new keys and values are written in place at rows
-        ``cache_len`` .. ``cache_len + T - 1`` (an int, or a 0-d tensor on
-        the device: ``_write_rows``) and attention spans the whole
-        cache (dequantized), rows at
-        or past ``cache_len + T`` and after each query's position masked.
-        Without it the T tokens attend each other causally. A sliding
-        layer also masks the keys ``sliding_window`` or more positions
-        before the query. Both masks and both RoPE tables are built once
-        per call."""
+        ``cache_len`` .. ``cache_len + T - 1`` (an int; a 0-d tensor on the
+        device; or a [B] tensor, each batch row at its own offset:
+        ``_write_rows``) and attention spans the whole cache (dequantized),
+        rows at or past ``cache_len + T`` and after each query's position
+        masked. Without it the T tokens attend each other causally. A
+        sliding layer also masks the keys ``sliding_window`` or more
+        positions before the query. Both masks and both RoPE tables are
+        built once per call.
+
+        ``shared_kv`` and ``kv_offset`` (JAX's physically shared prefix, the
+        batched engine's ``shared_prefix``): ``shared_kv`` holds per layer
+        one read-only [1, P] segment (dense or int8, as the cache) of
+        absolute positions 0 .. P - 1, attended by the batch rows whose
+        ``kv_offset`` (an int or [B], each 0 or P) is above 0; a cache row
+        holds position ``row + kv_offset``, and ``cache_len`` stays
+        absolute."""
         cfg = self.cfg
-        t = input_ids.shape[1]
+        b, t = input_ids.shape
         x = self.embed_tokens(input_ids)
         if cfg.gemma:   # the embedding times sqrt(H), rounded to its dtype
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
@@ -765,10 +804,31 @@ class DecoderModel(nn.Module):
         if cfg.gemma3:
             rope_local = _rope_tables(positions, self.rope_inv_local,
                                       self.rope_scale_local)
+        row0 = cache_len
         if kv_cache is not None:
             s = kv_cache[0][0].shape[1]
             kv_pos = torch.arange(s, device=x.device)[None, None, :]
-            mask = (kv_pos <= positions[:, :, None]) & (kv_pos < cache_len + t)
+            vector = torch.is_tensor(cache_len) and cache_len.dim() == 1
+            filled = (cache_len + t)[:, None, None] if vector \
+                else cache_len + t
+            if shared_kv is None and kv_offset is None:
+                mask = (kv_pos <= positions[:, :, None]) & (kv_pos < filled)
+            else:
+                off = torch.as_tensor(0 if kv_offset is None else kv_offset,
+                                      device=x.device).expand(b)
+                kvp = off[:, None] + kv_pos[0]                   # [B, S]
+                seg_ok = torch.ones_like(kvp, dtype=torch.bool)
+                if shared_kv is not None:
+                    p = shared_kv[0][0].shape[1]
+                    kvp = torch.cat([torch.arange(
+                        p, device=x.device).expand(b, p), kvp], dim=1)
+                    seg_ok = torch.cat([(off > 0)[:, None].expand(b, p),
+                                        seg_ok], dim=1)
+                kv_pos = kvp[:, None, :]
+                mask = ((kv_pos <= positions[:, :, None]) & (kv_pos < filled)
+                        & seg_ok[:, None, :])
+                if kv_offset is not None:
+                    row0 = cache_len - kv_offset
         else:
             kv_pos = positions[:, None, :]
             mask = positions[:, :, None] >= kv_pos
@@ -778,7 +838,8 @@ class DecoderModel(nn.Module):
         for li, layer in enumerate(self.layers):
             cos, sin = rope_local if cfg.gemma3 and sliding[li] else rope
             x = layer(x, cos, sin, band if sliding[li] else mask,
-                      None if kv_cache is None else kv_cache[li], cache_len)
+                      None if kv_cache is None else kv_cache[li], row0,
+                      None if shared_kv is None else shared_kv[li])
         x = self.norm(x)
         return x if return_hidden else self.logits(x)
 

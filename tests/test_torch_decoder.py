@@ -13,6 +13,7 @@ sampled draw by a chi-squared test at the 0.999 quantile."""
 
 import json
 import logging
+import os
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,17 @@ import torch
 from legalrag_tpu.models import decoder as jd
 from legalrag_tpu_torch.convert import decoder_params_from_jax
 from legalrag_tpu_torch.models import decoder as td
+
+# torch's intra-op thread pool. Under pytest-xdist each worker process
+# shares the host's cores with the others, and on these tiny shapes a pool
+# of every core in each of 6 workers at once runs ~9x slower than one
+# thread. Every worker collects every test file, so this module-level call
+# sets the pool of the whole worker process, for every test it runs (the
+# JAX tests' XLA keeps its own pool): the cores divided among the workers.
+# A run without xdist keeps torch's default.
+_XDIST_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _XDIST_WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _XDIST_WORKERS))
 
 ATOL = 1e-4
 WARP_ATOL = 1e-6

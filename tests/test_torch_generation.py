@@ -102,22 +102,32 @@ def test_rag_answer_sse_matches_jax(served, llm_on_both, clients):  # noqa: F811
     assert [e for e, _ in got] == [e for e, _ in want]
 
 
-# the batched, paged, shared-prefix, TP and DP engines' knobs (the
-# constraint and speculation: tests/test_torch_generation_spec.py)
-KNOBS = {"batch_slots": 4, "paged_kv": True, "kv_block_size": 32,
-         "kv_pool_blocks": 64, "shared_prefix_text": "你是法律助手",
-         "tp_shards": 2, "dp_replicas": 2}
+# the paged, TP and DP engines' knobs, and the knobs JAX ignores in the
+# engine selected: the pinned prelude without batch_slots, spec_adaptive
+# with it (batch_slots alone is served: tests/test_torch_batched_decoder.py;
+# the constraint and speculation: tests/test_torch_generation_spec.py).
+# Case: (settings, the knob refused)
+KNOBS = {"batch_slots": ({"batch_slots": 4, "spec_k": 4,
+                          "spec_adaptive": 1.5}, "spec_adaptive"),
+         "paged_kv": ({"paged_kv": True}, "paged_kv"),
+         "kv_block_size": ({"kv_block_size": 32}, "kv_block_size"),
+         "kv_pool_blocks": ({"kv_pool_blocks": 64}, "kv_pool_blocks"),
+         "shared_prefix_text": ({"shared_prefix_text": "你是法律助手"},
+                                "shared_prefix_text"),
+         "tp_shards": ({"tp_shards": 2}, "tp_shards"),
+         "dp_replicas": ({"dp_replicas": 2}, "dp_replicas")}
 
 
 @pytest.mark.parametrize("knob", sorted(KNOBS))
 def test_unported_knobs_degrade_the_answer(model_dir, knob):
-    """A knob of an engine the port lacks fails the load naming it: the
-    answer degrades (JAX's answer when its load fails), in chat and in
-    the stream."""
-    cfg = LLMConfig(**llm_kw(model_dir, **{knob: KNOBS[knob]}))
-    assert unported_engine_knobs(cfg) == [knob]
+    """A knob of an engine the port lacks, or one JAX ignores in the engine
+    selected, fails the load naming it: the answer degrades (JAX's answer
+    when its load fails), in chat and in the stream."""
+    settings, refused = KNOBS[knob]
+    cfg = LLMConfig(**llm_kw(model_dir, **settings))
+    assert unported_engine_knobs(cfg) == [refused]
     c = LLMClient(cfg, device="cpu")
-    with pytest.raises(LLMUnavailable, match=knob):
+    with pytest.raises(LLMUnavailable, match=refused):
         c._load_jax_lm()
     msgs = [{"role": "user", "content": "合同可以解除吗"}]
     assert c.chat(msgs) == DEGRADED_ANSWER["zh"]
