@@ -42,7 +42,7 @@ Phases, each printing one JSON line:
 6. ``serve``: the single-query serving path. Both bundles are saved to a
    temporary index directory with their law graphs (``GraphBuilder``) and
    served by ``ByLangRetriever`` on the card (rerank, late channel, top 10,
-   oversample 4): 256 requests (128 zh, 128 en, sampled as in 5, every
+   oversample 4): 128 requests (64 zh, 64 en, sampled as in 5, every
    other one ``GRAPH_AUGMENTED``) from 16 threads at once, so the
    micro-batcher coalesces them. Requests/s, per-request p50 / p99 ms, the
    channels calls and their mean batch, the per-stage ms of the retriever's
@@ -64,7 +64,7 @@ Phases, each printing one JSON line:
    worded to interpret, so the router sends it ``GRAPH_AUGMENTED``) from
    16 client threads: requests/s, p50 / p99 ms, channels calls, stages,
    device busy and idle share, the micro-batcher's counters on
-   ``/metrics``; 32 of them one at a time; every hit list against the
+   ``/metrics``; 16 of them one at a time; every hit list against the
    same server on the CPU (``device="cpu"``, in-process) over the same
    directories; ``/rag/retrieve_batch`` with 64 questions per language;
    ``/rag/answer`` by ``retrieval_id`` (no launch) and as SSE, ``/rag/query``
@@ -121,7 +121,7 @@ Phases, each printing one JSON line:
    N4: both kernels), device busy and idle share, MaxSim's device ms a
    batch) with 32 questions against the bundle's CPU twin (saved and
    loaded on the CPU: the same stores, the late map within 1e-5, no swap
-   in the top 10 given the card's late map); then 128 ``ByLangRetriever``
+   in the top 10 given the card's late map); then 64 ``ByLangRetriever``
    requests from 16 threads over the saved bundles (requests/s, p50 /
    p99, launches per channels call, 8 against the CPU, channel rows
    swapping only at near-ties within 1e-5);
@@ -156,7 +156,7 @@ Phases, each printing one JSON line:
    score_select and one bf16 MaxSim launch a batch) with 16 questions
    against the bundle's CPU twin (saved, loaded on the CPU: its query
    views within 1e-4 of the card's, and, given the card's views, the
-   card's top 10 but for near-ties); 64 ``ByLangRetriever`` requests
+   card's top 10 but for near-ties); 32 ``ByLangRetriever`` requests
    (32 a language, the cross-encoder reranking each one's top 30):
    requests/s, p50 / p99, stages, launches per channels call; the
    cross-encoder on 30 candidates at 512 tokens (ms a call, logits within
@@ -197,7 +197,8 @@ Phases, each printing one JSON line:
    template in Gemma's turn format, ``<eos>`` the end): the same steps as
    12 (the twin's zh prompt over 512 tokens, so the band bites; the
    identities, whose chunked prefill crosses the window; prefill, decode,
-   peak memory, one timed run of each) and 3 ``/rag/answer`` streams (the
+   peak memory, one timed run of each) and ``DECODER_ANSWERS``
+   ``/rag/answer`` streams (the
    ``families`` path,
    kernels 1 and 2/3 once a request, held against their plain versions);
    then Qwen3-0.6B (``QWEN3_06B``: 1024 wide, 16 / 8 heads of 128, q/k
@@ -210,7 +211,8 @@ Phases, each printing one JSON line:
    renormalisation, a sigmoid-gated shared expert of 5,632, vocab 151,936,
    untied) at ``MOE_LAYERS`` of its 24 layers, every width as released,
    random bf16 weights beside the Qwen2-layout tokenizer: the steps of 12
-   (twin, identities, speed, 3 ``/rag/answer`` streams on the ``moe``
+   (twin, identities, speed, ``DECODER_ANSWERS`` ``/rag/answer`` streams
+   on the ``moe``
    path, kernels 1 and 2/3 once a request), and from the twin's prefill
    the share of (token, layer) top-4 sets that differ between the card
    (bf16) and the twin (float32), at most ``MOE_MAX_FLIP_SHARE``, and the
@@ -236,7 +238,7 @@ Phases, each printing one JSON line:
    bound; for int4 with the int8 cache (the served configuration) also
    the identities of 12 and the busy and idle share (with
    ``--diagnostics`` how far one ulp moves the logits with and without
-   the int8 grid); then 3
+   the int8 grid); then ``DECODER_ANSWERS``
    ``/rag/answer`` streams in that configuration (the ``quant`` path,
    kernels 1 and 2/3 once a request, held against their plain versions).
    Then phase 14's Qwen1.5-MoE checkpoint with int8 and int4 expert
@@ -273,7 +275,8 @@ Phases, each printing one JSON line:
    stream equals the target's plain one, in bf16 but at a near-tie; decode
    ms a token against the plain target's and its bound; the 0.5B drafting
    for itself on its float32 copy accepts all k in every round the budget
-   does not cut. Last, 3 ``/rag/answer`` streams through the port's server
+   does not cut. Last, ``DECODER_ANSWERS`` ``/rag/answer`` streams through
+   the port's server
    with ``local-jax`` at ``spec_k`` 8, the corpus table and
    ``constrain_json`` (the ``spec`` path, kernels 1 and 2/3 once a
    request, held against their plain versions): each answer's text a
@@ -286,9 +289,9 @@ Phases, each printing one JSON line:
    is printed): six greedy streams of ``BATCHED_TOKENS`` on
    ``BATCHED_SLOTS`` slots (the RAG prompt past ``prefill_chunk``, another
    RAG prompt, the question stopped at an EOS id, three statute spans, the
-   last joining mid-flight with a 20-token budget); an engine pinning the
-   pipeline's system turn (``shared_prefix_text``) with a matching and a
-   non-matching prompt; an int8-cache engine; one speculating with
+   last joining mid-flight with a budget of 5/8 of them); an engine
+   pinning the pipeline's system turn (``shared_prefix_text``) with a
+   matching and a non-matching prompt; an int8-cache engine; one speculating with
    ``SPEC_K`` drafts and phase 16's corpus table; a sampled stream the same
    alone and beside three others. The slot cache's bytes with and without
    the pinned turn. An 8-slot engine at occupancy 1, 2, 4 and 8 (streams
@@ -301,7 +304,27 @@ Phases, each printing one JSON line:
    path, kernels 1 and 2/3 once per channels call, held against their
    plain versions): each stream's first-token and end ms, every prompt
    admitted on the pinned turn, and ``/metrics``' ``legalrag_gen_*``
-   counts of the run.
+   counts of the run;
+18. ``decoder_paged``: the paged KV engine (``llm.paged_kv``,
+   ``TorchPagedDecoderLM``: a block pool, radix prefix reuse, reservation
+   admission) on phase 17's loaded model and float32 copy. Against the
+   single-stream engine (phase 17's reference streams; float32
+   token-identical, bf16 but at a near-tie): the six identity streams on
+   ``BATCHED_SLOTS`` slots, then the RAG prompt again with its full blocks
+   attached from the tree; on the float32 copy two speculative streams
+   with the corpus table, and ``PAGED_SMALL_STREAMS`` streams over a pool
+   of two streams' blocks (the later ones wait, cached blocks are
+   evicted). The pool's, a launch's view's and the batched slot cache's
+   bytes, blocks reused (``paged_stats``), peak card memory. An 8-slot
+   paged engine, then an 8-slot batched one, at occupancy 1 and 8: ms a
+   step and tokens/s against the step's bound; the paged engine's busy
+   and idle share at 8. Last,
+   ``BATCHED_ANSWERS``
+   ``/rag/answer`` SSE streams at once with ``batch_slots`` 4 and
+   ``paged_kv`` (the ``paged`` path, kernels 1 and 2/3 once per channels
+   call, held against their plain versions): first-token and end ms, the
+   served engine's ``paged_stats`` and the run's ``legalrag_gen_*``
+   counts.
 
 A child process writes the files of phases 11-13 that need no card
 (``prepare_files``: the bert checkpoints, the Qwen2.5, Gemma-3-1B and
@@ -389,6 +412,7 @@ from legalrag_tpu_torch.models.quant import (
 )
 from legalrag_tpu_torch.models.hash_encoder import project_norm
 from legalrag_tpu_torch.models.ngram_draft import NgramDraftTable
+from legalrag_tpu_torch.models.paged_decoder import TorchPagedDecoderLM
 from legalrag_tpu_torch.models.safetensors_io import save_file
 from legalrag_tpu_torch.models.spec_decode import TorchSpecLookupDecoderLM
 from legalrag_tpu_torch.ops.bm25_sparse import (
@@ -452,25 +476,25 @@ TIE = 1e-6                  # scores closer than this may swap order
 LARGE = dict(n_docs=1 << 20, vocab=65536, dim=768, doc_len=64, token_dim=128)
 LARGE_BATCHES = 8           # back-to-back query batches of 64
 REF_DOCS = 65536            # the CPU reference's index
-SERVE_PER_LANG = 128        # serve phase: requests per language (256 until PR 20)
+SERVE_PER_LANG = 64         # serve phase: requests per language
 SERVE_THREADS = 16          # request threads submitting at once
 SERVE_CPU_CHECKS = 16       # requests held against the CPU retriever
 SERVE_SOLO_CHECKS = 8       # requests held against a solo run on the card
 SERVE_SERIAL = 64           # requests sent one at a time (no contention)
 # http phase: /rag/retrieve requests per language (128 until the
 # decoder_batched phase needed the script's time)
-HTTP_PER_LANG = 64
+HTTP_PER_LANG = 64          # a whole batch of make_queries
 HTTP_THREADS = 16           # client threads sending at once
-HTTP_SERIAL = 32            # /rag/retrieve requests sent one at a time
+HTTP_SERIAL = 16            # /rag/retrieve requests sent one at a time
 HTTP_BATCH_PER_LANG = 64    # questions per language in /rag/retrieve_batch
 HTTP_SSE = 8                # /rag/query SSE streams, one at a time
 INGEST_THREADS = 8          # ingest phase: client threads asking throughout
-INGEST_WINDOW = 64          # /rag/retrieve requests before and after it
+INGEST_WINDOW = 32          # /rag/retrieve requests before and after it
 INGEST_RECALL = 64          # self-retrieval queries from the ingested chunks
 INGEST_CPU_CHECKS = 32      # questions held against the CPU twin
 # stores phase: the quantized configurations (EngineConfig overrides)
 STORES = {"q8": {"dtype": "int8"}, "n4": {"token_dtype": "nbit4"}}
-STORES_REQUESTS = 128       # ByLangRetriever requests per configuration
+STORES_REQUESTS = 64        # ByLangRetriever requests per configuration
 STORES_CPU_CHECKS = 32      # map-path questions held against the CPU twin
 STORES_SERVE_CPU_CHECKS = 8  # ByLangRetriever requests against the CPU
 STORE_BUCKETS = (1, 8, 64)  # batch sizes of the MaxSim route checks
@@ -491,9 +515,9 @@ BGE_VOCAB = {"zh": 21128, "en": 30522}
 BERT_LAYER_SCALE = 4.0
 BERT_APPEND = 91            # en chunks appended to the built bert bundle
 BERT_TWIN_QUERIES = 16      # map questions held against the CPU twin
-# ByLangRetriever requests (32 per language: the decoder phases need the
-# script's time; 128 until PR 20, 256 before)
-BERT_SERVE_REQUESTS = 64
+# ByLangRetriever requests (16 per language: the decoder phases need the
+# script's time)
+BERT_SERVE_REQUESTS = 32
 BERT_CE_DOCS = 30           # cross-encoder candidates a call (rerank_top_n)
 BERT_VIEW_ATOL = 1e-4       # the card's query views against the CPU twin's
 BERT_CE_ATOL = 1e-4         # cross-encoder logits against the CPU twin's
@@ -534,14 +558,14 @@ DECODER_MAX_LEN = 4096 + 1024   # max_context_tokens + max_new_tokens
 DECODER_QUESTION = "合同在什么情况下可以解除？"
 DECODER_HITS = 8            # statute chunks in the twin's RAG prompt
 DECODER_PREFILL_LENS = (512, 2048, 4096)
-# the decode timings' tokens (128 until the script's time needed them) and
-# a profiled decode run's (~1,300 events a token; 40 until then)
-DECODER_DECODE_TOKENS = 64
-DECODER_PROFILE_TOKENS = 16
-DECODER_ANSWERS = 3         # timed /rag/answer streams
+# the decode timings' tokens (128, then 64, until the script's time needed
+# them) and a profiled decode run's (~1,300 events a token; 40, then 16)
+DECODER_DECODE_TOKENS = 32
+DECODER_PROFILE_TOKENS = 8
+DECODER_ANSWERS = 2         # timed /rag/answer streams
 # their max_new_tokens (128 until the decoder_spec phase needed the time,
 # 64 until the decoder_batched phase did; the quant phase's are 16,
-# decoder_spec's 64, decoder_batched's 64)
+# decoder_spec's and the batched and paged phases' 32)
 DECODER_ANSWER_TOKENS = 32
 # decoder_families phase: google/gemma-3-1b-it's published config.json (a
 # dict as released; its head is tied by Gemma3TextConfig's default) and
@@ -694,20 +718,27 @@ SPEC_K = 8                  # drafts verified a round (llm.spec_k)
 SPEC_STEPS = 4              # rounds a host read (the engine's default)
 SPEC_CONSTRAINED_TOKENS = 128
 SPEC_TOKENS = 32            # each speculation identity stream's tokens
-SPEC_TIMED_TOKENS = 32      # the decode timings' tokens (64 until PR 20)
+SPEC_TIMED_TOKENS = 16      # the decode timings' tokens
 SPEC_SELF_DRAFT_TOKENS = 64  # the self draft's stream: 7 rounds of k + 1
 SPEC_DRAFT_TOKENS = 8       # the 1.5B target's streams (16 until PR 20)
-SPEC_ANSWER_TOKENS = 64     # 128 until PR 20
+SPEC_ANSWER_TOKENS = 32     # each speculative answer's max_new_tokens
 SPEC_TABLE_LOG2 = 18        # the corpus table's slots (the CLI's default)
 # decoder_batched phase: the continuous-batching engine (llm.batch_slots)
 # on phase 12's Qwen2.5-0.5B checkpoint
 BATCHED_SLOTS = 4           # the identity engines' slots and the answers'
-BATCHED_TOKENS = 32         # each identity stream's greedy tokens
+BATCHED_TOKENS = 16         # each identity stream's greedy tokens
 BATCHED_OCCUPANCY = (1, 2, 4, 8)   # streams at once in an 8-slot engine
-BATCHED_TIMED_TOKENS = 64   # each timed stream's tokens
-BATCHED_PROFILE_TOKENS = 16
+BATCHED_TIMED_TOKENS = 32   # each timed stream's tokens
+BATCHED_PROFILE_TOKENS = 8
 BATCHED_ANSWERS = 8         # /rag/answer streams, one client thread each
-BATCHED_ANSWER_TOKENS = 64
+BATCHED_ANSWER_TOKENS = 32
+# decoder_paged phase: the paged KV engine (llm.paged_kv) on the same
+# checkpoint, beside the batched engine
+PAGED_BLOCK = 64            # llm.kv_block_size's default
+PAGED_OCCUPANCY = (1, 8)    # streams at once in an 8-slot engine
+PAGED_SMALL_MAX_LEN = 2048  # the small pool's engine: 32 blocks a context
+PAGED_SMALL_PROMPT = 960    # its streams' statute spans: 15 full blocks
+PAGED_SMALL_STREAMS = 4     # 16 blocks reserved each: the pool holds two
 # zh questions the router sends to its default task, so the pipeline's
 # system turn (the pinned prelude) opens every prompt; the first 3 are the
 # earlier phases' answer questions
@@ -733,13 +764,15 @@ PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "moe": ("score_select", "maxsim"),
                 "quant": ("score_select", "maxsim"),
                 "spec": ("score_select", "maxsim"),
-                "batched": ("score_select", "maxsim")}
+                "batched": ("score_select", "maxsim"),
+                "paged": ("score_select", "maxsim")}
 # MaxSim's route (the store kind, as the wrapper counts it) on each path
 # that launches it; the recall path's is its token store's
 PATH_ROUTES = {"map": "bf16", "bert": "bf16", "serve": "bf16", "http": "bf16",
                "ingest": "bf16", "stores_q8": "int8", "stores_n4": "nbit4",
                "answer": "bf16", "families": "bf16", "moe": "bf16",
-               "quant": "bf16", "spec": "bf16", "batched": "bf16"}
+               "quant": "bf16", "spec": "bf16", "batched": "bf16",
+               "paged": "bf16"}
 
 
 def emit(obj) -> None:
@@ -5179,8 +5212,33 @@ def stream_jobs(engine, jobs, join_after=None) -> tuple:
     return toks, stamps
 
 
-def batched_identities(card, f32, ids, corpus_ids, table, prelude_ids
-                       ) -> dict:
+def identity_prompts(tok, ids, corpus_ids) -> list:
+    """The batched and paged identities' six prompts: the RAG prompt
+    ``ids``, another RAG prompt, the bare question, three statute spans."""
+    donor = rag_prompt_ids(tok, [c for c in load_chunks("zh")
+                                 if "借款" in c.text])
+    short = tok(DECODER_QUESTION)["input_ids"]
+    return [ids, donor, short, corpus_ids[:300], corpus_ids[1000:1600],
+            corpus_ids[5000:5100]]
+
+
+def identity_jobs(ref, prompts, n: int) -> tuple:
+    """The six identity streams' settings and ``ref``'s streams for them:
+    ``n`` greedy tokens each, the bare question stopped at an EOS id (its
+    reference's token ``n // 2``), the last span at a budget of five
+    eighths of ``n``."""
+    want = [greedy_stream(ref, p, n) for p in prompts]
+    eos = want[2][n // 2]
+    budget = n * 5 // 8
+    want[2] = want[2][:want[2].index(eos)]
+    want[5] = want[5][:budget]
+    kws = [dict(max_new_tokens=n, temperature=0.0) for _ in prompts]
+    kws[2]["eos_id"], kws[5]["max_new_tokens"] = eos, budget
+    return want, kws
+
+
+def batched_identities(card, f32, ids, corpus_ids, table, prelude_ids,
+                       refs=None) -> dict:
     """The engine's greedy streams against the single-stream engine's, on
     the float32 copy (token-identical) and in bf16 (identical, or apart at
     a step whose reference top-2 gap is within ``DECODER_LOGIT_ATOL``).
@@ -5188,18 +5246,16 @@ def batched_identities(card, f32, ids, corpus_ids, table, prelude_ids
     reused): the RAG prompt (past ``prefill_chunk``: chunked admission),
     another RAG prompt, the short question stopped at an EOS id, three
     statute spans, the last joining once the first stream has its first
-    token and stopped by a 20-token budget. Then an engine pinning the
-    pipeline's system turn (``prelude_ids``) with a matching prompt and
+    token and stopped by a budget of 5/8 of them. Then an engine pinning
+    the pipeline's system turn (``prelude_ids``) with a matching prompt and
     one that does not match, an int8-cache engine, and one speculating
     with ``SPEC_K`` drafts and the corpus table; last, in bf16, a sampled
     stream alone and beside three others. Returns the results and the
-    bf16 engines' cache bytes."""
+    bf16 engines' cache bytes. ``refs`` (a dict) receives each dtype's
+    reference streams and their settings (``identity_jobs``)."""
     tok = card.tokenizer
-    donor = rag_prompt_ids(tok, [c for c in load_chunks("zh")
-                                 if "借款" in c.text])
-    short = tok(DECODER_QUESTION)["input_ids"]
-    prompts = [ids, donor, short, corpus_ids[:300], corpus_ids[1000:1600],
-               corpus_ids[5000:5100]]
+    prompts = identity_prompts(tok, ids, corpus_ids)
+    short = prompts[2]
     check(len(ids) > 1024 and ids[:len(prelude_ids)] == prelude_ids
           and short[:len(prelude_ids)] != prelude_ids,
           "batched: the prompts and the prelude")
@@ -5210,12 +5266,9 @@ def batched_identities(card, f32, ids, corpus_ids, table, prelude_ids
     for dtype, model in (("float32", f32), ("bfloat16", card.model)):
         t0 = time.perf_counter()
         ref = TorchDecoderLM(model, tok, device="cuda", max_len=max_len)
-        want = [greedy_stream(ref, p, n) for p in prompts]
-        eos = want[2][n // 2]
-        want[2] = want[2][:want[2].index(eos)]
-        want[5] = want[5][:20]
-        kws = [dict(max_new_tokens=n, temperature=0.0) for _ in prompts]
-        kws[2]["eos_id"], kws[5]["max_new_tokens"] = eos, 20
+        want, kws = identity_jobs(ref, prompts, n)
+        if refs is not None:
+            refs[dtype] = (want, kws)
         res = {}
         engine = TorchBatchedDecoderLM(model, tok, **slots)
         try:
@@ -5288,15 +5341,46 @@ def batched_identities(card, f32, ids, corpus_ids, table, prelude_ids
     return out
 
 
+def occupancy_speed(engine, card, corpus_ids, occupancies) -> dict:
+    """``engine`` (a warm-up stream first) at each of ``occupancies``: that
+    many streams of ``BATCHED_TIMED_TOKENS`` greedy tokens at once, each on
+    its own 512-token span of the statutes, one timed run each. From the
+    moment the last stream has its first launch's tokens to the last
+    token: ms a decode step (the host clock over the launches that
+    followed, ``decode_chunk`` steps each) and aggregate tokens/s, against
+    a step's bound (the weights and every stream's filled KV rows at 3.35
+    TB/s)."""
+    c = engine.decode_chunk
+    out = {}
+    stream_jobs(engine, [(corpus_ids[:512], dict(max_new_tokens=16))])
+    for occ in occupancies:
+        jobs = [(corpus_ids[512 * i:512 * (i + 1)],
+                 dict(max_new_tokens=BATCHED_TIMED_TOKENS))
+                for i in range(occ)]
+        toks, stamps = stream_jobs(engine, jobs)
+        check(all(len(t) == BATCHED_TIMED_TOKENS for t in toks),
+              f"{type(engine).__name__}: {[len(t) for t in toks]} tokens")
+        t_a = max(st[c - 1] for st in stamps)
+        t_b = max(st[-1] for st in stamps)
+        after = sum(sum(x > t_a for x in st) for st in stamps)
+        steps = BATCHED_TIMED_TOKENS - c
+        # the weights once, each stream's rows at its mean position
+        n_bytes = decoder_bytes(card.model, [0]) + occ * (
+            decoder_bytes(card.model, range(512 + c, 512 + c + steps))
+            - decoder_bytes(card.model, [0]))
+        ms, by = bound(n_bytes, 2 * weight_elements(card.model) * occ,
+                       BF16_FLOP_PER_S)
+        out[f"occupancy_{occ}"] = {
+            "ms_per_step": (t_b - t_a) / steps * 1e3,
+            "tokens_per_s": after / (t_b - t_a),
+            "step_bound_ms": ms, "step_bound_by": by,
+            "step_bound_bytes": n_bytes}
+    return out
+
+
 def batched_speed(card, corpus_ids) -> dict:
     """An ``2 * BATCHED_SLOTS``-slot engine at each occupancy of
-    ``BATCHED_OCCUPANCY``: that many streams of ``BATCHED_TIMED_TOKENS``
-    greedy tokens at once, each on its own 512-token span of the
-    statutes, one timed run each. From the moment the last stream has its
-    first launch's tokens to the last token: ms a decode step (the host
-    clock over the launches that followed, ``decode_chunk`` steps each)
-    and aggregate tokens/s, against a step's bound (the weights and every
-    stream's filled KV rows at 3.35 TB/s); the single-stream engine's
+    ``BATCHED_OCCUPANCY`` (``occupancy_speed``); the single-stream engine's
     decode ms a token beside; the card's busy and idle share over
     ``BATCHED_PROFILE_TOKENS`` tokens at the top occupancy; peak card
     memory."""
@@ -5305,31 +5389,8 @@ def batched_speed(card, corpus_ids) -> dict:
     engine = TorchBatchedDecoderLM(card.model, tok, device="cuda",
                                    max_len=max_len, n_slots=top)
     out = {"slots": top, "decode_chunk": engine.decode_chunk}
-    c = engine.decode_chunk
     try:
-        stream_jobs(engine, [(corpus_ids[:512], dict(max_new_tokens=16))])
-        for occ in BATCHED_OCCUPANCY:
-            jobs = [(corpus_ids[512 * i:512 * (i + 1)],
-                     dict(max_new_tokens=BATCHED_TIMED_TOKENS))
-                    for i in range(occ)]
-            toks, stamps = stream_jobs(engine, jobs)
-            check(all(len(t) == BATCHED_TIMED_TOKENS for t in toks),
-                  f"batched: {[len(t) for t in toks]} tokens")
-            t_a = max(st[c - 1] for st in stamps)
-            t_b = max(st[-1] for st in stamps)
-            after = sum(sum(x > t_a for x in st) for st in stamps)
-            steps = BATCHED_TIMED_TOKENS - c
-            # the weights once, each stream's rows at its mean position
-            n_bytes = decoder_bytes(card.model, [0]) + occ * (
-                decoder_bytes(card.model, range(512 + c, 512 + c + steps))
-                - decoder_bytes(card.model, [0]))
-            ms, by = bound(n_bytes, 2 * weight_elements(card.model) * occ,
-                           BF16_FLOP_PER_S)
-            out[f"occupancy_{occ}"] = {
-                "ms_per_step": (t_b - t_a) / steps * 1e3,
-                "tokens_per_s": after / (t_b - t_a),
-                "step_bound_ms": ms, "step_bound_by": by,
-                "step_bound_bytes": n_bytes}
+        out |= occupancy_speed(engine, card, corpus_ids, BATCHED_OCCUPANCY)
         out["profile_occupancy"] = top
         out["decode_profile"] = profile_device(
             lambda: stream_jobs(engine, [
@@ -5345,11 +5406,13 @@ def batched_speed(card, corpus_ids) -> dict:
     return out
 
 
-def phase_decoder_batched(qwen=None, tokenizers=None) -> dict:
+def phase_decoder_batched(qwen=None, tokenizers=None, share=None) -> dict:
     """The continuous-batching engine (module docstring, phase 17) on phase
     12's Qwen2.5-0.5B checkpoint ``qwen`` (its answer run's bundle and
     phase 16's corpus table beside it; written anew where not given).
-    Returns the answer run with its launches (the ``batched`` path)."""
+    Returns the answer run with its launches (the ``batched`` path).
+    ``share`` (a dict) keeps the loaded model, its float32 copy, the
+    prompts, the table and the identity references for phase 18."""
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     tmp = Path(tempfile.mkdtemp(prefix="batched_"))
@@ -5376,17 +5439,19 @@ def phase_decoder_batched(qwen=None, tokenizers=None) -> dict:
         f32 = DecoderModel.from_state_dict(copy.copy(card.cfg),
                                            float32_state(card.model))
         t0 = time.perf_counter()
+        refs = {}
         emit({"phase": "batched_identities", "slots": BATCHED_SLOTS,
               "tokens": BATCHED_TOKENS,
               **batched_identities(card, f32, ids, corpus_ids, table,
-                                   prelude_ids),
+                                   prelude_ids, refs),
               "seconds": time.perf_counter() - t0})
-        del f32
-        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         emit({"phase": "batched_speed", **batched_speed(card, corpus_ids),
               "seconds": time.perf_counter() - t0})
-        del card
+        if share is not None:
+            share.update(card=card, f32=f32, ids=ids, corpus_ids=corpus_ids,
+                         table=table, refs=refs)
+        del card, f32
         torch.cuda.empty_cache()
         served = {}
 
@@ -5414,6 +5479,225 @@ def phase_decoder_batched(qwen=None, tokenizers=None) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "decoder_batched", "seconds": time.perf_counter() - t_phase,
+          "peak_card_bytes": torch.cuda.max_memory_allocated(),
+          "nvidia_smi": nvidia_smi()})
+    return answer
+
+
+def paged_identities(card, f32, ids, corpus_ids, table, refs) -> dict:
+    """The paged engine's greedy streams on ``BATCHED_SLOTS`` slots against
+    the single-stream engine's (``refs``: phase 17's, computed where
+    missing), on the float32 copy (token-identical) and in bf16 (identical,
+    or apart at a reference near-tie): the six identity jobs of phase 17,
+    then the RAG prompt again, its full blocks attached from the tree
+    (``paged_stats``). On the float32 copy also two speculative streams
+    with ``SPEC_K`` drafts and the corpus table, and a pool of two streams'
+    blocks (``PAGED_SMALL_STREAMS`` statute spans at once: admissions wait
+    for blocks and cached blocks are evicted). The pool's, one launch's
+    view's and the batched slot cache's bytes; peak card memory."""
+    tok = card.tokenizer
+    prompts = identity_prompts(tok, ids, corpus_ids)
+    n, max_len = BATCHED_TOKENS, card.max_len
+    slots = dict(device="cuda", max_len=max_len, n_slots=BATCHED_SLOTS)
+    out = {"block_size": PAGED_BLOCK,
+           "slot_cache_bytes": BATCHED_SLOTS * max_len * kv_bytes_per_token(
+               card.cfg, card.model.dtype, False)}
+    for dtype, model in (("float32", f32), ("bfloat16", card.model)):
+        t0 = time.perf_counter()
+        ref = TorchDecoderLM(model, tok, device="cuda", max_len=max_len)
+        if dtype not in refs:
+            refs[dtype] = identity_jobs(ref, prompts, n)
+        want, kws = refs[dtype]
+        res = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine = TorchPagedDecoderLM(model, tok, **slots)
+        try:
+            got, _ = stream_jobs(engine, list(zip(prompts, kws)),
+                                 join_after=(0, 5))
+            first = engine.paged_stats()
+            again = list(engine.generate_stream(ids, **kws[0]))
+            stats = engine.paged_stats()
+            if dtype == "bfloat16":
+                out |= {"n_blocks": engine.n_blocks,
+                        "pool_bytes": engine.cache_bytes,
+                        "view_bytes": engine.view_bytes,
+                        "peak_card_bytes": torch.cuda.max_memory_allocated()}
+        finally:
+            engine.close()
+        res["six_streams"] = [same_stream(g, w, ref, p, dtype,
+                                          f"paged stream {i}")
+                              for i, (g, w, p) in enumerate(
+                                  zip(got, want, prompts))]
+        check(first["reused_blocks"] > 0
+              and stats["reused_blocks"] - first["reused_blocks"]
+              == (len(ids) - 1) // PAGED_BLOCK
+              and stats["reserved_blocks"] == 0,
+              f"paged: reuse {first} then {stats}")
+        res["rag_prompt_again"] = same_stream(again, want[0], ref, ids, dtype,
+                                              "paged reused prompt")
+        res["paged_stats"] = stats
+        if dtype == "float32":
+            spec = TorchPagedDecoderLM(model, tok, spec_k=SPEC_K,
+                                       spec_steps=SPEC_STEPS,
+                                       ngram_draft=table, **slots)
+            try:
+                got, _ = stream_jobs(spec, [(ids, kws[0]),
+                                            (prompts[3], kws[3])])
+            finally:
+                spec.close()
+            res["spec_table"] = [same_stream(g, w, ref, p, dtype,
+                                             "paged speculation")
+                                 for g, w, p in zip(got, (want[0], want[3]),
+                                                    (ids, prompts[3]))]
+            res["small_pool"] = paged_small_pool(model, tok, corpus_ids)
+        res["seconds"] = time.perf_counter() - t0
+        out[dtype] = res
+    return out
+
+
+def paged_small_pool(model, tok, corpus_ids) -> dict:
+    """``PAGED_SMALL_STREAMS`` streams of ``BATCHED_TOKENS`` on as many
+    slots over a pool of two streams' blocks: all four identical to the
+    single-stream engine's; the third to start waited for the first to
+    end; the tree evicted cached blocks to admit it."""
+    m = PAGED_SMALL_PROMPT
+    spans = [corpus_ids[2000 + m * i:2000 + m * (i + 1)]
+             for i in range(PAGED_SMALL_STREAMS)]
+    per = -(-(m + BATCHED_TOKENS) // PAGED_BLOCK)
+    ref = TorchDecoderLM(model, tok, device="cuda",
+                         max_len=PAGED_SMALL_MAX_LEN)
+    want = [greedy_stream(ref, p, BATCHED_TOKENS) for p in spans]
+    engine = TorchPagedDecoderLM(model, tok, device="cuda",
+                                 max_len=PAGED_SMALL_MAX_LEN,
+                                 n_slots=PAGED_SMALL_STREAMS,
+                                 pool_blocks=2 * per)
+    try:
+        got, stamps = stream_jobs(engine, [
+            (p, dict(max_new_tokens=BATCHED_TOKENS)) for p in spans])
+        stats = engine.paged_stats()
+    finally:
+        engine.close()
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g == w, f"paged small pool: stream {i} differs")
+    starts = sorted(st[0] for st in stamps)
+    ends = sorted(st[-1] for st in stamps)
+    check(starts[2] > ends[0] and stats["evicted_blocks"] > 0
+          and stats["reserved_blocks"] == 0,
+          f"paged small pool: no wait or no eviction ({stats})")
+    return {"pool_blocks": 2 * per, "blocks_a_stream": per,
+            "third_start_after_first_end_ms": (starts[2] - ends[0]) * 1e3,
+            "paged_stats": stats, "identical": True}
+
+
+def paged_speed(card, corpus_ids) -> dict:
+    """An 8-slot paged engine, then an 8-slot batched one, each at every
+    occupancy of ``PAGED_OCCUPANCY`` (``occupancy_speed``): ms a step and
+    tokens/s against the step's bound, and each engine's cache bytes (the
+    paged one's pool); the card's busy and idle share over
+    ``BATCHED_PROFILE_TOKENS`` tokens of the paged engine at the top
+    occupancy, on spans the tree does not hold yet (phase 17 profiles the
+    batched engine)."""
+    out = {}
+    top = PAGED_OCCUPANCY[-1]
+    for name, cls in (("paged", TorchPagedDecoderLM),
+                      ("batched", TorchBatchedDecoderLM)):
+        engine = cls(card.model, card.tokenizer, device="cuda",
+                     max_len=card.max_len, n_slots=top)
+        try:
+            out[name] = occupancy_speed(engine, card, corpus_ids,
+                                        PAGED_OCCUPANCY)
+            out[name]["cache_bytes"] = engine.cache_bytes
+            if name == "paged":
+                fresh = [corpus_ids[512 * j:512 * (j + 1)]
+                         for j in range(top, 2 * top)]
+                out[name]["decode_profile"] = profile_device(
+                    lambda: stream_jobs(engine, [
+                        (p, dict(max_new_tokens=BATCHED_PROFILE_TOKENS))
+                        for p in fresh]), BATCHED_PROFILE_TOKENS,
+                    host=False)
+        finally:
+            engine.close()
+    return out
+
+
+def phase_decoder_paged(qwen=None, tokenizers=None, share=None) -> dict:
+    """The paged KV engine (module docstring, phase 18) on phase 12's
+    Qwen2.5-0.5B checkpoint ``qwen``, with phase 17's loaded model, float32
+    copy, prompts, table and references from ``share`` (loaded and written
+    anew where not given). Returns the answer run with its launches (the
+    ``paged`` path)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="paged_"))
+    tokenizers = {} if tokenizers is None else tokenizers
+    share = {} if share is None else share
+    try:
+        if qwen is None:
+            chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
+            texts = [c.text for cs in chunks.values() for c in cs]
+            qwen = tmp / "qwen25_05b"
+            tokenizer_files(write_bpe_tokenizer, qwen, texts, tokenizers)
+            write_decoder_checkpoint(qwen, seed=5)
+            corpus_table(qwen, texts, tmp)
+        if "card" not in share:
+            card = TorchDecoderLM.from_pretrained(str(qwen), device="cuda",
+                                                  max_len=DECODER_MAX_LEN)
+            zh = load_chunks("zh")
+            share.update(
+                card=card, f32=DecoderModel.from_state_dict(
+                    copy.copy(card.cfg), float32_state(card.model)),
+                ids=rag_prompt_ids(card.tokenizer, zh),
+                corpus_ids=card.tokenizer("\n".join(c.text for c in zh))[
+                    "input_ids"],
+                table=NgramDraftTable.load(qwen.parent / "draft_table.npz"),
+                refs={})
+        card = share.pop("card")
+        t0 = time.perf_counter()
+        emit({"phase": "paged_identities", "slots": BATCHED_SLOTS,
+              "tokens": BATCHED_TOKENS,
+              **paged_identities(card, share.pop("f32"), share["ids"],
+                                 share["corpus_ids"], share.pop("table"),
+                                 share.pop("refs")),
+              "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        emit({"phase": "paged_speed",
+              **paged_speed(card, share.pop("corpus_ids")),
+              "seconds": time.perf_counter() - t0})
+        del card
+        share.clear()
+        torch.cuda.empty_cache()
+        served = {}
+
+        def served_engine(lm):
+            check(isinstance(lm, TorchPagedDecoderLM)
+                  and lm.n_slots == BATCHED_SLOTS
+                  and lm.block_size == PAGED_BLOCK
+                  and lm.max_len % PAGED_BLOCK == 0,
+                  "paged answer: the served engine")
+            stats = lm.paged_stats()
+            served.update(paged_stats=stats, max_len=lm.max_len,
+                          pool_bytes=lm.cache_bytes,
+                          view_bytes=lm.view_bytes)
+            check(stats["reused_blocks"] >= BATCHED_ANSWERS
+                  and stats["reserved_blocks"] == 0,
+                  f"paged answer: {stats}")
+
+        t0 = time.perf_counter()
+        answer = decoder_answer(
+            qwen, qwen.parent, "paged", "paged_answer",
+            llm={"batch_slots": BATCHED_SLOTS, "paged_kv": True,
+                 "max_new_tokens": BATCHED_ANSWER_TOKENS},
+            engine_check=served_engine, answers=BATCHED_ANSWERS,
+            concurrent=True)
+        answer.pop("texts")
+        emit(answer | {"served_engine": served,
+                       "seconds": time.perf_counter() - t0,
+                       "peak_card_bytes": torch.cuda.max_memory_allocated()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "decoder_paged", "seconds": time.perf_counter() - t_phase,
           "peak_card_bytes": torch.cuda.max_memory_allocated(),
           "nvidia_smi": nvidia_smi()})
     return answer
@@ -5792,12 +6076,15 @@ def run_phases(prep, keep: Path, diagnostics: bool) -> int:
     quant = phase_decoder_quant(keep / "qwen25_05b", keep / "qwen15_moe_a27b",
                                 diagnostics)
     spec = phase_decoder_spec(keep / "qwen25_05b", tokenizers)
-    batched = phase_decoder_batched(keep / "qwen25_05b", tokenizers)
+    share = {}
+    batched = phase_decoder_batched(keep / "qwen25_05b", tokenizers, share)
+    paged = phase_decoder_paged(keep / "qwen25_05b", tokenizers, share)
     runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
             "ingest": [ingest], "stores": store_runs,
             "large": [large] + large_store_runs, "bert": bert_runs,
             "answer": [answer], "families": [families], "moe": [moe],
-            "quant": [quant], "spec": [spec], "batched": [batched]}
+            "quant": [quant], "spec": [spec], "batched": [batched],
+            "paged": [paged]}
     # MaxSim's launches per route, as the wrapper counts them on each path
     # (the kernel's own row: all its routes; bf16 is the map path's)
     routes["float32"] = kres["maxsim"].pop("float32_route")

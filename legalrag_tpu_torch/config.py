@@ -200,14 +200,15 @@ class LLMConfig:
     weight_bits: int = 8
     kv_quant: bool = False
     # local-jax knobs of the JAX package's other engines, read so that a
-    # config tuned for it means the same here: the batched engine is
-    # served; the paged, TP and DP ones are not yet, and a knob that would
-    # select or shape one makes the engine's load fail (llm/client.py:
-    # unported_engine_knobs), so the answer degrades instead of ignoring it
+    # config tuned for it means the same here: the batched and paged
+    # engines are served; the TP and DP ones are not yet, and a knob that
+    # would select one, or that JAX ignores in the engine selected, makes
+    # the engine's load fail (llm/client.py: unported_engine_knobs), so the
+    # answer degrades instead of ignoring it
     batch_slots: int = 0            # > 1: the continuous-batching engine
-    paged_kv: bool = False          # the paged KV pool (not ported)
-    kv_block_size: int = 64
-    kv_pool_blocks: int = 0
+    paged_kv: bool = False          # with batch_slots: the paged KV pool
+    kv_block_size: int = 64         # the pool's block, in tokens
+    kv_pool_blocks: int = 0         # 0: (batch_slots + 1) contexts
     spec_k: int = 0                 # > 0: speculative decoding
     spec_adaptive: float = 2.0
     draft_model: str = ""

@@ -88,19 +88,24 @@ class LLMUnavailable(RuntimeError):
     pass
 
 
-# the JAX package's engine knobs that the port has no engine for: a value
-# other than the default selects or shapes one of those engines, but for
-# the counts, whose 0 and 1 both keep the single-stream engine
-_UNPORTED_KNOBS = ("paged_kv", "kv_block_size", "kv_pool_blocks",
-                   "tp_shards", "dp_replicas")
+# the JAX package's engine knobs that the port has no engine for (TP, DP):
+# a count above 1 selects one of those engines, while 0 and 1 both keep
+# the single-stream engine
+_UNPORTED_KNOBS = ("tp_shards", "dp_replicas")
 _COUNT_KNOBS = ("tp_shards", "dp_replicas")
 # the speculative engines' knobs, which JAX's client ignores without
 # spec_k > 0 and the port refuses there
 _SPEC_KNOBS = ("spec_adaptive", "draft_model", "ngram_draft_path")
-# the batched engine's own knob, which JAX ignores without batch_slots > 1
-_BATCHED_KNOBS = ("shared_prefix_text",)
-# the single-stream speculative engine's knob, which JAX's batched one
-# ignores
+# the batched and paged engines' knobs, which JAX ignores without
+# batch_slots > 1
+_BATCHED_KNOBS = ("shared_prefix_text", "paged_kv", "kv_block_size",
+                  "kv_pool_blocks")
+# the paged engine's shape, which JAX ignores without paged_kv
+_PAGED_KNOBS = ("kv_block_size", "kv_pool_blocks")
+# the knobs JAX's client drops under paged_kv (the radix tree stands in)
+_PAGED_DROPPED_KNOBS = ("prefix_cache", "shared_prefix_text")
+# the single-stream speculative engine's knob, which JAX's batched and
+# paged ones ignore
 _SINGLE_STREAM_SPEC_KNOBS = ("spec_adaptive",)
 
 
@@ -108,14 +113,20 @@ def unported_engine_knobs(cfg: LLMConfig) -> List[str]:
     """The knobs of ``cfg`` that ``local-jax`` refuses: those asking for an
     engine the port does not have, and those set away from their defaults
     that JAX would ignore in the engine ``cfg`` selects (the speculation
-    knobs without ``spec_k > 0``, ``shared_prefix_text`` without
-    ``batch_slots > 1``, ``spec_adaptive`` with it)."""
+    knobs without ``spec_k > 0``, ``shared_prefix_text`` and the paged
+    knobs without ``batch_slots > 1``, ``spec_adaptive`` with it, the
+    block size and pool without ``paged_kv``, ``prefix_cache`` and
+    ``shared_prefix_text`` with it)."""
     default = LLMConfig()
     batched = cfg.batch_slots > 1
     ignored = (_SPEC_KNOBS if cfg.spec_k <= 0
                else _SINGLE_STREAM_SPEC_KNOBS if batched else ())
     if not batched:
         ignored += _BATCHED_KNOBS
+    elif cfg.paged_kv:
+        ignored += _PAGED_DROPPED_KNOBS
+    else:
+        ignored += _PAGED_KNOBS
     return [k for k in _UNPORTED_KNOBS + ignored
             if (getattr(cfg, k) > 1 if k in _COUNT_KNOBS
                 else getattr(cfg, k) != getattr(default, k))]
@@ -353,7 +364,8 @@ class LLMClient:
     def _load_jax_lm(self):
         """The decoder engine (``TorchDecoderLM``, with ``spec_k > 0``
         ``TorchSpecLookupDecoderLM``, with ``batch_slots > 1``
-        ``TorchBatchedDecoderLM``), loaded once under the lock;
+        ``TorchBatchedDecoderLM``, and with ``paged_kv`` too
+        ``TorchPagedDecoderLM``), loaded once under the lock;
         ``LLMUnavailable`` when the config asks for an engine the port
         lacks or the load fails."""
         with self._load_lock:
@@ -380,7 +392,27 @@ class LLMClient:
                     if self.cfg.prefill_chunk:
                         kw["prefill_chunk"] = self.cfg.prefill_chunk
                     engine_cls = TorchDecoderLM
-                    if self.cfg.batch_slots > 1:
+                    if self.cfg.batch_slots > 1 and self.cfg.paged_kv:
+                        # the paged KV pool with radix prefix reuse: the
+                        # cache rounded up to whole blocks; spec_k > 0
+                        # speculates over the block tables
+                        from legalrag_tpu_torch.models.paged_decoder \
+                            import TorchPagedDecoderLM
+
+                        engine_cls = TorchPagedDecoderLM
+                        kw.pop("prefix_cache")
+                        bs = self.cfg.kv_block_size
+                        kw["max_len"] = -(-kw["max_len"] // bs) * bs
+                        kw.update(n_slots=self.cfg.batch_slots,
+                                  spec_k=max(self.cfg.spec_k, 0),
+                                  block_size=bs,
+                                  pool_blocks=self.cfg.kv_pool_blocks)
+                        if self.cfg.spec_k > 0:
+                            if self.cfg.ngram_draft_path:
+                                kw["ngram_draft"] = self.cfg.ngram_draft_path
+                            if self.cfg.draft_model:
+                                kw["draft_model"] = self.cfg.draft_model
+                    elif self.cfg.batch_slots > 1:
                         # continuous batching: concurrent streams share one
                         # decode loop; spec_k > 0 adds per-slot speculation
                         from legalrag_tpu_torch.models.batched_decoder \

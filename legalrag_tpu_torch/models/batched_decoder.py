@@ -119,6 +119,8 @@ class TorchBatchedDecoderLM:
     and streams join and leave the shared batch mid-flight."""
 
     _PAD_BUCKET_MIN = 16
+    ENGINE = "batched"            # the ``engine`` label of the gen metrics
+    _new_stream = _Stream
 
     def __init__(self, model: DecoderModel, tokenizer=None,
                  device: DeviceLike = None, max_len: int = 4096,
@@ -166,8 +168,7 @@ class TorchBatchedDecoderLM:
         with torch.inference_mode():
             self._shared_kv = (self._build_shared_rows()
                                if self.shared_prefix else None)
-            self._cache = self._zeros_cache(self.cfg, s, self.slot_len,
-                                            self.kv_quant, self.model.dtype)
+            self._cache = self._empty_cache()
             self._dcache = (self._zeros_cache(self.draft.cfg, s, max_len,
                                               False, self.draft.dtype)
                             if self.draft is not None else None)
@@ -233,8 +234,8 @@ class TorchBatchedDecoderLM:
                 *load_hf_decoder_params(resolve_model_dir(dm)), dev,
                 wb if wq else 0)
         lm = cls(model, tokenizer, device=dev, **kw)
-        log.info("loaded batched decoder %s (%d slots, chunk %d, max_len %d, "
-                 "shared prefix %d)", name_or_path, lm.n_slots,
+        log.info("loaded %s %s (%d slots, chunk %d, max_len %d, shared "
+                 "prefix %d)", cls.__name__, name_or_path, lm.n_slots,
                  lm.decode_chunk, lm.max_len, lm.shared_len)
         return lm
 
@@ -253,6 +254,13 @@ class TorchBatchedDecoderLM:
                     for _ in range(cfg.num_hidden_layers)]
         return [(zeros(shape, dtype), zeros(shape, dtype))
                 for _ in range(cfg.num_hidden_layers)]
+
+    def _empty_cache(self) -> Optional[Cache]:
+        """The launches' KV storage: the ``[S, slot_len]`` slot cache (the
+        paged engine keeps block pools instead and gathers a view of them
+        for each launch)."""
+        return self._zeros_cache(self.cfg, self.n_slots, self.slot_len,
+                                 self.kv_quant, self.model.dtype)
 
     @staticmethod
     def _slot_view(cache: Cache, slot: int) -> Cache:
@@ -517,11 +525,11 @@ class TorchBatchedDecoderLM:
         allowed = torch.where(uncon, allowed, forced)
         return torch.where(allowed, scored, torch.full_like(scored, NEG_INF))
 
-    def _decode_launch(self, ctrl) -> List[List[int]]:
+    def _decode_launch(self, ctrl) -> torch.Tensor:
         """``decode_chunk`` sample + decode steps over every slot (frozen
         slots emit -1 and keep their sampling state; their garbage row
-        write lands where a row is rewritten before it is read), then one
-        host read: the tokens [n_steps][S]."""
+        write lands where a row is rewritten before it is read): the tokens
+        [n_steps, S] on the device, for the launch's one host read."""
         temp, pen, eos, limit, offv, active = ctrl
         live = [st for st in self._slots if st is not None]
         sampled = [i for i, st in enumerate(self._slots)
@@ -558,7 +566,7 @@ class TorchBatchedDecoderLM:
             pos = pos + active.long()
             active = active & ~hit_eos & (pos < limit)
         self._last, self._pos, self._rep, self._cstate = last, pos, rep, cstate
-        return torch.stack(emits).tolist()
+        return torch.stack(emits)
 
     def _lookup_draft(self, tokens, pos, pending, ng):
         """Sources 1 and 2 per slot: (drafts [S, k], whether a full window
@@ -689,10 +697,10 @@ class TorchBatchedDecoderLM:
                         & (pos + k <= capv - 1))
         return emissions
 
-    def _spec_launch(self, ctrl, firsts) -> List[int]:
-        """``spec_steps`` rounds, then one host read: the deferred first
-        tokens, the emissions [spec_steps, S, k + 1] and hit_eos [S],
-        flattened."""
+    def _spec_launch(self, ctrl, firsts) -> torch.Tensor:
+        """``spec_steps`` rounds: the deferred first tokens, the emissions
+        [spec_steps, S, k + 1] and hit_eos [S], flattened on the device for
+        the launch's one host read."""
         live = [x for x in self._slots if x is not None]
         sampled = [i for i, x in enumerate(self._slots)
                    if x is not None and x.temperature > 0]
@@ -709,7 +717,7 @@ class TorchBatchedDecoderLM:
         self._tokens, self._pos, self._pend = (st["tokens"], st["pos"],
                                                st["pending"])
         self._rep, self._cstate = st["rep"], st["cstate"]
-        return torch.cat(firsts + rows + [st["hit_eos"].long()]).tolist()
+        return torch.cat(firsts + rows + [st["hit_eos"].long()])
 
     # --------------------------------------------------------------- worker
     def _finish(self, slot: int) -> None:
@@ -747,49 +755,63 @@ class TorchBatchedDecoderLM:
                         st.error = e
                     self._finish(i)
 
-    def _tick(self, pending: "deque[_Stream]") -> None:
-        # drop cancelled streams (a client gone mid-generation)
-        for i, st in enumerate(self._slots):
-            if st is not None and st.cancelled:
-                self._finish(i)
-        while pending and pending[0].cancelled:
-            pending.popleft().out.put(None)
-        # fill free slots; an admission failure fails only its stream
+    def _admit_stream(self, st: _Stream, slot: int) -> None:
+        """Admit ``st`` into the free ``slot`` (its generator when sampled)."""
+        if st.temperature > 0:
+            st.generator = torch.Generator(
+                device=self.device).manual_seed(st.seed)
+        if self.spec_k:
+            self._spec_admit(st, slot)
+        else:
+            self._admit(st, slot)
+
+    def _admission_failed(self, st: _Stream, slot: int,
+                          e: BaseException) -> None:
+        log.exception("admission failed: %s", e)
+        st.error = e
+        st.out.put(None)
+        self._slots[slot] = None
+        self._admitted_firsts = [f for f in self._admitted_firsts
+                                 if f[0] is not st]
+
+    def _admit_pending(self, pending: "deque[_Stream]") -> None:
+        """Fill free slots from ``pending``; an admission failure fails only
+        its stream."""
         for i in range(self.n_slots):
             if not pending:
                 break
             if self._slots[i] is None:
                 st = pending.popleft()
                 try:
-                    if st.temperature > 0:
-                        st.generator = torch.Generator(
-                            device=self.device).manual_seed(st.seed)
-                    if self.spec_k:
-                        self._spec_admit(st, i)
-                    else:
-                        self._admit(st, i)
+                    self._admit_stream(st, i)
                     self.admissions["shared" if st.shared else "unshared"] += 1
                 except BaseException as e:
-                    log.exception("admission failed: %s", e)
-                    st.error = e
-                    st.out.put(None)
-                    self._slots[i] = None
-                    self._admitted_firsts = [
-                        f for f in self._admitted_firsts if f[0] is not st]
+                    self._admission_failed(st, i, e)
+
+    def _tick(self, pending: "deque[_Stream]") -> bool:
+        """Admit, launch once and fan the tokens out; whether it launched."""
+        # drop cancelled streams (a client gone mid-generation)
+        for i, st in enumerate(self._slots):
+            if st is not None and st.cancelled:
+                self._finish(i)
+        while pending and pending[0].cancelled:
+            pending.popleft().out.put(None)
+        self._admit_pending(pending)
         if pending:  # no free slot: requeued, served as slots free up
             with self._cond:
                 pending.extend(self._pending)
                 self._pending = pending
         if not any(s is not None for s in self._slots):
-            return
+            return False
         ctrl = self._control_vectors()
         occ = sum(s is not None for s in self._slots)
-        engine = "batched-spec" if self.spec_k else "batched"
+        engine = f"{self.ENGINE}-spec" if self.spec_k else self.ENGINE
         METRICS.inc("legalrag_gen_launches", engine=engine, occupancy=occ)
         if self.spec_k:
             firsts = self._admitted_firsts
             self._admitted_firsts = []
-            host = self._spec_launch(ctrl, [tok for _s, _i, tok in firsts])
+            host = self._spec_launch(
+                ctrl, [tok for _s, _i, tok in firsts]).tolist()
             for (st, slot, _tok), first in zip(firsts, host):
                 if self._slots[slot] is not st:
                     continue
@@ -797,7 +819,7 @@ class TorchBatchedDecoderLM:
                     self._finish(slot)   # this launch's row is discarded
                     continue
                 st.produced = 1
-                METRICS.inc("legalrag_gen_tokens", 1, engine="batched-spec")
+                METRICS.inc("legalrag_gen_tokens", 1, engine=engine)
                 if not st.cancelled:
                     st.out.put(first)
                 if st.produced >= st.max_new:
@@ -818,14 +840,12 @@ class TorchBatchedDecoderLM:
                         if not st.cancelled:
                             st.out.put(int(t))
                     if row:
-                        METRICS.inc("legalrag_gen_spec_rounds",
-                                    engine="batched-spec")
+                        METRICS.inc("legalrag_gen_spec_rounds", engine=engine)
                 if hit_eos[i] or st.produced >= st.max_new:
                     self._finish(i)
-            METRICS.inc("legalrag_gen_tokens", n_launch_toks,
-                        engine="batched-spec")
-            return
-        toks = self._decode_launch(ctrl)
+            METRICS.inc("legalrag_gen_tokens", n_launch_toks, engine=engine)
+            return True
+        toks = self._decode_launch(ctrl).tolist()
         n_launch_toks = 0
         for i, st in enumerate(self._slots):
             if st is None:
@@ -844,7 +864,8 @@ class TorchBatchedDecoderLM:
                 if st.produced >= st.max_new:
                     self._finish(i)
                     break
-        METRICS.inc("legalrag_gen_tokens", n_launch_toks, engine="batched")
+        METRICS.inc("legalrag_gen_tokens", n_launch_toks, engine=engine)
+        return True
 
     # ------------------------------------------------------------------ API
     def generate_stream(self, prompt_ids: List[int],
@@ -885,13 +906,14 @@ class TorchBatchedDecoderLM:
                         "document (%d tokens); output will be a valid "
                         "prefix, not a complete document", max_new_tokens,
                         self.json_constraint.min_budget)
-        st = _Stream(list(prompt_ids), max_new_tokens, eos_id, temperature,
-                     top_p, seed, repetition_penalty, top_k, min_p)
+        st = self._new_stream(list(prompt_ids), max_new_tokens, eos_id,
+                              temperature, top_p, seed, repetition_penalty,
+                              top_k, min_p)
         st.shared = shared
         st.constrained = constrain
         with self._cond:
             if self._closed:
-                raise RuntimeError("TorchBatchedDecoderLM is closed")
+                raise RuntimeError(f"{type(self).__name__} is closed")
             self._pending.append(st)
             self._cond.notify()
         try:

@@ -448,15 +448,16 @@ def test_rag_answer_sse_matches_jax(served, llm_on_both,  # noqa: F811
 
 
 @pytest.mark.parametrize("settings,refused", [
-    (dict(paged_kv=True), "paged_kv"),
+    (dict(paged_kv=True, prefix_cache=2), "prefix_cache"),
     (dict(tp_shards=2), "tp_shards"),
     (dict(dp_replicas=2), "dp_replicas"),
     (dict(spec_k=4, spec_adaptive=1.5), "spec_adaptive")])
 def test_batch_slots_with_unported_knobs_degrade(model_dir, settings,
                                                  refused):  # noqa: F811
-    """With ``batch_slots`` 4 the paged engine, TP, DP and a
-    ``spec_adaptive`` that JAX's batched engine ignores still fail the
-    load naming the knob, and the answer degrades."""
+    """With ``batch_slots`` 4 TP, DP, a ``spec_adaptive`` that JAX's
+    batched engine ignores and a ``prefix_cache`` that JAX's client drops
+    under ``paged_kv`` still fail the load naming the knob, and the answer
+    degrades."""
     cfg = LLMConfig(**llm_kw(model_dir, batch_slots=4, **settings))
     assert unported_engine_knobs(cfg) == [refused]
     c = LLMClient(cfg, device="cpu")

@@ -85,6 +85,7 @@ def test_module_list_covers_the_slice():
                  "legalrag_tpu_torch.models.ngram_draft",
                  "legalrag_tpu_torch.models.spec_decode",
                  "legalrag_tpu_torch.models.batched_decoder",
+                 "legalrag_tpu_torch.models.paged_decoder",
                  "legalrag_tpu_torch.cli.build_draft_table",
                  "legalrag_tpu_torch.tokenize.bpe"):
         assert name in PORT_MODULES
@@ -103,7 +104,7 @@ def test_decoder_and_bpe_import_no_tokenizer_or_checkpoint_package():
         sys.path.insert(0, {str(REPO)!r})
         from legalrag_tpu_torch.llm import client
         from legalrag_tpu_torch.models import (batched_decoder, decoder,
-                                               spec_decode)
+                                               paged_decoder, spec_decode)
         from legalrag_tpu_torch.cli import build_draft_table
         from legalrag_tpu_torch.tokenize import bpe
         import chip_smoke
