@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port (``legalrag_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--diagnostics]
+    python3 chip_smoke.py [--diagnostics] [--seed N]
 
 Phases, each printing one JSON line:
 
@@ -73,6 +73,41 @@ Phases, each printing one JSON line:
    ``sentence``, ``citations`` with the cited article supported, ``done``);
    the launch counts per endpoint (one score+select and one MaxSim per
    channels call and per language of a batch); then the graceful drain;
+7a. ``evals``: the repo's retrieval evaluation on the card
+   (``cli/evaluate_retrieval.py``) over the zh and en bundles of 3 and
+   their law graphs (saved for 12a): every ``data/eval/law_qa.jsonl`` query
+   (150: 100 zh, 50 en) through ``run_system`` for each of the six systems
+   at k 20, the R@5 / R@10 / MRR@10 / nDCG@10 / Hit@3 / Hit@10 table per
+   system and language, each system's seconds and launches (score+select
+   once a query for dense, MaxSim for colbert, both for the fused ones,
+   none for bm25); the first ``EVALS_TWIN_ROWS`` queries of each language
+   again on a CPU copy of the bundles (the plain versions, in a thread
+   beside the generation loop below), the ranked hits equal but for swaps
+   of scores within 1e-5 (counted), scores within 1e-4, fused+graph's and
+   hybrid's channels held first and their hits given the card's channels
+   where one swapped; then ``cli/evaluate_generation.py``'s loop on the first
+   ``EVALS_GEN_ROWS`` rows with the extractive, degraded and
+   ``local-jax-random`` providers (a 2-layer random decoder at JAX's widths
+   drawn on the card through ``LLMClient``; every answer one counted stream,
+   none degraded; one channels call a row), and ``--schema 4`` (the
+   constrained valid-prefix rate must be 1.0);
+7b. ``cases``: case-law retrieval (``CaseRetriever``) at ``CASE_N`` synthetic
+   zh records from ``--seed`` (2-4 Civil Code sentences after seeded
+   parties, one of 16 courts, one of 16 causes, a date in 2015-2024, the
+   articles drawn from), added on the card in two calls (6,144 then 2,048:
+   the incremental IDF and BM25's ``add_texts``) beside a CPU twin fed the
+   same calls (the same IDF state and vocabulary, dense rows within a bf16
+   ulp, after which the twin serves the card's rows): each call's seconds, V,
+   the impact matrix's shape and bytes, the dense capacity (below
+   ``TWO_PASS_MIN_N``: score+select's one-pass route); 64 queries (statute
+   sentences, citations stripped) with no filter, a court, a cause and a
+   date range: p50 / p99 ms, mean hits, the share of searches a filter left
+   short of top 10 (each channel takes its top eff before the filter), one
+   score+select launch a search; every search against the twin (the dense
+   and BM25 lists within 1e-5 but for near-tie swaps, then the twin's fused
+   hits given the card's lists equal to the card's, and the largest gap of
+   its own fused scores reported); ``save`` /
+   ``load`` on the card, 8 queries again; a duplicate adds nothing;
 8. ``ingest``: the index lifecycle in a temporary root. A raw tree with
    part of the corpus held out (the Civil Code cut before article 1001, the
    UCC without articles 8 and 9) goes through the port's build CLIs
@@ -171,7 +206,7 @@ Phases, each printing one JSON line:
    ids 151643-151645) and a ChatML ``chat_template``; nothing downloaded.
    ``TorchDecoderLM`` on the card against a CPU twin on float32 copies of
    the same weights: the prefill's last-row logits on the pipeline's own
-   zh RAG prompt within ``DECODER_LOGIT_ATOL``, and the card's first 64
+   zh RAG prompt within ``DECODER_LOGIT_ATOL``, and the card's first 32
    greedy tokens fed to the twin, each its argmax wherever its top-2 gap
    exceeds that atol (the smallest gap printed); on the card, greedy
    streams token-identical for chunked prefill against one shot (a
@@ -186,6 +221,16 @@ Phases, each printing one JSON line:
    end, and one score+select and one MaxSim launch per request (the
    ``answer`` path), each kernel then held against its plain version on
    the tensors those requests handed it;
+12a. ``agent``: ``LegalAgent`` over 12's checkpoint through ``local-jax``
+   (one stream, answers of ``AGENT_ANSWER_TOKENS``) in a ``RagPipeline``
+   over 7a's saved bundles: ``answer_auto`` on a zh question of three parts,
+   an en one of two and an atomic one. On random weights the LLM's
+   decomposition does not parse and the heuristic splits, as in JAX; since
+   ``LLMClient.chat`` answers the degraded text on any exception, every
+   decompose and answer chat must raise ``legalrag_llm_streams`` by one and
+   ``legalrag_llm_tokens`` and return no degraded text. The sub-questions,
+   merged hits, seconds and launches (one channels call a sub-question:
+   score+select and MaxSim once each);
 13. ``decoder_families``: the dense families past Qwen2 at full width.
    Gemma-3-1B (``GEMMA3_1B``, gemma-3-1b-it's published config.json: 26 x
    1152, 4 / 1 heads of 256, FFN 6912, the tanh GELU, vocab 262,144,
@@ -203,7 +248,7 @@ Phases, each printing one JSON line:
    kernels 1 and 2/3 once a request, held against their plain versions);
    then Qwen3-0.6B (``QWEN3_06B``: 1024 wide, 16 / 8 heads of 128, q/k
    norms, tied; ``QWEN3_LAYERS`` of its 28 layers) with the Qwen2-layout
-   tokenizer: its prefill logits and 64 greedy tokens against the float32
+   tokenizer: its prefill logits and 32 greedy tokens against the float32
    CPU twin;
 14. ``decoder_moe``: the mixture-of-experts families. Qwen1.5-MoE-A2.7B
    (``QWEN15_MOE_A27B``, its published config.json: 2048 wide, 16 / 16
@@ -294,7 +339,7 @@ Phases, each printing one JSON line:
    matching and a non-matching prompt; an int8-cache engine; one speculating with
    ``SPEC_K`` drafts and phase 16's corpus table; a sampled stream the same
    alone and beside three others. The slot cache's bytes with and without
-   the pinned turn. An 8-slot engine at occupancy 1, 2, 4 and 8 (streams
+   the pinned turn. An 8-slot engine at occupancy 1 and 8 (streams
    of ``BATCHED_TIMED_TOKENS``): ms a step and aggregate tokens/s against
    a step's bound, the single-stream engine's ms a token, busy and idle
    share over ``BATCHED_PROFILE_TOKENS`` tokens at occupancy 8, peak card
@@ -370,15 +415,20 @@ import torch
 from legalrag_tpu_torch import kernels, scale
 from legalrag_tpu_torch.api.server import create_app, shutdown_gracefully
 from legalrag_tpu_torch.api.webcore import TestClient
+from legalrag_tpu_torch import evals
+from legalrag_tpu_torch.agents import LegalAgent
 from legalrag_tpu_torch.cli import (
     build_draft_table,
     build_graph,
     build_index,
+    evaluate_generation,
+    evaluate_retrieval,
     preprocess_law,
 )
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.convert import bundle_from_arrays
 from legalrag_tpu_torch.corpus import parse_auto
+from legalrag_tpu_torch.evals.semantic_pairs import strip_refs
 from legalrag_tpu_torch.index.bundle import IndexBundle
 from legalrag_tpu_torch.index.token_index import (
     Residual4TokenIndex,
@@ -445,12 +495,15 @@ from legalrag_tpu_torch.ops.topk import (
 from legalrag_tpu_torch.graph import GraphBuilder, LawGraphStore
 from legalrag_tpu_torch.pipeline.rag_pipeline import RagPipeline
 from legalrag_tpu_torch.retrieval.by_lang import ByLangRetriever
+from legalrag_tpu_torch.retrieval.case_retriever import CaseRetriever
+from legalrag_tpu_torch.retrieval.hybrid import HybridRetriever
 from legalrag_tpu_torch.retrieval.rerankers import (
     CrossEncoderReranker,
     RerankerFactory,
 )
 from legalrag_tpu_torch.retrieval.engine import FusedQueryEngine
 from legalrag_tpu_torch.schemas import (
+    CaseEntry,
     IssueType,
     RetrievalHit,
     RoutingDecision,
@@ -550,10 +603,11 @@ DECODER_LAYER_SCALE = 1.5
 # were 0.093 off (range +-2.5), so 0.15 leaves a margin; a greedy step whose
 # top-2 gap is within it may pick either token
 DECODER_LOGIT_ATOL = 0.15
-DECODER_GREEDY = 64         # greedy tokens held against the CPU twin
+DECODER_GREEDY = 32         # greedy tokens held against the CPU twin (64
+                            # until the evals, cases and agent phases)
 # each identity stream's greedy tokens (the bf16 prefix hit's divergence
-# on an H100 came at token 14)
-DECODER_IDENTITY_TOKENS = 16
+# on an H100 came at token 14; 16 until the evals, cases and agent phases)
+DECODER_IDENTITY_TOKENS = 8
 DECODER_MAX_LEN = 4096 + 1024   # max_context_tokens + max_new_tokens
 DECODER_QUESTION = "合同在什么情况下可以解除？"
 DECODER_HITS = 8            # statute chunks in the twin's RAG prompt
@@ -562,7 +616,8 @@ DECODER_PREFILL_LENS = (512, 2048, 4096)
 # them) and a profiled decode run's (~1,300 events a token; 40, then 16)
 DECODER_DECODE_TOKENS = 32
 DECODER_PROFILE_TOKENS = 8
-DECODER_ANSWERS = 2         # timed /rag/answer streams
+DECODER_ANSWERS = 1         # timed /rag/answer streams (3, then 2, before
+                            # the evals, cases and agent phases)
 # their max_new_tokens (128 until the decoder_spec phase needed the time,
 # 64 until the decoder_batched phase did; the quant phase's are 16,
 # decoder_spec's and the batched and paged phases' 32)
@@ -612,9 +667,10 @@ GEMMA_TURNS = ("{{ bos_token }}{% for m in messages %}<start_of_turn>"
 # the margin Qwen2.5's has
 GEMMA_LOGIT_ATOL = 0.15
 QWEN3_LOGIT_ATOL = 0.15
-# Qwen3's twin at 8 of its 28 layers, every width kept (the script's time;
-# at 28 an H100's logits were 0.052 / 0.062 off the twin's)
-QWEN3_LAYERS = 8
+# Qwen3's twin at 4 of its 28 layers, every width kept (the script's time:
+# 8 until the evals, cases and agent phases; at 28 an H100's logits were
+# 0.052 / 0.062 off the twin's)
+QWEN3_LAYERS = 4
 FAMILIES_MIN_PROMPT = 512   # the twin's prompt crosses Gemma 3's window
 # decoder_moe phase: Qwen/Qwen1.5-MoE-A2.7B's published config.json, every
 # width as released; the depth cut from 24 layers to MOE_LAYERS (the only
@@ -693,14 +749,16 @@ MOE_QUANT_PREFILL_CHUNK = 128
 # the device's activity alone
 QUANT_SPEED = dict(lens=(2048,), runs=1, modes=("greedy",), tokens=16)
 QUANT_PROFILE = 4
-QUANT_IDENTITY_TOKENS = 8   # each identity stream's greedy tokens
+QUANT_IDENTITY_TOKENS = 4   # each identity stream's greedy tokens (8
+                            # before the evals, cases and agent phases)
 # the twins' cache: the RAG prompt and 64 steps (rows past the filled ones
 # are masked, so the logits do not depend on it)
 QUANT_TWIN_MAX_LEN = 2048
 QUANT_SERVED = "int4_kv8"   # /rag/answer's configuration, and its identities
 # the twins: the served configuration's on the whole RAG prompt, the others
 # on its first 256 tokens (the CPU's prefill is most of a twin's time)
-QUANT_TWIN = {True: dict(steps=32), False: dict(prompt=256, steps=16)}
+QUANT_TWIN = {True: dict(steps=16), False: dict(prompt=256, steps=8)}
+                            # (steps 32 / 16 before the evals phase)
 QUANT_ANSWER_TOKENS = 16    # 64 until PR 20 (~150 ms a token served)
 # the MoE twins' prompt (the RAG prompt's first tokens) and greedy steps:
 # the CPU's int4 expert products sum a [E * groups, tokens, F] float32
@@ -717,7 +775,8 @@ QWEN25_15B = QWEN25_05B | dict(hidden_size=1536, num_hidden_layers=28,
 SPEC_K = 8                  # drafts verified a round (llm.spec_k)
 SPEC_STEPS = 4              # rounds a host read (the engine's default)
 SPEC_CONSTRAINED_TOKENS = 128
-SPEC_TOKENS = 32            # each speculation identity stream's tokens
+SPEC_TOKENS = 16            # each speculation identity stream's tokens
+                            # (32 before the evals phase)
 SPEC_TIMED_TOKENS = 16      # the decode timings' tokens
 SPEC_SELF_DRAFT_TOKENS = 64  # the self draft's stream: 7 rounds of k + 1
 SPEC_DRAFT_TOKENS = 8       # the 1.5B target's streams (16 until PR 20)
@@ -726,9 +785,11 @@ SPEC_TABLE_LOG2 = 18        # the corpus table's slots (the CLI's default)
 # decoder_batched phase: the continuous-batching engine (llm.batch_slots)
 # on phase 12's Qwen2.5-0.5B checkpoint
 BATCHED_SLOTS = 4           # the identity engines' slots and the answers'
-BATCHED_TOKENS = 16         # each identity stream's greedy tokens
-BATCHED_OCCUPANCY = (1, 2, 4, 8)   # streams at once in an 8-slot engine
-BATCHED_TIMED_TOKENS = 32   # each timed stream's tokens
+BATCHED_TOKENS = 8          # each identity stream's greedy tokens (16
+                            # before the evals, cases and agent phases)
+BATCHED_OCCUPANCY = (1, 8)  # streams at once in an 8-slot engine (1, 2, 4,
+                            # 8 before them)
+BATCHED_TIMED_TOKENS = 16   # each timed stream's tokens (32 before them)
 BATCHED_PROFILE_TOKENS = 8
 BATCHED_ANSWERS = 8         # /rag/answer streams, one client thread each
 BATCHED_ANSWER_TOKENS = 32
@@ -765,14 +826,17 @@ PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "quant": ("score_select", "maxsim"),
                 "spec": ("score_select", "maxsim"),
                 "batched": ("score_select", "maxsim"),
-                "paged": ("score_select", "maxsim")}
+                "paged": ("score_select", "maxsim"),
+                "cases": ("score_select",),
+                "agent": ("score_select", "maxsim"),
+                "evals_generation": ("score_select", "maxsim")}
 # MaxSim's route (the store kind, as the wrapper counts it) on each path
 # that launches it; the recall path's is its token store's
 PATH_ROUTES = {"map": "bf16", "bert": "bf16", "serve": "bf16", "http": "bf16",
                "ingest": "bf16", "stores_q8": "int8", "stores_n4": "nbit4",
                "answer": "bf16", "families": "bf16", "moe": "bf16",
                "quant": "bf16", "spec": "bf16", "batched": "bf16",
-               "paged": "bf16"}
+               "paged": "bf16", "agent": "bf16", "evals_generation": "bf16"}
 
 
 def emit(obj) -> None:
@@ -1516,20 +1580,7 @@ def phase_kernels(zh, queries):
 def cpu_reference(bundle, queries, got_s, got_r):
     """The same index on the CPU (the kernels' plain versions) must give the
     same top-10 for the first queries."""
-    enc = bundle.encoder
-    arrays = {
-        "encoder": enc.state(), "proj": enc.projection().cpu().numpy(),
-        "emb": bundle.dense.emb.float().cpu().numpy(), "n": bundle.dense.n,
-        "impact": bundle.bm25.impact.cpu().numpy(),
-        "tok": bundle.tokens.tok.float().cpu().numpy(),
-        "mask": bundle.tokens.mask.cpu().numpy(),
-        "flat_ids": np.concatenate(bundle.bm25.doc_term_ids),
-        "flat_tfs": np.concatenate(bundle.bm25.doc_term_freqs),
-        "offsets": np.cumsum([0] + [len(a) for a in bundle.bm25.doc_term_ids]),
-        "bm25_params": [bundle.bm25.k1, bundle.bm25.b, bundle.bm25.epsilon]}
-    cpu = bundle_from_arrays(arrays, bundle.chunks, bundle.bm25.vocab,
-                             bundle.cfg, "cpu")
-    ws, wr, _ = FusedQueryEngine(cpu).search_batch(queries, TOP_K)
+    ws, wr, _ = FusedQueryEngine(cpu_copy(bundle)).search_batch(queries, TOP_K)
     check(np.allclose(got_s, ws, atol=1e-4), "fused scores vs CPU reference")
     return ties_only(ws, wr, got_s, got_r, 1e-5)
 
@@ -3305,8 +3356,11 @@ def bert_map(lang: str, bundle, tmp: Path) -> dict:
         ev.append((a, b))
     torch.cuda.synchronize()
     encoder_ms = statistics.median(a.elapsed_time(b) for a, b in ev)
+    # the device's activity alone: the eager encoder's host events cost the
+    # profiler more to sort than the batches take (host events until the
+    # evals, cases and agent phases needed the time)
     profile = profile_device(lambda: [engine.execute(p) for p in prepared],
-                             len(prepared))
+                             len(prepared), host=False)
 
     # the CPU twin
     m = BERT_TWIN_QUERIES
@@ -6004,6 +6058,639 @@ def phase_large_stores():
             {"launches": recall_launches}], res
 
 
+# ------------------------------------------ evals, case law, the agent
+
+EVALS_K = 20                # run_system's k (the CLI's default)
+EVALS_TWIN_ROWS = 32        # law_qa rows a language held against the CPU twin
+EVALS_GEN_ROWS = 32         # law_qa rows through the generation loop
+EVALS_GEN_LAYERS = 2        # the random answerer's layers
+EVALS_SCHEMA = 4            # --schema N
+EVALS_TIE = 1e-5            # twin scores closer than this may swap
+# the kernels each system launches a query (bm25: the impact matmul alone;
+# colbert: a full-corpus MaxSim; the fused ones one channels call)
+SYSTEM_KERNELS = {"bm25": (), "dense": ("score_select",),
+                  "colbert": ("maxsim",),
+                  "fused": ("score_select", "maxsim"),
+                  "fused+graph": ("score_select", "maxsim"),
+                  "hybrid": ("score_select", "maxsim")}
+CASE_N = 8192               # a court's or a firm's precedent collection
+CASE_FIRST = 6144           # the first add_cases call; the rest the second
+CASE_QUERIES = 64
+CASE_TOP_K = 10
+CASE_TIE = 1e-5             # channel and fused scores: tolerance and ties
+CASE_TWIN_QUERIES = 8       # hits held again after save / load on the card
+CASE_COURTS = ("北京市第一中级人民法院", "北京市朝阳区人民法院",
+               "上海市第二中级人民法院", "上海市浦东新区人民法院",
+               "广州市中级人民法院", "深圳市南山区人民法院",
+               "杭州市中级人民法院", "南京市中级人民法院",
+               "成都市中级人民法院", "武汉市中级人民法院",
+               "重庆市第五中级人民法院", "天津市第一中级人民法院",
+               "西安市中级人民法院", "长沙市中级人民法院",
+               "江苏省高级人民法院", "最高人民法院")
+CASE_CAUSES = ("买卖合同纠纷", "借款合同纠纷", "民间借贷纠纷",
+               "房屋租赁合同纠纷", "建设工程施工合同纠纷", "保证合同纠纷",
+               "赠与合同纠纷", "离婚纠纷", "离婚后财产纠纷", "抚养纠纷",
+               "继承纠纷", "物权保护纠纷", "相邻关系纠纷",
+               "机动车交通事故责任纠纷", "生命权、身体权、健康权纠纷",
+               "不当得利纠纷")
+CASE_SURNAMES = "王李张刘陈杨黄赵吴周徐孙马朱胡郭何高林罗"
+CASE_GIVEN = "伟芳娜敏静丽强磊军洋勇艳杰娟涛明超秀霞平"
+CASE_DAYS = (np.datetime64("2015-01-01"), np.datetime64("2025-01-01"))
+CASE_DATE_RANGE = ("2018-01-01", "2020-12-31")
+CASE_FILTERS = ("none", "court", "cause", "date")
+AGENT_ANSWER_TOKENS = 32
+# two multi-part questions the heuristic splits (3 parts zh, 2 en) and one
+# atomic one
+AGENT_QUESTIONS = (
+    ("zh", "借款合同的利息如何计算；保证人在什么情况下承担保证责任；"
+           "另外，借款人逾期还款应当承担什么责任？"),
+    ("en", "When does a security interest attach to the collateral? "
+           "Who has priority between conflicting security interests?"),
+    ("zh", DECODER_QUESTION))
+A8_LOGGERS = ("torch.retrieval.hybrid", "torch.cli.evaluate_retrieval",
+              "torch.cli.evaluate_generation", "torch.case_retriever",
+              "torch.rag_pipeline", "torch.llm.client", "torch.multistep",
+              "torch.legal_agent")
+
+
+def cpu_copy(bundle):
+    """The bundle's state copied to a CPU bundle (the kernels' plain
+    versions serve it)."""
+    enc = bundle.encoder
+    arrays = {
+        "encoder": enc.state(), "proj": enc.projection().cpu().numpy(),
+        "emb": bundle.dense.emb.float().cpu().numpy(), "n": bundle.dense.n,
+        "impact": bundle.bm25.impact.cpu().numpy(),
+        "tok": bundle.tokens.tok.float().cpu().numpy(),
+        "mask": bundle.tokens.mask.cpu().numpy(),
+        "flat_ids": np.concatenate(bundle.bm25.doc_term_ids),
+        "flat_tfs": np.concatenate(bundle.bm25.doc_term_freqs),
+        "offsets": np.cumsum([0] + [len(a) for a in bundle.bm25.doc_term_ids]),
+        "bm25_params": [bundle.bm25.k1, bundle.bm25.b, bundle.bm25.epsilon]}
+    return bundle_from_arrays(arrays, bundle.chunks, bundle.bm25.vocab,
+                              bundle.cfg, "cpu")
+
+
+def ranked_swaps(want, got, what: str, tie: float = EVALS_TIE) -> int:
+    """Two ranked hit lists: the same length, scores within 1e-4, the same
+    chunks but for swaps of scores closer than ``tie``; the swaps."""
+    check(len(got) == len(want),
+          f"{what}: {len(got)} hits against {len(want)}")
+    if not want:
+        return 0
+    ids = sorted({h.chunk.id for h in want + got})
+    row = {cid: i for i, cid in enumerate(ids)}
+    ws = np.array([[h.score for h in want]])
+    gs = np.array([[h.score for h in got]])
+    check(np.allclose(gs, ws, atol=1e-4), f"{what}: scores differ by "
+          f"{float(np.abs(gs - ws).max())}")
+    return ties_only(ws, np.array([[row[h.chunk.id] for h in want]]), gs,
+                     np.array([[row[h.chunk.id] for h in got]]), tie)
+
+
+class HybridTap:
+    """Wraps a ``HybridRetriever``'s channels call: keeps its result
+    (``last``), answers ``feed`` instead when it is set, and with ``cache``
+    answers a question and eff_k it has seen from its first result (the
+    CPU twin's fused+graph and hybrid systems share their channels)."""
+
+    def __init__(self, hybrid, cache: bool = False):
+        self.last, self.feed = None, None
+        self.cache = {} if cache else None
+        channels = hybrid._channels_topk_all
+
+        def tapped(question, eff_k):
+            if self.feed is not None:
+                return self.feed
+            key = (question, eff_k)
+            if self.cache is not None and key in self.cache:
+                self.last = self.cache[key]
+            else:
+                self.last = channels(question, eff_k)
+                if self.cache is not None:
+                    self.cache[key] = self.last
+            return self.last
+
+        hybrid._channels_topk_all = tapped
+
+
+def evals_retrieval(by_lang, card) -> dict:
+    """``evaluate_retrieval``'s evaluation of every system over every row
+    on the card: its table, and the launches of each system (one call each
+    a query)."""
+    n_rows = sum(len(r) for r in by_lang.values())
+    res = {"rows": {lang: len(r) for lang, r in by_lang.items()}, "k": EVALS_K,
+           "systems": {}}
+    results, results_lang = collections.defaultdict(list), {}
+    for system in evaluate_retrieval.SYSTEMS:
+        t0 = time.perf_counter()
+        (got, got_lang), launches, _ = launches_of(
+            lambda: evaluate_retrieval.evaluate(
+                by_lang, [system], EVALS_K, lambda lang: card[lang]))
+        seconds = time.perf_counter() - t0
+        # evaluate logs and skips a failed query, as the JAX script does
+        check(len(got[system]) == n_rows,
+              f"evals: {system} scored {len(got[system])} of {n_rows} rows")
+        for name in kernels.KERNELS:
+            want = n_rows if name in SYSTEM_KERNELS[system] else 0
+            check(launches[name] == want, f"evals: {system} launched {name} "
+                  f"{launches[name]} times for {n_rows} queries")
+        check(launches["maxsim/bf16"] == launches["maxsim"],
+              f"evals: {system} MaxSim off the bf16 route")
+        results[system] = got[system]
+        results_lang |= got_lang
+        res["systems"][system] = {"seconds": seconds,
+                                  "ms_per_query": seconds / n_rows * 1e3,
+                                  "launches": launches}
+    res["table"] = evaluate_retrieval.table(
+        results, results_lang, evaluate_retrieval.SYSTEMS, list(by_lang))
+    res["by_language"] = {
+        lang: {s: {m: evals.aggregate(results_lang[(s, lang)])[m]["mean"]
+                   for m in evaluate_retrieval.METRICS}
+               for s in evaluate_retrieval.SYSTEMS}
+        for lang in by_lang}
+    launches = collections.Counter()
+    for r in res["systems"].values():
+        launches.update(r["launches"])
+    res["launches"] = dict(launches)
+    return res
+
+
+def evals_card_hits(by_lang, card) -> list:
+    """The first ``EVALS_TWIN_ROWS`` rows of each language through
+    ``system_hits`` on the card: (lang, query, system, hits, the channels'
+    lists of a system that searches, else None)."""
+    taps = {lang: HybridTap(card[lang][0]) for lang in by_lang}
+    out = []
+    for lang, rows in sorted(by_lang.items()):
+        for row in rows[:EVALS_TWIN_ROWS]:
+            for system in evaluate_retrieval.SYSTEMS:
+                taps[lang].last = None
+                hits = evaluate_retrieval.system_hits(
+                    system, row["query"], *card[lang], EVALS_K)
+                out.append((lang, row["query"], system, hits,
+                            taps[lang].last))
+    return out
+
+
+def evals_twin(card_hits, cpu) -> dict:
+    """The card's hits of ``evals_card_hits`` against the CPU twin's: a
+    system that searches (fused+graph, hybrid) holds its channels' lists
+    first (``check_channel_rows``) and, where one swapped at a near-tie,
+    its hits given the card's lists, as the cases phase does; then the
+    ranked hits (``ranked_swaps``)."""
+    taps = {lang: HybridTap(cpu[lang][0], cache=True) for lang in cpu}
+    swaps, channel_swaps = collections.Counter(), collections.Counter()
+    t0 = time.perf_counter()
+    for lang, query, system, got, channels in card_hits:
+        what = f"evals {lang} {system} {query[:20]!r}"
+        want = evaluate_retrieval.system_hits(system, query, *cpu[lang],
+                                              EVALS_K)
+        if channels is not None:
+            n = check_channel_rows(taps[lang].last, channels, what, EVALS_TIE)
+            channel_swaps[system] += n
+            if n:
+                taps[lang].feed = channels
+                try:
+                    want = evaluate_retrieval.system_hits(
+                        system, query, *cpu[lang], EVALS_K)
+                finally:
+                    taps[lang].feed = None
+        swaps[system] += ranked_swaps(want, got, what)
+    return {"rows_per_language": EVALS_TWIN_ROWS, "tie_swaps": dict(swaps),
+            "channel_tie_swaps": dict(channel_swaps), "tie": EVALS_TIE,
+            "seconds": time.perf_counter() - t0}
+
+
+def evals_generation(rows, card) -> dict:
+    """``evaluate_generation``'s loop over the first ``EVALS_GEN_ROWS`` rows
+    on the card with the extractive, degraded and ``local-jax-random``
+    providers (``EVALS_GEN_LAYERS``), then ``--schema EVALS_SCHEMA``; every
+    random answer through the client's stream (counted), none degraded, the
+    constrained valid-prefix rate 1.0."""
+    rows = rows[:EVALS_GEN_ROWS]
+    by_lang = evaluate_retrieval.by_language(rows)
+    local, client = evaluate_generation.make_local_answerer(EVALS_GEN_LAYERS,
+                                                            "cuda")
+    key = ("legalrag_llm_streams", (("provider", "local-jax"),))
+    answers = []
+
+    def answer(question, prompt_text):
+        s0 = METRICS._counters.get(key, 0)
+        text = local(question, prompt_text)
+        answers.append((text, METRICS._counters.get(key, 0) - s0))
+        return text
+
+    t0 = time.perf_counter()
+    per, launches, _ = launches_of(lambda: evaluate_generation.evaluate_rows(
+        by_lang, lambda lang: card[lang][0], local=answer))
+    seconds = time.perf_counter() - t0
+    check(len(answers) == len(rows) and all(
+        n == 1 and text and text not in DEGRADED_ANSWER.values()
+        for text, n in answers), "evals: a random answer degraded or "
+          "missed the client's stream")
+    check_launches("evals_generation", launches, len(rows))
+    lines, summary = evaluate_generation.table(
+        per, ["extractive", "degraded", "local-jax-random"], list(by_lang))
+    client.close()
+    t0 = time.perf_counter()
+    schema = evaluate_generation.run_schema_check(EVALS_SCHEMA, "cuda")
+    schema_s = time.perf_counter() - t0
+    check(schema["constrained_valid_prefix_rate"] == 1.0,
+          f"evals: constrained valid-prefix rate {schema}")
+    return {"rows": len(rows), "seconds": seconds, "launches": launches,
+            "table": lines, "summary": summary, "schema": schema,
+            "schema_s": schema_s,
+            "answer_chars": [len(t) for t, _n in answers[:8]]}
+
+
+def phase_evals(bundles, keep: Path) -> dict:
+    """The repo's evaluations on the card (module docstring, phase 7a) over
+    ``bundles``, saved with their law graphs under ``keep / "agent"`` for
+    the agent phase."""
+    t_phase = time.perf_counter()
+    for name in A8_LOGGERS:
+        logging.getLogger(name).setLevel(logging.WARNING)
+    cfg = AppConfig()
+    cfg.paths.index_dir = keep / "agent" / "index"
+    cfg.paths.graph_dir = keep / "agent" / "graph"
+    card, cpu = {}, {}
+    t0 = time.perf_counter()
+    for lang, b in bundles.items():
+        lc = cfg.with_lang(lang)
+        b.save(lc.paths.lang_index_dir)
+        GraphBuilder().build_to_file(b.chunks, lc.paths.graph_file)
+        card[lang] = (HybridRetriever(b, lc, graph_store=LawGraphStore(
+            lc.paths.graph_file)), FusedQueryEngine(b, lc))
+        twin = cpu_copy(b)
+        cpu[lang] = (HybridRetriever(twin, lc, graph_store=LawGraphStore(
+            lc.paths.graph_file)), FusedQueryEngine(twin, lc))
+    setup_s = time.perf_counter() - t0
+    rows = evaluate_retrieval.load_eval_set(REPO / "data" / "eval"
+                                            / "law_qa.jsonl")
+    by_lang = evaluate_retrieval.by_language(rows)
+    check(set(by_lang) == {"zh", "en"}, f"evals: languages {set(by_lang)}")
+    for hr, engine in card.values():         # warm-up: each system once
+        for system in evaluate_retrieval.SYSTEMS:
+            evaluate_retrieval.run_system(system, rows[0]["query"], hr,
+                                          engine, EVALS_K)
+    torch.cuda.synchronize()
+    retrieval = evals_retrieval(by_lang, card)
+    card_hits = evals_card_hits(by_lang, card)
+    # the CPU twin's searches (torch's CPU threads) beside the card's
+    # generation loop (one host thread and the card)
+    with ThreadPoolExecutor(1) as pool:
+        twin = pool.submit(evals_twin, card_hits, cpu)
+        generation = evals_generation(rows, card)
+        retrieval["cpu_twin"] = twin.result()
+    launches = collections.Counter(retrieval["launches"])
+    launches.update(generation["launches"])
+    res = {"phase": "evals", "setup_s": setup_s, "retrieval": retrieval,
+           "generation": generation, "launches": dict(launches),
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+def case_sentences(chunks) -> list:
+    """(article id, sentence) of every statute sentence of 8-120 chars."""
+    return [(c.article_id, s.strip()) for c in chunks
+            for s in re.split(r"[。；\n]", c.text) if 8 <= len(s.strip()) <= 120]
+
+
+def make_cases(chunks, n: int, rng) -> list:
+    """``n`` synthetic zh ``CaseEntry`` records from ``rng``: the text 2-4
+    statute sentences after the parties (seeded names), the court one of
+    ``CASE_COURTS``, the cause one of ``CASE_CAUSES``, an ISO date in
+    2015-2024 and the articles the text was drawn from."""
+    pool = case_sentences(chunks)
+    span = int((CASE_DAYS[1] - CASE_DAYS[0]).astype(int))
+
+    def party():
+        return (CASE_SURNAMES[rng.integers(len(CASE_SURNAMES))] + "某"
+                + CASE_GIVEN[rng.integers(len(CASE_GIVEN))])
+
+    out = []
+    for i in range(n):
+        picks = rng.choice(len(pool), int(rng.integers(2, 5)), replace=False)
+        a, b = party(), party()
+        cause = CASE_CAUSES[rng.integers(len(CASE_CAUSES))]
+        out.append(CaseEntry(
+            case_id=f"case-{i:05d}", title=f"{a}诉{b}{cause}案",
+            court=CASE_COURTS[rng.integers(len(CASE_COURTS))],
+            date=str(CASE_DAYS[0] + int(rng.integers(span))), cause=cause,
+            text=f"原告{a}与被告{b}{cause}一案。" + "".join(
+                pool[j][1] + "。" for j in picks),
+            cited_articles=list(dict.fromkeys(pool[j][0] for j in picks))))
+    return out
+
+
+def case_queries(chunks, n: int, rng) -> list:
+    """``n`` statute sentences with their citations stripped."""
+    pool = case_sentences(chunks)
+    out = []
+    while len(out) < n:
+        q = strip_refs(pool[rng.integers(len(pool))][1])
+        if len(q) >= 8:
+            out.append(q)
+    return out
+
+
+def case_filter(name: str, i: int) -> dict:
+    return {"none": {}, "court": {"court": CASE_COURTS[i % len(CASE_COURTS)]},
+            "cause": {"cause": CASE_CAUSES[i % len(CASE_CAUSES)]},
+            "date": dict(zip(("date_from", "date_to"), CASE_DATE_RANGE))}[name]
+
+
+class ChannelTap:
+    """Wraps a ``CaseRetriever``'s dense and BM25 ``topk``: keeps each
+    call's lists (``last``), answers from ``cache`` when ``key`` is there
+    (the twin's lists of one query serve its four filters), and answers
+    ``feed``'s lists instead when it is set."""
+
+    def __init__(self, retriever, cache: bool = False):
+        self.last, self.feed, self.key = {}, None, None
+        self.cache = {} if cache else None
+        for name in ("dense", "bm25"):
+            index = getattr(retriever, name)
+            index.topk = self._tap(name, index.topk)
+
+    def _tap(self, name, topk):
+        def tapped(q, k):
+            if self.feed is not None:
+                return self.feed[name]
+            ck = (self.key, name, k)
+            if self.cache is not None and ck in self.cache:
+                out = self.cache[ck]
+            else:
+                out = topk(q, k)
+                if self.cache is not None:
+                    self.cache[ck] = out
+            self.last[name] = out
+            return out
+        return tapped
+
+
+def same_cases(want, got, what: str) -> None:
+    """Case hit lists: the same cases in the same order, fused scores
+    within ``CASE_TIE``."""
+    check([h.case.case_id for h in got] == [h.case.case_id for h in want],
+          f"{what}: cases {[h.case.case_id for h in got]} against "
+          f"{[h.case.case_id for h in want]}")
+    check(all(abs(g.score - w.score) <= CASE_TIE and g.rank == w.rank
+              for g, w in zip(got, want)), f"{what}: fused scores")
+
+
+def case_twin(card, cpu, card_tap, cpu_tap, q: str, kw: dict, what: str):
+    """One query through the card's retriever and its CPU twin: the
+    channels' lists within ``CASE_TIE`` but for near-tie swaps, then the
+    twin's fused hits given the card's lists equal to the card's (min-max
+    over a channel's top eff amplifies a dense score's float32 rounding
+    ~10x, so the fusion is held on the same lists). (card hits, channel
+    swaps, ms on the card, the largest fused-score gap of the twin's own
+    hits to the card's on the cases both hold)."""
+    t0 = time.perf_counter()
+    got = card.search(q, CASE_TOP_K, **kw)
+    ms = (time.perf_counter() - t0) * 1e3
+    own = cpu.search(q, CASE_TOP_K, **kw)
+    swaps = 0
+    for name in ("dense", "bm25"):
+        gs, gr = card_tap.last[name]
+        ws, wr = cpu_tap.last[name]
+        check(gs.shape == ws.shape and np.allclose(gs, ws, atol=CASE_TIE,
+                                                   rtol=CASE_TIE),
+              f"{what} {name}: scores")
+        swaps += ties_only(ws, wr, gs, gr, CASE_TIE)
+    cpu_tap.feed = dict(card_tap.last)
+    try:
+        want = cpu.search(q, CASE_TOP_K, **kw)
+    finally:
+        cpu_tap.feed = None
+    same_cases(want, got, what)
+    mine = {h.case.case_id: h.score for h in own}
+    gap = max((abs(h.score - mine[h.case.case_id]) for h in got
+               if h.case.case_id in mine), default=0.0)
+    return got, swaps, ms, gap
+
+
+def phase_cases(seed: int) -> dict:
+    """Case-law retrieval at ``CASE_N`` records (module docstring, phase
+    7b)."""
+    t_phase = time.perf_counter()
+    for name in A8_LOGGERS:
+        logging.getLogger(name).setLevel(logging.WARNING)
+    rng = np.random.default_rng(seed)
+    chunks = load_chunks("zh")
+    t0 = time.perf_counter()
+    records = make_cases(chunks, CASE_N, rng)
+    queries = case_queries(chunks, CASE_QUERIES, rng)
+    make_s = time.perf_counter() - t0
+    cfg = AppConfig()
+    card = CaseRetriever(cfg, "zh", device="cuda")
+    cpu = CaseRetriever(cfg, "zh", device="cpu")
+    builds = []
+    for part in (records[:CASE_FIRST], records[CASE_FIRST:]):
+        t0 = time.perf_counter()
+        added = card.add_cases(part)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu.add_cases(part)
+        check(added == len(part), f"cases: added {added} of {len(part)}")
+        builds.append({"cases": added, "card_s": card_s,
+                       "cpu_twin_s": time.perf_counter() - t0,
+                       "vocab": len(card.bm25.vocab)})
+    check(card.encoder.n_docs == cpu.encoder.n_docs == CASE_N
+          and np.array_equal(card.encoder.df, cpu.encoder.df),
+          "cases: the IDF state differs from the twin's")
+    check(card.bm25.vocab == cpu.bm25.vocab, "cases: BM25 vocabularies")
+    check(card.dense.capacity < TWO_PASS_MIN_N,
+          f"cases: dense capacity {card.dense.capacity} off the one-pass route")
+    # the rows, projected on the card and on the CPU, round to bf16 alike
+    # but where the float32 sums straddle a midpoint: within a bf16 ulp
+    # (absolute under 1e-6, where they cancel); the twin then serves the
+    # card's rows, so its dense scores differ by the query's rounding alone
+    rows_card = card.dense.emb.float().cpu()
+    rows_cpu = cpu.dense.emb.float()
+    diff = (rows_card - rows_cpu).abs()
+    check(bool((diff <= rows_cpu.abs() * 2.0 ** -7 + 1e-6).all()),
+          "cases: dense rows beyond a bf16 ulp of the twin's")
+    rows_apart = float((diff > 0).float().mean())
+    cpu.dense.emb = card.dense.emb.cpu()
+    check(card.add_cases(records[:1]) == 0, "cases: a duplicate was added")
+    card_tap, cpu_tap = ChannelTap(card), ChannelTap(cpu, cache=True)
+    card.search(queries[0], CASE_TOP_K)          # warm-up
+    torch.cuda.synchronize()
+    stats = {f: {"ms": [], "hits": [], "short": 0, "swaps": 0, "gap": 0.0}
+             for f in CASE_FILTERS}
+    kernels.reset_launch_counts()
+    for i, q in enumerate(queries):
+        cpu_tap.key = card_tap.key = i
+        for f in CASE_FILTERS:
+            hits, swaps, ms, gap = case_twin(card, cpu, card_tap, cpu_tap,
+                                             q, case_filter(f, i),
+                                             f"cases {f} {i}")
+            s = stats[f]
+            s["ms"].append(ms)
+            s["hits"].append(len(hits))
+            s["short"] += len(hits) < CASE_TOP_K
+            s["swaps"] += swaps
+            s["gap"] = max(s["gap"], gap)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts(routes=True)
+    searches = CASE_QUERIES * len(CASE_FILTERS)
+    check_launches("cases", launches, searches)
+    by_filter = {f: {"p50_ms": float(np.percentile(s["ms"], 50)),
+                     "p99_ms": float(np.percentile(s["ms"], 99)),
+                     "mean_hits": float(np.mean(s["hits"])),
+                     "short_share": s["short"] / CASE_QUERIES,
+                     "tie_swaps": s["swaps"],
+                     "twin_own_fused_gap": s["gap"]}
+                 for f, s in stats.items()}
+    check(by_filter["none"]["short_share"] == 0.0,
+          "cases: an unfiltered search returned fewer than top_k")
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        t0 = time.perf_counter()
+        card.save(tmp)
+        loaded = CaseRetriever.load(tmp, cfg, "zh", device="cuda")
+        torch.cuda.synchronize()
+        reload_s = time.perf_counter() - t0
+        for i, q in enumerate(queries[:CASE_TWIN_QUERIES]):
+            for f in CASE_FILTERS:
+                cpu_tap.key = i
+                case_twin(loaded, cpu, ChannelTap(loaded), cpu_tap, q,
+                          case_filter(f, i), f"cases reloaded {f} {i}")
+        files = {p.name: p.stat().st_size for p in Path(tmp).iterdir()}
+    imp = card.bm25.impact
+    res = {"phase": "cases", "cases": CASE_N, "seed": seed, "make_s": make_s,
+           "builds": builds, "vocab": len(card.bm25.vocab),
+           "dense_components_apart": rows_apart,
+           "impact": list(imp.shape),
+           "impact_bytes": imp.numel() * imp.element_size(),
+           "dense_capacity": card.dense.capacity,
+           "dense_bytes": card.dense.emb.numel() * card.dense.emb.element_size(),
+           "two_pass_min_n": TWO_PASS_MIN_N, "queries": CASE_QUERIES,
+           "top_k": CASE_TOP_K, "by_filter": by_filter,
+           "launches": launches, "searches": searches,
+           "reload_s": reload_s, "files": files,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+def phase_agent(keep: Path) -> dict:
+    """``LegalAgent`` over phase 12's Qwen2.5-0.5B checkpoint (module
+    docstring, phase 12a), on the bundles ``phase_evals`` saved."""
+    t_phase = time.perf_counter()
+    for name in A8_LOGGERS:
+        logging.getLogger(name).setLevel(logging.WARNING)
+    cfg = AppConfig()
+    cfg.paths.index_dir = keep / "agent" / "index"
+    cfg.paths.graph_dir = keep / "agent" / "graph"
+    cfg.llm.provider, cfg.llm.model = "local-jax", str(keep / "qwen25_05b")
+    cfg.llm.max_new_tokens = AGENT_ANSWER_TOKENS
+    pipeline = RagPipeline(cfg)
+    agent = LegalAgent(cfg, pipeline)
+    client = pipeline.llm
+    keys = {k: (f"legalrag_llm_{k}", (("provider", "local-jax"),))
+            for k in ("streams", "tokens")}
+    calls = []
+    chat = client.chat
+
+    def counted(messages, tag="chat", max_new_tokens=None):
+        before = {k: METRICS._counters.get(key, 0) for k, key in keys.items()}
+        t0 = time.perf_counter()
+        out = chat(messages, tag=tag, max_new_tokens=max_new_tokens)
+        calls.append({"tag": tag, "seconds": time.perf_counter() - t0,
+                      "chars": len(out),
+                      "degraded": out == client.degraded_answer(messages)}
+                     | {k: METRICS._counters.get(key, 0) - before[k]
+                        for k, key in keys.items()})
+        return out
+
+    client.chat = counted
+    t0 = time.perf_counter()
+    client._load_jax_lm()
+    load_s = time.perf_counter() - t0
+    hrs = {lang: pipeline.retriever.retriever(lang) for lang in ("zh", "en")}
+    answers, launches_all = [], collections.Counter()
+    try:
+        for lang, q in AGENT_QUESTIONS:
+            split = agent.multistep._heuristic_split(q)
+            n0 = len(calls)
+            t0 = time.perf_counter()
+            ans, launches, channel_calls = launches_of(
+                lambda: agent.answer_auto(q), [hr._batcher
+                                               for hr in hrs.values()])
+            seconds = time.perf_counter() - t0
+            mine = calls[n0:]
+            want_tags = (["decompose", "decompose", "answer"]
+                         if len(split) > 1 else ["decompose", "answer"])
+            check([c["tag"] for c in mine] == want_tags,
+                  f"agent: chats {[c['tag'] for c in mine]}")
+            check(all(c["streams"] == 1 and c["tokens"] > 0
+                      and not c["degraded"] for c in mine),
+                  f"agent: a chat failed on the card {mine}")
+            check(ans.answer not in DEGRADED_ANSWER.values(),
+                  "agent: a degraded answer")
+            check(channel_calls == len(split),
+                  f"agent: {channel_calls} channels calls for {len(split)} "
+                  f"sub-questions")
+            check_launches("agent", launches, channel_calls)
+            launches_all.update(launches)
+            answers.append({"lang": lang, "question": q,
+                            "sub_questions": split,
+                            "multistep": len(split) > 1,
+                            "merged_hits": len(ans.hits),
+                            "hit_ids": [h.chunk.id for h in ans.hits[:8]],
+                            "seconds": seconds, "chats": mine,
+                            "answer_chars": len(ans.answer),
+                            "launches": launches})
+    finally:
+        client.close()
+    check([len(a["sub_questions"]) for a in answers] == [3, 2, 1],
+          "agent: the heuristic's sub-questions")
+    res = {"phase": "agent", "load_s": load_s, "answers": answers,
+           "launches": dict(launches_all),
+           "max_new_tokens": AGENT_ANSWER_TOKENS,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+def run_a8(seed: int = 0, phases=("evals", "cases", "agent")) -> None:
+    """Phases 7a, 7b and 12a alone on the card: the kernels built, the zh
+    and en bundles built for ``evals`` (or saved for ``agent`` alone), and
+    for ``agent`` phase 12's Qwen2.5 tokenizer and checkpoint written."""
+    kernels.lib()
+    keep = Path(tempfile.mkdtemp(prefix="a8_"))
+    try:
+        if "evals" in phases or "agent" in phases:
+            cfg = AppConfig()
+            bundles = {lang: IndexBundle.build_from_chunks(
+                load_chunks(lang), cfg.with_lang(lang), lang, device="cuda")
+                for lang in ("zh", "en")}
+            if "evals" in phases:
+                phase_evals(bundles, keep)
+            else:
+                cfg.paths.index_dir = keep / "agent" / "index"
+                cfg.paths.graph_dir = keep / "agent" / "graph"
+                for lang, b in bundles.items():
+                    lc = cfg.with_lang(lang)
+                    b.save(lc.paths.lang_index_dir)
+                    GraphBuilder().build_to_file(b.chunks, lc.paths.graph_file)
+            del bundles
+        if "cases" in phases:
+            phase_cases(seed)
+        if "agent" in phases:
+            texts = [c.text for lang in ("zh", "en") for c in load_chunks(lang)]
+            tokenizer_files(write_bpe_tokenizer, keep / "qwen25_05b", texts, {})
+            write_decoder_checkpoint(keep / "qwen25_05b", seed=5)
+            phase_agent(keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--diagnostics", action="store_true",
@@ -6012,6 +6699,8 @@ def main(argv=None) -> int:
                          "on kernel copies built for it (store_route_costs),"
                          " and how far one ulp moves the quantized logits "
                          "(one_ulp_sensitivity)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the cases phase's records and queries")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6023,14 +6712,14 @@ def main(argv=None) -> int:
         with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
                 "spawn")) as pool:
             prep = pool.submit(prepare_files, str(keep))
-            return run_phases(prep, keep, args.diagnostics)
+            return run_phases(prep, keep, args.diagnostics, args.seed)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
 
-def run_phases(prep, keep: Path, diagnostics: bool) -> int:
+def run_phases(prep, keep: Path, diagnostics: bool, seed: int = 0) -> int:
     """Every phase in order (module docstring); ``prep``: the future of
-    ``prepare_files`` writing into ``keep``."""
+    ``prepare_files`` writing into ``keep``; ``seed``: the cases phase's."""
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind,
@@ -6061,7 +6750,9 @@ def run_phases(prep, keep: Path, diagnostics: bool) -> int:
 
     e2e = {lang: phase_e2e(lang, bundles[lang]) for lang in ("zh", "en")}
     serve, http = run_serving(bundles)
+    evals_run = phase_evals(bundles, keep)
     del bundles
+    cases = phase_cases(seed)
     ingest = phase_ingest()
     routes, store_runs = phase_stores(e2e, diagnostics)
     kres["bm25_sparse"], large = phase_large()
@@ -6071,6 +6762,7 @@ def run_phases(prep, keep: Path, diagnostics: bool) -> int:
     tokenizers = {}
     adopt_prepared(prepared, tokenizers)
     answer = phase_decoder(keep, tokenizers)
+    agent = phase_agent(keep)
     families = phase_decoder_families(keep, tokenizers)
     moe = phase_decoder_moe(keep, tokenizers)
     quant = phase_decoder_quant(keep / "qwen25_05b", keep / "qwen15_moe_a27b",
@@ -6084,7 +6776,8 @@ def run_phases(prep, keep: Path, diagnostics: bool) -> int:
             "large": [large] + large_store_runs, "bert": bert_runs,
             "answer": [answer], "families": [families], "moe": [moe],
             "quant": [quant], "spec": [spec], "batched": [batched],
-            "paged": [paged]}
+            "paged": [paged], "cases": [cases], "agent": [agent],
+            "evals": [evals_run]}
     # MaxSim's launches per route, as the wrapper counts them on each path
     # (the kernel's own row: all its routes; bf16 is the map path's)
     routes["float32"] = kres["maxsim"].pop("float32_route")

@@ -3,7 +3,8 @@
 Keyword-only dataclasses and string enums with the JAX package's field
 names, order and defaults (``legalrag_tpu/schemas.py:19-150, 173-199``):
 ``LawChunk``, ``RetrievalHit``, the routing axes (``TaskType``,
-``IssueType``, ``RoutingMode``, ``RoutingDecision``), ``RagAnswer`` and the
+``IssueType``, ``RoutingMode``, ``RoutingDecision``), ``RagAnswer``, the
+case-law ``CaseEntry`` and ``CaseRetrievalHit`` (``:152-171``) and the
 law graph's ``Neighbor`` and ``LawNode``.
 
 :func:`dump` is pydantic's ``model_dump`` (``exclude_none`` drops the
@@ -14,7 +15,8 @@ are ``model_validate`` for what the server reads back from JSON.
 ``LawChunk.to_json`` writes the same line as pydantic's
 ``model_dump_json(exclude_none=True)`` (fields in declaration order,
 compact separators, non-ASCII kept as is), so ``chunks.jsonl`` reads and
-writes identically in both packages.
+writes identically in both packages; ``CaseEntry.to_json`` does the same
+for ``cases.jsonl``.
 """
 
 from __future__ import annotations
@@ -218,6 +220,45 @@ class RagAnswer:
     # which article refs in the answer the retrieved hits support
     # (pipeline/citations.py); None when verification was not run
     citations: Optional[Dict[str, Any]] = None
+
+
+@dataclass(kw_only=True)
+class CaseEntry:
+    """A case-law record (``legalrag_tpu/schemas.py:152-163``)."""
+
+    case_id: str
+    title: str
+    court: Optional[str] = None
+    date: Optional[str] = None           # ISO yyyy-mm-dd
+    cause: Optional[str] = None          # cause of action / 案由
+    text: str
+    cited_articles: List[str] = field(default_factory=list)
+    meta: Dict[str, Any] = field(default_factory=dict)
+
+    def to_json(self) -> str:
+        """pydantic's ``model_dump_json(exclude_none=True)`` line (the
+        empty ``cited_articles`` and ``meta`` kept: they are not None). A
+        float inside ``meta`` is written as ``json`` writes it, which
+        pydantic does not always do (1.5e-05 against 0.000015)."""
+        return json.dumps(dump(self, exclude_none=True), ensure_ascii=False,
+                          separators=(",", ":"))
+
+    @classmethod
+    def from_json(cls, line: str) -> "CaseEntry":
+        return cls.from_dict(json.loads(line))
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "CaseEntry":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+
+@dataclass(kw_only=True)
+class CaseRetrievalHit:
+    case: CaseEntry
+    score: float
+    rank: Optional[int] = None
+    score_breakdown: Optional[Dict[str, Any]] = None
 
 
 @dataclass(kw_only=True)
