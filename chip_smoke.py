@@ -73,6 +73,33 @@ Phases, each printing one JSON line:
    ``sentence``, ``citations`` with the cited article supported, ``done``);
    the launch counts per endpoint (one score+select and one MaxSim per
    channels call and per language of a batch); then the graceful drain;
+7c. ``sharded`` (run after 7, before 7a, over the directories of 6):
+   doc-sharded serving (``parallel/sharded_search.py``) on meshes that
+   name cuda:0 once per shard. Per language, 64 questions through
+   ``HybridRetriever._channels_topk_batch`` and ``search`` (every other
+   one ``GRAPH_AUGMENTED``) over phase 3's bundle at 1, 2 and 4 shards:
+   the lists against the unsharded retriever's (rows equal but at ties
+   within 1e-6, scores within 1e-5; BM25's within 1e-5 + 64 float32 ulps
+   of the score, since cuBLAS sums its product in an order that depends on
+   the doc width), the hits against its hits, kernel 1
+   and bf16 MaxSim launched once a shard a channels call, ms a channels
+   call (host clock) and of its device part (CUDA events) beside the
+   unsharded call; ``make_sharded_hybrid_step`` with the late channel at
+   B 64 on (1, 4) and (2, 2) grids against (1, 1); ``engine.n_index_shards:
+   -1`` through ``ByLangRetriever`` and the HTTP server, 32 requests each
+   against the unsharded ones. The stores phase splits its zh Q8 and N4
+   bundles 4 ways (``stores_sharded``: Q8's int8 route, N4's tokens
+   reconstructed to bf16 per shard, held against plain MaxSim over them);
+7d. ``train``: ``cli/train_encoder.py`` on copies of the zh bundle
+   directory: one extractive epoch with ``--save`` (must exit 1 and save
+   nothing), then the semantic pairs of ``data/eval`` at the CLI's
+   defaults (batch 64, 8 epochs) with ``--save`` on the card beside a CPU
+   twin (``--device cpu``, in a thread): every step's loss within 1e-4 of
+   the twin's, recall before and after within one held question of the
+   twin's, ms a step, the sketches' seconds; the saved bundle reloaded by
+   ``ByLangRetriever`` on the card (the trained projection, one channels
+   call held against the CPU over the same files); one step on (1, 4) and
+   (2, 2) grids of cuda:0 against (1, 1);
 7a. ``evals``: the repo's retrieval evaluation on the card
    (``cli/evaluate_retrieval.py``) over the zh and en bundles of 3 and
    their law graphs (saved for 12a): every ``data/eval/law_qa.jsonl`` query
@@ -132,7 +159,7 @@ Phases, each printing one JSON line:
    ``"{doc_id}:{article_id}"`` ids; a copy of the root taken after the
    CLIs gets the same uploads in the same order through the same server
    on the CPU, whose ``chunks.jsonl`` and ``ingested_*.jsonl`` files must
-   be byte-equal and whose hit lists for 32 questions must equal the
+   be byte-equal and whose hit lists for 16 questions must equal the
    card's but for near-ties; one score+select and one MaxSim launch per
    channels call during and after the ingest; kernels 1 and 2/3 against
    their plain versions on the tensors the path handed them after the
@@ -154,7 +181,7 @@ Phases, each printing one JSON line:
    9 batches through ``FusedQueryEngine``: q/s, Recall@10 against the bf16
    bundle's, N4 within 0.02, exact launches per batch (Q8: MaxSim only;
    N4: both kernels), device busy and idle share, MaxSim's device ms a
-   batch) with 32 questions against the bundle's CPU twin (saved and
+   batch) with 16 questions against the bundle's CPU twin (saved and
    loaded on the CPU: the same stores, the late map within 1e-5, no swap
    in the top 10 given the card's late map); then 64 ``ByLangRetriever``
    requests from 16 threads over the saved bundles (requests/s, p50 /
@@ -206,7 +233,7 @@ Phases, each printing one JSON line:
    ids 151643-151645) and a ChatML ``chat_template``; nothing downloaded.
    ``TorchDecoderLM`` on the card against a CPU twin on float32 copies of
    the same weights: the prefill's last-row logits on the pipeline's own
-   zh RAG prompt within ``DECODER_LOGIT_ATOL``, and the card's first 32
+   zh RAG prompt within ``DECODER_LOGIT_ATOL``, and the card's first 16
    greedy tokens fed to the twin, each its argmax wherever its top-2 gap
    exceeds that atol (the smallest gap printed); on the card, greedy
    streams token-identical for chunked prefill against one shot (a
@@ -248,7 +275,7 @@ Phases, each printing one JSON line:
    kernels 1 and 2/3 once a request, held against their plain versions);
    then Qwen3-0.6B (``QWEN3_06B``: 1024 wide, 16 / 8 heads of 128, q/k
    norms, tied; ``QWEN3_LAYERS`` of its 28 layers) with the Qwen2-layout
-   tokenizer: its prefill logits and 32 greedy tokens against the float32
+   tokenizer: its prefill logits and 16 greedy tokens against the float32
    CPU twin;
 14. ``decoder_moe``: the mixture-of-experts families. Qwen1.5-MoE-A2.7B
    (``QWEN15_MOE_A27B``, its published config.json: 2048 wide, 16 / 16
@@ -424,6 +451,7 @@ from legalrag_tpu_torch.cli import (
     evaluate_generation,
     evaluate_retrieval,
     preprocess_law,
+    train_encoder,
 )
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.convert import bundle_from_arrays
@@ -465,6 +493,7 @@ from legalrag_tpu_torch.models.ngram_draft import NgramDraftTable
 from legalrag_tpu_torch.models.paged_decoder import TorchPagedDecoderLM
 from legalrag_tpu_torch.models.safetensors_io import save_file
 from legalrag_tpu_torch.models.spec_decode import TorchSpecLookupDecoderLM
+from legalrag_tpu_torch.ops.bm25 import query_term_counts
 from legalrag_tpu_torch.ops.bm25_sparse import (
     bm25_sparse_map,
     bm25_sparse_scores,
@@ -489,10 +518,20 @@ from legalrag_tpu_torch.ops.topk import (
     bucket_k,
     dense_scores,
     dense_topk_fused_plain,
+    mask_cols,
     score_select_topk,
     stable_topk,
 )
 from legalrag_tpu_torch.graph import GraphBuilder, LawGraphStore
+from legalrag_tpu_torch.parallel.mesh import make_mesh
+from legalrag_tpu_torch.parallel.sharded_search import (
+    make_sharded_hybrid_step,
+    sharded_channels_topk,
+)
+from legalrag_tpu_torch.parallel.training import (
+    full_projection,
+    make_contrastive_train_step,
+)
 from legalrag_tpu_torch.pipeline.rag_pipeline import RagPipeline
 from legalrag_tpu_torch.retrieval.by_lang import ByLangRetriever
 from legalrag_tpu_torch.retrieval.case_retriever import CaseRetriever
@@ -533,22 +572,26 @@ SERVE_PER_LANG = 64         # serve phase: requests per language
 SERVE_THREADS = 16          # request threads submitting at once
 SERVE_CPU_CHECKS = 16       # requests held against the CPU retriever
 SERVE_SOLO_CHECKS = 8       # requests held against a solo run on the card
-SERVE_SERIAL = 64           # requests sent one at a time (no contention)
+SERVE_SERIAL = 32           # requests sent one at a time (no contention;
+                            # 64 until the sharded and train phases)
 # http phase: /rag/retrieve requests per language (128 until the
 # decoder_batched phase needed the script's time)
 HTTP_PER_LANG = 64          # a whole batch of make_queries
 HTTP_THREADS = 16           # client threads sending at once
 HTTP_SERIAL = 16            # /rag/retrieve requests sent one at a time
 HTTP_BATCH_PER_LANG = 64    # questions per language in /rag/retrieve_batch
-HTTP_SSE = 8                # /rag/query SSE streams, one at a time
+HTTP_SSE = 4                # /rag/query SSE streams, one at a time (8
+                            # until the sharded and train phases)
 INGEST_THREADS = 8          # ingest phase: client threads asking throughout
 INGEST_WINDOW = 32          # /rag/retrieve requests before and after it
 INGEST_RECALL = 64          # self-retrieval queries from the ingested chunks
-INGEST_CPU_CHECKS = 32      # questions held against the CPU twin
+INGEST_CPU_CHECKS = 16      # questions held against the CPU twin (32
+                            # until the sharded and train phases)
 # stores phase: the quantized configurations (EngineConfig overrides)
 STORES = {"q8": {"dtype": "int8"}, "n4": {"token_dtype": "nbit4"}}
 STORES_REQUESTS = 64        # ByLangRetriever requests per configuration
-STORES_CPU_CHECKS = 32      # map-path questions held against the CPU twin
+STORES_CPU_CHECKS = 16      # map-path questions held against the CPU twin
+                            # (32 until the sharded and train phases)
 STORES_SERVE_CPU_CHECKS = 8  # ByLangRetriever requests against the CPU
 STORE_BUCKETS = (1, 8, 64)  # batch sizes of the MaxSim route checks
 ROUTE_ATOL = 1e-5           # MaxSim's int8 and nbit4 routes against the plain version
@@ -603,8 +646,9 @@ DECODER_LAYER_SCALE = 1.5
 # were 0.093 off (range +-2.5), so 0.15 leaves a margin; a greedy step whose
 # top-2 gap is within it may pick either token
 DECODER_LOGIT_ATOL = 0.15
-DECODER_GREEDY = 32         # greedy tokens held against the CPU twin (64
-                            # until the evals, cases and agent phases)
+DECODER_GREEDY = 16         # greedy tokens held against the CPU twin (64
+                            # until the evals, cases and agent phases, 32
+                            # until the sharded and train phases)
 # each identity stream's greedy tokens (the bf16 prefix hit's divergence
 # on an H100 came at token 14; 16 until the evals, cases and agent phases)
 DECODER_IDENTITY_TOKENS = 8
@@ -757,8 +801,9 @@ QUANT_TWIN_MAX_LEN = 2048
 QUANT_SERVED = "int4_kv8"   # /rag/answer's configuration, and its identities
 # the twins: the served configuration's on the whole RAG prompt, the others
 # on its first 256 tokens (the CPU's prefill is most of a twin's time)
-QUANT_TWIN = {True: dict(steps=16), False: dict(prompt=256, steps=8)}
-                            # (steps 32 / 16 before the evals phase)
+QUANT_TWIN = {True: dict(steps=8), False: dict(prompt=256, steps=4)}
+                            # (steps 32 / 16 before the evals phase, 16 / 8
+                            # before the sharded and train phases)
 QUANT_ANSWER_TOKENS = 16    # 64 until PR 20 (~150 ms a token served)
 # the MoE twins' prompt (the RAG prompt's first tokens) and greedy steps:
 # the CPU's int4 expert products sum a [E * groups, tokens, F] float32
@@ -829,14 +874,17 @@ PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "paged": ("score_select", "maxsim"),
                 "cases": ("score_select",),
                 "agent": ("score_select", "maxsim"),
-                "evals_generation": ("score_select", "maxsim")}
+                "evals_generation": ("score_select", "maxsim"),
+                "sharded": ("score_select", "maxsim"),
+                "train": ("score_select", "maxsim")}
 # MaxSim's route (the store kind, as the wrapper counts it) on each path
 # that launches it; the recall path's is its token store's
 PATH_ROUTES = {"map": "bf16", "bert": "bf16", "serve": "bf16", "http": "bf16",
                "ingest": "bf16", "stores_q8": "int8", "stores_n4": "nbit4",
                "answer": "bf16", "families": "bf16", "moe": "bf16",
                "quant": "bf16", "spec": "bf16", "batched": "bf16",
-               "paged": "bf16", "agent": "bf16", "evals_generation": "bf16"}
+               "paged": "bf16", "agent": "bf16", "evals_generation": "bf16",
+               "sharded": "bf16", "train": "bf16"}
 
 
 def emit(obj) -> None:
@@ -2332,13 +2380,495 @@ def phase_http(bundles, cfg: AppConfig):
     return res
 
 
-def run_serving(bundles):
-    """Save both bundles with their law graphs, then the ``serve`` and
-    ``http`` phases over them: (serve result, http result)."""
+def run_serving(bundles) -> dict:
+    """Save both bundles with their law graphs, then the ``serve``,
+    ``http``, ``sharded`` and ``train`` phases over them: {phase:
+    result}."""
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         cfg = serve_setup(bundles, Path(tmp))
-        return phase_serve(bundles, cfg), phase_http(bundles, cfg)
+        return {"serve": phase_serve(bundles, cfg),
+                "http": phase_http(bundles, cfg),
+                "sharded": phase_sharded(bundles, cfg),
+                "train": phase_train(cfg.with_lang("zh").paths.lang_index_dir)}
+
+
+# ------------------------------------------------------- doc-sharded serving
+SHARDS = (1, 2, 4)          # meshes naming cuda:0 once per shard
+SHARDED_PER_LANG = 64       # questions a language: lists and search
+SHARDED_REQUESTS = 32       # ByLangRetriever and HTTP at n_index_shards -1
+SHARDED_REPS = 5            # timed channels calls a configuration
+SHARDED_ATOL = 1e-5         # sharded scores against the unsharded ones
+SHARDED_TIE = 1e-6          # unsharded scores closer than this may swap
+# BM25's relative bound besides: cuBLAS sums the [B, V] x [V, N] product
+# in an order that depends on N (a shard's or the padded capacity's), and
+# a sum of Lq = 64 terms in another order moves by up to 64 float32 ulps
+BM25_RTOL = 64 * 2.0 ** -23
+N4_SHARD_ATOL = 1e-4        # N4's sharded late lists against plain MaxSim
+                            # over the same reconstructed bf16 tokens
+
+
+def card_mesh(model: int, data: int = 1):
+    """A (data, model) grid naming cuda:0 in every cell."""
+    return make_mesh([torch.device("cuda", 0)] * (data * model), data=data,
+                     model=model)
+
+
+def sharing_bundle(bundle, mesh):
+    """A bundle serving ``bundle``'s current state (no copy) split over
+    ``mesh``."""
+    b = IndexBundle(bundle.lang, bundle.cfg, device=bundle.device)
+    b.state = bundle.state
+    b.enable_sharding(mesh)
+    return b
+
+
+def zero_launches() -> dict:
+    return {k: 0 for k in kernels.launch_counts(routes=True)}
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] += v
+
+
+def same_lists(want, got, what: str, atol: float = SHARDED_ATOL,
+               tie: float = SHARDED_TIE, names=("dense", "bm25", "colbert")
+               ) -> dict:
+    """Channel lists of one batch: scores within ``atol`` (BM25's within
+    ``atol + BM25_RTOL * |score|``), rows equal but where the wanted scores
+    tie within ``tie`` (BM25: within its score bound); the swaps and the
+    largest score difference per channel. Every channel is measured before
+    a failure is raised."""
+    out, bad = {}, []
+    for name in names:
+        ws, wr = want[name]
+        gs, gr = got[name]
+        rtol = BM25_RTOL if name == "bm25" else 0.0
+        diff = np.abs(gs - ws) if gs.shape == ws.shape else np.full(1, np.inf)
+        out[name] = {"max_abs_diff": float(diff.max()),
+                     "max_rel_diff": float((diff / np.maximum(
+                         np.abs(ws), 1e-30)).max())}
+        if not (diff <= atol + rtol * np.abs(ws)).all():
+            bad.append(name)
+            continue
+        t = max(tie, atol + rtol * float(np.abs(ws).max())) if rtol else tie
+        out[name]["swaps"] = ties_only(ws, wr, gs, gr, t)
+    check(not bad, f"{what}: scores of {bad} out of bounds: {out}")
+    return out
+
+
+def timed_call(fn, reps: int = SHARDED_REPS) -> float:
+    """Median host-clock ms of ``fn()`` with the card synchronized."""
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def sharded_lang(lang: str, bundle, cfg: AppConfig, total: dict) -> dict:
+    """One language's lists, searches, launches and times at every count
+    of ``SHARDS`` against the unsharded retriever."""
+    lc = cfg.with_lang(lang)
+    graph = LawGraphStore(lc.paths.graph_file)
+    plain = HybridRetriever(bundle, lc, graph_store=graph)
+    qs, _gold = make_queries(bundle, SHARDED_PER_LANG, seed=2)
+    check(len(qs) == SHARDED_PER_LANG, f"sharded {lang}: {len(qs)} questions")
+    decs = [decision(RoutingMode.GRAPH_AUGMENTED if i % 2 else RoutingMode.RAG)
+            for i in range(len(qs))]
+    eff = TOP_K * lc.retrieval.oversample_factor
+    st = bundle.state
+    kb = bucket_k(eff, st.dense.capacity)
+    maxlen = lc.engine.max_query_tokens
+    qvec, q_tok, q_mask = st.encoder.query_inputs(qs, maxlen, True)
+    ids, mask = st.bm25.query_term_ids(qs, maxlen)
+    qtf = (torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda())
+
+    def search_all(hr):
+        with ThreadPoolExecutor(SERVE_THREADS) as pool:
+            return list(pool.map(lambda a: hr.search(*a), zip(
+                qs, [None] * len(qs), decs)))
+
+    want = plain._channels_topk_batch(qs, eff)
+    want_hits = search_all(plain)
+    res = {"questions": len(qs), "eff_k": eff, "k_bucket": kb,
+           "unsharded": {
+               "call_ms": timed_call(lambda: plain._channels_topk_batch(
+                   qs, eff)),
+               "device_ms": cuda_ms(lambda: fused_query.fused_channels_topk(
+                   st.dense.emb, st.bm25.impact, st.tokens.tok,
+                   st.tokens.mask, qvec, qtf, q_tok.to(torch.bfloat16),
+                   q_mask, st.dense.n, kb), reps=10)}}
+    for s in SHARDS:
+        mesh = card_mesh(s)
+        sb = sharing_bundle(bundle, mesh)
+        hr = HybridRetriever(sb, lc, graph_store=graph)
+        t0 = time.perf_counter()
+        views = sb.shard_views()
+        torch.cuda.synchronize()
+        views_s = time.perf_counter() - t0
+        got, call_launches, _ = launches_of(
+            lambda: hr._channels_topk_batch(qs, eff))
+        check_launches("sharded", call_launches, s)
+        add_launches(total, call_launches)
+        lists = same_lists(want, got, f"sharded {lang} x{s}")
+        check(np.abs(got["qvec"] - want["qvec"]).max() <= 1e-6,
+              f"sharded {lang} x{s}: qvec")
+        hits, launches, calls = launches_of(lambda: search_all(hr),
+                                            [hr._batcher])
+        check_launches("sharded", launches, calls * s)
+        add_launches(total, launches)
+        hit_swaps = sum(same_hits(w, g, 1e-4, f"sharded {lang} x{s} search")
+                        for w, g in zip(want_hits, hits))
+        tok = q_tok.to(views["q_dtype"])
+        res[f"shards_{s}"] = {
+            "cap": sum(t.shape[0] for t in views["emb"]),
+            "rows_per_shard": views["emb"][0].shape[0],
+            "valid_rows_per_shard": [
+                max(0, min(st.dense.n - j * views["emb"][0].shape[0],
+                           views["emb"][0].shape[0])) for j in range(s)],
+            "views_s": views_s, "lists": lists, "launches_a_call": {
+                k: v for k, v in call_launches.items() if "/" not in k},
+            "search_tie_swaps": hit_swaps, "search_channel_calls": calls,
+            "call_ms": timed_call(lambda: hr._channels_topk_batch(qs, eff)),
+            "device_ms": cuda_ms(lambda: sharded_channels_topk(
+                mesh, kb, views["emb"], views["impact"], views["tok"],
+                views["mask"], qvec, qtf, tok, q_mask, st.dense.n), reps=10)}
+    return res
+
+
+def sharded_hybrid_step(bundle, total: dict) -> dict:
+    """``make_sharded_hybrid_step`` with the late channel at B 64 over the
+    zh store: (1, 4) and (2, 2) grids of cuda:0 against (1, 1), fused rows
+    equal but at ties, scores within ``SHARDED_ATOL``; launches: kernel 1
+    and MaxSim once per cell."""
+    st = bundle.state
+    views = sharing_bundle(bundle, card_mesh(1)).shard_views()
+    emb, impact = views["emb"][0], views["impact"][0].T
+    tok, dmask = views["tok"][0], views["mask"][0]
+    qs, _ = make_queries(bundle, BATCH, seed=3)
+    maxlen = bundle.cfg.engine.max_query_tokens
+    (sketch, proj), q_tok, q_mask = st.encoder.query_inputs(qs, maxlen, True)
+    qvec = project_norm(sketch, proj)
+    ids, mask = st.bm25.query_term_ids(qs, maxlen)
+    qtf = query_term_counts(torch.from_numpy(ids).cuda(),
+                                        torch.from_numpy(mask).cuda(),
+                                        impact.shape[1])
+    args = (emb, impact, tok, dmask, qvec, qtf, q_tok.to(torch.bfloat16),
+            q_mask, st.dense.n)
+    out = {"B": len(qs)}
+    want = None
+    for data, model in ((1, 1), (1, 4), (2, 2)):
+        step = make_sharded_hybrid_step(card_mesh(model, data), k=TOP_K,
+                                        eff_k=TOP_K * 4, has_late=True)
+        (s, i), launches, _ = launches_of(lambda: step(*args))
+        check_launches("sharded", launches, data * model)
+        add_launches(total, launches)
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        check(np.isfinite(s).all() and ((i >= 0) & (i < st.dense.n)).all(),
+              f"hybrid step ({data}, {model}): rows and scores")
+        if want is None:
+            want = (s, i)
+            swaps, diff = 0, 0.0
+        else:
+            diff = float(np.abs(s - want[0]).max())
+            check(diff <= SHARDED_ATOL,
+                  f"hybrid step ({data}, {model}): scores differ by {diff}")
+            swaps = ties_only(want[0], want[1], s, i, SHARDED_ATOL)
+        out[f"mesh_{data}x{model}"] = {
+            "ms": cuda_ms(lambda: step(*args), reps=10),
+            "max_abs_diff": diff, "swaps": swaps}
+    return out
+
+
+def sharded_serving(bundles, cfg: AppConfig, total: dict) -> dict:
+    """``engine.n_index_shards: -1`` (every visible card) through
+    ``ByLangRetriever`` and the HTTP server, ``SHARDED_REQUESTS`` requests
+    each, against the unsharded retriever and server on the card."""
+    cfg = copy.deepcopy(cfg)
+    cfg.llm.provider = "disabled"
+    cfg.server.prewarm_buckets = 0
+    sh_cfg = copy.deepcopy(cfg)
+    sh_cfg.engine.n_index_shards = -1
+    reqs = serve_requests(bundles)[:SHARDED_REQUESTS]
+    plain = ByLangRetriever(cfg, device="cuda")
+    card = ByLangRetriever(sh_cfg, device="cuda")
+    want = [plain.search(q, decision=d) for _l, q, _g, d in reqs]
+    got, launches, calls = launches_of(
+        lambda: [card.search(q, decision=d) for _l, q, _g, d in reqs],
+        None)
+    n_cards = torch.cuda.device_count()
+    for lang in bundles:
+        mesh = card.cache.get(lang).mesh
+        check(mesh is not None and mesh.shape == {"data": 1, "model": n_cards},
+              f"n_index_shards -1: {lang} mesh {mesh}")
+    check_launches("sharded", launches, len(reqs) * n_cards)
+    add_launches(total, launches)
+    swaps = sum(same_hits(w, g, 1e-4, f"n_index_shards -1 request {i}")
+                for i, (w, g) in enumerate(zip(want, got)))
+    server = None
+    try:
+        app = create_app(sh_cfg, build_async=False)
+        check(app.state.error is None, f"sharded http: {app.state.error}")
+        plain_app = TestClient(create_app(cfg, build_async=False))
+        server = app.serve("127.0.0.1", 0)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        batchers = [app.state.pipeline.retriever.retriever(lang)._batcher
+                    for lang in bundles]
+        bodies, launches, calls = launches_of(
+            lambda: [http_json(base, "/rag/retrieve", {"question": q})
+                     for _l, q, _g, _d in reqs], batchers)
+        check_launches("sharded", launches, calls * n_cards)
+        add_launches(total, launches)
+        http_swaps = 0
+        for (_l, q, _g, _d), (status, body) in zip(reqs, bodies):
+            check(status == 200, f"sharded http: {status} {body}")
+            ref = plain_app.post("/rag/retrieve", json_body={"question": q})
+            w = ref.json()["hits"]
+            ws = np.array([[h["score"] for h in w]])
+            gs = np.array([[h["score"] for h in body["hits"]]])
+            ids = sorted({h["chunk"]["id"] for h in w + body["hits"]})
+            row = {c: i for i, c in enumerate(ids)}
+            check(gs.shape == ws.shape and np.allclose(gs, ws, atol=1e-4),
+                  "sharded http: scores")
+            http_swaps += ties_only(
+                ws, np.array([[row[h["chunk"]["id"]] for h in w]]), gs,
+                np.array([[row[h["chunk"]["id"]] for h in body["hits"]]]),
+                1e-4)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+    return {"requests": len(reqs), "mesh_model": n_cards,
+            "by_lang_tie_swaps": swaps, "http_tie_swaps": http_swaps,
+            "http_channel_calls": calls}
+
+
+def phase_sharded(bundles, cfg: AppConfig) -> dict:
+    """Doc-sharded serving on the card (module docstring, phase 7c) over
+    phase 3's bundles and the directories ``serve_setup`` wrote."""
+    t_phase = time.perf_counter()
+    total = zero_launches()
+    res = {"phase": "sharded"}
+    for lang, b in bundles.items():
+        res[lang] = sharded_lang(lang, b, cfg, total)
+    res["hybrid_step"] = sharded_hybrid_step(bundles["zh"], total)
+    res["n_index_shards_all"] = sharded_serving(bundles, cfg, total)
+    res |= {"launches": total, "phase_seconds": time.perf_counter() - t_phase,
+            "nvidia_smi": nvidia_smi()}
+    emit(res)
+    return res
+
+
+def sharded_store(name: str, bundle) -> dict:
+    """A quantized zh store split 4 ways against its unsharded lists. Q8:
+    int8 dense and MaxSim's int8 route on each shard, lists equal but at
+    ties. N4: the shards' tokens reconstructed to bf16 on the host, so
+    kernel 1 and bf16 MaxSim once a shard; dense and BM25 equal, the late
+    lists equal to plain MaxSim over the same bf16 tokens (within
+    ``N4_SHARD_ATOL``) and, against the in-kernel nbit4 lists, their
+    overlap and largest score difference reported."""
+    lc = bundle.cfg
+    plain = HybridRetriever(bundle, lc)
+    qs, _ = make_queries(bundle, SHARDED_PER_LANG, seed=2)
+    eff = TOP_K * lc.retrieval.oversample_factor
+    want = plain._channels_topk_batch(qs, eff)
+    sb = sharing_bundle(bundle, card_mesh(4))
+    hr = HybridRetriever(sb, lc)
+    t0 = time.perf_counter()
+    views = sb.shard_views()
+    torch.cuda.synchronize()
+    views_s = time.perf_counter() - t0
+    got, launches, _ = launches_of(lambda: hr._channels_topk_batch(qs, eff))
+    out = {"store": name, "questions": len(qs), "views_s": views_s,
+           "launches": launches}
+    if name == "q8":
+        check_launches("stores_q8", launches, 4)
+        out["lists"] = same_lists(want, got, "sharded q8")
+        return out
+    check_launches("sharded", launches, 4)
+    out["lists"] = same_lists(want, got, "sharded n4", names=("dense", "bm25"))
+    st = bundle.state
+    maxlen = lc.engine.max_query_tokens
+    _qv, q_tok, q_mask = st.encoder.query_inputs(qs, maxlen, True)
+    tok = torch.cat(views["tok"])
+    late = mask_cols(maxsim_full_plain(
+        tok, torch.cat(views["mask"]), q_tok.to(tok.dtype), q_mask),
+        st.dense.n)
+    ls, li = stable_topk(late, got["colbert"][0].shape[1])
+    ref = {"colbert": (ls.cpu().numpy(), li.cpu().numpy())}
+    out["late_vs_bf16_plain"] = same_lists(ref, got, "sharded n4 late",
+                                           atol=N4_SHARD_ATOL, tie=1e-4,
+                                           names=("colbert",))["colbert"]
+    overlap = [len(set(a) & set(b)) / len(a) for a, b in zip(
+        want["colbert"][1].tolist(), got["colbert"][1].tolist())]
+    out["late_vs_nbit4"] = {
+        "mean_overlap": float(np.mean(overlap)),
+        "min_overlap": float(np.min(overlap)),
+        "max_abs_diff": float(np.abs(np.sort(want["colbert"][0], 1)
+                                     - np.sort(got["colbert"][0], 1)).max())}
+    return out
+
+
+# ------------------------------------------------------- encoder training
+TRAIN_PAIRS = REPO / "data" / "eval" / "semantic_zh_train.jsonl"
+TRAIN_HELD = REPO / "data" / "eval" / "semantic_zh_held.jsonl"
+TRAIN_LOSS_ATOL = 1e-4      # every step's loss against the CPU twin's
+TRAIN_STEP_ATOL = 1e-6      # one step on (1, 4) and (2, 2) grids vs (1, 1)
+TRAIN_RELOAD_QUERIES = 64   # held questions through the reloaded bundle
+
+
+def train_copy(src: Path, root: Path) -> Path:
+    """A copy of the zh index directory ``src`` under ``root`` and the
+    config file that serves it."""
+    shutil.copytree(src, root / "index" / "zh")
+    cfg_file = root / "cfg.json"
+    cfg_file.write_text(json.dumps({"paths": {
+        "index_dir": str(root / "index"), "graph_dir": str(root / "graph"),
+        "data_dir": str(root / "data"), "upload_dir": str(root / "uploads"),
+        "processed_dir": str(root / "processed"),
+        "raw_dir": str(root / "raw"), "eval_dir": str(root / "eval")}}))
+    return cfg_file
+
+
+def train_mesh_step(card_res: dict) -> dict:
+    """One step of the trainer's shape (the semantic run's batch size) on
+    (1, 4) and (2, 2) grids of cuda:0 against (1, 1): the new projection
+    within ``TRAIN_STEP_ATOL``."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    w = card_res["projection"].cuda()
+    w0 = w + 1e-3 * torch.randn(w.shape, generator=g, device="cuda")
+    q = torch.randn((64, w.shape[0]), generator=g, device="cuda")
+    d = q + torch.randn((64, w.shape[0]), generator=g, device="cuda")
+    q, d = (x / x.norm(dim=1, keepdim=True) for x in (q, d))
+    out, want = {}, None
+    for data, model in ((1, 1), (1, 4), (2, 2)):
+        mesh = card_mesh(model, data)
+        step = make_contrastive_train_step(mesh, lr=0.05, temperature=0.1,
+                                           l2sp=0.1)
+        new, loss = step(w, w0, q, d)
+        new = full_projection(mesh, new)
+        if want is None:
+            want = (new, float(loss))
+        diff = float((new - want[0]).abs().max())
+        check(diff <= TRAIN_STEP_ATOL and abs(float(loss) - want[1])
+              <= TRAIN_STEP_ATOL,
+              f"train step ({data}, {model}): W' off by {diff}")
+        out[f"mesh_{data}x{model}"] = {
+            "max_abs_diff": diff, "loss": float(loss),
+            "ms": cuda_ms(lambda: step(w, w0, q, d), reps=5, warmup=1)}
+    return out
+
+
+def phase_train(zh_dir: Path) -> dict:
+    """The contrastive encoder trainer on the card (module docstring,
+    phase 7d) over copies of the zh bundle directory ``zh_dir``."""
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="train_", dir=REPO / "build"))
+    try:
+        card_cfg = train_copy(zh_dir, tmp / "card")
+        twin_cfg = train_copy(zh_dir, tmp / "twin")
+        kernels.reset_launch_counts()
+        # JAX's defaults; a one-epoch extractive run must refuse to save
+        t0 = time.perf_counter()
+        extractive = train_encoder.run(train_encoder.parse_args(
+            ["--config", str(card_cfg), "--epochs", "1", "--save"]))
+        extractive_s = time.perf_counter() - t0
+        manifest = json.loads((tmp / "card" / "index" / "zh" / "manifest.json")
+                              .read_text(encoding="utf-8"))
+        check(extractive["exit"] == 1 and not extractive["saved"]
+              and manifest["generation"] == 1,
+              f"train: the extractive run exited {extractive['exit']}, "
+              f"generation {manifest['generation']}")
+        flags = ["--pairs", str(TRAIN_PAIRS), "--eval-pairs", str(TRAIN_HELD),
+                 "--save"]
+        with ThreadPoolExecutor(1) as pool:
+            twin = pool.submit(lambda: train_encoder.run(
+                train_encoder.parse_args(["--config", str(twin_cfg),
+                                          "--device", "cpu"] + flags)))
+            t0 = time.perf_counter()
+            card = train_encoder.run(train_encoder.parse_args(
+                ["--config", str(card_cfg)] + flags))
+            card_s = time.perf_counter() - t0
+            twin = twin.result()
+        check(card["shape"] == {"data": 1, "model": torch.cuda.device_count()},
+              f"train: mesh {card['shape']}")
+        check(len(card["losses"]) == len(twin["losses"]) > 0,
+              "train: step counts")
+        loss_diff = float(np.abs(np.array(card["losses"])
+                                 - np.array(twin["losses"])).max())
+        check(loss_diff <= TRAIN_LOSS_ATOL,
+              f"train: a step's loss is {loss_diff} off the CPU twin's")
+        n_held = card["n_held"]
+        for key in ("before", "after"):
+            check(abs(card[key] - twin[key]) <= 1 / n_held + 1e-9,
+                  f"train: recall {key} {card[key]} against the twin's "
+                  f"{twin[key]}")
+        proj_diff = float((card["projection"] - twin["projection"]).abs()
+                          .max())
+        check(card["exit"] == twin["exit"] == 0 and card["saved"],
+              f"train: exit codes {card['exit']} / {twin['exit']}")
+        train_launches = kernels.launch_counts(routes=True)
+        check(not any(train_launches.values()),
+              f"train: the trainer launched {train_launches}")
+        # the saved projection served after a reload on the card, against
+        # a CPU run over the same saved files
+        cfg = AppConfig.load(card_cfg)
+        rows = [json.loads(line) for line in TRAIN_HELD.read_text(
+            encoding="utf-8").splitlines() if line.strip()]
+        qs = [r["query"] for r in rows][:TRAIN_RELOAD_QUERIES]
+        on_card = ByLangRetriever(cfg, device="cuda").retriever("zh")
+        on_cpu = ByLangRetriever(cfg, device="cpu").retriever("zh")
+        enc = on_card.bundle.encoder
+        saved = np.load(tmp / "card" / "index" / "zh" / "encoder.npz")
+        check(np.array_equal(enc.projection().cpu().numpy(),
+                             saved["proj"].astype(np.float32)),
+              "train: the reload's projection is not the saved one")
+        check(on_card.bundle.generation == 2, "train: generation")
+        eff = TOP_K * cfg.retrieval.oversample_factor
+        got, launches, _ = launches_of(
+            lambda: on_card._channels_topk_batch(qs, eff))
+        check_launches("train", launches, 1)
+        want = on_cpu._channels_topk_batch(qs, eff)
+        trained_q = project_norm(torch.from_numpy(enc._sketch(qs, True)),
+                                 torch.from_numpy(saved["proj"].astype(
+                                     np.float32))).numpy()
+        check(np.abs(got["qvec"] - trained_q).max() <= 1e-5,
+              "train: the reload's queries are not trained ones")
+        reload = {"questions": len(qs),
+                  "tie_swaps": check_channel_rows(want, got,
+                                                  "train reload", 1e-4)}
+        mesh_step = train_mesh_step(card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"phase": "train", "pairs": {"train": card["n_train"],
+                                        "held": n_held},
+           "recall_before": card["before"], "recall_after": card["after"],
+           "twin_recall": [twin["before"], twin["after"]],
+           "exit": card["exit"], "saved": card["saved"],
+           "steps": len(card["losses"]), "losses": card["losses"],
+           "max_loss_diff_vs_twin": loss_diff,
+           "max_projection_diff_vs_twin": proj_diff,
+           "step_ms_median": 1e3 * statistics.median(card["step_s"]),
+           "sketch_s": card["sketch_s"], "twin_sketch_s": twin["sketch_s"],
+           "card_run_s": card_s, "twin_step_ms_median": 1e3
+           * statistics.median(twin["step_s"]),
+           "extractive": {"pairs": extractive["n_train"]
+                          + extractive["n_held"],
+                          "recall": [extractive["before"],
+                                     extractive["after"]],
+                          "exit": extractive["exit"],
+                          "sketch_s": extractive["sketch_s"],
+                          "seconds": extractive_s},
+           "reload": reload, "mesh_step": mesh_step, "launches": launches,
+           "phase_seconds": time.perf_counter() - t_phase,
+           "nvidia_smi": nvidia_smi()}
+    emit(res)
+    return res
 
 
 # ------------------------------------------------------- large-corpus mode
@@ -3215,7 +3745,7 @@ def phase_stores(e2e, diagnostics: bool = False) -> tuple:
     for it). Returns ({route: kernel result}, [runs
     with launches])."""
     t_phase = time.perf_counter()
-    routes, runs = {}, []
+    routes, runs, sharded = {}, [], []
     if diagnostics:
         # store_route_costs' kernel copies, one nvcc each, started together
         with ThreadPoolExecutor(3) as pool:
@@ -3255,12 +3785,14 @@ def phase_stores(e2e, diagnostics: bool = False) -> tuple:
                 runs.append(store_map(name, lang, b,
                                       e2e[lang]["recall_at_10"]))
             runs.append(store_serve(name, bundles, cfg))
+            sharded.append(sharded_store(name, bundles["zh"]))
+            emit({"phase": "stores_sharded", **sharded[-1]})
             del bundles
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "stores", "seconds": time.perf_counter() - t_phase,
           "nvidia_smi": nvidia_smi()})
-    return routes, runs
+    return routes, runs, sharded
 
 
 # ------------------------------------------------------- bert backend
@@ -6061,8 +6593,9 @@ def phase_large_stores():
 # ------------------------------------------ evals, case law, the agent
 
 EVALS_K = 20                # run_system's k (the CLI's default)
-EVALS_TWIN_ROWS = 32        # law_qa rows a language held against the CPU twin
-EVALS_GEN_ROWS = 32         # law_qa rows through the generation loop
+EVALS_TWIN_ROWS = 16        # law_qa rows a language held against the CPU twin
+EVALS_GEN_ROWS = 16         # law_qa rows through the generation loop (both
+                            # 32 until the sharded and train phases)
 EVALS_GEN_LAYERS = 2        # the random answerer's layers
 EVALS_SCHEMA = 4            # --schema N
 EVALS_TIE = 1e-5            # twin scores closer than this may swap
@@ -6691,6 +7224,30 @@ def run_a8(seed: int = 0, phases=("evals", "cases", "agent")) -> None:
         shutil.rmtree(keep, ignore_errors=True)
 
 
+def run_a6(phases=("sharded", "train", "stores")) -> None:
+    """Phases 7c, 7d and the stores phase's sharded Q8 / N4 check alone on
+    the card: the kernels built, the zh and en bundles built and saved
+    with their law graphs (``stores``: the zh Q8 and N4 bundles built)."""
+    kernels.lib()
+    cfg = AppConfig()
+    bundles = {lang: IndexBundle.build_from_chunks(
+        load_chunks(lang), cfg.with_lang(lang), lang, device="cuda")
+        for lang in ("zh", "en")}
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        cfg = serve_setup(bundles, Path(tmp))
+        if "sharded" in phases:
+            phase_sharded(bundles, cfg)
+        if "train" in phases:
+            phase_train(cfg.with_lang("zh").paths.lang_index_dir)
+        del bundles
+        if "stores" in phases:
+            for name in STORES:
+                lc = store_config(name, Path(tmp) / name).with_lang("zh")
+                b = IndexBundle.build_from_chunks(load_chunks("zh"), lc, "zh",
+                                                  device="cuda")
+                emit({"phase": "stores_sharded", **sharded_store(name, b)})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--diagnostics", action="store_true",
@@ -6749,12 +7306,12 @@ def run_phases(prep, keep: Path, diagnostics: bool, seed: int = 0) -> int:
     kres = phase_kernels(bundles["zh"], zh_queries)
 
     e2e = {lang: phase_e2e(lang, bundles[lang]) for lang in ("zh", "en")}
-    serve, http = run_serving(bundles)
+    served = run_serving(bundles)
     evals_run = phase_evals(bundles, keep)
     del bundles
     cases = phase_cases(seed)
     ingest = phase_ingest()
-    routes, store_runs = phase_stores(e2e, diagnostics)
+    routes, store_runs, sharded_stores = phase_stores(e2e, diagnostics)
     kres["bm25_sparse"], large = phase_large()
     large_store_runs, large_stores = phase_large_stores()
     prepared = prep.result()
@@ -6771,7 +7328,10 @@ def run_phases(prep, keep: Path, diagnostics: bool, seed: int = 0) -> int:
     share = {}
     batched = phase_decoder_batched(keep / "qwen25_05b", tokenizers, share)
     paged = phase_decoder_paged(keep / "qwen25_05b", tokenizers, share)
-    runs = {"map": list(e2e.values()), "serve": [serve], "http": [http],
+    runs = {"map": list(e2e.values()), "serve": [served["serve"]],
+            "http": [served["http"]],
+            "sharded": [served["sharded"]] + sharded_stores,
+            "train": [served["train"]],
             "ingest": [ingest], "stores": store_runs,
             "large": [large] + large_store_runs, "bert": bert_runs,
             "answer": [answer], "families": [families], "moe": [moe],

@@ -63,6 +63,7 @@ from legalrag_tpu_torch.ingest.service import IngestService
 from legalrag_tpu_torch.llm.client import LLMClient
 from legalrag_tpu_torch.llm.context import set_request_id
 from legalrag_tpu_torch.llm.gateway import LLMGateway
+from legalrag_tpu_torch.parallel.mesh import init_multihost
 from legalrag_tpu_torch.pipeline.citations import verify_citations
 from legalrag_tpu_torch.pipeline.rag_pipeline import RagPipeline
 from legalrag_tpu_torch.retrieval.by_lang import BundleCache, ByLangRetriever
@@ -548,6 +549,9 @@ def main() -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device of the retrieval (default cuda)")
     args = ap.parse_args()
+    # before anything touches a device, as JAX's server does: a multi-host
+    # config is refused here (the port serves one host)
+    init_multihost()
     cfg = AppConfig.load()
     app = create_app(cfg, device=args.device)
     server = app.serve(args.host or cfg.server.host,

@@ -99,6 +99,14 @@ class EngineConfig:
     # 0 still coalesces requests that arrive while an execution runs.
     microbatch_window_ms: float = 2.0
     microbatch_max: int = 32
+    # device mesh (parallel/mesh.py): axis names are fixed
+    mesh_data_axis: str = "data"
+    mesh_model_axis: str = "model"
+    # doc-sharded serving: split every index's doc axis over this many
+    # devices (the mesh's model axis); 1 = one device; -1 = every visible
+    # device. A grid may name one card more than once
+    # (retrieval/by_lang.py, parallel/sharded_search.py)
+    n_index_shards: int = 1
 
 
 @dataclass

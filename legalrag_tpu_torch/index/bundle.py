@@ -1,5 +1,5 @@
 """IndexBundle: the per-language index artifact set (port of
-``legalrag_tpu/index/bundle.py:69-332``, without the sharding).
+``legalrag_tpu/index/bundle.py:69-332``).
 
 One directory holds the same files as the JAX package's, in the same
 formats, so a bundle saved by either package loads in the other:
@@ -29,6 +29,11 @@ only grow, so rows that an earlier read gave it are valid in every later
 one. A store grown in place writes only rows past the ``n`` of the states
 that readers may hold, and readers mask those rows. Those fields are
 read-only: a state is published whole, by a build, a load or an append.
+
+Doc-sharded serving (``engine.n_index_shards``): ``enable_sharding(mesh)``
+makes ``shard_views(state)`` return per-shard copies of one state's dense
+rows, impact columns and tokens, padded to a doc capacity that the shards
+split evenly; they are rebuilt when the state's ``(generation, n)`` moves.
 """
 
 from __future__ import annotations
@@ -43,11 +48,12 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.corpus.loader import iter_chunks_from_file, write_chunks_jsonl
 from legalrag_tpu_torch.index.bm25_index import BM25Index
-from legalrag_tpu_torch.index.dense_index import DenseIndex
+from legalrag_tpu_torch.index.dense_index import DenseIndex, store_dtype
 from legalrag_tpu_torch.index.token_index import (
     Residual4TokenIndex,
     TokenIndex,
@@ -120,6 +126,11 @@ class IndexBundle:
             chunks=[], id2row={}, generation=0)
         # one append at a time: each grows the state the last one published
         self._append_lock = threading.Lock()
+        # doc-sharded serving: enable_sharding() sets the mesh; the views of
+        # the last state asked for are kept, keyed on (generation, n)
+        self.mesh = None
+        self._shard_views = None
+        self._views_lock = threading.Lock()
 
     # ----------------------------------------------------------------- build
     @classmethod
@@ -198,6 +209,90 @@ class IndexBundle:
     @property
     def n_docs(self) -> int:
         return len(self.chunks)
+
+    # --------------------------------------------------------------- sharding
+    def enable_sharding(self, mesh) -> None:
+        """Serve this bundle's indexes split over ``mesh``'s model axis. The
+        stores stay as they are, so appends keep working; ``shard_views``
+        builds the split copies of the state it is given."""
+        self.mesh = mesh
+        self._shard_views = None
+
+    def shard_views(self, state: Optional[BundleState] = None
+                    ) -> Optional[Dict]:
+        """Per-model-shard copies of ``state``'s (default: the current
+        state's) dense rows (``emb``), impact columns (``impact``) and, when
+        the late channel serves, tokens and mask (``tok``, ``mask``), shard
+        ``j`` on ``mesh.devices[0][j]``, with ``q_dtype``, the dtype of the
+        MaxSim queries over ``tok``. None when sharding is off or the state
+        is empty. The shared doc capacity ``ceil(max(dense capacity, impact
+        columns, 1) / s) * s`` covers both doc axes (they round
+        independently) and splits evenly; an int8 dense store rounds it to
+        ``8 * s`` (``int8_dot`` takes rows in multiples of 8). An nbit4
+        store is reconstructed per shard slice on the host, in the engine
+        dtype (bf16 for an int8 engine), so the whole store is never
+        dequantized at once."""
+        if self.mesh is None:
+            return None
+        st = state if state is not None else self.state
+        if st.dense.n == 0:
+            return None
+        key = (st.generation, st.dense.n)
+        with self._views_lock:
+            cached = self._shard_views
+            if cached is not None and cached[0] == key:
+                return cached[1]
+            views = self._build_views(st)
+            self._shard_views = (key, views)
+        return views
+
+    def _build_views(self, st: BundleState) -> Dict:
+        from legalrag_tpu_torch.parallel.mesh import MODEL_AXIS
+
+        s = self.mesh.shape[MODEL_AXIS]
+        unit = s * (8 if st.dense.emb.dtype == torch.int8 else 1)
+        n_impact = st.bm25.impact.shape[1]
+        cap = -(-max(st.dense.capacity, n_impact, 1) // unit) * unit
+        n_local = cap // s
+        devs = [self.mesh.devices[0, j] for j in range(s)]
+
+        def pad(t: torch.Tensor, dim: int) -> torch.Tensor:
+            short = n_local - t.shape[dim]
+            if short == 0:
+                return t
+            shape = list(t.shape)
+            shape[dim] = short
+            return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+        def shard(t: torch.Tensor, j: int, dim: int = 0) -> torch.Tensor:
+            part = t.narrow(dim, min(j * n_local, t.shape[dim]),
+                            max(0, min(n_local, t.shape[dim] - j * n_local)))
+            return pad(part, dim).contiguous().to(devs[j])
+
+        views = {"emb": [shard(st.dense.emb, j) for j in range(s)],
+                 "impact": [shard(st.bm25.impact, j, 1) for j in range(s)]}
+        if (self.cfg.retrieval.enable_colbert and st.tokens.n
+                and st.tokens.n == st.dense.n):
+            tokens = st.tokens
+            if isinstance(tokens, Residual4TokenIndex):
+                dtype = store_dtype(self.cfg.engine.dtype)
+                if dtype == torch.int8:
+                    dtype = torch.bfloat16
+                tok = []
+                for j in range(s):
+                    rows, _ = tokens.dequantized_rows(j * n_local,
+                                                      (j + 1) * n_local)
+                    tok.append(pad(torch.from_numpy(rows).to(dtype), 0)
+                               .to(devs[j]))
+            else:
+                tok = [shard(tokens.tok, j) for j in range(s)]
+            views["tok"] = tok
+            views["mask"] = [shard(tokens.mask, j) for j in range(s)]
+            views["q_dtype"] = (torch.float32 if tok[0].dtype == torch.int8
+                                else tok[0].dtype)
+        log.info("[%s] sharded index views over %d shards (cap=%d)",
+                 self.lang, s, cap)
+        return views
 
     # --------------------------------------------------------------- persist
     def save(self, index_dir: str | Path) -> None:

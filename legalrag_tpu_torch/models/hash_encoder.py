@@ -125,6 +125,15 @@ class HashEncoder:
                     self.seed, self.sketch_dim, self.dim), device=self.device)
         return self._proj
 
+    def set_projection(self, proj: np.ndarray) -> None:
+        """Serve with a trained projection, saved with the index (as
+        float16, as in JAX); ``cli/train_encoder.py`` sets it."""
+        if proj.shape != (self.sketch_dim, self.dim):
+            raise ValueError(f"projection shape {proj.shape} != "
+                             f"{(self.sketch_dim, self.dim)}")
+        self.trained_proj = np.asarray(proj, np.float32)
+        self._proj = None
+
     def use_projection(self, proj: np.ndarray) -> None:
         """Serve with ``proj`` as the default projection (one carried over
         from the JAX package, ``convert.encoder_from_jax``). It is not saved

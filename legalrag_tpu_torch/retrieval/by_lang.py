@@ -1,5 +1,5 @@
 """Language routing + serving-side bundle cache (port of
-``legalrag_tpu/retrieval/by_lang.py``, one device).
+``legalrag_tpu/retrieval/by_lang.py``).
 
 ``ByLangRetriever`` detects the query language and lazily owns one
 ``HybridRetriever`` (and one law-graph store) per language over
@@ -14,7 +14,14 @@ generation is not above the one in memory is not picked up, as in JAX.
 
 The device is fixed when the cache is made: ``cuda`` unless the caller
 asks for another, and without CUDA that raises. A CUDA error while serving
-propagates to the caller; nothing fails over to the CPU.
+propagates to the caller; nothing fails over to the CPU (so JAX's
+``failed_over`` guard has no counterpart).
+
+``engine.n_index_shards`` other than 1 serves every bundle the cache loads
+or is given doc-sharded (``IndexBundle.enable_sharding``) over one mesh:
+N >= 2 takes the first N visible devices of the cache's device type, -1
+every visible device (``make_global_mesh``); 0, < -1 and more shards than
+visible devices are refused, as in JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Dict, List, Optional
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.graph.store import LawGraphStore
 from legalrag_tpu_torch.index.bundle import IndexBundle
+from legalrag_tpu_torch.parallel import mesh as mesh_mod
 from legalrag_tpu_torch.retrieval.hybrid import HybridRetriever
 from legalrag_tpu_torch.schemas import RetrievalHit, RoutingDecision
 from legalrag_tpu_torch.utils import detect_lang, get_logger
@@ -47,6 +55,27 @@ class BundleCache:
         self.check_interval = check_interval
         self._bundles: Dict[str, IndexBundle] = {}
         self._last_check: Dict[str, float] = {}
+        self._mesh = None
+
+    def _serving_mesh(self) -> mesh_mod.Mesh:
+        """The (1, n_index_shards) serving mesh, made at first use."""
+        if self._mesh is None:
+            mesh_mod.init_multihost()  # refuses a multi-host config
+            s = self.cfg.engine.n_index_shards
+            if s == 0 or s < -1:
+                raise ValueError(
+                    f"engine.n_index_shards={s} is meaningless — use 1 "
+                    "(off), N>=2 (N shards), or -1 (every visible device)")
+            devs = mesh_mod.local_devices(self.device.type)
+            if s == -1:
+                self._mesh = mesh_mod.make_global_mesh(devs)
+            elif len(devs) < s:
+                raise RuntimeError(
+                    f"engine.n_index_shards={s} but only {len(devs)} "
+                    "devices visible")
+            else:
+                self._mesh = mesh_mod.make_mesh(devs[:s], data=1, model=s)
+        return self._mesh
 
     def index_dir(self, lang: str) -> Path:
         return Path(self.cfg.with_lang(lang).paths.lang_index_dir)
@@ -67,11 +96,15 @@ class BundleCache:
             lang_cfg = self.cfg.with_lang(lang)
             log.info("[%s] (re)loading index generation=%s from %s", lang, gen, d)
             bundle = IndexBundle.load(d, lang_cfg, lang, device=self.device)
+            if self.cfg.engine.n_index_shards != 1:
+                bundle.enable_sharding(self._serving_mesh())
             self._bundles[lang] = bundle
         return bundle
 
     def put(self, lang: str, bundle: IndexBundle) -> None:
         """Install a live bundle (the in-process ingest path)."""
+        if self.cfg.engine.n_index_shards != 1 and bundle.mesh is None:
+            bundle.enable_sharding(self._serving_mesh())
         self._bundles[lang] = bundle
         self._last_check[lang] = time.monotonic()
 

@@ -1,6 +1,5 @@
 """HybridRetriever: the single-query serving path's retrieval layer (port of
-``legalrag_tpu/retrieval/hybrid.py``, one device; the sharded branches come
-with the multi-GPU slice).
+``legalrag_tpu/retrieval/hybrid.py``).
 
 ``search`` runs: every channel's top ``top_k × oversample_factor`` list
 from one device call (``ops.fused_query.fused_channels_topk``, through the
@@ -18,6 +17,13 @@ late list). The per-channel APIs and HyDE encode through
 ``encode_queries`` / ``encode_tokens``. A channels call
 reads one ``BundleState`` of the bundle, so an ingest that grows the bundle
 meanwhile gives it the lists from before or from after the append.
+
+When the bundle is sharded (``engine.n_index_shards``, ``IndexBundle.
+enable_sharding``), the same lists come from ``parallel.sharded_search``
+over that state's ``shard_views``: kernel 1 and MaxSim once per shard a
+channels call, then the merge on the mesh's lead device. A bert bundle's
+query forward and every shard's channels come from one call
+(``_bert_sharded_oneshot``).
 """
 
 from __future__ import annotations
@@ -30,8 +36,13 @@ import torch
 from legalrag_tpu_torch.config import AppConfig
 from legalrag_tpu_torch.graph.store import LawGraphStore
 from legalrag_tpu_torch.index.bundle import IndexBundle
+from legalrag_tpu_torch.models.hash_encoder import HashEncoder
 from legalrag_tpu_torch.ops.fused_query import fused_channels_topk
 from legalrag_tpu_torch.ops.topk import bucket_k
+from legalrag_tpu_torch.parallel.sharded_search import (
+    make_sharded_bert_channels_step,
+    sharded_channels_topk,
+)
 from legalrag_tpu_torch.retrieval.batcher import MicroBatcher
 from legalrag_tpu_torch.retrieval.channels import (
     BM25Retriever,
@@ -65,11 +76,22 @@ class HybridRetriever:
         self.graph: Optional[GraphRetriever] = None
         if cfg.retrieval.enable_graph and graph_store is not None:
             self.graph = GraphRetriever(bundle, graph_store, cfg)
+        self._bert_sharded = {}  # (mesh, kb, use_late) -> sharded call
         e = cfg.engine
         self._batcher = MicroBatcher(
             self._channels_topk_batch,
             window_s=e.microbatch_window_ms / 1000.0,
             max_batch=min(e.microbatch_max, e.max_query_batch))
+
+    def _bert_sharded_oneshot(self, kb: int, use_late: bool, q_dtype=None):
+        """The encoder-fused sharded channels call of a bert bundle, cached
+        per (mesh, k bucket, late); ``q_dtype``: the shard views'."""
+        key = (self.bundle.mesh, kb, use_late)
+        fn = self._bert_sharded.get(key)
+        if fn is None:
+            fn = self._bert_sharded[key] = make_sharded_bert_channels_step(
+                self.bundle.mesh, kb, use_late, self.bundle.encoder, q_dtype)
+        return fn
 
     def _channels_topk_all(self, question: str, eff_k: int):
         """All channels' top-eff_k for ONE question, through the
@@ -99,16 +121,34 @@ class HybridRetriever:
         maxlen = self.cfg.engine.max_query_tokens
         ids, mask = st.bm25.query_term_ids(qs, maxlen)
         qtf = (torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev))
-        # both query views from one encoder call (bert: one forward pass of
-        # the instructed batch and one of the bare batch)
-        qvec, q_tok, q_mask = st.encoder.query_views(
-            st.encoder.query_inputs(qs, maxlen, use_late))
-        out = fused_channels_topk(
-            st.dense.emb, st.bm25.impact,
-            st.tokens.tok if use_late else None,
-            st.tokens.mask if use_late else None,
-            qvec, qtf, q_tok.to(st.tokens.query_dtype) if use_late else None,
-            q_mask, st.dense.n, kb)
+        inputs = st.encoder.query_inputs(qs, maxlen, use_late)
+        views = self.bundle.shard_views(st)
+        if views is None:
+            # both query views from one encoder call (bert: one forward
+            # pass of the instructed batch and one of the bare batch)
+            qvec, q_tok, q_mask = st.encoder.query_views(inputs)
+            out = fused_channels_topk(
+                st.dense.emb, st.bm25.impact,
+                st.tokens.tok if use_late else None,
+                st.tokens.mask if use_late else None, qvec, qtf,
+                q_tok.to(st.tokens.query_dtype) if use_late else None,
+                q_mask, st.dense.n, kb)
+        elif isinstance(st.encoder, HashEncoder):
+            qvec, q_tok, q_mask = st.encoder.query_views(inputs)
+            out = sharded_channels_topk(
+                self.bundle.mesh, kb, views["emb"], views["impact"],
+                views["tok"] if use_late else None,
+                views["mask"] if use_late else None, qvec, qtf,
+                q_tok.to(views["q_dtype"]) if use_late else None, q_mask,
+                st.dense.n)
+        else:
+            *lists, qvec = self._bert_sharded_oneshot(
+                kb, use_late, views.get("q_dtype"))(
+                inputs, views["emb"], views["impact"],
+                views["tok"] if use_late else None,
+                views["mask"] if use_late else None, qtf[0], qtf[1],
+                st.dense.n)
+            out = dict(zip(("dense", "bm25", "colbert"), lists), qvec=qvec)
         res = {"qvec": out.pop("qvec")[:nb].cpu().numpy()}
         for name, (s, i) in out.items():
             res[name] = (s[:nb, :eff_k].cpu().numpy(),

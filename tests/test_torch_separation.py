@@ -87,7 +87,13 @@ def test_module_list_covers_the_slice():
                  "legalrag_tpu_torch.models.batched_decoder",
                  "legalrag_tpu_torch.models.paged_decoder",
                  "legalrag_tpu_torch.cli.build_draft_table",
-                 "legalrag_tpu_torch.tokenize.bpe"):
+                 "legalrag_tpu_torch.tokenize.bpe",
+                 "legalrag_tpu_torch.parallel",
+                 "legalrag_tpu_torch.parallel.mesh",
+                 "legalrag_tpu_torch.parallel.sharded_search",
+                 "legalrag_tpu_torch.parallel.training",
+                 "legalrag_tpu_torch.evals.synthetic",
+                 "legalrag_tpu_torch.cli.train_encoder"):
         assert name in PORT_MODULES
 
 
