@@ -17,7 +17,9 @@ decoder engines included: the single-stream engine's are read, and the
 others' make the ``local-jax`` engine's load fail when set (the port lacks
 those engines), so that none is ignored. ``AppConfig.load`` overlays a
 JSON (or, where ``yaml`` imports, YAML) file on the defaults as pydantic's
-``model_validate`` does: keys the port does not have are ignored.
+``model_validate`` does: keys the port does not have are ignored, and
+``engine.mesh_data_axis`` / ``mesh_model_axis``, whose names the mesh fixes,
+are refused at any value but their default.
 
 Left out on purpose: ``engine.kernel_backend``, ``engine.dense_tile_n``,
 ``retrieval.graph_weight``, ``retrieval.colbert_model`` and
@@ -99,7 +101,8 @@ class EngineConfig:
     # 0 still coalesces requests that arrive while an execution runs.
     microbatch_window_ms: float = 2.0
     microbatch_max: int = 32
-    # device mesh (parallel/mesh.py): axis names are fixed
+    # device mesh (parallel/mesh.py): the axis names are fixed, so
+    # AppConfig.load refuses any other value
     mesh_data_axis: str = "data"
     mesh_model_axis: str = "model"
     # doc-sharded serving: split every index's doc axis over this many
@@ -279,6 +282,17 @@ def _overlay(obj, data: Dict[str, Any]):
     return obj
 
 
+def _refuse_mesh_axis_names(engine: EngineConfig) -> None:
+    """The mesh's axis names are fixed (``parallel/mesh.py``); a config
+    that names others is refused rather than ignored."""
+    for name in ("mesh_data_axis", "mesh_model_axis"):
+        value, fixed = getattr(engine, name), getattr(EngineConfig, name)
+        if value != fixed:
+            raise ValueError(f"engine.{name}={value!r}: the mesh's axis "
+                             f"names are fixed; use {fixed!r} or leave it "
+                             "out")
+
+
 @dataclass
 class AppConfig:
     lang: str = "zh"
@@ -312,6 +326,7 @@ class AppConfig:
             else:
                 data = json.loads(text)
         cfg = _overlay(cls(), data)
+        _refuse_mesh_axis_names(cfg.engine)
         cfg.index_version = os.environ.get("LEGALRAG_INDEX_VERSION",
                                            cfg.index_version)
         cfg._apply_lang_paths(cfg.lang)

@@ -33,7 +33,8 @@ read-only: a state is published whole, by a build, a load or an append.
 Doc-sharded serving (``engine.n_index_shards``): ``enable_sharding(mesh)``
 makes ``shard_views(state)`` return per-shard copies of one state's dense
 rows, impact columns and tokens, padded to a doc capacity that the shards
-split evenly; they are rebuilt when the state's ``(generation, n)`` moves.
+split evenly; they are rebuilt when the state's ``(generation, n)`` moves
+on, and only the newest state's views are kept.
 """
 
 from __future__ import annotations
@@ -242,9 +243,14 @@ class IndexBundle:
             cached = self._shard_views
             if cached is not None and cached[0] == key:
                 return cached[1]
-            views = self._build_views(st)
-            self._shard_views = (key, views)
-        return views
+            if cached is None or cached[0] < key:
+                views = self._build_views(st)
+                self._shard_views = (key, views)
+                return views
+        # a state older than the cached views' (a call that took it before
+        # an ingest published): its own views, built and not kept, so the
+        # newer views stay cached
+        return self._build_views(st)
 
     def _build_views(self, st: BundleState) -> Dict:
         from legalrag_tpu_torch.parallel.mesh import MODEL_AXIS

@@ -159,6 +159,18 @@ def place(mesh: Mesh, x: torch.Tensor, data_dim: Optional[int] = None,
             for i in range(nd)]
 
 
+def as_cells(mesh: Mesh, x, data_dim: Optional[int] = None,
+             model_dim: Optional[int] = None) -> Cells:
+    """``x`` as a grid of per-cell tensors: a tensor is placed, a list of
+    model shards is copied to every data row, a grid is taken as it is."""
+    if isinstance(x, torch.Tensor):
+        return place(mesh, x, data_dim, model_dim)
+    if isinstance(x[0], torch.Tensor):
+        return [[t.to(mesh.devices[i, j]) for j, t in enumerate(x)]
+                for i in range(mesh.devices.shape[0])]
+    return x
+
+
 def replicated(mesh: Mesh, x: torch.Tensor) -> Cells:
     return place(mesh, x)
 

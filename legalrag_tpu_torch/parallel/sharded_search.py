@@ -25,13 +25,13 @@ top-k lists is exact. (JAX's ``_gather_topk`` is ``_local_topk`` then
 
 Corpus arguments take a full tensor (split here), a list of per-model-shard
 tensors on ``mesh.devices[0][j]`` (``IndexBundle.shard_views``) or a grid of
-per-cell tensors (``parallel.mesh.place``); query arguments a full tensor
+per-cell tensors (``parallel.mesh.as_cells``); query arguments a full tensor
 or a grid.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -45,26 +45,14 @@ from legalrag_tpu_torch.ops.topk import (
     stable_topk,
     topk_large,
 )
-from legalrag_tpu_torch.parallel.mesh import Cells, Mesh, place
+from legalrag_tpu_torch.parallel.mesh import Cells, Mesh, as_cells, place
 
 TopK = Tuple[torch.Tensor, torch.Tensor]
 
 
-def _cells(mesh: Mesh, x, data_dim: Optional[int] = None,
-           model_dim: Optional[int] = None) -> Cells:
-    """``x`` as a grid of per-cell tensors: a tensor is placed, a list of
-    model shards is copied to every data row, a grid is taken as it is."""
-    if isinstance(x, torch.Tensor):
-        return place(mesh, x, data_dim, model_dim)
-    if isinstance(x[0], torch.Tensor):
-        return [[t.to(mesh.devices[i, j]) for j, t in enumerate(x)]
-                for i in range(mesh.devices.shape[0])]
-    return x
-
-
 def _model_shards(mesh: Mesh, x, dim: int = 0) -> List[torch.Tensor]:
     """``x`` as one tensor per model shard, on ``mesh.devices[0][j]``."""
-    return _cells(Mesh(mesh.devices[:1]), x, model_dim=dim)[0]
+    return as_cells(Mesh(mesh.devices[:1]), x, model_dim=dim)[0]
 
 
 def _shard_valid(valid_n: int, offset: int, n_local: int) -> int:
@@ -109,8 +97,8 @@ def make_sharded_dense_topk(mesh: Mesh, k: int) -> Callable:
     (scores [B, k], global row ids [B, k]) on the lead device."""
 
     def run(emb, q, valid_n: int) -> TopK:
-        emb_c = _cells(mesh, emb, model_dim=0)
-        q_c = _cells(mesh, q, data_dim=0)
+        emb_c = as_cells(mesh, emb, model_dim=0)
+        q_c = as_cells(mesh, q, data_dim=0)
         n_local = emb_c[0][0].shape[0]
         kk = min(k, n_local)
         lists = [[_local_dense(e, qq, kk, j * n_local, valid_n)
@@ -140,15 +128,15 @@ def make_sharded_hybrid_step(mesh: Mesh, k: int, eff_k: int,
 
     def step(emb, impact, doc_tok, doc_mask, qvec, qtf, q_tok, q_mask,
              valid_n: int) -> TopK:
-        emb_c = _cells(mesh, emb, model_dim=0)
-        imp_c = _cells(mesh, impact, model_dim=0)
-        q_c = _cells(mesh, qvec, data_dim=0)
-        t_c = _cells(mesh, qtf, data_dim=0)
+        emb_c = as_cells(mesh, emb, model_dim=0)
+        imp_c = as_cells(mesh, impact, model_dim=0)
+        q_c = as_cells(mesh, qvec, data_dim=0)
+        t_c = as_cells(mesh, qtf, data_dim=0)
         if has_late:
-            tok_c = _cells(mesh, doc_tok, model_dim=0)
-            dm_c = _cells(mesh, doc_mask, model_dim=0)
-            qt_c = _cells(mesh, q_tok, data_dim=0)
-            qm_c = _cells(mesh, q_mask, data_dim=0)
+            tok_c = as_cells(mesh, doc_tok, model_dim=0)
+            dm_c = as_cells(mesh, doc_mask, model_dim=0)
+            qt_c = as_cells(mesh, q_tok, data_dim=0)
+            qm_c = as_cells(mesh, q_mask, data_dim=0)
         n_local = emb_c[0][0].shape[0]
         kk = min(eff_k, n_local)
         per_row = []

@@ -32,8 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from legalrag_tpu_torch.models.prng import jax_normal
-from legalrag_tpu_torch.parallel.mesh import Cells, Mesh, place
-from legalrag_tpu_torch.parallel.sharded_search import _cells
+from legalrag_tpu_torch.parallel.mesh import Cells, Mesh, as_cells, place
 
 
 def _row_sum(parts: List[torch.Tensor], dev: torch.device) -> torch.Tensor:
@@ -59,9 +58,9 @@ def make_contrastive_train_step(mesh: Mesh, lr: float = 1e-2,
         else:
             (q, d), w0 = args, None
         leaves = [c.detach().requires_grad_(True)
-                  for c in _cells(mesh, w, model_dim=1)[0]]
-        q_c = _cells(mesh, q, data_dim=0)
-        d_c = _cells(mesh, d, data_dim=0)
+                  for c in as_cells(mesh, w, model_dim=1)[0]]
+        q_c = as_cells(mesh, q, data_dim=0)
+        d_c = as_cells(mesh, d, data_dim=0)
         cell = mesh.devices
 
         def project(x: Cells) -> Cells:
@@ -87,13 +86,13 @@ def make_contrastive_train_step(mesh: Mesh, lr: float = 1e-2,
             nll.append(F.cross_entropy(logits, labels).to(mesh.lead))
         loss = _row_sum(nll, mesh.lead) / nd
         if l2sp > 0:
-            w0_s = _cells(mesh, w0, model_dim=1)[0]
+            w0_s = as_cells(mesh, w0, model_dim=1)[0]
             pen = _row_sum([((leaf - w0j.to(leaf.device)) ** 2).sum()
                             for leaf, w0j in zip(leaves, w0_s)], mesh.lead)
             loss = loss + l2sp * pen / 1e4
         grads = torch.autograd.grad(loss, leaves)
         new = [(leaf - lr * g).detach() for leaf, g in zip(leaves, grads)]
-        return _cells(mesh, new), loss.detach()
+        return as_cells(mesh, new), loss.detach()
 
     return step
 

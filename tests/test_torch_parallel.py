@@ -15,6 +15,8 @@ against the JAX package's (``tests/test_parallel.py``) on the CPU:
   every visible device.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,6 +162,21 @@ def test_engine_config_mesh_fields_match_jax():
         assert getattr(mine, name) == getattr(theirs, name)
     assert mine.mesh_data_axis == DATA_AXIS
     assert mine.mesh_model_axis == MODEL_AXIS
+
+
+@pytest.mark.parametrize("name", ["mesh_data_axis", "mesh_model_axis"])
+def test_mesh_axis_names_other_than_fixed_refused(tmp_path, name):
+    """The mesh's axis names are fixed, so a config that names others is
+    refused at load, not ignored; the default names load."""
+    path = tmp_path / "cfg.json"
+    base = {"paths": {"data_dir": str(tmp_path)}}
+    path.write_text(json.dumps({**base, "engine": {name: "x"}}))
+    with pytest.raises(ValueError, match=f"engine.{name}='x'"):
+        AppConfig.load(path, mkdirs=False)
+    path.write_text(json.dumps({**base, "engine": {
+        "mesh_data_axis": DATA_AXIS, "mesh_model_axis": MODEL_AXIS}}))
+    assert AppConfig.load(path, mkdirs=False).engine.mesh_model_axis == \
+        MODEL_AXIS
 
 
 def _jput(mesh, x, spec):

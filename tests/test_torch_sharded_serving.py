@@ -181,6 +181,24 @@ def test_sharded_views_refresh_on_ingest(carried, zh_chunks):
     assert_lists_match_jax(b, jshard._channels_topk_all(q, 16), "ingest")
 
 
+def test_sharded_views_of_an_older_state_are_not_kept(carried, zh_chunks):
+    """A call still holding the state from before an ingest gets that
+    state's own views, and the newer state's views stay cached."""
+    _, cfg, d = carried
+    bundle = IndexBundle.load(d, cfg.with_lang("zh"), "zh", device="cpu")
+    bundle.enable_sharding(cpu_mesh(4))
+    old_state = bundle.state
+    before = bundle.shard_views()
+    bundle.add_chunks(port_chunks(zh_chunks[100:110]))
+    after = bundle.shard_views()
+    old = bundle.shard_views(old_state)
+    assert old is not after and old is not before
+    for name in ("emb", "impact", "tok", "mask"):
+        for a, b in zip(old[name], before[name]):
+            assert torch.equal(a, b), name
+    assert bundle.shard_views() is after
+
+
 def test_sharded_through_http_api(zh_chunks, tmp_path_factory, monkeypatch):
     """``/rag/retrieve`` with ``n_index_shards: -1`` (every visible device;
     here four entries of the CPU) answers as the one-device server and as
