@@ -388,15 +388,44 @@ Phases, each printing one JSON line:
    of two streams' blocks (the later ones wait, cached blocks are
    evicted). The pool's, a launch's view's and the batched slot cache's
    bytes, blocks reused (``paged_stats``), peak card memory. An 8-slot
-   paged engine, then an 8-slot batched one, at occupancy 1 and 8: ms a
-   step and tokens/s against the step's bound; the paged engine's busy
-   and idle share at 8. Last,
+   paged engine at occupancy 1 and 8 (17 times the batched one): ms a
+   step and tokens/s against the step's bound; its busy and idle share at
+   8. Last,
    ``BATCHED_ANSWERS``
    ``/rag/answer`` SSE streams at once with ``batch_slots`` 4 and
    ``paged_kv`` (the ``paged`` path, kernels 1 and 2/3 once per channels
    call, held against their plain versions): first-token and end ms, the
    served engine's ``paged_stats`` and the run's ``legalrag_gen_*``
-   counts.
+   counts;
+19. ``decoder_tp``: tensor- and data-parallel decode
+   (``parallel/decoder_tp.py``, ``decoder_dp.py``) on grids naming cuda:0
+   once per shard. Phase 12's Qwen2.5-0.5B (all 24 layers) at TP 2 (every
+   leaf split) and TP 4 (the MLP and the head split, the 14 / 2 heads and
+   the KV cache replicated): each shard's weight bytes (their sum the
+   unsharded bytes plus the replicated leaves' once more a shard); on the
+   float32 copy every step's logits over the RAG prompt and 8 greedy
+   steps within 1e-4 of the unsharded model's (a flip allowed only where
+   its top-2 gap is under 1e-4, printed); greedy streams of the
+   single-stream, batched (dense and, at TP 2, the int8 cache) and, at TP
+   2, paged (the prompt again off the radix tree) engines split by
+   ``apply_tp_to_engine``
+   against the unsharded single-stream engine's, float32 identical (but at
+   a top-2 gap under 1e-4, printed), in bf16 the single-stream and batched
+   ones but at a near-tie; W8A8 weights on the batched engine (float32;
+   bf16 at TP 2, at the quantized twins' tolerance). Then ms a token
+   single-stream at TP 1 / 2
+   / 4 and a batched step at occupancy 8 at TP 1 / 2 (printed: on one card
+   the shards run one after another); ``DPDecoderRouter``: 8 streams over
+   two 4-slot replicas on the float32 copy identical to the single engine's
+   with both replicas taking streams, and tokens/s of 8 streams on one
+   8-slot replica and on two of 4. Phase 14's Qwen1.5-MoE-A2.7B (2 layers)
+   with its 60 experts split 2 and 4 ways: bytes, float32 steps and
+   streams, bf16 streams. Last, ``BATCHED_ANSWERS`` ``/rag/answer`` SSE
+   streams at once through ``local-jax`` with ``batch_slots`` 4,
+   ``tp_shards`` 2 and ``dp_replicas`` 2 over the visible devices listed
+   as cuda:0 four times (the ``tp`` path, kernels 1 and 2/3 once per
+   channels call, held against their plain versions), both replicas
+   split and serving.
 
 A child process writes the files of phases 11-13 that need no card
 (``prepare_files``: the bert checkpoints, the Qwen2.5, Gemma-3-1B and
@@ -523,6 +552,14 @@ from legalrag_tpu_torch.ops.topk import (
     stable_topk,
 )
 from legalrag_tpu_torch.graph import GraphBuilder, LawGraphStore
+from legalrag_tpu_torch.parallel import mesh as mesh_mod
+from legalrag_tpu_torch.parallel.decoder_dp import DPDecoderRouter
+from legalrag_tpu_torch.parallel.decoder_tp import (
+    TPDecoderModel,
+    apply_tp_to_engine,
+    split_dim,
+    tp_leaves,
+)
 from legalrag_tpu_torch.parallel.mesh import make_mesh
 from legalrag_tpu_torch.parallel.sharded_search import (
     make_sharded_hybrid_step,
@@ -819,7 +856,7 @@ QWEN25_15B = QWEN25_05B | dict(hidden_size=1536, num_hidden_layers=28,
                                intermediate_size=8960, max_window_layers=21)
 SPEC_K = 8                  # drafts verified a round (llm.spec_k)
 SPEC_STEPS = 4              # rounds a host read (the engine's default)
-SPEC_CONSTRAINED_TOKENS = 128
+SPEC_CONSTRAINED_TOKENS = 64  # 128 until PR 24
 SPEC_TOKENS = 16            # each speculation identity stream's tokens
                             # (32 before the evals phase)
 SPEC_TIMED_TOKENS = 16      # the decode timings' tokens
@@ -845,6 +882,20 @@ PAGED_OCCUPANCY = (1, 8)    # streams at once in an 8-slot engine
 PAGED_SMALL_MAX_LEN = 2048  # the small pool's engine: 32 blocks a context
 PAGED_SMALL_PROMPT = 960    # its streams' statute spans: 15 full blocks
 PAGED_SMALL_STREAMS = 4     # 16 blocks reserved each: the pool holds two
+# decoder_tp phase: tensor- and data-parallel decode on grids naming cuda:0
+# once per shard, on phase 12's Qwen2.5-0.5B (all 24 layers) and phase 14's
+# Qwen1.5-MoE-A2.7B (its 2 layers)
+TP_SHARDS = (2, 4)          # Qwen2.5 at 4: 14 / 2 heads stay whole
+TP_MAX_LEN = 2048           # the RAG prompt (1,035 tokens) and its steps
+TP_TOKENS = 8               # each identity stream's greedy tokens
+TP_STEPS = 8                # per-step logits after the prompt's prefill
+TP_STEP_ATOL = 1e-4         # float32 TP logits against the unsharded ones
+TP_TIMED_TOKENS = 16        # ms a token and a step, DP's streams
+TP_OCCUPANCY = 8            # streams at once: a batched step, DP
+TP_MOE_PROMPT = 256         # the MoE's prompt: the RAG prompt's first tokens
+TP_ANSWER_SLOTS = 4         # /rag/answer: batch_slots, tp_shards, dp_replicas
+TP_ANSWER_SHARDS = 2
+TP_ANSWER_REPLICAS = 2
 # zh questions the router sends to its default task, so the pipeline's
 # system turn (the pinned prelude) opens every prompt; the first 3 are the
 # earlier phases' answer questions
@@ -876,7 +927,8 @@ PATH_KERNELS = {"map": ("score_select", "maxsim"),
                 "agent": ("score_select", "maxsim"),
                 "evals_generation": ("score_select", "maxsim"),
                 "sharded": ("score_select", "maxsim"),
-                "train": ("score_select", "maxsim")}
+                "train": ("score_select", "maxsim"),
+                "tp": ("score_select", "maxsim")}
 # MaxSim's route (the store kind, as the wrapper counts it) on each path
 # that launches it; the recall path's is its token store's
 PATH_ROUTES = {"map": "bf16", "bert": "bf16", "serve": "bf16", "http": "bf16",
@@ -884,7 +936,7 @@ PATH_ROUTES = {"map": "bf16", "bert": "bf16", "serve": "bf16", "http": "bf16",
                "answer": "bf16", "families": "bf16", "moe": "bf16",
                "quant": "bf16", "spec": "bf16", "batched": "bf16",
                "paged": "bf16", "agent": "bf16", "evals_generation": "bf16",
-               "sharded": "bf16", "train": "bf16"}
+               "sharded": "bf16", "train": "bf16", "tp": "bf16"}
 
 
 def emit(obj) -> None:
@@ -4980,9 +5032,10 @@ def phase_decoder(keep=None, tokenizers=None) -> dict:
             tokenizers=tokenizers)
         emit({"phase": "decoder_setup", **setup})
         # one timed run of each speed (the script's time; on an H100 three
-        # runs spread with the host's noise more than they narrowed it)
+        # runs spread with the host's noise more than they narrowed it),
+        # greedy decode alone (the sampled run too until PR 24)
         decoder_runs("decoder", card, twin, chunks["zh"], DECODER_LOGIT_ATOL,
-                     speed=dict(runs=1))
+                     speed=dict(runs=1, modes=("greedy",)))
         del card, twin
         t0 = time.perf_counter()
         answer = decoder_answer(ckpt, keep or tmp)
@@ -5086,8 +5139,9 @@ def phase_decoder_moe(keep=None, tokenizers=None) -> dict:
               "moe_layers": sum(map(cfg.layer_is_moe,
                                     range(cfg.num_hidden_layers))),
               "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok})
+        # greedy decode timed alone (the sampled run too until PR 24)
         decoder_runs("moe", card, twin, chunks["zh"], MOE_LOGIT_ATOL,
-                     speed=dict(runs=1))
+                     speed=dict(runs=1, modes=("greedy",)))
         # beside moe_speed's bound of the dense formulation
         routed = decoder_bytes(card.model, [512], routed=True)
         emit({"phase": "moe_routed_bound", "bytes": routed,
@@ -5437,18 +5491,20 @@ def decode_ms(lm, prompt, n: int, spec: bool = False, **kw) -> float:
     return (stamps[-1] - stamps[first]) / (n - 1 - first) * 1e3
 
 
-def same_stream(got, want, ref, prompt, dtype: str, what: str) -> dict:
+def same_stream(got, want, ref, prompt, dtype: str, what: str,
+                atol: float = DECODER_LOGIT_ATOL, f32_tie: float = 0.0
+                ) -> dict:
     """``got`` against the reference engine's ``want``: identical, or in
     bf16 apart from a step where the reference's top-2 gap is within
-    ``DECODER_LOGIT_ATOL`` (cuBLAS picks a k + 1-row GEMM apart from a
-    1-row one)."""
+    ``atol`` (cuBLAS picks a k + 1-row GEMM apart from a 1-row one), in
+    float32 where it is under ``f32_tie``."""
     i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
     if i is None:
         check(len(got) == len(want), f"{what} {dtype}: {len(got)} tokens, "
                                      f"{len(want)} in the reference")
         return {"identical": True}
     gap = top2_gap_after(ref, prompt, want[:i])
-    check(dtype == "bfloat16" and gap <= DECODER_LOGIT_ATOL,
+    check(gap <= atol if dtype == "bfloat16" else gap < f32_tie,
           f"{what} {dtype}: token {i} differs (top-2 gap {gap})")
     return {"identical": False, "first_difference": i,
             "reference_top2_gap": gap}
@@ -6177,34 +6233,28 @@ def paged_small_pool(model, tok, corpus_ids) -> dict:
 
 
 def paged_speed(card, corpus_ids) -> dict:
-    """An 8-slot paged engine, then an 8-slot batched one, each at every
-    occupancy of ``PAGED_OCCUPANCY`` (``occupancy_speed``): ms a step and
-    tokens/s against the step's bound, and each engine's cache bytes (the
-    paged one's pool); the card's busy and idle share over
-    ``BATCHED_PROFILE_TOKENS`` tokens of the paged engine at the top
-    occupancy, on spans the tree does not hold yet (phase 17 profiles the
-    batched engine)."""
-    out = {}
+    """An 8-slot paged engine at every occupancy of ``PAGED_OCCUPANCY``
+    (``occupancy_speed``): ms a step and tokens/s against the step's bound,
+    and its pool's bytes; the card's busy and idle share over
+    ``BATCHED_PROFILE_TOKENS`` tokens at the top occupancy, on spans the
+    tree does not hold yet. Phase 17 times and profiles the batched engine
+    at the same occupancies (an 8-slot batched engine was timed again here
+    until PR 24)."""
     top = PAGED_OCCUPANCY[-1]
-    for name, cls in (("paged", TorchPagedDecoderLM),
-                      ("batched", TorchBatchedDecoderLM)):
-        engine = cls(card.model, card.tokenizer, device="cuda",
-                     max_len=card.max_len, n_slots=top)
-        try:
-            out[name] = occupancy_speed(engine, card, corpus_ids,
-                                        PAGED_OCCUPANCY)
-            out[name]["cache_bytes"] = engine.cache_bytes
-            if name == "paged":
-                fresh = [corpus_ids[512 * j:512 * (j + 1)]
-                         for j in range(top, 2 * top)]
-                out[name]["decode_profile"] = profile_device(
-                    lambda: stream_jobs(engine, [
-                        (p, dict(max_new_tokens=BATCHED_PROFILE_TOKENS))
-                        for p in fresh]), BATCHED_PROFILE_TOKENS,
-                    host=False)
-        finally:
-            engine.close()
-    return out
+    engine = TorchPagedDecoderLM(card.model, card.tokenizer, device="cuda",
+                                 max_len=card.max_len, n_slots=top)
+    try:
+        out = occupancy_speed(engine, card, corpus_ids, PAGED_OCCUPANCY)
+        out["cache_bytes"] = engine.cache_bytes
+        fresh = [corpus_ids[512 * j:512 * (j + 1)]
+                 for j in range(top, 2 * top)]
+        out["decode_profile"] = profile_device(
+            lambda: stream_jobs(engine, [
+                (p, dict(max_new_tokens=BATCHED_PROFILE_TOKENS))
+                for p in fresh]), BATCHED_PROFILE_TOKENS, host=False)
+    finally:
+        engine.close()
+    return {"paged": out}
 
 
 def phase_decoder_paged(qwen=None, tokenizers=None, share=None) -> dict:
@@ -6284,6 +6334,368 @@ def phase_decoder_paged(qwen=None, tokenizers=None, share=None) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "decoder_paged", "seconds": time.perf_counter() - t_phase,
+          "peak_card_bytes": torch.cuda.max_memory_allocated(),
+          "nvidia_smi": nvidia_smi()})
+    return answer
+
+
+def tp_shard_bytes(model, tp: int) -> dict:
+    """Each shard's weight bytes at ``tp`` shards (the tied head counted
+    as JAX's tree holds it, a leaf of its own, where its vocabulary
+    splits): their sum must be the unsharded leaves' bytes plus the
+    replicated leaves' once more a shard."""
+    tpm = TPDecoderModel(model, card_mesh(tp))
+    names = set(tpm.shards[0].state_dict())
+    leaves = {k: v for k, v in tp_leaves(model.state_dict()).items()
+              if k in names}
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    unsharded = sum(map(nbytes, leaves.values()))
+    replicated = sum(nbytes(v) for k, v in leaves.items()
+                     if split_dim(k, v.shape, model.cfg, tp) is None)
+    shards = [weight_bytes(s) for s in tpm.shards]
+    check(sum(shards) == unsharded + (tp - 1) * replicated,
+          f"tp {tp}: shards {shards} against {unsharded} + {tp - 1} x "
+          f"{replicated}")
+    return {"shards": shards, "unsharded": unsharded,
+            "replicated": replicated, "split": tpm.split}
+
+
+def tp_step_logits(model, tok, ids, tp: int) -> dict:
+    """The float32 model and its ``tp``-way split over the prompt and
+    ``TP_STEPS`` greedy steps (each feeding the unsharded model's argmax):
+    every step's logits within ``TP_STEP_ATOL``, and the argmax the same
+    but at a step whose unsharded top-2 gap is under ``TP_STEP_ATOL``
+    (printed)."""
+    ref = TorchDecoderLM(model, tok, device="cuda", max_len=TP_MAX_LEN)
+    lm = TorchDecoderLM(model, tok, device="cuda", max_len=TP_MAX_LEN)
+    apply_tp_to_engine(lm, card_mesh(tp))
+    a, ca = ref._prefill_prompt(ids)
+    b, cb = lm._prefill_prompt(ids)
+    diffs, flips = [], []
+    for i in range(TP_STEPS + 1):
+        top = torch.topk(a[0], 2)
+        gap = float(top.values[0] - top.values[1])
+        diffs.append(float((a - b).abs().max()))
+        check(diffs[-1] <= TP_STEP_ATOL,
+              f"tp {tp}: step {i} logits {diffs[-1]} apart")
+        if int(torch.argmax(b[0])) != int(top.indices[0]):
+            check(gap < TP_STEP_ATOL, f"tp {tp}: step {i} flips at gap {gap}")
+            flips.append({"step": i, "top2_gap": gap})
+        tok_i = top.indices[:1]
+        if i < TP_STEPS:
+            a = ref._step(tok_i, len(ids) + i, ca)
+            b = lm._step(tok_i, len(ids) + i, cb)
+    return {"max_abs_diff": max(diffs), "per_step": diffs, "flips": flips}
+
+
+def tp_engine(cls, model, tok, tp: int, **kw):
+    """A ``cls`` engine on ``model``, split ``tp`` ways over cuda:0 by
+    ``apply_tp_to_engine``."""
+    engine = cls(model, tok, device="cuda", max_len=TP_MAX_LEN, **kw)
+    apply_tp_to_engine(engine, card_mesh(tp))
+    return engine
+
+
+def tp_identities(model, tok, prompts, dtype: str, tp: int, refs: dict,
+                  atol: float = DECODER_LOGIT_ATOL, engines=None) -> dict:
+    """Greedy streams of ``TP_TOKENS`` over the ``tp``-way split against
+    the unsharded single-stream engine's on the same weights (float32:
+    identical; bf16: but at a step whose reference top-2 gap is within
+    ``atol``): the single-stream engine on each prompt; the batched engine
+    with both prompts at once, on the dense and the int8 cache; the paged
+    engine on the first prompt twice, the second time its full blocks
+    attached from the radix tree; a float32 stream may part only at a
+    step whose reference top-2 gap is under ``TP_STEP_ATOL`` (printed).
+    ``engines`` limits the runs; ``refs``
+    (the caller's, one a model) keeps the references across shard
+    counts."""
+    n = TP_TOKENS
+    engines = engines or ("single", "batched", "batched_kv8", "paged")
+
+    def ref(kv_quant=False):
+        if kv_quant not in refs:
+            lm = TorchDecoderLM(model, tok, device="cuda",
+                                max_len=TP_MAX_LEN, kv_quant=kv_quant)
+            refs[kv_quant] = (lm, [greedy_stream(lm, p, n) for p in prompts])
+        return refs[kv_quant]
+
+    def held(got, kv_quant=False, prompts_=prompts, what=""):
+        lm, want = ref(kv_quant)
+        return [same_stream(g, want[prompts.index(p)], lm, p, dtype,
+                            f"tp {tp} {what}", atol, TP_STEP_ATOL)
+                for g, p in zip(got, prompts_)]
+
+    out = {}
+    if "single" in engines:
+        lm = tp_engine(TorchDecoderLM, model, tok, tp)
+        out["single"] = held([greedy_stream(lm, p, n) for p in prompts],
+                             what="single-stream")
+    for name, kw in (("batched", {}), ("batched_kv8", dict(kv_quant=True))):
+        if name not in engines:
+            continue
+        engine = tp_engine(TorchBatchedDecoderLM, model, tok, tp,
+                           n_slots=len(prompts), **kw)
+        try:
+            got, _ = stream_jobs(engine, [(p, dict(max_new_tokens=n))
+                                          for p in prompts])
+        finally:
+            engine.close()
+        out[name] = held(got, bool(kw), what=name)
+    if "paged" in engines:
+        engine = tp_engine(TorchPagedDecoderLM, model, tok, tp, n_slots=2)
+        try:
+            got = [greedy_stream(engine, prompts[0], n)]
+            first = engine.paged_stats()["reused_blocks"]
+            got.append(greedy_stream(engine, prompts[0], n))
+            stats = engine.paged_stats()
+        finally:
+            engine.close()
+        check(stats["reused_blocks"] - first
+              == (len(prompts[0]) - 1) // PAGED_BLOCK,
+              f"tp {tp} paged: reuse {first} then {stats}")
+        out["paged"] = held(got, prompts_=[prompts[0]] * 2, what="paged")
+        out["paged_stats"] = stats
+    return out
+
+
+def tp_speed(model, tok, corpus_ids) -> dict:
+    """Single-stream decode ms a token (``TP_TIMED_TOKENS`` greedy tokens
+    after a 512-token span) at TP 1, 2 and 4; an 8-slot batched engine's
+    step at occupancy ``TP_OCCUPANCY`` at TP 1 and 2 (``occupancy_speed``,
+    its bound the unsharded step's). On one card the shards run one after
+    another: printed, not checked."""
+    out = {}
+    span = corpus_ids[:512]
+    for tp in (1,) + TP_SHARDS:
+        lm = TorchDecoderLM(model, tok, device="cuda", max_len=TP_MAX_LEN)
+        if tp > 1:
+            apply_tp_to_engine(lm, card_mesh(tp))
+        out[f"tp{tp}_decode_ms_per_token"] = decode_ms(
+            lm, span, lm.decode_chunk + TP_TIMED_TOKENS)
+    for tp in (1, TP_SHARDS[0]):
+        engine = TorchBatchedDecoderLM(model, tok, device="cuda",
+                                       max_len=TP_MAX_LEN,
+                                       n_slots=TP_OCCUPANCY)
+        try:
+            if tp > 1:
+                apply_tp_to_engine(engine, card_mesh(tp))
+            res = occupancy_speed(engine, types.SimpleNamespace(model=model),
+                                  corpus_ids, (TP_OCCUPANCY,))
+        finally:
+            engine.close()
+        out[f"tp{tp}_batched"] = res[f"occupancy_{TP_OCCUPANCY}"]
+    return out
+
+
+def dp_runs(f32, model, tok, corpus_ids) -> dict:
+    """``DPDecoderRouter`` over batched engines on cuda:0: on the float32
+    copy two replicas of 4 slots under ``TP_OCCUPANCY`` streams at once,
+    each stream identical to the single-stream engine's and both replicas
+    taking streams; then in bf16 aggregate tokens/s of ``TP_OCCUPANCY``
+    streams of ``TP_TIMED_TOKENS`` (each on its own 512-token span; the
+    host clock from the first stream's start to the last token, prefill
+    included) on one replica of 8 slots and on two of 4. The replicas
+    share one copy of the weights here (each loads its own through
+    ``from_pretrained``, as the answer run does)."""
+    spans = [corpus_ids[512 * i:512 * i + 512] for i in range(TP_OCCUPANCY)]
+    n = TP_TOKENS
+    ref = TorchDecoderLM(f32, tok, device="cuda", max_len=TP_MAX_LEN)
+    want = [greedy_stream(ref, p, n) for p in spans]
+    slots = TP_OCCUPANCY // 2
+
+    def router(m, replicas, n_slots):
+        return DPDecoderRouter([TorchBatchedDecoderLM(
+            m, tok, device="cuda", max_len=TP_MAX_LEN, n_slots=n_slots)
+            for _ in range(replicas)])
+
+    r = router(f32, 2, slots)
+    try:
+        taken = []
+        acquire = r._acquire
+        r._acquire = lambda: taken.append(acquire()) or taken[-1]
+        got, _ = stream_jobs(r, [(p, dict(max_new_tokens=n)) for p in spans])
+    finally:
+        r.close()
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g == w, f"dp: stream {i} differs from the single engine's")
+    check(sorted(set(taken)) == [0, 1], f"dp: replicas taken {taken}")
+    out = {"float32_identical": True,
+           "streams_by_replica": [taken.count(0), taken.count(1)]}
+    for replicas in (1, 2):
+        r = router(model, replicas, TP_OCCUPANCY // replicas)
+        try:
+            stream_jobs(r, [(spans[0], dict(max_new_tokens=4))])
+            t0 = time.perf_counter()
+            toks, stamps = stream_jobs(r, [
+                (p, dict(max_new_tokens=TP_TIMED_TOKENS)) for p in spans])
+            wall = max(st[-1] for st in stamps) - t0
+        finally:
+            r.close()
+        check(all(len(t) == TP_TIMED_TOKENS for t in toks),
+              f"dp: {[len(t) for t in toks]} tokens")
+        out[f"replicas_{replicas}"] = {
+            "slots_each": TP_OCCUPANCY // replicas,
+            "tokens_per_s": TP_OCCUPANCY * TP_TIMED_TOKENS / wall,
+            "seconds": wall}
+    return out
+
+
+def tp_qwen(card, chunks) -> dict:
+    """Qwen2.5-0.5B (``card``, bf16) at TP 2 and 4: shard bytes; on the
+    float32 copy per-step logits and the engines' identities (the int8
+    cache and paged engines at TP 2, where the cache splits; at 4 it stays
+    whole); in bf16 the single-stream and batched engines'; W8A8 on the
+    batched engine (float32; bf16 at TP 2, at the quantized twins'
+    tolerance); then the speeds and DP."""
+    tok = card.tokenizer
+    ids = rag_prompt_ids(tok, chunks)
+    corpus_ids = tok("\n".join(c.text for c in chunks))["input_ids"]
+    prompts = [ids, corpus_ids[1000:1300]]
+    f32 = DecoderModel.from_state_dict(copy.copy(card.cfg),
+                                       float32_state(card.model))
+    w8 = {k: quantize_weights(s, bits=8) for k, s in (
+        ("float32", float32_state(card.model)),
+        ("bfloat16", card.model.state_dict()))}
+    w8 = {k: DecoderModel.from_state_dict(copy.copy(card.cfg), s)
+          for k, s in w8.items()}
+    refs = {name: {} for name in ("float32", "bfloat16", "w8a8_float32",
+                                  "w8a8_bfloat16")}
+    out = {"prompt_tokens": [len(p) for p in prompts]}
+    for tp in TP_SHARDS:
+        t0 = time.perf_counter()
+        res = {"bytes": tp_shard_bytes(card.model, tp),
+               "w8a8_bytes": tp_shard_bytes(w8["bfloat16"], tp)["shards"],
+               "float32_steps": tp_step_logits(f32, tok, ids, tp),
+               "float32": tp_identities(
+                   f32, tok, prompts, "float32", tp, refs["float32"],
+                   engines=None if tp == TP_SHARDS[0] else ("single",
+                                                            "batched")),
+               "bfloat16": tp_identities(card.model, tok, prompts,
+                                         "bfloat16", tp, refs["bfloat16"],
+                                         engines=("single", "batched")),
+               "w8a8_float32": tp_identities(
+                   w8["float32"], tok, prompts, "float32", tp,
+                   refs["w8a8_float32"], engines=("batched",))}
+        if tp == TP_SHARDS[0]:
+            res["w8a8_bfloat16"] = tp_identities(
+                w8["bfloat16"], tok, prompts, "bfloat16", tp,
+                refs["w8a8_bfloat16"], QUANT_LOGIT_ATOL, ("batched",))
+        res["seconds"] = time.perf_counter() - t0
+        out[f"tp{tp}"] = res
+    del w8
+    t0 = time.perf_counter()
+    out["speed"] = tp_speed(card.model, tok, corpus_ids)
+    out["speed"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dp"] = dp_runs(f32, card.model, tok, corpus_ids)
+    out["dp"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tp_moe(moe: Path, chunks) -> dict:
+    """Qwen1.5-MoE-A2.7B's widths at its 2 layers, experts split 2 and 4
+    ways (30 or 15 a shard; the router, attention heads, shared expert
+    and head split as the table says): shard bytes; on the float32 copy
+    per-step logits and single-stream streams; in bf16 the streams (on
+    the RAG prompt's first ``TP_MOE_PROMPT`` tokens)."""
+    card = TorchDecoderLM.from_pretrained(str(moe), device="cuda",
+                                          max_len=TP_MAX_LEN)
+    tok = card.tokenizer
+    ids = rag_prompt_ids(tok, chunks)[:TP_MOE_PROMPT]
+    f32 = DecoderModel.from_state_dict(copy.copy(card.cfg),
+                                       float32_state(card.model))
+    out = {"experts": card.cfg.num_experts}
+    refs = {"float32": {}, "bfloat16": {}}
+    for tp in TP_SHARDS:
+        t0 = time.perf_counter()
+        res = {"bytes": tp_shard_bytes(card.model, tp),
+               "float32_steps": tp_step_logits(f32, tok, ids, tp)}
+        for dtype, m in (("float32", f32), ("bfloat16", card.model)):
+            res[dtype] = tp_identities(m, tok, [ids], dtype, tp, refs[dtype],
+                                       engines=("single",))
+        check(res["bytes"]["split"]["experts"],
+              f"ep {tp}: {card.cfg.num_experts} experts do not split")
+        res["seconds"] = time.perf_counter() - t0
+        out[f"ep{tp}"] = res
+    return out
+
+
+def phase_decoder_tp(qwen=None, moe=None, tokenizers=None) -> dict:
+    """Tensor- and data-parallel decode (module docstring, phase 19) on
+    phase 12's Qwen2.5-0.5B checkpoint ``qwen`` and phase 14's
+    Qwen1.5-MoE one ``moe`` (written anew where not given), then
+    ``/rag/answer`` through ``local-jax`` with ``batch_slots`` 4,
+    ``tp_shards`` 2 and ``dp_replicas`` 2 over the visible devices, listed
+    as cuda:0 four times (the seam of JAX's client test). Returns the
+    answer run with its launches (the ``tp`` path)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="tp_"))
+    tokenizers = {} if tokenizers is None else tokenizers
+    try:
+        chunks = {lang: load_chunks(lang) for lang in ("zh", "en")}
+        texts = [c.text for cs in chunks.values() for c in cs]
+        if qwen is None:
+            qwen = tmp / "qwen25_05b"
+            tokenizer_files(write_bpe_tokenizer, qwen, texts, tokenizers)
+            write_decoder_checkpoint(qwen, seed=5)
+        if moe is None:
+            moe = tmp / "qwen15_moe_a27b"
+            tokenizer_files(write_bpe_tokenizer, moe, texts, tokenizers)
+            write_decoder_checkpoint(moe, seed=11, conf=QWEN15_MOE_A27B,
+                                     card_rng=True)
+        card = TorchDecoderLM.from_pretrained(str(qwen), device="cuda",
+                                              max_len=TP_MAX_LEN)
+        t0 = time.perf_counter()
+        emit({"phase": "tp_qwen25", **tp_qwen(card, chunks["zh"]),
+              "seconds": time.perf_counter() - t0})
+        del card
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        emit({"phase": "tp_moe", **tp_moe(moe, chunks["zh"]),
+              "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+        served = {}
+
+        def served_engine(router):
+            check(isinstance(router, DPDecoderRouter)
+                  and len(router.engines) == TP_ANSWER_REPLICAS,
+                  "tp answer: the served router")
+            for e in router.engines:
+                check(isinstance(e, TorchBatchedDecoderLM)
+                      and e.n_slots == TP_ANSWER_SLOTS
+                      and isinstance(e.model, TPDecoderModel)
+                      and e.model.tp == TP_ANSWER_SHARDS
+                      and sum(e.admissions.values()) > 0,
+                      "tp answer: a replica served nothing or is not split")
+            served["admissions"] = [dict(e.admissions)
+                                    for e in router.engines]
+
+        devices = mesh_mod.local_devices
+        mesh_mod.local_devices = lambda platform=None: [
+            torch.device("cuda", 0)] * (TP_ANSWER_SHARDS * TP_ANSWER_REPLICAS)
+        t0 = time.perf_counter()
+        try:
+            answer = decoder_answer(
+                qwen, qwen.parent, "tp", "tp_answer",
+                llm={"batch_slots": TP_ANSWER_SLOTS,
+                     "tp_shards": TP_ANSWER_SHARDS,
+                     "dp_replicas": TP_ANSWER_REPLICAS,
+                     "max_new_tokens": BATCHED_ANSWER_TOKENS},
+                engine_check=served_engine, answers=BATCHED_ANSWERS,
+                concurrent=True)
+        finally:
+            mesh_mod.local_devices = devices
+        answer.pop("texts")
+        emit(answer | {"served_engine": served,
+                       "seconds": time.perf_counter() - t0,
+                       "peak_card_bytes": torch.cuda.max_memory_allocated()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "decoder_tp", "seconds": time.perf_counter() - t_phase,
           "peak_card_bytes": torch.cuda.max_memory_allocated(),
           "nvidia_smi": nvidia_smi()})
     return answer
@@ -7248,6 +7660,14 @@ def run_a6(phases=("sharded", "train", "stores")) -> None:
                 emit({"phase": "stores_sharded", **sharded_store(name, b)})
 
 
+def run_a7g() -> None:
+    """Phase 19 alone on the card: the kernels built, then
+    ``phase_decoder_tp`` writing the Qwen2.5 and Qwen1.5-MoE checkpoints
+    and the zh bundle it serves."""
+    kernels.lib()
+    phase_decoder_tp()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--diagnostics", action="store_true",
@@ -7328,6 +7748,8 @@ def run_phases(prep, keep: Path, diagnostics: bool, seed: int = 0) -> int:
     share = {}
     batched = phase_decoder_batched(keep / "qwen25_05b", tokenizers, share)
     paged = phase_decoder_paged(keep / "qwen25_05b", tokenizers, share)
+    tp = phase_decoder_tp(keep / "qwen25_05b", keep / "qwen15_moe_a27b",
+                          tokenizers)
     runs = {"map": list(e2e.values()), "serve": [served["serve"]],
             "http": [served["http"]],
             "sharded": [served["sharded"]] + sharded_stores,
@@ -7336,7 +7758,8 @@ def run_phases(prep, keep: Path, diagnostics: bool, seed: int = 0) -> int:
             "large": [large] + large_store_runs, "bert": bert_runs,
             "answer": [answer], "families": [families], "moe": [moe],
             "quant": [quant], "spec": [spec], "batched": [batched],
-            "paged": [paged], "cases": [cases], "agent": [agent],
+            "paged": [paged], "tp": [tp], "cases": [cases],
+            "agent": [agent],
             "evals": [evals_run]}
     # MaxSim's launches per route, as the wrapper counts them on each path
     # (the kernel's own row: all its routes; bf16 is the map path's)

@@ -28,12 +28,16 @@
   single-stream engines; ``batch_slots > 1`` (without ``paged_kv``) the
   batched engine of that many slots, with ``shared_prefix_text`` and, with
   ``spec_k > 0``, per-slot speculation with ``draft_model`` and the corpus
-  table. A knob of the JAX package's other engines (paged, TP / DP), or a
-  knob JAX ignores in the engine asked for (``unported_engine_knobs``: a
-  speculation knob without ``spec_k``, ``shared_prefix_text`` without
-  ``batch_slots > 1``, ``spec_adaptive`` with it), makes the load fail
-  with ``LLMUnavailable`` naming it, so the answer degrades as it does in
-  JAX when a load fails; no knob is ignored.
+  table; with ``paged_kv`` the paged engine. Any of them is split over
+  ``tp_shards`` devices (``parallel/decoder_tp.py``) and replicated
+  ``dp_replicas`` times behind a least-busy router
+  (``parallel/decoder_dp.py``), over the visible devices as JAX's client
+  takes them; fewer devices than asked fail the load. A knob JAX ignores
+  in the engine asked for (``unported_engine_knobs``: a speculation knob
+  without ``spec_k``, ``shared_prefix_text`` without ``batch_slots > 1``,
+  ``spec_adaptive`` with it, ...) makes the load fail with
+  ``LLMUnavailable`` naming it, so the answer degrades as it does in JAX
+  when a load fails; no knob is ignored.
 - Reasoning models (gpt-5, o1, o3, "thinking") get no temperature or top_p
   and ``max_completion_tokens`` in place of ``max_tokens``.
 - ``chat`` makes two attempts, then returns the degraded answer: a fixed
@@ -88,11 +92,6 @@ class LLMUnavailable(RuntimeError):
     pass
 
 
-# the JAX package's engine knobs that the port has no engine for (TP, DP):
-# a count above 1 selects one of those engines, while 0 and 1 both keep
-# the single-stream engine
-_UNPORTED_KNOBS = ("tp_shards", "dp_replicas")
-_COUNT_KNOBS = ("tp_shards", "dp_replicas")
 # the speculative engines' knobs, which JAX's client ignores without
 # spec_k > 0 and the port refuses there
 _SPEC_KNOBS = ("spec_adaptive", "draft_model", "ngram_draft_path")
@@ -110,12 +109,11 @@ _SINGLE_STREAM_SPEC_KNOBS = ("spec_adaptive",)
 
 
 def unported_engine_knobs(cfg: LLMConfig) -> List[str]:
-    """The knobs of ``cfg`` that ``local-jax`` refuses: those asking for an
-    engine the port does not have, and those set away from their defaults
-    that JAX would ignore in the engine ``cfg`` selects (the speculation
-    knobs without ``spec_k > 0``, ``shared_prefix_text`` and the paged
-    knobs without ``batch_slots > 1``, ``spec_adaptive`` with it, the
-    block size and pool without ``paged_kv``, ``prefix_cache`` and
+    """The knobs of ``cfg`` that ``local-jax`` refuses: those set away from
+    their defaults that JAX would ignore in the engine ``cfg`` selects (the
+    speculation knobs without ``spec_k > 0``, ``shared_prefix_text`` and
+    the paged knobs without ``batch_slots > 1``, ``spec_adaptive`` with
+    it, the block size and pool without ``paged_kv``, ``prefix_cache`` and
     ``shared_prefix_text`` with it)."""
     default = LLMConfig()
     batched = cfg.batch_slots > 1
@@ -127,9 +125,7 @@ def unported_engine_knobs(cfg: LLMConfig) -> List[str]:
         ignored += _PAGED_DROPPED_KNOBS
     else:
         ignored += _PAGED_KNOBS
-    return [k for k in _UNPORTED_KNOBS + ignored
-            if (getattr(cfg, k) > 1 if k in _COUNT_KNOBS
-                else getattr(cfg, k) != getattr(default, k))]
+    return [k for k in ignored if getattr(cfg, k) != getattr(default, k)]
 
 
 class LLMClient:
@@ -365,15 +361,16 @@ class LLMClient:
         """The decoder engine (``TorchDecoderLM``, with ``spec_k > 0``
         ``TorchSpecLookupDecoderLM``, with ``batch_slots > 1``
         ``TorchBatchedDecoderLM``, and with ``paged_kv`` too
-        ``TorchPagedDecoderLM``), loaded once under the lock;
-        ``LLMUnavailable`` when the config asks for an engine the port
-        lacks or the load fails."""
+        ``TorchPagedDecoderLM``; split and replicated by ``tp_shards`` and
+        ``dp_replicas``), loaded once under the lock; ``LLMUnavailable``
+        when the config sets a knob that engine ignores or the load
+        fails."""
         with self._load_lock:
             if self._local is None:
                 knobs = unported_engine_knobs(self.cfg)
                 if knobs:
                     raise LLMUnavailable(
-                        "local-jax: not ported, or without spec_k: "
+                        "local-jax: knobs the selected engine ignores: "
                         + ", ".join(knobs))
                 try:
                     from legalrag_tpu_torch.models.decoder import \
@@ -441,11 +438,45 @@ class LLMClient:
                             kw["ngram_draft"] = self.cfg.ngram_draft_path
                         if self.cfg.draft_model:
                             kw["draft_model"] = self.cfg.draft_model
-                    self._local = engine_cls.from_pretrained(
-                        self.cfg.model, device=self.device, **kw)
+                    self._local = self._replicated(engine_cls, kw)
                 except Exception as e:
                     raise LLMUnavailable(f"decoder load failed: {e}") from e
             return self._local
+
+    def _replicated(self, engine_cls, kw: dict):
+        """``engine_cls`` loaded as JAX's client loads it: with
+        ``dp_replicas > 1`` a ``DPDecoderRouter`` of that many replicas over
+        the visible devices (each on its own ``tp_shards``-wide submesh
+        with ``tp_shards > 1``); else one engine, split over the first
+        ``tp_shards`` devices with ``tp_shards > 1``. Too few devices
+        raise, so the load fails: never fewer shards than asked."""
+        tp, dp = self.cfg.tp_shards, self.cfg.dp_replicas
+        if tp <= 1 and dp <= 1:
+            return engine_cls.from_pretrained(self.cfg.model,
+                                              device=self.device, **kw)
+        from legalrag_tpu_torch.parallel import mesh as mesh_mod
+        from legalrag_tpu_torch.parallel.decoder_dp import DPDecoderRouter
+        from legalrag_tpu_torch.parallel.decoder_tp import \
+            apply_tp_to_engine
+        from legalrag_tpu_torch.utils.device import resolve_device
+
+        devs = mesh_mod.local_devices(resolve_device(self.device).type)
+        if dp > 1:
+            return DPDecoderRouter.from_pretrained(
+                engine_cls, self.cfg.model, replicas=dp, tp_shards=tp,
+                devices=devs, **kw)
+        if len(devs) < tp:
+            raise ValueError(f"tp_shards={tp} needs {tp} devices, have "
+                             f"{len(devs)}")
+        engine = engine_cls.from_pretrained(self.cfg.model, device=devs[0],
+                                            **kw)
+        try:
+            apply_tp_to_engine(engine, mesh_mod.make_mesh(devs[:tp], data=1,
+                                                          model=tp))
+        except BaseException:
+            getattr(engine, "close", lambda: None)()
+            raise
+        return engine
 
     def _stream_jax(self, messages: List[Message],
                     max_new_tokens: Optional[int]

@@ -378,11 +378,15 @@ def linear(in_features: int, out_features: int, bias: bool, bits: int = 0
 
 class Attention(nn.Module):
     """The projections, and Qwen3's / Gemma 3's per-head ``q_norm`` and
-    ``k_norm`` when ``qk_norm``."""
+    ``k_norm`` when ``qk_norm``. The head counts are the projections'
+    widths over ``head_dim``: a tensor-parallel shard
+    (``parallel/decoder_tp.py``) runs its own heads through the same
+    steps."""
 
     def __init__(self, cfg: DecoderConfig, bias: bool, qk_norm: bool,
                  bits: int = 0):
         super().__init__()
+        self.cfg = cfg
         h, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
                      cfg.head_dim)
         self.q_proj = linear(cfg.hidden_size, h * d, bias, bits)
@@ -393,6 +397,64 @@ class Attention(nn.Module):
         if qk_norm:
             self.q_norm = RMSNorm(d, cfg.rms_norm_eps, cfg.gemma)
             self.k_norm = RMSNorm(d, cfg.rms_norm_eps, cfg.gemma)
+
+    def queries(self, y, cos, sin) -> torch.Tensor:
+        """The normed rows ``y`` [B, T, H] → rotated queries [B, T, h, D]
+        (``q_norm`` first where there is one)."""
+        b, t, _ = y.shape
+        q = self.q_proj(y).view(b, t, -1, self.cfg.head_dim)
+        if self.q_norm is not None:
+            q = self.q_norm(q)
+        return _rope(q, cos, sin)
+
+    def keys_values(self, y, cos, sin, cache, cache_len, shared=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The keys and values attention reads: the new rows of ``y``
+        (keys normed and rotated) without a cache; with ``cache`` (dense
+        ``(k, v)``, or the int8 cache's ``(k_q, v_q, k_scale, v_scale)``)
+        the new rows written from ``cache_len`` (``_write_rows``; int8
+        rows quantized) and the whole cache read back (dequantized), these
+        rows included; ``shared``'s pinned rows before them."""
+        b, t, _ = y.shape
+        d = self.cfg.head_dim
+        k = self.k_proj(y).view(b, t, -1, d)
+        if self.k_norm is not None:
+            k = self.k_norm(k)
+        k = _rope(k, cos, sin)
+        v = self.v_proj(y).view(b, t, -1, d)
+        if cache is not None and len(cache) == 4:
+            ckq, cvq, cks, cvs = cache
+            for dst, dsc, x_new in ((ckq, cks, k), (cvq, cvs, v)):
+                q_new, s_new = quantize_kv(x_new)
+                _write_rows(dst, q_new, cache_len)
+                _write_rows(dsc, s_new, cache_len)
+            k, v = (dequantize_kv(ckq, cks, k.dtype),
+                    dequantize_kv(cvq, cvs, v.dtype))
+        elif cache is not None:
+            ck, cv = cache
+            _write_rows(ck, k, cache_len)
+            _write_rows(cv, v, cache_len)
+            k, v = ck, cv
+        if shared is not None:
+            sk, sv = shared if len(shared) == 2 else (
+                dequantize_kv(shared[0], shared[2], k.dtype),
+                dequantize_kv(shared[1], shared[3], v.dtype))
+            k = torch.cat([sk.expand(b, *sk.shape[1:]), k], dim=1)
+            v = torch.cat([sv.expand(b, *sv.shape[1:]), v], dim=1)
+        return k, v
+
+    def context(self, q, k, v, mask) -> torch.Tensor:
+        """``attend`` at the family's scale and softcap: [B, T, h * D],
+        the o projection's input."""
+        cfg = self.cfg
+        return attend(q, k, v, mask,
+                      (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5,
+                      cfg.attn_logit_softcapping)
+
+    def forward(self, y, cos, sin, mask, cache, cache_len, shared=None):
+        k, v = self.keys_values(y, cos, sin, cache, cache_len, shared)
+        return self.o_proj(self.context(self.queries(y, cos, sin), k, v,
+                                        mask))
 
 
 def _act(g: torch.Tensor, gelu: bool) -> torch.Tensor:
@@ -412,9 +474,12 @@ class MLP(nn.Module):
         self.gelu = (cfg.hidden_activation == "gelu_pytorch_tanh"
                      if gelu is None else gelu)
 
+    def hidden(self, y):
+        """``act(gate(y)) * up(y)``: the down projection's input."""
+        return _act(self.gate_proj(y), self.gelu) * self.up_proj(y)
+
     def forward(self, y):
-        return self.down_proj(_act(self.gate_proj(y), self.gelu)
-                              * self.up_proj(y))
+        return self.down_proj(self.hidden(y))
 
 
 class MoEBlock(Int4Operands, nn.Module):
@@ -551,6 +616,7 @@ class MoEBlock(Int4Operands, nn.Module):
 
     def _experts_quantized(self, x: torch.Tensor, combine: torch.Tensor
                            ) -> torch.Tensor:
+        """The quantized experts' combined output [N, H] in float32."""
         xq, xs = quant_acts(x)
         gate_up = self._gate_up_int8 if self.bits == 8 else self._gate_up_int4
         g, u = gate_up(xq, xs, "gate"), gate_up(xq, xs, "up")
@@ -559,26 +625,45 @@ class MoEBlock(Int4Operands, nn.Module):
             deq = self._down_int8(aq).float() * a_s * self.down_scale
         else:
             deq = self._down_int4(aq) * a_s
-        return (deq * combine.float()[..., None]).sum(1).to(x.dtype)
+        return (deq * combine.float()[..., None]).sum(1)
+
+    def _gated(self, x: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:
+        """``act(x @ gate) * (x @ up) * combine`` over this block's experts,
+        laid out [N, E * F] for one down product over experts and width."""
+        e, n = self.gate.shape[0], x.shape[0]
+        xe = x.unsqueeze(0).expand(e, n, x.shape[1])
+        g = torch.bmm(xe, self.gate)                             # [E, N, F]
+        mid = _act(g, self.gelu) * torch.bmm(xe, self.up) \
+            * combine.t()[:, :, None]
+        return mid.transpose(0, 1).reshape(n, -1)
+
+    def partial(self, x: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:
+        """Rows ``x`` [N, H] through this block's experts, each weighted by
+        its column of ``combine`` [N, E], summed in float32 [N, H]: an
+        expert-parallel shard's part (``parallel/decoder_tp.py``), before
+        the shards' sum and the shared expert."""
+        if self.bits:
+            return self._experts_quantized(x, combine)
+        return _mm_f32(self._gated(x, combine),
+                       self.down.reshape(-1, x.shape[1]))
+
+    def with_shared(self, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """``out`` plus ``sigmoid(x @ shared_gate) * shared(x)`` where the
+        block has Qwen2-MoE's shared expert."""
+        if self.shared_expert is None:
+            return out
+        return out + torch.sigmoid(self.shared_expert_gate(x)) \
+            * self.shared_expert(x)
 
     def forward(self, y):
         shape = y.shape
         x = y.reshape(-1, shape[-1])                             # [N, H]
-        e, n = self.cfg.num_experts, x.shape[0]
         _, combine = self.route(x)
         if self.bits:
-            out = self._experts_quantized(x, combine)
+            out = self._experts_quantized(x, combine).to(x.dtype)
         else:
-            xe = x.unsqueeze(0).expand(e, n, x.shape[1])
-            g = torch.bmm(xe, self.gate)                         # [E, N, F]
-            mid = _act(g, self.gelu) * torch.bmm(xe, self.up) \
-                * combine.t()[:, :, None]
-            out = mid.transpose(0, 1).reshape(n, -1) @ self.down.reshape(
-                -1, shape[-1])
-        if self.shared_expert is not None:
-            out = out + torch.sigmoid(self.shared_expert_gate(x)) \
-                * self.shared_expert(x)
-        return out.view(shape)
+            out = self._gated(x, combine) @ self.down.reshape(-1, shape[-1])
+        return self.with_shared(x, out).view(shape)
 
 
 def _write_rows(dst: torch.Tensor, rows: torch.Tensor, cache_len) -> None:
@@ -643,46 +728,21 @@ class DecoderLayer(nn.Module):
         """``cache_len``: the write offset (``_write_rows``); ``shared``:
         the layer's pinned shared-prefix rows (``DecoderModel.forward``),
         attended before the cache."""
-        cfg, a = self.cfg, self.self_attn
-        b, t, _ = x.shape
-        d = cfg.head_dim
-        y = self.input_layernorm(x)
-        q = a.q_proj(y).view(b, t, cfg.num_attention_heads, d)
-        k = a.k_proj(y).view(b, t, cfg.num_key_value_heads, d)
-        if a.q_norm is not None:
-            q, k = a.q_norm(q), a.k_norm(k)
-        q, k = _rope(q, cos, sin), _rope(k, cos, sin)
-        v = a.v_proj(y).view(b, t, cfg.num_key_value_heads, d)
-        if cache is not None and len(cache) == 4:
-            # the int8 cache: rows written quantized, every row (these
-            # included) read back dequantized
-            ckq, cvq, cks, cvs = cache
-            for dst, dsc, x_new in ((ckq, cks, k), (cvq, cvs, v)):
-                q_new, s_new = quantize_kv(x_new)
-                _write_rows(dst, q_new, cache_len)
-                _write_rows(dsc, s_new, cache_len)
-            k, v = (dequantize_kv(ckq, cks, k.dtype),
-                    dequantize_kv(cvq, cvs, v.dtype))
-        elif cache is not None:
-            ck, cv = cache
-            _write_rows(ck, k, cache_len)
-            _write_rows(cv, v, cache_len)
-            k, v = ck, cv
-        if shared is not None:
-            sk, sv = shared if len(shared) == 2 else (
-                dequantize_kv(shared[0], shared[2], k.dtype),
-                dequantize_kv(shared[1], shared[3], v.dtype))
-            k = torch.cat([sk.expand(b, *sk.shape[1:]), k], dim=1)
-            v = torch.cat([sv.expand(b, *sv.shape[1:]), v], dim=1)
-        out = a.o_proj(attend(q, k, v, mask,
-                              (cfg.query_pre_attn_scalar or d) ** -0.5,
-                              cfg.attn_logit_softcapping))
+        return self.residual(
+            x, lambda y: self.self_attn(y, cos, sin, mask, cache, cache_len,
+                                        shared), self.mlp)
+
+    def residual(self, x, attention, mlp):
+        """The layer around ``attention`` and ``mlp`` (each a function of
+        its normed input rows): pre-norm residual adds, or with the
+        sandwich the attention and MLP outputs normed before theirs."""
+        out = attention(self.input_layernorm(x))
         if self.pre_feedforward_layernorm is not None:
             x = x + self.post_attention_layernorm(out)
-            out = self.mlp(self.pre_feedforward_layernorm(x))
+            out = mlp(self.pre_feedforward_layernorm(x))
             return x + self.post_feedforward_layernorm(out)
         x = x + out
-        return x + self.mlp(self.post_attention_layernorm(x))
+        return x + mlp(self.post_attention_layernorm(x))
 
 
 class DecoderModel(nn.Module):
@@ -795,6 +855,19 @@ class DecoderModel(nn.Module):
         ``kv_offset`` (an int or [B], each 0 or P) is above 0; a cache row
         holds position ``row + kv_offset``, and ``cache_len`` stays
         absolute."""
+        x, per_layer, row0 = self.embed_inputs(
+            input_ids, positions, kv_cache, cache_len, shared_kv, kv_offset)
+        for li, layer in enumerate(self.layers):
+            x = layer(x, *per_layer[li],
+                      None if kv_cache is None else kv_cache[li], row0,
+                      None if shared_kv is None else shared_kv[li])
+        x = self.norm(x)
+        return x if return_hidden else self.logits(x)
+
+    def embed_inputs(self, input_ids, positions, kv_cache=None, cache_len=0,
+                     shared_kv=None, kv_offset=None):
+        """``forward``'s inputs to its layers: (the embedded rows, per layer
+        its ``(cos, sin, mask)``, the cache write offset)."""
         cfg = self.cfg
         b, t = input_ids.shape
         x = self.embed_tokens(input_ids)
@@ -835,13 +908,10 @@ class DecoderModel(nn.Module):
         sliding = [cfg.layer_is_sliding(li) for li in range(len(self.layers))]
         if any(sliding):
             band = mask & (positions[:, :, None] - kv_pos < cfg.sliding_window)
-        for li, layer in enumerate(self.layers):
-            cos, sin = rope_local if cfg.gemma3 and sliding[li] else rope
-            x = layer(x, cos, sin, band if sliding[li] else mask,
-                      None if kv_cache is None else kv_cache[li], row0,
-                      None if shared_kv is None else shared_kv[li])
-        x = self.norm(x)
-        return x if return_hidden else self.logits(x)
+        per_layer = [(*(rope_local if cfg.gemma3 and sliding[li] else rope),
+                      band if sliding[li] else mask)
+                     for li in range(len(self.layers))]
+        return x, per_layer, row0
 
 
 def load_hf_decoder_params(model_dir: str | Path

@@ -34,7 +34,7 @@ beside its full-precision embedding) and computes float32 logits.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -59,7 +59,13 @@ def quant_acts(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale float32 [..., 1])."""
     xf = x.float()
     xs = _scale(xf.abs().amax(dim=-1, keepdim=True), INT8_MAX)
-    return torch.round(xf / xs).to(torch.int8), xs
+    return quant_rows(xf, xs), xs
+
+
+def quant_rows(xf: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """float32 rows ``xf`` on the int8 grid of their row scales ``xs``:
+    ``round(xf / xs)``, ``quant_acts``' step after its scale."""
+    return torch.round(xf / xs).to(torch.int8)
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -252,7 +258,13 @@ class QLinear(Int4Operands, nn.Module):
     ``_proj`` node): ``bits`` 8 holds ``weight_q`` [out, in] int8 and
     ``weight_scale`` [out]; ``bits`` 4 ``weight_q4p`` [in / 2, out] (JAX's
     carrier) and ``weight_scale`` [in / g, out]. The bias is added after
-    the product is cast to the activations' dtype, as JAX adds it."""
+    the product is cast to the activations' dtype, as JAX adds it. A row
+    shard of a layer (``rows_partial``, ``parallel/decoder_tp.py``) also
+    sets ``row0`` and ``scale_group0``; the unsharded layer is its own
+    one shard."""
+
+    row0 = 0
+    scale_group0 = 0
 
     def __init__(self, in_features: int, out_features: int, bias: bool,
                  bits: int, group: int = QUANT_GROUP):
@@ -281,6 +293,56 @@ class QLinear(Int4Operands, nn.Module):
             y = qdot4(x, self.int4_operand("weight_q4p", self.group),
                       self.weight_scale, out_dtype)
         return y if self.bias is None else y + self.bias
+
+    def rows_partial(self, xq: torch.Tensor) -> torch.Tensor:
+        """A row shard's part of the product, before the shards' sum and
+        the row scale: int8 rows ``xq`` [M, w] (this shard's input rows
+        ``row0`` .. ``row0 + w - 1`` of the unsharded layer, quantized at
+        the whole row's scale) -> int8: the exact int32 sums [M, O];
+        int4: ``sum(acc * scale)`` in float32 over the unsharded layer's
+        groups (``group``) that the shard's rows reach, a group cut by the
+        shard's edges taking only its rows (zero-padded to whole groups:
+        one batched product). ``scale_group0`` is the group of the shard's
+        first scale row: ``row0 // group`` where the scales split with the
+        rows, 0 where each shard holds them all."""
+        if self.bits == 8:
+            return int_mm(xq, self.weight_q)
+        g, r0, w = self.group, self.row0, xq.shape[-1]
+        j0, j1 = r0 // g, -(-(r0 + w) // g)
+        lo, hi = r0 - j0 * g, j1 * g - r0 - w
+        op = int4_operand(self.weight_q4p, w)[0]                   # [w, O]
+        if lo or hi:
+            xq = nn.functional.pad(xq, (lo, hi))
+            op = nn.functional.pad(op, (0, 0, lo, hi))
+        n = j1 - j0
+        acc = group_int_mm(xq.view(-1, n, g).transpose(0, 1),
+                           op.view(n, g, -1))
+        k = j0 - self.scale_group0
+        return acc.mul_(self.weight_scale[k:k + n, None]).sum(0)
+
+
+def row_parallel_qdot(xs: List[torch.Tensor], layers: List[QLinear],
+                      reduce_sum: Callable, reduce_max: Callable,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """A row-parallel quantized product (o, down under tensor parallelism):
+    shard i holds ``layers[i]`` (``QLinear.rows_partial``'s row shard) and
+    ``xs[i]``, its slice [..., w] of the activations. Each row is quantized
+    at the scale of the whole row, as XLA keeps ``_quant_acts``' max global
+    under GSPMD: the max of the shards' maxima (``reduce_max``); a shard
+    scaling its own slice would give other integers. The shards' parts are
+    summed (``reduce_sum``), then rescaled once: int8 sums the exact int32
+    accumulators (``qdot8`` bit for bit), int4 the float32 group sums
+    (``qdot4``'s up to their order); times the row scale (and the replicated
+    channel scale for int8), cast to ``out_dtype``."""
+    xf = [x.float() for x in xs]
+    xsc = _scale(reduce_max([x.abs().amax(dim=-1, keepdim=True)
+                             for x in xf]), INT8_MAX)
+    parts = [lin.rows_partial(quant_rows(x, xsc).reshape(-1, x.shape[-1]))
+             for x, lin in zip(xf, layers)]
+    y = reduce_sum(parts).view(*xs[0].shape[:-1], -1).float() * xsc
+    if layers[0].bits == 8:
+        y = y * layers[0].weight_scale
+    return y.to(out_dtype)
 
 
 def linear_leaves(weight: torch.Tensor, bits: int,

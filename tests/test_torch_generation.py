@@ -8,8 +8,8 @@ Qwen2-layout ``tokenizer.json`` trained on the statutes
 ``chat_stream`` must give the same text and the same chunks, and
 ``/rag/answer``'s SSE token events from the two servers (over one index
 directory, ``tests/test_torch_server.py``'s ``served``) must be equal.
-Every engine knob the port lacks must degrade the answer, none be
-ignored."""
+Every knob JAX ignores in the engine selected, and a TP or DP count above
+the devices visible, must degrade the answer, none be ignored."""
 
 import numpy as np
 import pytest
@@ -102,11 +102,13 @@ def test_rag_answer_sse_matches_jax(served, llm_on_both, clients):  # noqa: F811
     assert [e for e, _ in got] == [e for e, _ in want]
 
 
-# the paged, TP and DP engines' knobs, and the knobs JAX ignores in the
-# engine selected: the pinned prelude without batch_slots, spec_adaptive
-# with it (batch_slots alone is served: tests/test_torch_batched_decoder.py;
-# the constraint and speculation: tests/test_torch_generation_spec.py).
-# Case: (settings, the knob refused)
+# the paged engine's knobs, and the knobs JAX ignores in the engine
+# selected: the pinned prelude without batch_slots, spec_adaptive with it
+# (batch_slots alone is served: tests/test_torch_batched_decoder.py; the
+# constraint and speculation: tests/test_torch_generation_spec.py); and TP
+# and DP on more shards or replicas than the devices visible (one CPU),
+# which fail the load as JAX's client fails it (served:
+# tests/test_torch_decoder_dp.py). Case: (settings, the knob named)
 KNOBS = {"batch_slots": ({"batch_slots": 4, "spec_k": 4,
                           "spec_adaptive": 1.5}, "spec_adaptive"),
          "paged_kv": ({"paged_kv": True}, "paged_kv"),
@@ -118,14 +120,38 @@ KNOBS = {"batch_slots": ({"batch_slots": 4, "spec_k": 4,
          "dp_replicas": ({"dp_replicas": 2}, "dp_replicas")}
 
 
+# the counts that split or replicate the engine over the visible devices
+DEVICE_COUNTS = ("tp_shards", "dp_replicas")
+
+
+def jax_client_fails_on_one_device(model_dir, settings, monkeypatch):
+    """JAX's client with ``settings`` and one visible device: its load
+    fails with ``LLMUnavailable`` (DP's ``ValueError``, TP's mesh of the
+    wrong size), as the port's must."""
+    from legalrag_tpu.llm.client import LLMUnavailable as JaxUnavailable
+    from legalrag_tpu.parallel import mesh as jax_mesh_mod
+
+    one = jax_mesh_mod.local_devices()[:1]
+    monkeypatch.setattr(jax_mesh_mod, "local_devices", lambda *a, **k: one)
+    with pytest.raises(JaxUnavailable):
+        JaxLLMClient(JaxLLMConfig(**llm_kw(model_dir, **settings))
+                     )._load_jax_lm()
+
+
 @pytest.mark.parametrize("knob", sorted(KNOBS))
-def test_unported_knobs_degrade_the_answer(model_dir, knob):
-    """A knob of an engine the port lacks, or one JAX ignores in the engine
-    selected, fails the load naming it: the answer degrades (JAX's answer
-    when its load fails), in chat and in the stream."""
+def test_unported_knobs_degrade_the_answer(model_dir, knob, monkeypatch):
+    """A knob JAX ignores in the engine selected fails the load naming it;
+    so do ``tp_shards`` and ``dp_replicas`` above the one visible device,
+    which JAX's client refuses there too, never served on fewer shards:
+    the answer degrades (JAX's answer when its load fails), in chat and in
+    the stream."""
     settings, refused = KNOBS[knob]
     cfg = LLMConfig(**llm_kw(model_dir, **settings))
-    assert unported_engine_knobs(cfg) == [refused]
+    if knob in DEVICE_COUNTS:
+        assert unported_engine_knobs(cfg) == []
+        jax_client_fails_on_one_device(model_dir, settings, monkeypatch)
+    else:
+        assert unported_engine_knobs(cfg) == [refused]
     c = LLMClient(cfg, device="cpu")
     with pytest.raises(LLMUnavailable, match=refused):
         c._load_jax_lm()
@@ -137,7 +163,8 @@ def test_unported_knobs_degrade_the_answer(model_dir, knob):
 
 def test_single_stream_settings_are_not_refused(model_dir):
     """The JAX defaults, and the values that keep its single-stream engine
-    (batch_slots, tp_shards, dp_replicas 0 or 1), refuse nothing."""
+    unsplit (batch_slots, tp_shards, dp_replicas 0 or 1), refuse
+    nothing."""
     assert unported_engine_knobs(LLMConfig()) == []
     assert unported_engine_knobs(LLMConfig(
         batch_slots=1, tp_shards=1, dp_replicas=1, kv_block_size=64,

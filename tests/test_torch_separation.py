@@ -92,6 +92,8 @@ def test_module_list_covers_the_slice():
                  "legalrag_tpu_torch.parallel.mesh",
                  "legalrag_tpu_torch.parallel.sharded_search",
                  "legalrag_tpu_torch.parallel.training",
+                 "legalrag_tpu_torch.parallel.decoder_tp",
+                 "legalrag_tpu_torch.parallel.decoder_dp",
                  "legalrag_tpu_torch.evals.synthetic",
                  "legalrag_tpu_torch.cli.train_encoder"):
         assert name in PORT_MODULES
