@@ -411,8 +411,10 @@ Phases, each printing one JSON line:
    ``apply_tp_to_engine``
    against the unsharded single-stream engine's, float32 identical (but at
    a top-2 gap under 1e-4, printed), in bf16 the single-stream and batched
-   ones but at a near-tie; W8A8 weights on the batched engine (float32;
-   bf16 at TP 2, at the quantized twins' tolerance). Then ms a token
+   ones but at a near-tie; W8A8 weights on the batched engine (float32
+   and, at TP 2, bf16, at the quantized twins' tolerance), with the first
+   and last layers' row-parallel o and down products on the card bit for
+   bit the unsharded layers' at a decode row and a chunk. Then ms a token
    single-stream at TP 1 / 2
    / 4 and a batched step at occupancy 8 at TP 1 / 2 (printed: on one card
    the shards run one after another); ``DPDecoderRouter``: 8 streams over
@@ -6391,6 +6393,44 @@ def tp_step_logits(model, tok, ids, tp: int) -> dict:
     return {"max_abs_diff": max(diffs), "per_step": diffs, "flips": flips}
 
 
+def tp_row_products(model, tp: int) -> dict:
+    """W8A8's row-parallel products on the card: the first and last
+    layers' o and down projections of the ``tp``-way split (where their
+    inputs split), on seeded float32 rows at a decode row and a chunk
+    (``QUANT_ACC_ROWS``' down_proj rows), bit for bit the unsharded
+    layer's: the shards' exact int32 sums at the whole row's activation
+    scale. A stream over the split may still part from the unsharded one:
+    the shards' attention sums in another order (the batched GEMM's count
+    of kv heads), and wherever that crosses a midpoint of the int8 grid
+    the rounding flips by a step, as ``QUANT_LOGIT_ATOL`` sets out; so the
+    W8A8 streams are held at that tolerance, and the integer path here."""
+    tpm = TPDecoderModel(model, card_mesh(tp))
+    full = dict(model.named_modules())
+    gen = torch.Generator(device="cuda").manual_seed(tp)
+    out = {}
+    for li in (0, model.cfg.num_hidden_layers - 1):
+        for node, key in (("self_attn.o_proj", "heads"),
+                          ("mlp.down_proj", "ff")):
+            if not tpm.split[key]:
+                continue
+            name = f"layers.{li}.{node}"
+            layers = [dict(s.named_modules())[name] for s in tpm.shards]
+            whole = full[name]
+            for m in QUANT_ACC_ROWS["down_proj"]:
+                x = torch.randn(m, whole.in_features, device="cuda",
+                                generator=gen)
+                w = x.shape[-1] // tp
+                got = tpm._row_parallel(
+                    layers, [x[:, i * w:(i + 1) * w] for i in range(tp)],
+                    torch.float32)
+                check(torch.equal(got, whole(x)),
+                      f"tp {tp}: {name} at {m} rows is not the unsharded "
+                      "product")
+                out[f"{name}/{m}"] = "bit for bit"
+    check(bool(out), f"tp {tp}: no row-parallel product to hold")
+    return out
+
+
 def tp_engine(cls, model, tok, tp: int, **kw):
     """A ``cls`` engine on ``model``, split ``tp`` ways over cuda:0 by
     ``apply_tp_to_engine``."""
@@ -6400,7 +6440,8 @@ def tp_engine(cls, model, tok, tp: int, **kw):
 
 
 def tp_identities(model, tok, prompts, dtype: str, tp: int, refs: dict,
-                  atol: float = DECODER_LOGIT_ATOL, engines=None) -> dict:
+                  atol: float = DECODER_LOGIT_ATOL, engines=None,
+                  f32_tie: float = TP_STEP_ATOL) -> dict:
     """Greedy streams of ``TP_TOKENS`` over the ``tp``-way split against
     the unsharded single-stream engine's on the same weights (float32:
     identical; bf16: but at a step whose reference top-2 gap is within
@@ -6408,7 +6449,8 @@ def tp_identities(model, tok, prompts, dtype: str, tp: int, refs: dict,
     with both prompts at once, on the dense and the int8 cache; the paged
     engine on the first prompt twice, the second time its full blocks
     attached from the radix tree; a float32 stream may part only at a
-    step whose reference top-2 gap is under ``TP_STEP_ATOL`` (printed).
+    step whose reference top-2 gap is under ``f32_tie`` (printed; W8A8's
+    is the quantized twins' tolerance: ``tp_row_products``).
     ``engines`` limits the runs; ``refs``
     (the caller's, one a model) keeps the references across shard
     counts."""
@@ -6425,7 +6467,7 @@ def tp_identities(model, tok, prompts, dtype: str, tp: int, refs: dict,
     def held(got, kv_quant=False, prompts_=prompts, what=""):
         lm, want = ref(kv_quant)
         return [same_stream(g, want[prompts.index(p)], lm, p, dtype,
-                            f"tp {tp} {what}", atol, TP_STEP_ATOL)
+                            f"tp {tp} {what}", atol, f32_tie)
                 for g, p in zip(got, prompts_)]
 
     out = {}
@@ -6576,9 +6618,11 @@ def tp_qwen(card, chunks) -> dict:
                "bfloat16": tp_identities(card.model, tok, prompts,
                                          "bfloat16", tp, refs["bfloat16"],
                                          engines=("single", "batched")),
+               "w8a8_row_products": tp_row_products(w8["float32"], tp),
                "w8a8_float32": tp_identities(
                    w8["float32"], tok, prompts, "float32", tp,
-                   refs["w8a8_float32"], engines=("batched",))}
+                   refs["w8a8_float32"], engines=("batched",),
+                   f32_tie=QUANT_LOGIT_ATOL)}
         if tp == TP_SHARDS[0]:
             res["w8a8_bfloat16"] = tp_identities(
                 w8["bfloat16"], tok, prompts, "bfloat16", tp,
